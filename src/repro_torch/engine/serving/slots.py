@@ -1,0 +1,191 @@
+"""The page pool and the paged-cache device ops (the port's paged subset
+of `repro/engine/serving/slots.py`).
+
+`PagePool` is the host-side allocator — refcounted physical pages, a
+free list, copy-on-write — copied from the reference. The device ops
+rewrite arena rows and page tables without changing a shape. Unlike the
+reference, which rebuilds every arena functionally (`.at[].set`), they
+write IN PLACE (`index_put_` / `copy_`) and return the cache they were
+given: copying a `[L, num_pages, page_size, KV, Dh]` arena per admission
+or COW would swamp the card. Physical page 0 is the trash page: free
+slots and unallocated table entries point at it, making their garbage
+writes inert.
+"""
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.models import attention as ATT
+from repro_torch.models.transformer import DecodeCache
+
+
+# ============================================================== page pool
+class PagePool:
+    """Host-side physical-page allocator for the paged KV arena.
+
+    Pages are refcounted: a page owned by one slot has refcount 1; a
+    shared read-only prefix page holds one reference per slot using it
+    plus (optionally) one held by the prefix index that keeps it warm for
+    future requests. Physical page 0 is the reserved trash page — never
+    allocated, never freed; free slots' table entries point at it.
+
+    The pool is pure bookkeeping: the engine pairs each transition with
+    the matching device op (``paged_insert_rows``, ``copy_pages``,
+    ``set_page_tables``)."""
+
+    TRASH = 0
+
+    def __init__(self, num_pages: int, page_size: int):
+        assert num_pages >= 2, f"need >= 2 pages (1 is trash), {num_pages}"
+        assert page_size >= 1, page_size
+        self.num_pages = num_pages
+        self.page_size = page_size
+        self._free: List[int] = list(range(num_pages - 1, 0, -1))  # pop() low
+        self._ref = np.zeros((num_pages,), np.int32)
+        self._ref[self.TRASH] = 1          # never allocatable
+
+    @property
+    def pages_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def pages_used(self) -> int:
+        return self.num_pages - 1 - len(self._free)
+
+    def alloc(self, n: int = 1) -> Optional[List[int]]:
+        """n fresh pages (refcount 1 each), or None if the pool cannot
+        cover the request (caller evicts and retries)."""
+        if n > len(self._free):
+            return None
+        out = [self._free.pop() for _ in range(n)]
+        for p in out:
+            self._ref[p] = 1
+        return out
+
+    def ref(self, pages) -> None:
+        """Take one extra reference on each page (prefix sharing)."""
+        for p in pages:
+            assert self._ref[p] > 0, f"ref on free page {p}"
+            self._ref[p] += 1
+
+    def release(self, pages) -> None:
+        """Drop one reference per page; pages hitting zero return to the
+        free list."""
+        for p in pages:
+            assert p != self.TRASH and self._ref[p] > 0, (p, self._ref[p])
+            self._ref[p] -= 1
+            if self._ref[p] == 0:
+                self._free.append(int(p))
+
+    def refcount(self, page: int) -> int:
+        return int(self._ref[page])
+
+    def is_shared(self, page: int) -> bool:
+        return self._ref[page] > 1
+
+    def cow(self, page: int) -> Optional[int]:
+        """Copy-on-write: drop this slot's reference on a shared `page`
+        and allocate a private destination page. Returns the new page id
+        (the caller must issue the device ``copy_pages``), or None if the
+        pool is exhausted."""
+        got = self.alloc(1)
+        if got is None:
+            return None
+        self.release([page])
+        return got[0]
+
+    def __repr__(self):
+        return (f"PagePool(pages={self.num_pages}, size={self.page_size}, "
+                f"used={self.pages_used}, free={self.pages_free})")
+
+
+# ====================================================== paged device ops
+def _attn(cache: DecodeCache) -> ATT.PagedKVCache:
+    return cache.layers["attn"]
+
+
+def paged_insert_rows(cache: DecodeCache, rows: DecodeCache,
+                      slots: torch.Tensor, write_tables: torch.Tensor,
+                      new_tables: torch.Tensor) -> DecodeCache:
+    """Admit n freshly-prefilled rows into the paged cache, in place.
+
+    `rows` is the dense per-slot cache the prefill emits (K/V
+    [L, n, cap, KV, Dh]); its rows are scattered into the arena through
+    `write_tables` [n, pages_per_slot] — the slots' new tables with
+    every non-owned entry (shared prefix pages, unallocated tail) at
+    trash page 0, so shared pages are never clobbered. The slots' page
+    tables are set to `new_tables` and their positions to the rows'."""
+    c, r = _attn(cache), rows.layers["attn"]
+    Lyr, n = r.k.shape[:2]
+    P = write_tables.shape[1]
+    ps = c.k.shape[2]
+    idx = write_tables.long()
+    for arena, dense in ((c.k, r.k), (c.v, r.v)):
+        arena[:, idx] = dense.reshape((Lyr, n, P, ps) + dense.shape[3:]) \
+            .to(arena.dtype)
+    slots = slots.long()
+    c.page_table[:, slots] = new_tables.to(torch.int32)
+    c.pos[:, slots] = r.pos
+    return cache
+
+
+def gather_prefix(cache: DecodeCache, pages: torch.Tensor) -> DecodeCache:
+    """Read a shared-prefix K/V context back out of the arena: `pages`
+    [n_pages] physical ids in logical order -> DecodeCache of the
+    per-layer pair [L, 1, n_pages * page_size, KV, Dh] (leading singleton
+    batch axis; the prefill broadcasts it across the admission group).
+    Feeds `prefill_cache(prefix_kv=...)`."""
+    c = _attn(cache)
+
+    def g(arena):
+        sel = arena[:, pages.long()]                 # [L, n, ps, KV, Dh]
+        Lyr, n, psz = sel.shape[:3]
+        return sel.reshape((Lyr, 1, n * psz) + sel.shape[3:])
+    return DecodeCache({"attn": (g(c.k), g(c.v))})
+
+
+def copy_pages(cache: DecodeCache, src: torch.Tensor,
+               dst: torch.Tensor) -> DecodeCache:
+    """Copy arena pages src[i] -> dst[i] in every layer, in place (the
+    COW backing-store move). Page tables and positions untouched."""
+    c = _attn(cache)
+    for arena in (c.k, c.v):
+        arena[:, dst.long()] = arena[:, src.long()]
+    return cache
+
+
+def set_page_tables(cache: DecodeCache, tables: torch.Tensor) -> DecodeCache:
+    """Install the host-side page tables [B, pages_per_slot] into every
+    layer, in place (values only: no shape ever changes)."""
+    pt = _attn(cache).page_table
+    pt.copy_(tables.to(device=pt.device, dtype=torch.int32).expand_as(pt))
+    return cache
+
+
+def select_rows_paged(slot_mask: torch.Tensor, page_mask: torch.Tensor,
+                      new: DecodeCache, old: DecodeCache) -> DecodeCache:
+    """Merge two versions of a paged cache: arena leaves per PHYSICAL
+    page (`page_mask` [num_pages] marks pages taken from `new`), per-slot
+    leaves (page tables, positions) by `slot_mask` [B]. Returns new
+    tensors. The reference merges hot-reload transition ticks with it;
+    in the port it serves callers that keep two cache versions."""
+    n, o = _attn(new), _attn(old)
+
+    def sel(mask, a, b):
+        m = mask.reshape((1, mask.shape[0]) + (1,) * (a.dim() - 2))
+        return torch.where(m, a, b)
+    return DecodeCache({"attn": ATT.PagedKVCache(
+        sel(page_mask, n.k, o.k), sel(page_mask, n.v, o.v),
+        sel(slot_mask, n.page_table, o.page_table),
+        sel(slot_mask, n.pos, o.pos))})
+
+
+def paged_kv_page_bytes(cache: DecodeCache) -> int:
+    """Bytes one physical page occupies across all layers and both
+    arenas — the unit of `kv_bytes_in_use` accounting."""
+    c = _attn(cache)
+    return sum(a.shape[0] * int(np.prod(a.shape[2:])) * a.element_size()
+               for a in (c.k, c.v))

@@ -1,0 +1,184 @@
+"""Request-level serving driver — a thin CLI over `ServeEngine` (the
+port's `repro/launch/serve.py`, same flags and printed lines).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-32b \
+        --reduced --requests 3 --prompt-len 32 --gen 16 --max-slots 2 \
+        --stagger 2 --device cpu
+
+Submits `--requests` synthetic prompts (lengths jittered around
+--prompt-len, arrivals staggered by --stagger decode ticks), drives the
+continuous-batching engine to completion, and prints the throughput
+fields (`completed=`, `tok_s=`, ...). Weights are random, drawn on
+`--device` (default cuda) from a generator seeded with `--seed`.
+
+Flags of later slices (`--speculation-k`, `--draft-preset`,
+`--ckpt-dir`, `--hot-reload`, `--deadline-s`, `--max-retries`,
+`--pressure-ladder`, `--kv-layout dense`, `--legacy`, meshes above one
+device) raise NotImplementedError naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+import numpy as np
+
+from repro_torch.engine import EngineConfig, GenerationRequest, ServeEngine
+from repro_torch.runtime import (ITEM_CHECKPOINTS, ITEM_SERVING_EXTRAS,
+                                 ITEM_SHARDING, make_generator, not_ported,
+                                 resolve_device)
+
+
+def _refuse_later_flags(args) -> None:
+    later = [
+        (args.speculation_k or args.draft_preset,
+         "speculative decoding (--speculation-k/--draft-preset)",
+         ITEM_SERVING_EXTRAS),
+        (args.ckpt_dir or args.hot_reload,
+         "serving checkpoints (--ckpt-dir/--hot-reload)", ITEM_CHECKPOINTS),
+        (args.deadline_s or args.max_retries is not None
+         or args.pressure_ladder,
+         "serve resilience (--deadline-s/--max-retries/--pressure-ladder)",
+         ITEM_SERVING_EXTRAS),
+        (args.legacy, "the legacy ServeSession loop (--legacy)",
+         ITEM_SERVING_EXTRAS),
+        (args.data_mesh > 1 or args.model_mesh > 1,
+         "meshes above one device (--data-mesh/--model-mesh)",
+         ITEM_SHARDING),
+    ]
+    for asked, what, item in later:
+        if asked:
+            raise not_ported(what, item)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--max-slots", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=0,
+                    help="slot capacity (0 => prompt+gen+1)")
+    ap.add_argument("--stagger", type=int, default=1,
+                    help="decode ticks between request arrivals")
+    ap.add_argument("--prefill-mode", default="auto",
+                    choices=["auto", "parallel", "scan"])
+    ap.add_argument("--kv-layout", default="paged",
+                    choices=["paged", "dense"],
+                    help="paged KV arena (default); dense is a later slice")
+    ap.add_argument("--page-size", type=int, default=16, dest="page_size",
+                    help="token rows per KV page")
+    ap.add_argument("--kv-pages", type=int, default=0, dest="kv_pages",
+                    help="physical pages in the KV arena (0 = enough for "
+                    "every slot at full capacity)")
+    ap.add_argument("--no-prefix-sharing", action="store_true",
+                    help="disable shared-prefix page reuse")
+    ap.add_argument("--system-prompt", type=int, default=0,
+                    dest="system_prompt",
+                    help="prepend this many shared system-prompt tokens "
+                    "to every request (exercises prefix sharing)")
+    ap.add_argument("--speculation-k", type=int, default=0,
+                    dest="speculation_k")
+    ap.add_argument("--draft-preset", default="", dest="draft_preset")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="0 = greedy argmax (default); >0 samples")
+    ap.add_argument("--top-k", type=int, default=0, dest="top_k",
+                    help="top-k truncation (0 = off)")
+    ap.add_argument("--top-p", type=float, default=1.0, dest="top_p",
+                    help="nucleus truncation (1.0 = off)")
+    ap.add_argument("--sample-seed", type=int, default=None,
+                    dest="sample_seed",
+                    help="base sampling seed (default: per request_id)")
+    ap.add_argument("--deadline-s", type=float, default=0.0,
+                    dest="deadline_s")
+    ap.add_argument("--max-retries", type=int, default=None,
+                    dest="max_retries")
+    ap.add_argument("--pressure-ladder", action="store_true",
+                    dest="pressure_ladder")
+    ap.add_argument("--ckpt-dir", default="", dest="ckpt_dir")
+    ap.add_argument("--hot-reload", action="store_true", dest="hot_reload")
+    ap.add_argument("--legacy", action="store_true")
+    ap.add_argument("--data-mesh", type=int, default=0)
+    ap.add_argument("--model-mesh", type=int, default=1)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu (plain attention path)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the generator the random weights come "
+                    "from")
+    args = ap.parse_args(argv)
+    _refuse_later_flags(args)
+
+    max_len = args.max_len or (args.system_prompt + args.prompt_len
+                               + args.gen + 1)
+    if max_len <= args.gen + args.system_prompt:
+        ap.error(f"--max-len {max_len} leaves no room for a prompt "
+                 f"beyond --system-prompt {args.system_prompt} + --gen "
+                 f"{args.gen} tokens")
+    cfg = EngineConfig(arch=args.arch, reduced=args.reduced,
+                       max_slots=args.max_slots, max_len=max_len,
+                       prefill_mode=args.prefill_mode,
+                       kv_layout=args.kv_layout, page_size=args.page_size,
+                       kv_pages=args.kv_pages,
+                       prefix_sharing=not args.no_prefix_sharing).validate()
+    rng = np.random.RandomState(1)
+    device = resolve_device(args.device)
+    engine = ServeEngine.from_config(
+        cfg, device=device, generator=make_generator(device, args.seed))
+    V = engine.model.cfg.vocab_size
+
+    def stream(handle, token):
+        if len(handle.tokens) == 1:
+            dt = handle.first_token_at - handle.submitted_at
+            print(f"[serve] req {handle.request.request_id} first token "
+                  f"after {dt * 1e3:.0f}ms (slot {handle.slot})")
+
+    system = rng.randint(0, V, args.system_prompt)
+    handles = []
+    for i in range(args.requests):
+        # staggered arrivals at jittered prompt lengths: the continuous-
+        # batching case (admit into a running batch, retire independently)
+        plen = max(1, min(args.prompt_len + int(rng.randint(-4, 5)),
+                          max_len - args.gen - args.system_prompt))
+        prompt = np.concatenate([system, rng.randint(0, V, plen)])
+        seed = None if args.sample_seed is None else args.sample_seed + i
+        handles.append(engine.submit(GenerationRequest(
+            prompt=prompt, max_new_tokens=args.gen,
+            temperature=args.temperature, top_k=args.top_k,
+            top_p=args.top_p, seed=seed, stream=stream)))
+        for _ in range(args.stagger):
+            engine.step()
+    engine.drain()
+
+    tp = engine.throughput()
+    lat = {k: tp.pop(k) for k in list(tp)
+           if k.startswith(("ttft_", "tpot_"))}
+    fields = " ".join(
+        f"{k}={v:.2f}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in tp.items())
+    print(f"[serve] {fields}")
+    print(f"[serve] resilience failed={tp['submitted'] - tp['completed']}")
+    if lat:
+        print("[serve] latency " + " ".join(
+            f"{k[:-2]}_ms={v * 1e3:.1f}" for k, v in lat.items()))
+    kv = engine.kv_stats()
+    print(f"[serve] kv layout={kv['kv_layout']} "
+          f"in_use={kv['kv_bytes_in_use']} peak={kv['peak_kv_bytes_in_use']} "
+          f"capacity={kv['kv_capacity_bytes']} "
+          f"pages={kv['kv_pages_used']}/{kv['kv_pages_used'] + kv['kv_pages_free']} "
+          f"prefix_hits={kv['prefix_hits']} "
+          f"prefix_tokens_reused={kv['prefix_tokens_reused']} "
+          f"cow={kv['cow_copies']}")
+    for h in handles:
+        print(f"[serve] req {h.request.request_id} "
+              f"({h.finish_reason}): {h.tokens}")
+    if tp["completed"] != args.requests:
+        print(f"[serve] ERROR: {tp['completed']}/{args.requests} completed",
+              file=sys.stderr)
+        sys.exit(1)
+    return handles
+
+
+if __name__ == "__main__":
+    main()

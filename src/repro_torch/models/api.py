@@ -1,0 +1,88 @@
+"""Model API for the dense family (the port's `repro/models/api.py`):
+
+    model = build_model(cfg)
+    params = model.init(generator)               # on cuda by default
+    logits, cache = model.prefill_cache(params, tokens, lengths, max_len)
+    logits, cache = model.decode_step(params, tokens, paged_cache)
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.runtime import (ITEM_FAMILIES, ITEM_SHARDING, DeviceLike,
+                                 make_generator, not_ported, resolve_device)
+from . import attention as ATT
+from . import transformer as TF
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    init: Callable          # (generator=None, device=None) -> params
+    forward: Callable       # (params, tokens) -> logits [B,T,V]
+    init_cache: Callable    # (params, batch, max_len, paged) -> cache
+    decode_step: Callable   # (params, tokens, cache) -> (logits, cache)
+    # fused serving prefill: (params, tokens [B,P], lengths [B], max_len
+    # [, prefix_kv, prefix_len]) -> (last-position logits, dense rows)
+    prefill_cache: Optional[Callable] = None
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if (cfg.family != "dense" or cfg.attn_type != "gqa" or cfg.n_experts
+            or cfg.is_encoder_decoder or cfg.frontend != "none"):
+        raise not_ported(f"{cfg.name} (family={cfg.family}, "
+                         f"attn={cfg.attn_type})", ITEM_FAMILIES,
+                         "slice 1 serves dense GQA decoders")
+    if cfg.orig_heads:
+        raise not_ported("TP head padding (orig_heads)", ITEM_SHARDING)
+
+
+def build_model(cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
+                param_dtype=torch.float32,
+                attn_impl: str = "kernel") -> Model:
+    """attn_impl='kernel' routes attention through the kernel wrappers
+    (CUDA kernel on a card, plain version on the CPU); 'plain' runs the
+    plain versions everywhere — the on-card reference for the kernels."""
+    _check_family(cfg)
+    if attn_impl not in ATT.ATTN_IMPLS:
+        raise ValueError(f"attn_impl={attn_impl!r}; one of {ATT.ATTN_IMPLS}")
+
+    def init(generator: Optional[torch.Generator] = None,
+             device: DeviceLike = None):
+        dev = resolve_device(device if device is not None or generator is None
+                             else generator.device)
+        gen = generator if generator is not None else make_generator(dev)
+        if gen.device.type != dev.type:
+            raise ValueError(f"generator on {gen.device}, init on {dev}")
+        return TF.init_params(cfg, gen, param_dtype, dev)
+
+    def forward(params, tokens):
+        return TF.forward(params, cfg, tokens, compute_dtype, attn_impl)
+
+    def init_cache(params, batch, max_len, paged=None):
+        # cache rows live in the compute dtype, as in the reference
+        return TF.init_decode_cache(cfg, batch, max_len, compute_dtype,
+                                    paged, params["embed"]["table"].device)
+
+    def decode_step(params, tokens, cache):
+        return TF.decode_step(params, cfg, tokens, cache, compute_dtype,
+                              attn_impl)
+
+    def prefill_cache(params, tokens, lengths, max_len, prefix_kv=None,
+                      prefix_len=0):
+        return TF.prefill_decode_cache(
+            params, cfg, tokens, lengths, max_len, compute_dtype, attn_impl,
+            cache_dtype=compute_dtype, prefix_kv=prefix_kv,
+            prefix_len=prefix_len)
+
+    return Model(cfg, init, forward, init_cache, decode_step, prefill_cache)
+
+
+def count_params(cfg: ModelConfig) -> int:
+    """Analytic parameter count from the params spec."""
+    _check_family(cfg)
+    return TF.count_params(cfg)

@@ -1,0 +1,191 @@
+"""GQA attention for the dense decoders: prefill forward and paged decode
+(the port's subset of `repro/models/attention.py`).
+
+Routing of the attention core (`attn_impl`):
+  * "kernel" (the default) — the wrappers in `repro_torch.kernels`: on a
+    CUDA tensor every prefill goes through the flash kernel at any T
+    (the kernel masks ragged edges), the shared-prefix extend prefill
+    included (the kernel takes q_offset = prefix length), and every
+    paged decode through the paged-decode kernel. On a CPU tensor the
+    same wrappers compute their plain versions.
+  * "plain" — the plain versions on any device (the on-card reference
+    `chip_smoke.py` compares the kernels against).
+
+Paged layout as in the reference: K/V rows live in per-layer arenas
+`[num_pages, page_size, KV, Dh]`, addressed through int32 page tables
+[B, pages_per_slot]; physical page 0 is the trash page that free slots
+and unallocated entries point at.
+
+In place, unlike the reference: JAX rebuilds each arena functionally
+(`arena.at[pg, off].set`, attention.py:352-356). Copying an arena every
+decode step would swamp the card, so `_paged_write` writes the new K/V
+rows into the arena tensors with `index_put_`, and a decode step returns
+the same arena tensors it was given. This is safe because nothing in
+the port decodes one cache under two param versions (hot-reload, the
+one reason the JAX engine keeps old buffers, is a later slice).
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import flash_attention as FA
+from . import layers as L
+
+PyTree = Any
+ATTN_IMPLS = ("kernel", "plain")
+
+
+def _flash(attn_impl: str):
+    return FA.flash_attention if attn_impl == "kernel" \
+        else FA.flash_attention_ref
+
+
+def _paged(attn_impl: str):
+    return FA.paged_decode_attention if attn_impl == "kernel" \
+        else FA.paged_decode_attention_ref
+
+
+# ------------------------------------------------------- chunked core attn
+# the reference's query-chunked exact attention on explicit positions; one
+# implementation, beside the kernel it is the plain version of
+_chunked_attention = FA.chunked_attention
+
+
+# ------------------------------------------------------------- GQA forward
+def _qkv(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
+         positions: torch.Tensor, compute_dtype):
+    """Projections, qk-norm and RoPE. positions broadcastable to [B, T]."""
+    B, T, _ = x.shape
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    x = x.to(compute_dtype)
+    q = (x @ params["wq"].to(compute_dtype)).reshape(B, T, h, dh)
+    k = (x @ params["wk"].to(compute_dtype)).reshape(B, T, kv, dh)
+    v = (x @ params["wv"].to(compute_dtype)).reshape(B, T, kv, dh)
+    if cfg.qk_norm:
+        q = L.headwise_rmsnorm(params["q_norm"], q)
+        k = L.headwise_rmsnorm(params["k_norm"], k)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def gqa_forward(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor, compute_dtype=torch.bfloat16,
+                attn_impl: str = "kernel", return_kv: bool = False,
+                prefix_kv=None):
+    """Prefill forward. x: [B,T,D]; positions: [T] (fp32, contiguous from
+    positions[0]).
+
+    return_kv: also return the RoPE'd (k, v) a decode cache stores.
+    prefix_kv: (k, v) [B|1, S0, KV, Dh] of a cached shared prefix at
+    positions 0..S0-1; `positions` then starts at S0 and the tail
+    attends to prefix + tail through the flash path with q_offset = S0
+    (the reference sends this case to `_chunked_attention`,
+    attention.py:193-206 — same math on the same positions)."""
+    B, T, _ = x.shape
+    h, dh = cfg.n_heads, cfg.resolved_head_dim
+    q, k, v = _qkv(params, cfg, x, positions[None, :], compute_dtype)
+    flash = _flash(attn_impl)
+    if prefix_kv is not None:
+        if cfg.sliding_window:
+            raise ValueError("shared-prefix extend needs full attention "
+                             "(rolling pages churn)")
+        pk, pv = prefix_kv
+        S0 = pk.shape[1]
+        k_att = torch.cat([pk.to(k.dtype).expand(B, -1, -1, -1), k], dim=1)
+        v_att = torch.cat([pv.to(v.dtype).expand(B, -1, -1, -1), v], dim=1)
+        out = flash(q, k_att, v_att, causal=True, window=0, q_offset=S0)
+    else:
+        out = flash(q, k, v, causal=True, window=cfg.sliding_window)
+    out = out.reshape(B, T, h * dh) @ params["wo"].to(compute_dtype)
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+# --------------------------------------------------------------- KV caches
+class KVCache(NamedTuple):
+    """Dense per-slot rows — what the prefill emits before the engine
+    scatters them into the page arena. Inside a DecodeCache every field
+    gains a leading layer axis."""
+    k: torch.Tensor      # [B, cap, KV, Dh] (RoPE'd at write)
+    v: torch.Tensor      # [B, cap, KV, Dh]
+    pos: torch.Tensor    # int32 [B] tokens seen
+
+
+class PagedKVCache(NamedTuple):
+    """GQA cache over a global page arena (vLLM-style PagedAttention).
+
+    Logical row r of slot b lives at arena[page_table[b, r // ps], r % ps]
+    where ps = page_size; pages_per_slot * ps == the dense capacity.
+    Inside a DecodeCache every field gains a leading layer axis."""
+    k: torch.Tensor           # [num_pages, page_size, KV, Dh] (RoPE'd)
+    v: torch.Tensor           # [num_pages, page_size, KV, Dh]
+    page_table: torch.Tensor  # int32 [B, pages_per_slot]; 0 = trash page
+    pos: torch.Tensor         # int32 [B] tokens seen
+
+
+def paged_capacity(cfg: ModelConfig, max_len: int) -> int:
+    """The dense capacity a paged slot must reproduce (rolling window
+    for SWA, max_len otherwise)."""
+    return min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+
+
+def init_paged_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
+                        page_size: int, num_pages: int, dtype,
+                        device: torch.device) -> PagedKVCache:
+    cap = paged_capacity(cfg, max_len)
+    if page_size <= 0 or cap % page_size:
+        raise ValueError(f"capacity {cap} is not a multiple of page_size "
+                         f"{page_size}")
+    kv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    return PagedKVCache(
+        torch.zeros((num_pages, page_size, kv, dh), dtype=dtype,
+                    device=device),
+        torch.zeros((num_pages, page_size, kv, dh), dtype=dtype,
+                    device=device),
+        torch.zeros((batch, cap // page_size), dtype=torch.int32,
+                    device=device),
+        torch.zeros((batch,), dtype=torch.int32, device=device))
+
+
+def _paged_slot(table: torch.Tensor, row: torch.Tensor, ps: int):
+    """(physical page, offset) per slot for logical row `row` [B]."""
+    pg = torch.gather(table, 1, (row // ps)[:, None].long())[:, 0]
+    return pg, row % ps
+
+
+def _paged_write(arena: torch.Tensor, pg: torch.Tensor, off: torch.Tensor,
+                 val: torch.Tensor) -> None:
+    """Write one row per slot at (page, offset), IN PLACE. Free slots'
+    tables point at trash page 0, so their garbage writes are inert."""
+    arena.index_put_((pg.long(), off.long()), val.to(arena.dtype))
+
+
+def gqa_paged_decode_step(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
+                          cache: PagedKVCache, compute_dtype=torch.bfloat16,
+                          attn_impl: str = "kernel"
+                          ) -> Tuple[torch.Tensor, PagedKVCache]:
+    """One-token decode over the paged arena. x: [B,1,D]. Writes the new
+    K/V rows into the arena in place; returns (out [B,1,D], cache with
+    pos + 1 and the same arena tensors)."""
+    B = x.shape[0]
+    h, dh = cfg.n_heads, cfg.resolved_head_dim
+    ps = cache.k.shape[1]
+    cap = cache.page_table.shape[1] * ps
+    pos = cache.pos
+    q, k, v = _qkv(params, cfg, x, pos[:, None].float(), compute_dtype)
+    row = pos % cap if cfg.sliding_window > 0 else torch.clamp(pos,
+                                                               max=cap - 1)
+    pg, off = _paged_slot(cache.page_table, row, ps)
+    _paged_write(cache.k, pg, off, k[:, 0])
+    _paged_write(cache.v, pg, off, v[:, 0])
+    out = _paged(attn_impl)(q[:, 0].contiguous(), cache.k, cache.v,
+                            cache.page_table, pos,
+                            rolling=cfg.sliding_window > 0)
+    out = out.reshape(B, 1, h * dh).to(compute_dtype) \
+        @ params["wo"].to(compute_dtype)
+    return out, cache._replace(pos=pos + 1)

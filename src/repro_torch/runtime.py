@@ -1,0 +1,48 @@
+"""Device resolution and the not-yet-ported guard shared by every entry
+point of the port."""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+DeviceLike = Union[str, torch.device, None]
+
+# ROADMAP.md queue 1 items that bring what slice 1 refuses
+ITEM_CHECKPOINTS = "4"      # checkpoints, hot-reload
+ITEM_SERVING_EXTRAS = "5"   # dense layout, speculation, resilience,
+                            # preemption, legacy loop, scan prefill
+ITEM_FAMILIES = "6"         # MoE, MLA, ssm, hybrid, enc-dec, frontends
+ITEM_SHARDING = "7"         # data/model meshes above one device
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """The device an entry point runs on: `cuda` unless the caller names
+    another one. Without a card, anything but an explicit CPU device
+    raises — an entry point never quietly continues on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch path on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}; expected cuda or cpu")
+    return dev
+
+
+def make_generator(device: torch.device,
+                   seed: int = 0) -> torch.Generator:
+    """A seeded generator on `device` (random init draws on the device
+    itself, so full-width weights never pass through host memory)."""
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def not_ported(what: str, item: str,
+               detail: Optional[str] = None) -> NotImplementedError:
+    """The error for a feature a later slice brings: names the ROADMAP
+    item so the caller knows where it stands."""
+    msg = (f"{what} is not ported to repro_torch yet "
+           f"(ROADMAP.md queue 1, item {item})")
+    if detail:
+        msg += f": {detail}"
+    return NotImplementedError(msg)

@@ -1,0 +1,229 @@
+"""Port hygiene for `repro_torch`: import isolation from JAX and `repro`,
+device defaults, the refusals of later-slice options, config copies and
+the kernel wrappers' input checks."""
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import runtime
+from repro_torch.configs import base as TCB
+from repro_torch.engine import EngineConfig, ServeEngine
+from repro_torch.kernels import build as KB
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.models import build_model
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted(str(p.relative_to(ROOT))
+                    for p in (ROOT / "src" / "repro_torch").rglob("*.py")) \
+    + ["chip_smoke.py"]
+DENSE = ("qwen3-32b", "minitron-4b", "gemma-7b")
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep \
+        + env.get("PYTHONPATH", "")
+    return env
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+
+
+# ------------------------------------------------------------ isolation
+def test_import_leaves_jax_out():
+    code = ("import sys, repro_torch, repro_torch.engine, "
+            "repro_torch.launch.serve, repro_torch.bridge; "
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'repro.')) or m == 'repro'); "
+            "print(bad); assert not bad, bad")
+    res = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("path", PORT_FILES)
+def test_no_jax_or_repro_import(path):
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:               # relative: stays inside the port
+                continue
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            top = n.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), \
+                f"{path}:{node.lineno} imports {n}"
+
+
+# --------------------------------------------------------------- devices
+def test_default_device_raises_without_card():
+    _no_card()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        runtime.resolve_device(None)
+
+
+@pytest.mark.parametrize("entry", ["init", "engine", "cli", "bridge"])
+def test_entry_points_default_to_cuda(entry):
+    _no_card()
+    cfg = TCB.get_reduced("qwen3-32b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        if entry == "init":
+            build_model(cfg).init()
+        elif entry == "engine":
+            ServeEngine.from_config(EngineConfig(arch="qwen3-32b",
+                                                 reduced=True, max_len=32))
+        elif entry == "cli":
+            from repro_torch.launch import serve
+            serve.main(["--arch", "qwen3-32b", "--reduced", "--requests",
+                        "1"])
+        else:
+            from repro_torch.bridge import params_from_numpy
+            import numpy as np
+            params_from_numpy({"w": np.zeros(2, np.float32)})
+
+
+def test_explicit_cpu_runs():
+    cfg = TCB.get_reduced("qwen3-32b")
+    params = build_model(cfg).init(device="cpu")
+    assert params["embed"]["table"].device.type == "cpu"
+    eng = ServeEngine.from_config(EngineConfig(arch="qwen3-32b",
+                                               reduced=True, max_len=32),
+                                  device="cpu")
+    assert eng.device.type == "cpu"
+
+
+# ---------------------------------------------------- later-slice options
+LATER_FLAGS = {
+    "speculation": ["--speculation-k", "2"],
+    "draft": ["--draft-preset", "qwen3-32b"],
+    "ckpt": ["--ckpt-dir", "/nonexistent"],
+    "hot_reload": ["--hot-reload"],
+    "deadline": ["--deadline-s", "5"],
+    "retries": ["--max-retries", "1"],
+    "ladder": ["--pressure-ladder"],
+    "dense_layout": ["--kv-layout", "dense"],
+    "legacy": ["--legacy"],
+    "mesh": ["--model-mesh", "2"],
+    "scan_prefill": ["--prefill-mode", "scan"],
+    "preemption": ["--kv-pages", "3"],
+    "family": ["--arch", "mixtral-8x22b"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(LATER_FLAGS))
+def test_later_slice_flags_raise(name):
+    from repro_torch.launch import serve
+    argv = ["--arch", "qwen3-32b", "--reduced", "--device", "cpu",
+            "--requests", "1", "--gen", "2", "--prompt-len", "8"]
+    argv += LATER_FLAGS[name]
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md queue 1, item"):
+        serve.main(argv)
+
+
+# ------------------------------------------------------------- configs
+@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("reduced", [False, True])
+def test_config_copies_match_reference(arch, reduced):
+    pytest.importorskip("jax")
+    from repro.configs import base as JCB
+    get_t = TCB.get_reduced if reduced else TCB.get_config
+    get_j = JCB.get_reduced if reduced else JCB.get_config
+    assert dataclasses.asdict(get_t(arch)) == dataclasses.asdict(get_j(arch))
+    assert [f.name for f in dataclasses.fields(TCB.ModelConfig)] == \
+        [f.name for f in dataclasses.fields(JCB.ModelConfig)]
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_param_count_matches_reference(arch):
+    pytest.importorskip("jax")
+    from repro.configs.base import get_config
+    assert TCB.get_config(arch).param_count() == \
+        get_config(arch).param_count()
+
+
+@pytest.mark.parametrize("kw", [dict(max_len=40), dict(max_len=0),
+                                dict(max_len=33, page_size=8),
+                                dict(max_len=16, page_size=16)])
+def test_engine_config_serve_len_matches_reference(kw):
+    pytest.importorskip("jax")
+    from repro.engine.config import EngineConfig as JEC
+    assert EngineConfig(**kw).serve_max_len() == JEC(**kw).serve_max_len()
+
+
+@pytest.mark.parametrize("kw,err", [
+    (dict(max_slots=0), ValueError), (dict(max_len=-1), ValueError),
+    (dict(page_size=0), ValueError), (dict(kv_pages=1), ValueError),
+    (dict(prefill_mode="bogus"), ValueError),
+    (dict(param_dtype="float16"), ValueError),
+    (dict(kv_layout="dense"), NotImplementedError)])
+def test_engine_config_validate(kw, err):
+    with pytest.raises(err):
+        EngineConfig(**kw).validate()
+
+
+# ------------------------------------------------------ wrapper checks
+def _qkv(B=1, T=8, S=8, H=4, KV=2, Dh=16, dtype=torch.float32):
+    g = torch.Generator().manual_seed(0)
+    return (torch.randn(B, T, H, Dh, generator=g, dtype=dtype),
+            torch.randn(B, S, KV, Dh, generator=g, dtype=dtype),
+            torch.randn(B, S, KV, Dh, generator=g, dtype=dtype))
+
+
+@pytest.mark.parametrize("bad", ["noncontig", "dtype_mix", "float16",
+                                 "heads", "head_dim", "offset"])
+def test_flash_wrapper_rejects(bad):
+    q, k, v = _qkv()
+    kw = {}
+    if bad == "noncontig":
+        q = q.transpose(1, 2).contiguous().transpose(1, 2)
+    elif bad == "dtype_mix":
+        k = k.to(torch.bfloat16)
+    elif bad == "float16":
+        q, k, v = (x.half() for x in (q, k, v))
+    elif bad == "heads":
+        q = q[:, :, :3].contiguous()
+    elif bad == "head_dim":
+        k, v = k[..., :8].contiguous(), v[..., :8].contiguous()
+    else:
+        kw["q_offset"] = -1
+    with pytest.raises(ValueError):
+        FA.flash_attention(q, k, v, **kw)
+
+
+@pytest.mark.parametrize("bad", ["table_dtype", "pos_shape", "noncontig"])
+def test_paged_wrapper_rejects(bad):
+    q = torch.zeros(2, 4, 16)
+    kp = torch.zeros(5, 4, 2, 16)
+    vp = torch.zeros(5, 4, 2, 16)
+    pt = torch.ones(2, 2, dtype=torch.int32)
+    pos = torch.zeros(2, dtype=torch.int32)
+    if bad == "table_dtype":
+        pt = pt.long()
+    elif bad == "pos_shape":
+        pos = torch.zeros(3, dtype=torch.int32)
+    else:
+        kp = kp.transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError):
+        FA.paged_decode_attention(q, kp, vp, pt, pos)
+
+
+def test_cpu_wrappers_take_plain_path_without_counting():
+    KB.reset_launches()
+    q, k, v = _qkv()
+    out = FA.flash_attention(q, k, v, causal=True)
+    assert torch.equal(out, FA.flash_attention_ref(q, k, v, causal=True))
+    assert KB.LAUNCHES == {"flash_attention": 0,
+                           "paged_decode_attention": 0}
