@@ -14,6 +14,16 @@ Phases (any error fails the run with a non-zero exit and no result):
      times of the kernel, the plain version and, as a yardstick the port
      never calls, `torch.nn.functional.scaled_dot_product_attention` on
      the same work;
+     The Adasum block kernels (`block_dots`, `block_combine`) are held
+     the same way at the shapes the train phase gives them: the gemma-7b
+     embedding bucket (786,432,000 elements a lane, block 8192, read as
+     one lane pair of a [2, L] bucket buffer, and in fp32 also as the two
+     pairs of a [4, L] buffer, the span-4 tree's level 0) in fp32 and
+     bf16, the
+     `w_up` leaf bucket, the two norms' buckets (block 2048 with two
+     segments, block 1024) and a 256-element granule; one shape must be
+     refused.
+     Their yardsticks are one `torch.bmm` on the same work;
   4. serve: `ServeEngine` on qwen3-32b at full width, depth cut to
      LAYERS (8 of 64), bf16 random weights from a generator seeded with
      SEED:
@@ -24,7 +34,22 @@ Phases (any error fails the run with a non-zero exit and no result):
      step run again with attn_impl="plain" on the card, and the last-
      position logits are held to a stated bf16 tolerance. With
      --profile, an admission tick and five decode ticks then run under
-     torch.profiler (device busy time, idle share, top kernels).
+     torch.profiler (device busy time, idle share, top kernels);
+  5. train: `TrainSession` on gemma-7b at full width, depth cut to
+     TRAIN_LAYERS (2 of 28), fp32 params, bf16 compute, seq 512, global
+     batch 8, 64 MB fusion buckets, weights from a generator seeded with
+     SEED. Two runs of 3 steps from fresh state: momentum at span 4 (the
+     `pre` point, two tree levels) and adam at span 2 (the `post` point,
+     per-lane state). Launch counters are zeroed just before each run
+     and must read one `block_dots` and one `block_combine` per bucket
+     and tree level per step. Loss and every CombineStats metric must be
+     finite. Step 1 then runs again from fresh state twice on the kernel
+     path (params bitwise equal) and once with combine_impl="plain" on
+     the card: the combined tree and every CombineStats level are held
+     to the kernel path's within COMBINED_RTOL of their own scale, and
+     the params within TRAIN_PARAM_TOL. Prints ms per step, the
+     combine's share (CUDA events around every combine call) and peak
+     memory. With --profile, a fourth step of each run is traced.
 
 The line before the last is the kernels JSON, the last line
 {"ok": true, "device": {...}}. Longer records go to
@@ -57,6 +82,32 @@ KERNEL_TOL = {"bfloat16": 3e-2, "float32": 1e-4}
 LOGIT_TOL = 0.25
 LAYERS = 8      # of qwen3-32b's 64: 5.5 B params, 11 GB of bf16 weights
 SEED = 0
+# block_dots against its fp32 plain version: the two sum the same fp32
+# products in another order (per-thread strided partials vs PyTorch's
+# reduction tree), ~sqrt(block) * 2^-24 relative; each triple's error is
+# taken relative to sqrt(a.a * b.b), the scale that bounds a.b
+DOTS_RTOL = 1e-5
+# block_combine against combine_fp32_ref, in ulps of the output dtype at
+# the scale |s1*a| + |s2*b|: the kernel rounds s2*b and then one fma, the
+# plain version rounds both products and the sum; a bf16 output can then
+# land one bf16 ulp apart
+COMBINE_ULPS = 2
+EPS_OF = {"float32": 2.0 ** -23, "bfloat16": 2.0 ** -7}
+TRAIN_LAYERS = 2   # of gemma-7b's 28: 1.34 B params, 5.4 GB of fp32 weights
+TRAIN_RUNS = (("momentum", 4), ("adam", 2))      # (optimizer, span)
+# params after one step, kernel arms vs plain arms on the card: the two
+# differ in the dots' summation order and the combine's rounding (~1e-7
+# relative on an update of lr=1e-3 times the combined gradient), which can
+# still flip the rounding of p + delta: one ulp of a unit-scale fp32
+# param is 1.2e-7
+TRAIN_PARAM_TOL = 1e-6
+# the combine's output (step 1, kernel arms vs plain arms, same input
+# lanes), leaf by leaf relative to the leaf's largest element, and each
+# CombineStats level triple relative to its largest entry: the dots'
+# summation order moves the Adasum scalars by ~1e-7 relative and each
+# level's combine rounds once more (fp32 ulp 6e-8), over at most two
+# levels; a pair or block read from the wrong place moves them by O(1)
+COMBINED_RTOL = 1e-5
 
 
 def _smi() -> str:
@@ -196,6 +247,137 @@ def _decode_case(name, B, P, pos, *, rolling=False, ps=16, H=64, KV=8,
     }
 
 
+def _adasum_pair(n, block, dtype, seed, segments=1, pairs=1):
+    """`pairs` lane pairs of a bucket buffer [2 * pairs, n] on the card,
+    read in place as [pairs, n] row views with row stride 2n (how a tree
+    level reads its pairs), plus fp32 per-block scalars in [0.5, 1.5],
+    pair-major. With segments > 1 every segment gets its own scale, as
+    the leaves of a bucket do."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    buf = torch.randn(2 * pairs, n, generator=g, device="cuda")
+    if segments > 1:
+        scale = torch.rand(segments, generator=g, device="cuda") * 4 + 0.01
+        seg = torch.arange(n, device="cuda") * segments // n
+        buf *= scale[seg]
+    buf = buf.to(getattr(torch, dtype))
+    y = buf.view(pairs, 2, n)
+    nblk = pairs * (n // block)
+    s1 = torch.rand(nblk, generator=g, device="cuda") + 0.5
+    s2 = torch.rand(nblk, generator=g, device="cuda") + 0.5
+    return buf, y[:, 0], y[:, 1], s1, s2
+
+
+def _adasum_case(name, n, block, dtype="float32", segments=1, seed=2,
+                 pairs=1):
+    """block_dots and block_combine on `pairs` lane pairs of n elements
+    each; two result rows. Each pair row is held to the plain versions
+    on its own (a[r] is a unit-stride view: no copy)."""
+    import torch
+    from repro_torch.kernels import adasum as K
+    buf, a, b, s1, s2 = _adasum_pair(n, block, dtype, seed, segments, pairs)
+    item = buf.element_size()
+    nb = n // block                               # blocks a pair row
+    dots = K.block_dots(a, b, block_elems=block)
+    out = K.block_combine(a, b, s1, s2, block_elems=block)
+    torch.cuda.synchronize()
+    d_abs = d_rel = c_abs = ulps = 0.0
+    for r in range(pairs):
+        rows = slice(r * nb, (r + 1) * nb)
+        dref = K.block_dots_ref(a[r], b[r], block)
+        scale = torch.stack([(dref[:, 1] * dref[:, 2]).sqrt(), dref[:, 1],
+                             dref[:, 2]], dim=-1)
+        d_err = (dots[rows] - dref).abs()
+        d_abs = max(d_abs, d_err.max().item())
+        d_rel = max(d_rel, (d_err / scale.clamp(min=1e-30)).max().item())
+        cref = K.combine_fp32_ref(a[r], b[r], s1[rows], s2[rows], block)
+        c_err = (out[r].float() - cref.float()).reshape(nb, block).abs()
+        del cref
+        mag = (s1[rows, None] * a[r].reshape(nb, block).float()).abs()
+        mag += (s2[rows, None] * b[r].reshape(nb, block).float()).abs()
+        c_abs = max(c_abs, c_err.max().item())
+        ulps = max(ulps, (c_err / (EPS_OF[dtype] * mag).clamp(min=1e-30)
+                          ).max().item())
+        del c_err, mag
+    finite = bool(torch.isfinite(dots).all() and torch.isfinite(out).all())
+    del out
+    # yardsticks: one library call on the same work (copies not timed)
+    X = buf.view(pairs, 2, nb, block).transpose(1, 2).reshape(
+        pairs * nb, 2, block)
+    S = torch.stack([s1, s2], -1)[:, None, :].to(X.dtype)
+    shape = dict(n=n, block_elems=block, rows=pairs, row_stride=2 * n,
+                 segments=segments)
+    elems = pairs * n
+    t_dots = 2 * elems * item / HBM_BYTES_S
+    t_comb = (3 * elems * item + 8 * pairs * nb) / HBM_BYTES_S
+    rows = [{
+        "kernel": "block_dots", "case": name, "dtype": dtype, "shape": shape,
+        "max_abs_err": d_abs, "err": d_rel, "tol": DOTS_RTOL,
+        "ok": finite and d_rel <= DOTS_RTOL,
+        "ms": _time_ms(lambda: K.block_dots(a, b, block_elems=block)),
+        "plain_ms": _time_ms(lambda: K.block_dots(a, b, block_elems=block,
+                                                  plain=True)),
+        "library_ms": _time_ms(lambda: torch.bmm(X, X.transpose(1, 2))),
+        # 6 FLOP a pair of elements against 2 * itemsize bytes
+        "bound_ms": 1e3 * max(t_dots, 6 * elems / TFLOPS["float32"]),
+        "bound_by": "bytes",
+    }, {
+        "kernel": "block_combine", "case": name, "dtype": dtype,
+        "shape": shape, "max_abs_err": c_abs, "err": ulps,
+        "tol": COMBINE_ULPS, "ok": finite and ulps <= COMBINE_ULPS,
+        "ms": _time_ms(lambda: K.block_combine(a, b, s1, s2,
+                                               block_elems=block)),
+        "plain_ms": _time_ms(lambda: K.block_combine(
+            a, b, s1, s2, block_elems=block, plain=True)),
+        "library_ms": _time_ms(lambda: torch.bmm(S, X)),
+        "bound_ms": 1e3 * max(t_comb, 3 * elems / TFLOPS["float32"]),
+        "bound_by": "bytes",
+    }]
+    del X, S, buf, a, b, dots
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _adasum_refusal():
+    """A shape the kernels do not take must raise before any launch."""
+    import torch
+    from repro_torch.kernels import adasum as K
+    from repro_torch.kernels import build
+    before = dict(build.LAUNCHES)
+    a = torch.zeros(8192 + 256, device="cuda")
+    for fn in (lambda: K.block_dots(a, a, block_elems=8192),
+               lambda: K.block_combine(a, a, torch.ones(1, device="cuda"),
+                                       torch.ones(1, device="cuda"),
+                                       block_elems=8192)):
+        try:
+            fn()
+        except ValueError:
+            continue
+        raise AssertionError("n not a multiple of the block was accepted")
+    assert build.LAUNCHES == before, "a refused shape was counted"
+    print("[smoke] adasum kernels refuse n % block_elems != 0: ok")
+
+
+def _gemma_small_buckets():
+    """(padded_len, block, segments) of the train phase's buckets of
+    small leaves (block below 8192): the norms."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.core import combine as C
+    from repro_torch.core.fusion import Spec
+    from repro_torch.models.transformer import param_spec
+    cfg = dataclasses.replace(get_config("gemma-7b"), n_layers=TRAIN_LAYERS)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return Spec((2,) + tuple(node[0]), torch.float32)
+    plan = C.fused_plan(T.leaves(walk(param_spec(cfg))), C.CombineConfig())
+    return [(layout.padded_len, block, layout.num_segments)
+            for _, layout, block, _ in plan if block < 8192]
+
+
 def kernel_phase():
     """Every kernel against its plain version. The first case of each
     kernel is the shape the serve phase's main path gives it."""
@@ -217,10 +399,22 @@ def kernel_phase():
         _decode_case("fp32", 4, 8, [0, 40, 127, 300], dtype="float32",
                      H=8, KV=2),
     ]
-    print(f"{'kernel':24s} {'case':13s} {'err':>9s} {'tol':>7s} "
+    embed = 256_000 * 3072                 # gemma-7b's tied embedding
+    cases += _adasum_case("embed_fp32", embed, 8192)     # main path first
+    # the span-4 tree's level 0: two pairs of a [4, L] buffer (row stride
+    # 2L), so pair 1's rows, blocks and scalars sit past offset 0
+    cases += _adasum_case("embed_fp32_x2", embed, 8192, pairs=2)
+    cases += _adasum_case("embed_bf16", embed, 8192, "bfloat16")
+    cases += _adasum_case("w_up", TRAIN_LAYERS * 3072 * 24576, 8192)
+    for n, block, segs in _gemma_small_buckets():   # block_norms, final_norm
+        cases += _adasum_case(f"norms_b{block}", n, block, segments=segs)
+    cases += _adasum_case("granule256", 256 * 4096, 256)
+    _adasum_refusal()
+    print(f"{'kernel':24s} {'case':14s} {'err':>9s} {'tol':>7s} "
           f"{'ms':>9s} {'plain_ms':>9s} {'lib_ms':>9s} {'bound_ms':>9s}")
     for c in cases:
-        print(f"{c['kernel']:24s} {c['case']:13s} {c['max_abs_err']:9.2e} "
+        print(f"{c['kernel']:24s} {c['case']:14s} "
+              f"{c.get('err', c['max_abs_err']):9.2e} "
               f"{c['tol']:7.0e} {c['ms']:9.4f} {c['plain_ms']:9.4f} "
               f"{c['library_ms']:9.4f} {c['bound_ms']:9.4f} "
               f"{'ok' if c['ok'] else 'FAIL'}")
@@ -295,8 +489,8 @@ def serve_phase(card: str, profile: bool = False):
     assert all(len(h.tokens) == 32 and all(0 <= t < V for t in h.tokens)
                for h in handles)
     assert kv["prefix_hits"] > 0, kv
-    for name, n in launches.items():
-        assert n > 0, f"{name} never launched on the main path"
+    for name in ("flash_attention", "paged_decode_attention"):
+        assert launches[name] > 0, f"{name} never launched on the main path"
     assert engine.leaked_pages() == 0
     metrics = {k: tp[k] for k in ("prefill_ms_mean", "decode_tick_ms_mean",
                                   "ttft_mean_s", "ttft_p50_s", "tpot_mean_s",
@@ -413,11 +607,245 @@ def profile_windows(ecfg, model, params, prompts, card):
     return out
 
 
+# ------------------------------------------------------------- train phase
+class _CombineTimer:
+    """Wraps every combiner `build_runtime` makes so each call is
+    bracketed by CUDA events (the engine's own combiners, timed from
+    outside). keep=True also keeps a host copy of the first call's
+    combined leaves and CombineStats levels in `kept`."""
+
+    def __init__(self, keep: bool = False):
+        self.events = []
+        self.keep = keep
+        self.kept = None
+
+    def wrap(self, make):
+        def make_timed(*args, **kwargs):
+            fn = make(*args, **kwargs)
+
+            def timed(stacked):
+                import torch
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                out = fn(stacked)
+                b.record()
+                self.events.append((a, b))
+                if self.keep and self.kept is None:
+                    from repro_torch import tree as T
+                    comb, stats = out if isinstance(out, tuple) \
+                        else (out, None)
+                    self.kept = (
+                        [x.to("cpu", copy=True) for x in T.leaves(comb)],
+                        None if stats is None else stats["levels"].cpu())
+                return out
+            timed.combine_path = getattr(fn, "combine_path", "")
+            return timed
+        return make_timed
+
+    def take_ms(self) -> float:
+        import torch
+        torch.cuda.synchronize()
+        ms = sum(a.elapsed_time(b) for a, b in self.events)
+        self.events = []
+        return ms
+
+
+def _session(model, optimizer, span, timer=None, combine_impl="kernel"):
+    import torch
+    from repro_torch.engine import EngineConfig, TrainSession
+    from repro_torch.engine import build as engine_build
+    cfg = EngineConfig(arch="gemma-7b", span=span, backend="gspmd_tree",
+                       optimizer=optimizer, seq_len=512, global_batch=8,
+                       fusion_threshold_mb=64, steps=3, log_every=1)
+    make = engine_build.make_combiner
+    if timer is not None:
+        engine_build.make_combiner = timer.wrap(make)
+    try:
+        return TrainSession.from_config(
+            cfg, model=model, device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(SEED),
+            callbacks=[], combine_impl=combine_impl)
+    finally:
+        engine_build.make_combiner = make
+
+
+def _free():
+    """Return the memory of what the caller just deleted to the card."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _step_once(model, optimizer, span, combine_impl="kernel"):
+    """Step 1 from fresh state; returns the params leaves and the host
+    copy of the combine's output (leaves, CombineStats levels)."""
+    from repro_torch import tree as T
+    timer = _CombineTimer(keep=True)
+    s = _session(model, optimizer, span, timer, combine_impl=combine_impl)
+    s.step(s.batch(0))
+    params = T.leaves(s.state["params"])
+    del s
+    _free()
+    return params, timer.kept
+
+
+def _rel_err(got, want) -> float:
+    """Largest |got - want| over the largest |want|, in fp64."""
+    want = want.double()
+    return ((got.double() - want).abs().max()
+            / want.abs().max().clamp(min=1e-30)).item()
+
+
+def _profile_step(session, card, optimizer, span):
+    """A fourth step under torch.profiler: device busy time, idle share,
+    the Adasum kernels' share and the top kernels by device time."""
+    wall, kern = _profiled(lambda: session.step(session.batch(3)))
+    busy = sum(kern.values())
+    mine = sum(v for k, v in kern.items()
+               if "block_dots_kernel" in k or "block_combine_kernel" in k)
+    top = sorted(kern.items(), key=lambda kv: -kv[1])[:10]
+    print(f"[smoke] profile train {optimizer} span={span} step: wall_ms="
+          f"{wall:.1f} device_busy_ms={busy:.1f} idle_share="
+          f"{1 - busy / wall:.3f} adasum_kernels_ms={mine:.2f} | {card}")
+    for k, v in top:
+        print(f"[smoke]   {v:9.3f} ms  {k[:100]}")
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / wall, "adasum_kernels_ms": mine,
+            "top": top}
+
+
+def train_phase(card: str, profile: bool = False):
+    import math
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.control.noise import STAT_KEYS
+    from repro_torch.core import combine as C
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model
+
+    full = get_config("gemma-7b")
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    print(f"[smoke] train model {cfg.name}: full width d_model={cfg.d_model}"
+          f" heads={cfg.n_heads}/{cfg.n_kv_heads} head_dim="
+          f"{cfg.resolved_head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
+          f"tied={cfg.tie_embeddings}; depth cut {full.n_layers} -> "
+          f"{TRAIN_LAYERS} layers; {cfg.param_count() / 1e9:.3f}B params in "
+          f"fp32, bf16 compute, seq 512, global batch 8")
+    model = build_model(cfg, compute_dtype=torch.bfloat16,
+                        param_dtype=torch.float32)
+    runs = {}
+    for optimizer, span in TRAIN_RUNS:
+        timer = _CombineTimer()
+        torch.cuda.reset_peak_memory_stats()
+        s = _session(model, optimizer, span, timer)
+        leaves = T.leaves(s.state["params"])
+        plan = C.fused_plan([x.expand((span,) + tuple(x.shape))
+                             for x in leaves], C.CombineConfig(
+            fusion_threshold_mb=s.config.fusion_threshold_mb))
+        levels = int(math.log2(span))
+        per_step = len(plan) * levels
+        p0 = [x.to("cpu", copy=True) for x in leaves]
+        torch.cuda.synchronize()
+        build.reset_launches()
+        steps = []
+        for step in range(3):
+            t0 = time.perf_counter()
+            m = s.step(s.batch(step))
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            comb = timer.take_ms()
+            steps.append({"step": step, "ms": ms, "combine_ms": comb,
+                          "loss": m["loss"],
+                          **{k: m[k] for k in STAT_KEYS}})
+            if step == 0:      # kept on the host: no card memory
+                p1 = [x.to("cpu", copy=True)
+                      for x in T.leaves(s.state["params"])]
+                update = max((x - y).abs().max().item()
+                             for x, y in zip(p1, p0))
+                del p0
+        launches = dict(build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        meta = s.runtime.combine_path, s.runtime.dopt.point
+        prof = _profile_step(s, card, optimizer, span) if profile else None
+        del s, leaves
+        _free()
+        for st in steps:
+            bad = [k for k in ("loss",) + STAT_KEYS
+                   if not math.isfinite(st[k])]
+            assert not bad, f"{optimizer}: non-finite {bad} at {st}"
+        for k in ("block_dots", "block_combine"):
+            assert launches[k] == 3 * per_step, (
+                f"{optimizer} span {span}: {k} launched {launches[k]} times,"
+                f" expected {3 * per_step} ({len(plan)} buckets x {levels} "
+                f"levels x 3 steps)")
+        # step 1 again from fresh state: kernel path (bitwise) and the
+        # plain arms on the card (combine output and stats within
+        # COMBINED_RTOL, params within TRAIN_PARAM_TOL)
+        again, (g_kern, lv_kern) = _step_once(model, optimizer, span)
+        bitwise = all(torch.equal(x.cuda(), y) for x, y in zip(p1, again))
+        del again
+        _free()
+        plain, (g_plain, lv_plain) = _step_once(model, optimizer, span,
+                                                combine_impl="plain")
+        err = max((x.cuda() - y).abs().max().item()
+                  for x, y in zip(p1, plain))
+        comb_err = max(_rel_err(x, y) for x, y in zip(g_kern, g_plain))
+        stats_err = max(_rel_err(x, y) for x, y in zip(lv_kern, lv_plain))
+        levels_kern = lv_kern.tolist()
+        del plain, p1, g_kern, g_plain
+        _free()
+        steady = steps[1:]
+        ms = statistics.mean(st["ms"] for st in steady)
+        comb = statistics.mean(st["combine_ms"] for st in steady)
+        run = {"optimizer": optimizer, "span": span, "point": meta[1],
+               "combine_path": meta[0], "buckets": len(plan),
+               "blocks": sorted({b for _, _, b, _ in plan}),
+               "levels": levels, "launches": launches,
+               "launches_per_step": per_step, "steps": steps,
+               "step_ms_steady": ms, "combine_ms_steady": comb,
+               "combine_share": comb / ms, "peak_mem_gib": peak / 2 ** 30,
+               "bitwise_repeat": bitwise, "plain_max_abs_err": err,
+               "plain_tol": TRAIN_PARAM_TOL, "update_max_abs": update,
+               "combined_rel_err": comb_err, "stats_rel_err": stats_err,
+               "combined_rtol": COMBINED_RTOL, "levels": levels_kern,
+               "profile": prof}
+        runs[f"{optimizer}_span{span}"] = run
+        print(f"[smoke] train {optimizer} span={span} point={meta[1]} "
+              f"path={meta[0]} buckets={len(plan)} levels={levels} "
+              f"launches={ {k: launches[k] for k in ('block_dots', 'block_combine')} } "
+              f"losses={[round(st['loss'], 4) for st in steps]}")
+        print(f"[smoke] train {optimizer} span={span}: step_ms="
+              f"{[round(st['ms'], 1) for st in steps]} steady_ms={ms:.1f} "
+              f"combine_ms={comb:.1f} combine_share={comb / ms:.3f} "
+              f"peak_mem_gib={peak / 2 ** 30:.1f} lane_cos="
+              f"{steps[-1]['lane_cos']:.4f} noise_scale="
+              f"{steps[-1]['noise_scale']:.4g} | {card}")
+        print(f"[smoke] train {optimizer} span={span}: step 1 repeated "
+              f"bitwise_equal={bitwise}; kernel vs plain combine: output "
+              f"rel_err={comb_err:.3e} stats rel_err={stats_err:.3e} (tol "
+              f"{COMBINED_RTOL}), levels={levels_kern}; params "
+              f"max_abs_err={err:.3e} (tol {TRAIN_PARAM_TOL}) against a "
+              f"step-1 update of max {update:.3e}")
+        assert bitwise, f"{optimizer}: step 1 is not bitwise repeatable"
+        assert comb_err <= COMBINED_RTOL, (
+            f"{optimizer}: combine output kernel vs plain {comb_err}")
+        assert stats_err <= COMBINED_RTOL, (
+            f"{optimizer}: CombineStats kernel vs plain {stats_err}")
+        assert err <= TRAIN_PARAM_TOL, f"{optimizer}: kernel vs plain {err}"
+        assert peak / 2 ** 30 <= 70, f"peak {peak / 2 ** 30:.1f} GiB > 70"
+    return {"layers": TRAIN_LAYERS, "full_layers": full.n_layers,
+            "runs": runs}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="after the serve phase, trace an admission tick "
-                    "and five decode ticks with torch.profiler")
+                    help="trace an admission tick and five decode ticks "
+                    "after the serve phase, and a fourth step of each "
+                    "train run, with torch.profiler")
     args = ap.parse_args(argv)
 
     card = _smi()
@@ -445,6 +873,8 @@ def main(argv=None) -> int:
         record["build_s"] = secs
         cases = record["kernel_cases"] = kernel_phase()
         record["serve"] = serve_phase(card, args.profile)
+        _free()
+        record["train"] = train_phase(card, args.profile)
     except Exception:                   # any phase failing fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -455,17 +885,32 @@ def main(argv=None) -> int:
         (out_dir / "chip_smoke.json").write_text(
             json.dumps(record, indent=1, default=str))
 
-    launches = record["serve"]["launches"]
+    # launches: each kernel's count from the main-path run that drives it
+    # (serve for attention, the momentum/span-4 train run for Adasum)
+    launches = dict(record["serve"]["launches"])
+    first = record["train"]["runs"][
+        "{}_span{}".format(*TRAIN_RUNS[0])]["launches"]
+    launches.update({k: first[k] for k in ("block_dots", "block_combine")})
+    main_cases = {"serve_extend", "serve_tick", "embed_fp32"}
+    sources = {
+        "flash_attention": ("csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:41"),
+        "paged_decode_attention": ("csrc/flash_attention.cu",
+                                   "src/repro/kernels/flash_attention.py:131"),
+        "block_dots": ("csrc/adasum.cu",
+                       "src/repro/kernels/adasum_dots.py:49"),
+        "block_combine": ("csrc/adasum.cu",
+                          "src/repro/kernels/adasum_combine.py:21"),
+    }
     rows = []
     for c in cases:
-        if c["case"] not in ("serve_extend", "serve_tick"):
+        if c["case"] not in main_cases:
             continue
+        src, replaces = sources[c["kernel"]]
         rows.append({
             "name": c["kernel"], "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "replaces": ("src/repro/kernels/flash_attention.py:41"
-                         if c["kernel"] == "flash_attention" else
-                         "src/repro/kernels/flash_attention.py:131"),
+            "source": "src/repro_torch/kernels/" + src,
+            "replaces": replaces,
             "launches": launches.get(c["kernel"], 0),
             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],

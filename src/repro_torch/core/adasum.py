@@ -1,0 +1,120 @@
+"""Adasum: the paper's adaptive gradient combiner (Section 3) — the port
+of `repro/core/adasum.py`.
+
+Pairwise op, reference recursive-tree reduction, and per-layer pytree
+application: the reference (non-distributed) forms the fused combine is
+held against. Dot products and norms accumulate in `acc_dtype` (fp32;
+the paper's fp64 on GPU is ROADMAP.md queue 1 item 2.1).
+"""
+from __future__ import annotations
+
+from typing import Any, Sequence, Union
+
+import torch
+
+from repro_torch import tree as T
+
+# Guard against division by zero for all-zero gradients (e.g. untouched
+# MoE experts). With EPS in the denominator the combiner degrades to a
+# plain sum, which is the correct limit: a zero gradient is orthogonal
+# to everything.
+EPS = 1e-30
+
+PyTree = Any
+
+
+def _flat_dot(a: torch.Tensor, b: torch.Tensor, acc_dtype) -> torch.Tensor:
+    """Dot product of two equally-shaped tensors, accumulated in acc_dtype."""
+    return torch.dot(a.to(acc_dtype).reshape(-1), b.to(acc_dtype).reshape(-1))
+
+
+def adasum_scalars(dot, n1sq, n2sq):
+    """The two Adasum coefficients given dot = g1·g2, n1sq = ‖g1‖²,
+    n2sq = ‖g2‖²: Adasum(g1,g2) = s1*g1 + s2*g2 with
+        s1 = 1 - dot / (2‖g1‖²),   s2 = 1 - dot / (2‖g2‖²)."""
+    s1 = 1.0 - dot / (2.0 * n1sq + EPS)
+    s2 = 1.0 - dot / (2.0 * n2sq + EPS)
+    return s1, s2
+
+
+def adasum_segment_scalars(v: torch.Tensor):
+    """`adasum_scalars` over stacked per-segment dot triples v [..., 3]
+    ([g1·g2, ‖g1‖², ‖g2‖²], the layout `block_dots` emits). All-zero rows
+    (padding segments) yield s1 = s2 = 1, the plain-sum limit."""
+    return adasum_scalars(v[..., 0], v[..., 1], v[..., 2])
+
+
+def adasum_pair(g1: torch.Tensor, g2: torch.Tensor, *,
+                acc_dtype=torch.float32) -> torch.Tensor:
+    """Adasum of two gradient tensors (whole-tensor granularity)."""
+    dot = _flat_dot(g1, g2, acc_dtype)
+    n1 = _flat_dot(g1, g1, acc_dtype)
+    n2 = _flat_dot(g2, g2, acc_dtype)
+    s1, s2 = adasum_scalars(dot, n1, n2)
+    return s1.to(g1.dtype) * g1 + s2.to(g2.dtype) * g2
+
+
+def adasum_pair_pytree(t1: PyTree, t2: PyTree, *, per_layer: bool = True,
+                       acc_dtype=torch.float32) -> PyTree:
+    """Adasum of two gradient pytrees. per_layer=True (paper §3.6): each
+    leaf gets its own dot/norms. per_layer=False: one dot/norm over the
+    concatenation of all leaves (whole-model granularity)."""
+    if per_layer:
+        return T.map(lambda a, b: adasum_pair(a, b, acc_dtype=acc_dtype),
+                     t1, t2)
+    l1, treedef = T.flatten(t1)
+    l2 = T.leaves(t2)
+    dot = sum(_flat_dot(a, b, acc_dtype) for a, b in zip(l1, l2))
+    n1 = sum(_flat_dot(a, a, acc_dtype) for a in l1)
+    n2 = sum(_flat_dot(b, b, acc_dtype) for b in l2)
+    s1, s2 = adasum_scalars(dot, n1, n2)
+    return T.unflatten(treedef, [s1.to(a.dtype) * a + s2.to(b.dtype) * b
+                                 for a, b in zip(l1, l2)])
+
+
+def _as_lanes(grads: Union[Sequence[PyTree], PyTree]) -> list:
+    if isinstance(grads, (list, tuple)):
+        return list(grads)
+    n = T.leaves(grads)[0].shape[0]
+    return [T.map(lambda x, i=i: x[i], grads) for i in range(n)]
+
+
+def adasum_tree_reduce(grads, *, per_layer: bool = True,
+                       acc_dtype=torch.float32) -> PyTree:
+    """Reference recursive binary-tree Adasum over N gradients (§3.4).
+
+    `grads` is a list of pytrees or one pytree whose leaves carry a
+    leading axis of (power-of-two) length N. Adjacent leaves pair at the
+    bottom of the tree — the tree shape ADASUMRVH builds."""
+    grads = _as_lanes(grads)
+    n = len(grads)
+    if n & (n - 1):
+        raise ValueError(f"Adasum tree reduce needs power-of-two inputs, "
+                         f"got {n}")
+    while len(grads) > 1:
+        grads = [adasum_pair_pytree(grads[2 * i], grads[2 * i + 1],
+                                    per_layer=per_layer, acc_dtype=acc_dtype)
+                 for i in range(len(grads) // 2)]
+    return grads[0]
+
+
+def adasum_linear_reduce(grads: Sequence[PyTree], *, per_layer: bool = True,
+                         acc_dtype=torch.float32) -> PyTree:
+    """Ring-order recursion (§3.4 first form):
+    Adasum(g[0,n+1]) = Adasum(Adasum(g[0,n]), g[n+1])."""
+    acc = grads[0]
+    for g in grads[1:]:
+        acc = adasum_pair_pytree(acc, g, per_layer=per_layer,
+                                 acc_dtype=acc_dtype)
+    return acc
+
+
+def sum_reduce(grads, mean: bool = False) -> PyTree:
+    """Baseline synchronous-SGD combiner (Horovod Sum/Average)."""
+    if not isinstance(grads, (list, tuple)):
+        op = (lambda x: x.mean(dim=0)) if mean else (lambda x: x.sum(dim=0))
+        return T.map(op, grads)
+    acc = T.map(lambda *xs: sum(xs[1:], xs[0]), *grads)
+    if mean:
+        acc = T.map(lambda x: x / len(grads), acc)
+    return acc

@@ -1,28 +1,94 @@
-"""EngineConfig, serve fields only (the port's subset of
+"""EngineConfig, train and serve fields (the port's subset of
 `repro/engine/config.py`).
 
-Field names, defaults and checks match the reference, so a serving
-config means the same in both packages. The training, combiner and
-data fields come with the training slice. Serve options a later slice
-brings raise `NotImplementedError` naming their ROADMAP item.
+Field names, defaults and checks match the reference, so a config means
+the same in both packages; `from_cli` parses the train CLI with the
+reference's flags and preset table. Options a later slice brings raise
+`NotImplementedError` naming their ROADMAP item.
+
+Lanes on one device: the port runs the `span` Adasum lanes stacked on
+one card, so `validate(dp_total)` drops the reference's span <= dp rule
+(config.py:309-313). On a one-device JAX mesh `build_runtime` asserts
+dp % span == 0 and `TrainSession` quietly clamps span > dp to 0, so the
+reference would run no combine there; the function its `sync_step`
+computes does not depend on the mesh, and the port computes that
+function with the lanes stacked. A span must be a power of two that
+divides global_batch.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
+from typing import Any, Dict, Optional
 
-from repro_torch.runtime import ITEM_SERVING_EXTRAS, not_ported
+from repro_torch.data.pipeline import DataConfig
+from repro_torch.parallel.policy import RunPolicy
+from repro_torch.runtime import (ITEM_ADASUM_MATH, ITEM_CHECKPOINTS,
+                                 ITEM_ENGINE, ITEM_MULTI_RANK,
+                                 ITEM_SERVING_EXTRAS, ITEM_SHARDING,
+                                 ITEM_SUBSYSTEMS, not_ported)
 
 PARAM_DTYPES = ("float32", "bfloat16")
+_COMBINE_OPS = ("adasum", "sum", "mean")
+_BACKENDS = ("", "rvh", "gspmd_tree", "fused", "linear")
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     # ---- model ----
-    arch: str = ""              # registry id ("qwen3-32b", ...); "" => the
+    arch: str = ""              # registry id ("gemma-7b", ...); "" => the
                                 # caller passes a built Model
     reduced: bool = False       # CPU-scale reduced variant of `arch`
+
+    # ---- combiner ----
+    combine: str = "adasum"     # 'adasum' | 'sum' | 'mean' | registry entry
+    backend: str = ""           # '' => auto (gspmd_tree on one device)
+    span: int = 0               # #Adasum lanes; 0 => one per DP rank (1)
+    combine_point: str = "auto" # 'pre' | 'post' | 'auto' (by optimizer kind)
+    per_layer: bool = True      # paper §3.6 per-layer Adasum
+    acc_dtype: str = "float32"  # dot-product accumulation dtype (§4.4.1)
+    use_pallas: bool = False    # kernel granule 1024 (vs 256) and the TPU
+                                # kernel's fp32 combine rule on the CPU arm
+    compress: str = "none"      # 'int8': quantized RVH wire payloads
+    fused_combine: bool = True  # bucketed single-pass combine for the
+                                # gspmd_tree backend
+    fusion_threshold_mb: int = 64   # Horovod-style packing bucket budget
+
+    # ---- parallelism (one device: the sharding knobs change nothing) ----
+    data_mesh: int = 0
+    model_mesh: int = 1
+    fsdp: bool = False
+    scatter_grads: bool = False
+    pad_heads: bool = False
+    attn_chunk: int = 512
+
+    # ---- optimizer / training ----
+    optimizer: str = "adam"
+    lr: float = 1e-3
+    local_steps: int = 1        # paper §5.2 local-SGD steps per sync
+    combine_delay: int = 0      # 1 = DaSGD-style delayed combine (later)
+    accum_steps: int = 1        # microbatch gradient accumulation (§2.2)
+    accum_dtype: str = "float32"
+    opt_state_dtype: str = "float32"
     param_dtype: str = "float32"
-    seq_len: int = 256          # max_len=0 falls back to it
+
+    # ---- data ----
+    seq_len: int = 256
+    global_batch: int = 16
+    data_kind: str = "synthetic"    # synthetic | memmap
+    data_path: str = ""
+    data_seed: int = 0
+
+    # ---- run control ----
+    steps: int = 100
+    ckpt_dir: str = ""
+    ckpt_every: int = 50
+    log_every: int = 10
+    strict: bool = False        # hard-error instead of warn+degrade
+    prefetch: bool = True       # no effect: the port's loop is serial
+    elastic: bool = False
+    combine_stats: bool = True  # CombineStats per-step metrics
+    adaptive_batch: bool = False
 
     # ---- serving (engine/serving.ServeEngine) ----
     max_slots: int = 8          # continuous-batching decode slot pool
@@ -39,24 +105,42 @@ class EngineConfig:
                                 # onto the same read-only pages; prefill
                                 # computes only the unshared tail
 
-    def validate(self) -> "EngineConfig":
-        """Cross-field checks; returns self so it chains."""
+    # ------------------------------------------------------------ validation
+    def validate(self, dp_total: Optional[int] = None) -> "EngineConfig":
+        """Cross-field checks; returns self so it chains. Pass `dp_total`
+        (1 on one device) for the span and batch checks."""
+        self._refuse_later()
         if self.param_dtype not in PARAM_DTYPES:
             raise ValueError(f"param_dtype={self.param_dtype!r}; expected "
                              f"one of {PARAM_DTYPES}")
+        if self.combine in _COMBINE_OPS and self.backend not in _BACKENDS:
+            raise ValueError(f"unknown backend {self.backend!r}; "
+                             f"expected one of {_BACKENDS[1:]}")
+        if self.combine not in _COMBINE_OPS:
+            from .registry import available_combiners
+            if self.combine not in available_combiners():
+                raise ValueError(
+                    f"unknown combine op {self.combine!r}; built-ins "
+                    f"{_COMBINE_OPS}, registry {available_combiners()}")
+        if self.span < 0:
+            raise ValueError(f"span must be >= 0, got {self.span}")
+        if self.fusion_threshold_mb < 1:
+            raise ValueError(f"fusion_threshold_mb must be >= 1, got "
+                             f"{self.fusion_threshold_mb}")
+        if self.local_steps < 1 or self.accum_steps < 1:
+            raise ValueError("local_steps/accum_steps must be >= 1")
+        if self.local_steps > 1 and self.accum_steps > 1:
+            raise ValueError("local_steps and accum_steps are mutually "
+                             "exclusive (both reshape the lane batch)")
+        if self.data_kind == "memmap" and not self.data_path:
+            raise ValueError("data_kind='memmap' needs data_path")
         if self.max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {self.max_slots}")
         if self.max_len < 0:
             raise ValueError(f"max_len must be >= 0, got {self.max_len}")
-        if self.prefill_mode == "scan":
-            raise not_ported("prefill_mode='scan' (the fused decode-scan "
-                             "prefill of recurrent families)",
-                             ITEM_SERVING_EXTRAS)
         if self.prefill_mode not in ("auto", "parallel"):
             raise ValueError(f"prefill_mode={self.prefill_mode!r}; "
                              f"expected auto | parallel | scan")
-        if self.kv_layout == "dense":
-            raise not_ported("kv_layout='dense'", ITEM_SERVING_EXTRAS)
         if self.kv_layout != "paged":
             raise ValueError(f"kv_layout={self.kv_layout!r}; "
                              f"expected paged | dense")
@@ -71,7 +155,59 @@ class EngineConfig:
             raise ValueError(
                 "kv_pages=1 is only the reserved trash page; the engine "
                 "needs at least one allocatable page")
+        if dp_total is not None:
+            span = self.span or dp_total
+            if span & (span - 1):
+                raise ValueError(f"span={span} must be a power of two (the "
+                                 f"Adasum tree pairs lanes)")
+            if self.backend == "rvh" and span > 1 and self.strict:
+                raise ValueError(
+                    f"backend='rvh' needs one lane per DP rank (span={span}"
+                    f", dp={dp_total}); drop strict=True to fall back to "
+                    f"'gspmd_tree' with a warning")
+            rows = self.global_batch
+            if rows % span:
+                raise ValueError(
+                    f"global_batch={rows} not divisible by span={span}")
+            lane_rows = rows // span
+            if self.local_steps > 1 and lane_rows % self.local_steps:
+                raise ValueError(
+                    f"local_steps={self.local_steps} needs lane batch "
+                    f"({lane_rows}) divisible by it")
+            if self.accum_steps > 1 and lane_rows % self.accum_steps:
+                raise ValueError(
+                    f"accum_steps={self.accum_steps} needs lane batch "
+                    f"({lane_rows}) divisible by it")
         return self
+
+    def _refuse_later(self) -> None:
+        """Options of later slices, each naming its ROADMAP item."""
+        later = [
+            (self.ckpt_dir, "checkpoints (ckpt_dir)", ITEM_CHECKPOINTS),
+            (self.elastic, "elastic restarts (elastic)", ITEM_ENGINE),
+            (self.adaptive_batch, "the adaptive batch controller "
+             "(adaptive_batch)", ITEM_SUBSYSTEMS),
+            (self.combine_delay, "the delayed combine (combine_delay > 0)",
+             ITEM_SUBSYSTEMS),
+            (self.compress != "none", f"compress={self.compress!r} (RVH "
+             f"wire compression)", ITEM_MULTI_RANK),
+            (self.data_mesh > 1 or self.model_mesh > 1,
+             "meshes above one device (data_mesh/model_mesh)", ITEM_SHARDING),
+            (self.acc_dtype == "float64", "acc_dtype='float64'",
+             ITEM_ADASUM_MATH),
+            (self.prefill_mode == "scan", "prefill_mode='scan' (the fused "
+             "decode-scan prefill of recurrent families)",
+             ITEM_SERVING_EXTRAS),
+            (self.kv_layout == "dense", "kv_layout='dense'",
+             ITEM_SERVING_EXTRAS),
+        ]
+        for asked, what, item in later:
+            if asked:
+                raise not_ported(what, item)
+        from .registry import LATER
+        if self.combine in LATER:
+            raise not_ported(f"combiner {self.combine!r}",
+                             LATER[self.combine])
 
     def serve_max_len(self) -> int:
         """The per-slot cache capacity the serve engine builds: `max_len`
@@ -79,3 +215,160 @@ class EngineConfig:
         tile pages exactly."""
         n = self.max_len or self.seq_len
         return -(-n // self.page_size) * self.page_size
+
+    # ------------------------------------------------------------ round-trip
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "EngineConfig":
+        known = {f.name for f in dataclasses.fields(cls)}
+        unknown = set(d) - known
+        if unknown:
+            raise ValueError(f"unknown EngineConfig keys: {sorted(unknown)}")
+        return cls(**d)
+
+    # ---------------------------------------------------------------- presets
+    @classmethod
+    def preset(cls, arch: str, **overrides) -> "EngineConfig":
+        """Per-arch preset (the reference's table) + overrides."""
+        from repro_torch.configs.base import canonical
+        base = dict(_PRESETS.get(canonical(arch), {}))
+        base["arch"] = arch
+        base.update(overrides)
+        return cls(**base)
+
+    # ----------------------------------------------------------- conversions
+    def run_policy(self) -> RunPolicy:
+        """Project onto the RunPolicy consumed by the step builder."""
+        return RunPolicy(
+            span=self.span, fsdp=self.fsdp, scatter_grads=self.scatter_grads,
+            backend=self.backend, optimizer=self.optimizer,
+            param_dtype=self.param_dtype, local_steps=self.local_steps,
+            combine_delay=self.combine_delay,
+            combine_op=self.combine, attn_chunk=self.attn_chunk,
+            accum_steps=self.accum_steps, accum_dtype=self.accum_dtype,
+            opt_state_dtype=self.opt_state_dtype, pad_heads=self.pad_heads,
+            combine_point=self.combine_point, per_layer=self.per_layer,
+            acc_dtype=self.acc_dtype, use_pallas=self.use_pallas,
+            compress=self.compress, fused_combine=self.fused_combine,
+            fusion_threshold_mb=self.fusion_threshold_mb,
+            combine_stats=self.combine_stats)
+
+    def data_config(self, vocab_size: int) -> DataConfig:
+        return DataConfig(seq_len=self.seq_len,
+                          global_batch=self.global_batch,
+                          vocab_size=vocab_size, seed=self.data_seed,
+                          kind=self.data_kind, path=self.data_path or None)
+
+    # ------------------------------------------------------------------- CLI
+    @classmethod
+    def from_cli(cls, argv=None, **defaults) -> "EngineConfig":
+        """Parse the train CLI into a config. Flags override the per-arch
+        preset, which overrides the dataclass defaults. Flags of later
+        slices are parsed, and `validate` refuses them."""
+        ap = argparse.ArgumentParser(description="repro_torch train CLI")
+        ap.add_argument("--arch", required="arch" not in defaults)
+        ap.add_argument("--reduced", action="store_true", default=None,
+                        help="use the reduced config (CPU-scale)")
+        ap.add_argument("--steps", type=int, default=None)
+        ap.add_argument("--seq", type=int, default=None, dest="seq_len")
+        ap.add_argument("--batch", type=int, default=None,
+                        dest="global_batch")
+        ap.add_argument("--lr", type=float, default=None)
+        ap.add_argument("--optimizer", default=None)
+        ap.add_argument("--combine", default=None,
+                        help="adasum | sum | mean | any registry entry")
+        ap.add_argument("--backend", default=None,
+                        choices=["rvh", "gspmd_tree", "fused", "linear"])
+        ap.add_argument("--no-fused-combine", action="store_true",
+                        help="per-leaf reference tree instead of the "
+                        "bucketed single-pass combine")
+        ap.add_argument("--fusion-threshold-mb", type=int, default=None,
+                        dest="fusion_threshold_mb")
+        ap.add_argument("--span", type=int, default=None)
+        ap.add_argument("--local-steps", type=int, default=None,
+                        dest="local_steps")
+        ap.add_argument("--combine-delay", type=int, default=None,
+                        dest="combine_delay", choices=[0, 1])
+        ap.add_argument("--accum-steps", type=int, default=None,
+                        dest="accum_steps")
+        ap.add_argument("--no-per-layer", action="store_true",
+                        help="whole-model Adasum granularity (§3.6 ablation)")
+        ap.add_argument("--acc-dtype", default=None, dest="acc_dtype")
+        ap.add_argument("--use-pallas", action="store_true", default=None,
+                        dest="use_pallas")
+        ap.add_argument("--compress", default=None)
+        ap.add_argument("--strict", action="store_true", default=None,
+                        help="error (not warn) on degraded fallbacks")
+        ap.add_argument("--data-mesh", type=int, default=None,
+                        dest="data_mesh")
+        ap.add_argument("--model-mesh", type=int, default=None,
+                        dest="model_mesh")
+        ap.add_argument("--ckpt-dir", default=None, dest="ckpt_dir")
+        ap.add_argument("--ckpt-every", type=int, default=None,
+                        dest="ckpt_every")
+        ap.add_argument("--log-every", type=int, default=None,
+                        dest="log_every")
+        ap.add_argument("--data-seed", type=int, default=None,
+                        dest="data_seed")
+        ap.add_argument("--no-prefetch", action="store_true",
+                        help="the port's loop is serial either way")
+        ap.add_argument("--elastic", action="store_true", default=None)
+        ap.add_argument("--no-combine-stats", action="store_true",
+                        help="drop the CombineStats per-step metrics")
+        ap.add_argument("--adaptive-batch", action="store_true",
+                        default=None, dest="adaptive_batch")
+        args, extra = ap.parse_known_args(argv)
+        if extra:
+            raise SystemExit(f"unknown arguments: {extra}")
+
+        cfg = cls.preset(args.arch or defaults.get("arch", ""))
+        over: Dict[str, Any] = dict(defaults)
+        for f in dataclasses.fields(cls):
+            v = getattr(args, f.name, None)
+            if v is not None:
+                over[f.name] = v
+        if args.ckpt_every is not None:
+            raise not_ported("checkpoints (--ckpt-every)", ITEM_CHECKPOINTS)
+        if args.no_per_layer:
+            over["per_layer"] = False
+        if args.no_fused_combine:
+            over["fused_combine"] = False
+        if args.no_prefetch:
+            over["prefetch"] = False
+        if args.no_combine_stats:
+            over["combine_stats"] = False
+        # local CLI runs: the pod-scale FSDP/ZeRO-2 presets are switched
+        # off, as the reference's CLI does
+        over.setdefault("fsdp", False)
+        over.setdefault("scatter_grads", False)
+        return dataclasses.replace(cfg, **over).validate()
+
+
+# Per-arch presets — the reference's table (config.py:580-600), derived
+# there from a TPU memory budget; kept as is so a preset means the same
+# run in both packages. On one device fsdp/scatter_grads/pad_heads change
+# nothing, and backend='rvh' with span > 1 falls back to gspmd_tree.
+_PRESETS: Dict[str, Dict[str, Any]] = {
+    "hymba_1p5b":            dict(backend="rvh", pad_heads=True),
+    "moonshot_v1_16b_a3b":   dict(span=4, fsdp=True, scatter_grads=True,
+                                  backend="gspmd_tree"),
+    "mixtral_8x22b":         dict(span=2, fsdp=True, scatter_grads=True,
+                                  backend="gspmd_tree",
+                                  param_dtype="bfloat16", attn_chunk=256,
+                                  accum_steps=8, accum_dtype="bfloat16",
+                                  opt_state_dtype="bfloat16",
+                                  pad_heads=True),
+    "llava_next_34b":        dict(span=4, fsdp=True, scatter_grads=True,
+                                  backend="gspmd_tree", accum_steps=4,
+                                  pad_heads=True),
+    "gemma_7b":              dict(backend="rvh"),
+    "minitron_4b":           dict(backend="rvh", pad_heads=True),
+    "minicpm3_4b":           dict(backend="rvh"),
+    "qwen3_32b":             dict(span=4, fsdp=True, scatter_grads=True,
+                                  backend="gspmd_tree", accum_steps=4,
+                                  pad_heads=True),
+    "seamless_m4t_large_v2": dict(backend="rvh"),
+    "rwkv6_7b":              dict(backend="rvh"),
+}

@@ -37,7 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0,
-                            "paged_decode_attention": 0}
+                            "paged_decode_attention": 0,
+                            "block_dots": 0, "block_combine": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -56,6 +56,17 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+def _check_no_grad(name: str, *tensors) -> None:
+    """The kernels are forward-only and fill their output through ctypes,
+    which autograd cannot see: a gradient through them would be cut
+    silently. Refuse instead, on every device, before routing."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward (a forward-only kernel, as on the "
+            f"TPU): call it under torch.no_grad(), or differentiate the "
+            f"plain path (attn_impl='plain'; Model.loss uses it)")
+
+
 def _check_common(name: str, tensors, float_names) -> None:
     dev = tensors[0].device
     _check(dev.type in ("cpu", "cuda"), f"{name}: unsupported device {dev}")
@@ -104,14 +115,15 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
-                        q_offset: int = 0) -> torch.Tensor:
+                        q_offset: int = 0, chunk: int = 512) -> torch.Tensor:
     """Plain version: `chunked_attention` on query positions
-    q_offset..q_offset+T-1 against key positions 0..S-1."""
+    q_offset..q_offset+T-1 against key positions 0..S-1, `chunk` query
+    rows at a time."""
     T, S = q.shape[1], k.shape[1]
     positions_q = torch.arange(q_offset, q_offset + T, device=q.device)
     positions_k = torch.arange(S, device=q.device)
     return chunked_attention(q, k, v, positions_q, positions_k,
-                             causal=causal, window=window)
+                             causal=causal, window=window, chunk=chunk)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -122,6 +134,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     position q_offset + t, key j at j: causal masks j > q_offset + t,
     `window` > 0 masks j <= q_offset + t - window. Any T and S (the
     kernel masks the ragged edges); head h reads KV head h // (H // KV)."""
+    _check_no_grad("flash_attention", q, k, v)
     _check(q.dim() == 4 and k.dim() == 4 and k.shape == v.shape,
            f"flash_attention: q [B,T,H,Dh], k/v [B,S,KV,Dh]; got "
            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -189,6 +202,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     int32 [B] tokens seen before this step (rows at slot positions
     0..pos are attended). rolling: sliding-window layout, logical row r
     holds the latest position p with p % cap == r. -> [B,H,Dh]."""
+    _check_no_grad("paged_decode_attention", q, k_pages, v_pages)
     _check(q.dim() == 3 and k_pages.dim() == 4
            and k_pages.shape == v_pages.shape,
            f"paged_decode_attention: q [B,H,Dh], pages [NP,ps,KV,Dh]; got "

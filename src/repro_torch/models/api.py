@@ -2,6 +2,7 @@
 
     model = build_model(cfg)
     params = model.init(generator)               # on cuda by default
+    loss, metrics = model.loss(params, batch)    # training (plain attention)
     logits, cache = model.prefill_cache(params, tokens, lengths, max_len)
     logits, cache = model.decode_step(params, tokens, paged_cache)
 """
@@ -29,6 +30,7 @@ class Model:
     # fused serving prefill: (params, tokens [B,P], lengths [B], max_len
     # [, prefix_kv, prefix_len]) -> (last-position logits, dense rows)
     prefill_cache: Optional[Callable] = None
+    loss: Optional[Callable] = None   # (params, batch) -> (total, metrics)
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -36,20 +38,26 @@ def _check_family(cfg: ModelConfig) -> None:
             or cfg.is_encoder_decoder or cfg.frontend != "none"):
         raise not_ported(f"{cfg.name} (family={cfg.family}, "
                          f"attn={cfg.attn_type})", ITEM_FAMILIES,
-                         "slice 1 serves dense GQA decoders")
+                         "the port runs dense GQA decoders")
     if cfg.orig_heads:
         raise not_ported("TP head padding (orig_heads)", ITEM_SHARDING)
 
 
 def build_model(cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
-                param_dtype=torch.float32,
-                attn_impl: str = "kernel") -> Model:
-    """attn_impl='kernel' routes attention through the kernel wrappers
-    (CUDA kernel on a card, plain version on the CPU); 'plain' runs the
-    plain versions everywhere — the on-card reference for the kernels."""
+                param_dtype=torch.float32, attn_impl: str = "kernel",
+                attn_chunk: int = 512, remat: bool = True) -> Model:
+    """attn_impl='kernel' routes serving attention through the kernel
+    wrappers (CUDA kernel on a card, plain version on the CPU); 'plain'
+    runs the plain versions everywhere — the on-card reference for the
+    kernels. `loss` (training) always takes the plain attention path,
+    `attn_chunk` query rows at a time (this bounds its attention memory;
+    the result does not depend on it); remat recomputes each block in
+    its backward pass."""
     _check_family(cfg)
     if attn_impl not in ATT.ATTN_IMPLS:
         raise ValueError(f"attn_impl={attn_impl!r}; one of {ATT.ATTN_IMPLS}")
+    if attn_chunk < 1:
+        raise ValueError(f"attn_chunk={attn_chunk} must be positive")
 
     def init(generator: Optional[torch.Generator] = None,
              device: DeviceLike = None):
@@ -61,7 +69,8 @@ def build_model(cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
         return TF.init_params(cfg, gen, param_dtype, dev)
 
     def forward(params, tokens):
-        return TF.forward(params, cfg, tokens, compute_dtype, attn_impl)
+        return TF.forward(params, cfg, tokens, compute_dtype, attn_impl,
+                          attn_chunk=attn_chunk)
 
     def init_cache(params, batch, max_len, paged=None):
         # cache rows live in the compute dtype, as in the reference
@@ -79,7 +88,12 @@ def build_model(cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
             cache_dtype=compute_dtype, prefix_kv=prefix_kv,
             prefix_len=prefix_len)
 
-    return Model(cfg, init, forward, init_cache, decode_step, prefill_cache)
+    def loss(params, batch):
+        return TF.lm_loss(params, cfg, batch, compute_dtype, attn_chunk,
+                          remat=remat)
+
+    return Model(cfg, init, forward, init_cache, decode_step, prefill_cache,
+                 loss)
 
 
 def count_params(cfg: ModelConfig) -> int:

@@ -26,6 +26,7 @@ one reason the JAX engine keeps old buffers, is a later slice).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple, Tuple
 
 import torch
@@ -38,9 +39,10 @@ PyTree = Any
 ATTN_IMPLS = ("kernel", "plain")
 
 
-def _flash(attn_impl: str):
-    return FA.flash_attention if attn_impl == "kernel" \
-        else FA.flash_attention_ref
+def _flash(attn_impl: str, attn_chunk: int = 512):
+    if attn_impl == "kernel":
+        return FA.flash_attention
+    return functools.partial(FA.flash_attention_ref, chunk=attn_chunk)
 
 
 def _paged(attn_impl: str):
@@ -75,9 +77,9 @@ def _qkv(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
 def gqa_forward(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, compute_dtype=torch.bfloat16,
                 attn_impl: str = "kernel", return_kv: bool = False,
-                prefix_kv=None):
+                prefix_kv=None, attn_chunk: int = 512):
     """Prefill forward. x: [B,T,D]; positions: [T] (fp32, contiguous from
-    positions[0]).
+    positions[0]). attn_chunk: query rows per chunk of the plain path.
 
     return_kv: also return the RoPE'd (k, v) a decode cache stores.
     prefix_kv: (k, v) [B|1, S0, KV, Dh] of a cached shared prefix at
@@ -88,7 +90,7 @@ def gqa_forward(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
     B, T, _ = x.shape
     h, dh = cfg.n_heads, cfg.resolved_head_dim
     q, k, v = _qkv(params, cfg, x, positions[None, :], compute_dtype)
-    flash = _flash(attn_impl)
+    flash = _flash(attn_impl, attn_chunk)
     if prefix_kv is not None:
         if cfg.sliding_window:
             raise ValueError("shared-prefix extend needs full attention "

@@ -17,6 +17,8 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.runtime import ITEM_SERVING_EXTRAS, not_ported
@@ -106,13 +108,14 @@ def layer_params(blocks: PyTree, l: int) -> PyTree:
 def block_apply(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, compute_dtype=torch.bfloat16,
                 attn_impl: str = "kernel", return_kv: bool = False,
-                prefix_kv=None):
+                prefix_kv=None, attn_chunk: int = 512):
     """One block on [B,T,D] -> [B,T,D] (plus this block's RoPE'd (k, v)
     with return_kv). prefix_kv: this block's cached shared-prefix pair
     for the extend prefill (`positions` then starts at its length)."""
     h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
     a = ATT.gqa_forward(params["attn"], cfg, h, positions, compute_dtype,
-                        attn_impl, return_kv=return_kv, prefix_kv=prefix_kv)
+                        attn_impl, return_kv=return_kv, prefix_kv=prefix_kv,
+                        attn_chunk=attn_chunk)
     if return_kv:
         a, kv = a
     x = x + a
@@ -129,18 +132,47 @@ def _logits(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
 
 
 def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
-            compute_dtype=torch.bfloat16,
-            attn_impl: str = "kernel") -> torch.Tensor:
+            compute_dtype=torch.bfloat16, attn_impl: str = "kernel",
+            remat: bool = False, attn_chunk: int = 512) -> torch.Tensor:
     """tokens [B,T] -> logits [B,T,V] fp32 (the reference also returns
-    the MoE aux loss, which the dense family does not have)."""
+    the MoE aux loss, which the dense family does not have). remat:
+    recompute each block in the backward pass instead of keeping its
+    activations (`jax.checkpoint` per block, transformer.py:175).
+    attn_chunk: query rows per chunk of the plain attention path."""
     x = L.embed(params["embed"], tokens, compute_dtype)
     positions = torch.arange(x.shape[1], dtype=torch.float32,
                              device=x.device)
     for l in range(cfg.n_layers):
-        x = block_apply(layer_params(params["blocks"], l), cfg, x,
-                        positions, compute_dtype, attn_impl)
+        bp = layer_params(params["blocks"], l)
+        if remat:
+            x = checkpoint(block_apply, bp, cfg, x, positions, compute_dtype,
+                           attn_impl, attn_chunk=attn_chunk,
+                           use_reentrant=False)
+        else:
+            x = block_apply(bp, cfg, x, positions, compute_dtype, attn_impl,
+                            attn_chunk=attn_chunk)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _logits(params, cfg, x, compute_dtype)
+
+
+def lm_loss(params: PyTree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            compute_dtype=torch.bfloat16, attn_chunk: int = 512,
+            aux_weight: float = 0.01, remat: bool = True
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross entropy (transformer.py:226-255). batch: tokens
+    [B,T], labels [B,T] (-100 = masked). Attention runs the plain
+    `_chunked_attention` on every device, as the reference's training
+    loss does: the flash kernel is forward-only. Returns (total, {'loss',
+    'aux'}); the dense family's aux loss is 0."""
+    logits = forward(params, cfg, batch["tokens"], compute_dtype, "plain",
+                     remat, attn_chunk)
+    labels = batch["labels"].long()
+    mask = (labels >= 0).float()
+    nll = F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
+                          labels.clamp(min=0).reshape(-1), reduction="none")
+    loss = (nll * mask.reshape(-1)).sum() / mask.sum().clamp(min=1.0)
+    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    return loss + aux_weight * aux, {"loss": loss, "aux": aux}
 
 
 # ------------------------------------------------------------------- decode

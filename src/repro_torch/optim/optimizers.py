@@ -1,0 +1,154 @@
+"""Optimizers as (init, update) pairs over pytrees (the port of
+`repro/optim/optimizers.py`): Momentum-SGD (paper §5.1), Adam and LAMB
+(§5.3).
+
+`update(grads, state, params, step)` returns (delta, state) with
+`params_new = params + delta` — the quantity the post-optimizer Adasum
+mode combines (paper Fig. 3). `step` is a Python int. Unlike the
+reference, whose functions are pure, `update` writes the new state into
+the state tensors it is given and returns them: at full width a second
+copy of the optimizer state would not fit beside the lane gradients (the
+reference's session donates its state the same way). A caller that
+needs the old state clones it first.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Tuple
+
+import torch
+
+from repro_torch import tree as T
+
+PyTree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    """init(params) -> state; update(grads, state, params, step) ->
+    (delta, state)."""
+    init: Callable[[PyTree], PyTree]
+    update: Callable[[PyTree, PyTree, PyTree, int], Tuple[PyTree, PyTree]]
+    name: str = "opt"
+    # Paper §4.1: stateless/linear optimizers combine gradients BEFORE the
+    # optimizer ("pre"); adaptive ones combine deltas AFTER ("post").
+    default_combine_point: str = "pre"
+
+
+def _as_schedule(lr) -> Callable[[int], float]:
+    return lr if callable(lr) else (lambda step: float(lr))
+
+
+def _zeros(dtype):
+    return lambda p: torch.zeros(p.shape, dtype=dtype, device=p.device)
+
+
+def sgd(lr) -> Optimizer:
+    sched = _as_schedule(lr)
+
+    def init(params):
+        return ()
+
+    def update(grads, state, params, step):
+        a = sched(step)
+        return T.map(lambda g: -a * g.float(), grads), state
+
+    return Optimizer(init, update, "sgd", "pre")
+
+
+def momentum(lr, beta: float = 0.9, nesterov: bool = False,
+             weight_decay: float = 0.0) -> Optimizer:
+    sched = _as_schedule(lr)
+
+    def init(params):
+        return {"m": T.map(_zeros(torch.float32), params)}
+
+    def update(grads, state, params, step):
+        a = sched(step)
+
+        def upd(g, m, p):
+            g = g.float()
+            if weight_decay:
+                g = g + weight_decay * p.float()
+            m.copy_(beta * m + g)
+            d = (g + beta * m) if nesterov else m
+            return -a * d
+
+        return T.map(upd, grads, state["m"], params), state
+
+    return Optimizer(init, update, "momentum", "pre")
+
+
+def _adam_core(g, m, v, step: int, b1: float, b2: float, eps: float):
+    """Returns (u, m_new, v_new) in fp32 for fp32 m, v."""
+    g = g.float()
+    m_new = b1 * m + (1.0 - b1) * g
+    v_new = b2 * v + (1.0 - b2) * (g * g)
+    t = torch.tensor(step + 1.0, dtype=torch.float32)
+    mhat = m_new / (1.0 - torch.tensor(b1, dtype=torch.float32) ** t).item()
+    vhat = v_new / (1.0 - torch.tensor(b2, dtype=torch.float32) ** t).item()
+    return mhat / (torch.sqrt(vhat) + eps), m_new, v_new
+
+
+def _adam_like(lr, b1, b2, eps, weight_decay, state_dtype, trust: bool,
+               min_trust: float = 0.0, max_trust: float = 10.0):
+    sched = _as_schedule(lr)
+
+    def init(params):
+        z = _zeros(state_dtype)
+        return {"m": T.map(z, params), "v": T.map(z, params)}
+
+    def update(grads, state, params, step):
+        a = sched(step)
+
+        def upd(g, m, v, p):
+            u, m_new, v_new = _adam_core(g, m.float(), v.float(), step, b1,
+                                         b2, eps)
+            m.copy_(m_new)
+            v.copy_(v_new)
+            del m_new, v_new
+            p32 = p.float()
+            if weight_decay:
+                u = u + weight_decay * p32
+            if not trust:
+                return -a * u
+            pn = torch.linalg.vector_norm(p32.reshape(-1))
+            un = torch.linalg.vector_norm(u.reshape(-1))
+            ratio = torch.where((pn > 0) & (un > 0),
+                                torch.clamp(pn / (un + 1e-12), min_trust,
+                                            max_trust),
+                                torch.ones((), device=u.device))
+            return -a * ratio * u
+
+        return T.map(upd, grads, state["m"], state["v"], params), state
+
+    return init, update
+
+
+def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+         weight_decay: float = 0.0, state_dtype=torch.float32) -> Optimizer:
+    """state_dtype=bf16 halves optimizer memory; the update math still
+    runs in fp32 — only storage is compressed."""
+    init, update = _adam_like(lr, b1, b2, eps, weight_decay, state_dtype,
+                              trust=False)
+    return Optimizer(init, update, "adam", "post")
+
+
+def lamb(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6,
+         weight_decay: float = 0.01, min_trust: float = 0.0,
+         max_trust: float = 10.0, state_dtype=torch.float32) -> Optimizer:
+    """LAMB (You et al. 2019): Adam core + per-layer trust ratio
+    ‖p‖/‖u‖ scaling."""
+    init, update = _adam_like(lr, b1, b2, eps, weight_decay, state_dtype,
+                              trust=True, min_trust=min_trust,
+                              max_trust=max_trust)
+    return Optimizer(init, update, "lamb", "post")
+
+
+_REGISTRY = {"sgd": sgd, "momentum": momentum, "adam": adam, "lamb": lamb}
+
+
+def get_optimizer(name: str, lr, **kwargs) -> Optimizer:
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown optimizer {name!r}; have {sorted(_REGISTRY)}")
+    return _REGISTRY[name](lr, **kwargs)

@@ -8,12 +8,16 @@ import torch
 
 DeviceLike = Union[str, torch.device, None]
 
-# ROADMAP.md queue 1 items that bring what slice 1 refuses
+# ROADMAP.md queue 1 items that bring what the port still refuses
+ITEM_ADASUM_MATH = "2.1"    # fp64 dot accumulation (acc_dtype)
+ITEM_MULTI_RANK = "3"       # RVH across ranks, int8 wire compression
 ITEM_CHECKPOINTS = "4"      # checkpoints, hot-reload
+ITEM_ENGINE = "4"           # engine surface: registry extras, elastic
 ITEM_SERVING_EXTRAS = "5"   # dense layout, speculation, resilience,
                             # preemption, legacy loop, scan prefill
 ITEM_FAMILIES = "6"         # MoE, MLA, ssm, hybrid, enc-dec, frontends
 ITEM_SHARDING = "7"         # data/model meshes above one device
+ITEM_SUBSYSTEMS = "8"       # delayed combine, adaptive batch, chaos
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

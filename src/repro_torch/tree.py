@@ -1,0 +1,71 @@
+"""Nested dicts, tuples and lists of tensors, walked in `jax.tree.flatten`
+order.
+
+JAX flattens a dict in SORTED key order, tuples and lists in position
+order, and treats `None` as a node with no leaves. Fusion layouts,
+buckets and segment ids are built from the flattened leaf list, so the
+port must see the leaves in exactly that order (gemma-7b:
+`blocks.attn.{wk,wo,wq,wv}`, `blocks.mlp.{w_down,w_gate,w_up}`,
+`blocks.norm1`, `blocks.norm2`, `embed.table`, `final_norm`).
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, List, Tuple
+
+PyTree = Any
+TreeDef = Any       # ("dict", keys, children) | ("tuple"/"list", children)
+                    # | ("none",) | LEAF
+
+LEAF = "*"
+
+
+def flatten(tree: PyTree) -> Tuple[List[Any], TreeDef]:
+    leaves: List[Any] = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            keys = tuple(sorted(node))
+            return ("dict", keys, tuple(walk(node[k]) for k in keys))
+        if isinstance(node, (tuple, list)):
+            kind = "tuple" if isinstance(node, tuple) else "list"
+            return (kind, tuple(walk(c) for c in node))
+        if node is None:
+            return ("none",)
+        leaves.append(node)
+        return LEAF
+    return leaves, walk(tree)
+
+
+def unflatten(treedef: TreeDef, leaves) -> PyTree:
+    it = iter(leaves)
+
+    def build(td):
+        if td == LEAF:
+            return next(it)
+        if td[0] == "dict":
+            return {k: build(c) for k, c in zip(td[1], td[2])}
+        if td[0] == "none":
+            return None
+        out = [build(c) for c in td[1]]
+        return tuple(out) if td[0] == "tuple" else out
+    out = build(treedef)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the treedef holds")
+    return out
+
+
+def leaves(tree: PyTree) -> List[Any]:
+    return flatten(tree)[0]
+
+
+def map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
+    """`jax.tree.map`: fn over the leaves of `tree` and, leaf for leaf,
+    of each tree in `rest` (which must share its structure)."""
+    flat, td = flatten(tree)
+    others = []
+    for r in rest:
+        fl, rtd = flatten(r)
+        if rtd != td:
+            raise ValueError("tree structures differ")
+        others.append(fl)
+    return unflatten(td, [fn(*xs) for xs in zip(flat, *others)])

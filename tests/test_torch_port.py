@@ -225,5 +225,6 @@ def test_cpu_wrappers_take_plain_path_without_counting():
     q, k, v = _qkv()
     out = FA.flash_attention(q, k, v, causal=True)
     assert torch.equal(out, FA.flash_attention_ref(q, k, v, causal=True))
-    assert KB.LAUNCHES == {"flash_attention": 0,
-                           "paged_decode_attention": 0}
+    assert set(KB.LAUNCHES) == {"flash_attention", "paged_decode_attention",
+                                "block_dots", "block_combine"}
+    assert all(n == 0 for n in KB.LAUNCHES.values())
