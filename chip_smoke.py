@@ -2,6 +2,15 @@
 """On-card smoke run of the PyTorch/CUDA port (`src/repro_torch`).
 
     python3 chip_smoke.py                  # one H100, ~a few minutes
+    python3 chip_smoke.py --profile        # + torch.profiler windows
+    python3 chip_smoke.py --serve-ab DIR   # serve phase, DIR vs this tree
+
+--serve-ab compares two commits on one card within one call: DIR is
+another checkout of the repo (e.g. `git archive <parent> | tar -x -C
+build/parent`, a gitignored directory). The serve phase below runs on
+DIR's package and on this one, in turns DIR, this, this, DIR, each in a
+process of its own (this script's code, the package and its kernels
+from the tree), and a `SERVE_AB` JSON line gives the four runs' metrics.
 
 Phases (any error fails the run with a non-zero exit and no result):
   1. card: print `nvidia-smi --query-gpu=name,power.limit` and require
@@ -9,11 +18,21 @@ Phases (any error fails the run with a non-zero exit and no result):
   2. build: compile every kernel under src/repro_torch/kernels/csrc with
      nvcc (one process per source, all at once) and print the seconds;
   3. kernels: each hand-written kernel against its plain PyTorch version
-     on the card at qwen3-32b widths (H=64, KV=8, Dh=128, bf16), with the
-     max abs error against its stated tolerance and median CUDA-event
-     times of the kernel, the plain version and, as a yardstick the port
-     never calls, `torch.nn.functional.scaled_dot_product_attention` on
-     the same work;
+     on the card at qwen3-32b widths (H=64, KV=8, Dh=128, bf16), plus
+     gemma-7b's (H=KV=16, Dh=256) and Dh=64 flash cases and the split-K
+     decode's edges (one slot with every page live, a batch that takes
+     one split, pos 0 and pos on split boundaries, rolling past cap, free
+     slots), with the max abs error against its stated tolerance, the
+     error against an fp32 run of the plain version held to
+     ERR32_FACTOR x the plain bf16 version's own plus ERR32_SLACK (for
+     flash also over the last half of the query rows alone), every
+     decode case run twice and required bitwise equal, and median
+     CUDA-event times per call (host work of the launch included) of the
+     kernel, the plain version and, as a yardstick the port never calls,
+     `torch.nn.functional.scaled_dot_product_attention` on the same work
+     (on its fused backends where it has the mask: plain or lower-right
+     causal), each timed on its own; kernel and yardstick also by device
+     time alone (CUDA-graph replay, `device_ms`, `library_device_ms`);
      The Adasum block kernels (`block_dots`, `block_combine`) are held
      the same way at the shapes the train phase gives them: the gemma-7b
      embedding bucket (786,432,000 elements a lane, block 8192, read as
@@ -72,14 +91,21 @@ ROOT = Path(__file__).resolve().parent
 TFLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM dense peaks
 HBM_BYTES_S = 3.35e12
 # kernel vs plain: both round the output once to bf16 (|out| <= ~4, so
-# 2^-8 * 4 ~ 0.016) and the plain path also rounds P to bf16 before P.V;
-# fp32 differs only in summation order
+# 2^-8 * 4 ~ 0.016) and P to bf16 before P.V (the kernels round
+# unnormalised P, the plain path normalised P); fp32 differs only in
+# summation order
 KERNEL_TOL = {"bfloat16": 3e-2, "float32": 1e-4}
 # logits of the 8-layer bf16 model, kernel path vs plain path: unit-scale
-# logits after bf16 matmuls in every layer, where the two paths round P.V
-# differently (fp32 P vs bf16 P), move by a few 1e-2; a masking or
+# logits after bf16 matmuls in every layer, where the two paths round P
+# and sum P.V differently, move by a few 1e-2; a masking or
 # indexing fault moves them by O(1)
 LOGIT_TOL = 0.25
+# every attention case also against an fp32 run of the plain version on
+# the same inputs: the kernel's error there may be at most ERR32_FACTOR
+# times the plain bf16 version's own error plus ERR32_SLACK (both round
+# the output once to bf16 and P before P.V)
+ERR32_FACTOR = 2.0
+ERR32_SLACK = 2e-3
 LAYERS = 8      # of qwen3-32b's 64: 5.5 B params, 11 GB of bf16 weights
 SEED = 0
 # block_dots against its fp32 plain version: the two sum the same fp32
@@ -139,6 +165,38 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def _device_ms(fn, calls: int = 20, replays: int = 10) -> float:
+    """Device time of one fn() call in ms, without the host: `calls`
+    calls captured in one CUDA graph, the graph replayed `replays` times
+    (CUDA events around each replay), the median replay over `calls`.
+    `_time_ms` times a call with the host work of its launch; for a call
+    of tens of microseconds that is most of it, and it drifts with the
+    host, so kernel and yardstick are also compared by this time."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(replays):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    del graph
+    return statistics.median(times)
+
+
 def _sdpa(q, k, v, mask=None, is_causal=False):
     """One library attention call on [B,H,T,Dh] q and [B,KV,S,Dh] k/v."""
     import torch.nn.functional as F
@@ -148,6 +206,32 @@ def _sdpa(q, k, v, mask=None, is_causal=False):
 
 
 # ------------------------------------------------------------ kernel phase
+def _scale_check(out, ref, ref32, late_rows: bool = False) -> dict:
+    """The kernel's error against an fp32 run of the plain version on the
+    same (working-dtype-valued) inputs, held to ERR32_FACTOR times the
+    plain working-dtype version's own error against that run plus
+    ERR32_SLACK: the absolute KERNEL_TOL is loose beside outputs of
+    typical size ~0.05, this check scales with what the dtype allows.
+    With late_rows ([B, T, ...] outputs), the same check again over the
+    last half of the query rows alone: causal rows near the start attend
+    few keys and have outputs of order 1, which set the whole-tensor
+    limit; a fault in the late rows (the causal frontier of the last
+    tiles) is held to the limit those rows themselves allow."""
+    def errs(a, b, c):
+        err = (a.float() - c).abs().max().item()
+        limit = (ERR32_FACTOR * (b.float() - c).abs().max().item()
+                 + ERR32_SLACK)
+        return err, limit
+    err32, lim32 = errs(out, ref, ref32)
+    res = {"err32": err32, "err32_limit": lim32, "err32_ok": err32 <= lim32}
+    if late_rows:
+        h = out.shape[1] // 2
+        late, late_lim = errs(out[:, h:], ref[:, h:], ref32[:, h:])
+        res.update(late_err32=late, late_err32_limit=late_lim,
+                   err32_ok=res["err32_ok"] and late <= late_lim)
+    return res
+
+
 def _flash_case(name, B, T, S, *, causal=True, window=0, q_offset=0,
                 dtype="bfloat16", H=64, KV=8, Dh=128, seed=0):
     import torch
@@ -160,8 +244,10 @@ def _flash_case(name, B, T, S, *, causal=True, window=0, q_offset=0,
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     out = FA.flash_attention(q, k, v, **kw)
     ref = FA.flash_attention_ref(q, k, v, **kw)
+    ref32 = FA.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
+    scale = _scale_check(out, ref, ref32, late_rows=True)
     finite = bool(torch.isfinite(out.float()).all())
     # work this data needs: unmasked (q, k) pairs per (b, h)
     qp = torch.arange(q_offset, q_offset + T, device="cuda")[:, None]
@@ -175,20 +261,41 @@ def _flash_case(name, B, T, S, *, causal=True, window=0, q_offset=0,
     flops = 4 * B * H * Dh * pairs
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     t_flop, t_byte = flops / TFLOPS[dtype], nbytes / HBM_BYTES_S
+    # library yardstick: SDPA on its fused backends where it has the
+    # mask (plain causal; q_offset = S - T is the lower-right causal
+    # mask), a dense bool mask only for the window
+    from torch.nn.attention.bias import causal_lower_right
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     plain_causal = causal and not window and q_offset == 0 and T == S
-    mask = None if plain_causal or not (causal or window) else m
+    if plain_causal or not (causal or window):
+        mask = None
+    elif causal and not window and q_offset == S - T:
+        mask = causal_lower_right(T, S)
+    else:
+        mask = m
+
+    def kernel():
+        return FA.flash_attention(q, k, v, **kw)
+
+    def library():
+        return _sdpa(qt, kt, vt, mask, plain_causal)
+    lib_out = library()            # the yardstick computes the same function
+    lib_err = (lib_out.transpose(1, 2).float() - ref32).abs().max().item()
+    del ref32, lib_out
     return {
         "kernel": "flash_attention", "case": name, "dtype": dtype,
         "shape": dict(B=B, T=T, S=S, H=H, KV=KV, Dh=Dh, causal=causal,
                       window=window, q_offset=q_offset),
-        "max_abs_err": err, "tol": KERNEL_TOL[dtype],
-        "ok": finite and err <= KERNEL_TOL[dtype],
-        "ms": _time_ms(lambda: FA.flash_attention(q, k, v, **kw)),
+        "max_abs_err": err, "tol": KERNEL_TOL[dtype], **scale,
+        "ok": finite and err <= KERNEL_TOL[dtype] and scale["err32_ok"]
+        and lib_err <= KERNEL_TOL[dtype],
+        "library_err32": lib_err,
+        "ms": _time_ms(kernel),
         "plain_ms": _time_ms(lambda: FA.flash_attention_ref(q, k, v, **kw),
                              iters=5, warmup=1),
-        "library_ms": _time_ms(lambda: _sdpa(qt, kt, vt, mask,
-                                             plain_causal)),
+        "library_ms": _time_ms(library),
+        "device_ms": _device_ms(kernel),
+        "library_device_ms": _device_ms(library),
         "bound_ms": 1e3 * max(t_flop, t_byte),
         "bound_by": "operations" if t_flop >= t_byte else "bytes",
     }
@@ -210,11 +317,18 @@ def _decode_case(name, B, P, pos, *, rolling=False, ps=16, H=64, KV=8,
         table[b] = 0
     posv = torch.tensor(pos, dtype=torch.int32, device="cuda")
     out = FA.paged_decode_attention(q, kp, vp, table, posv, rolling=rolling)
+    again = FA.paged_decode_attention(q, kp, vp, table, posv,
+                                      rolling=rolling)
     ref = FA.paged_decode_attention_ref(q, kp, vp, table, posv,
                                         rolling=rolling)
+    ref32 = FA.paged_decode_attention_ref(q.float(), kp.float(), vp.float(),
+                                          table, posv, rolling=rolling)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
+    scale = _scale_check(out, ref, ref32)
+    bitwise = torch.equal(out, again)
     finite = bool(torch.isfinite(out.float()).all())
+    splits, pps = FA.decode_plan(B, KV, P, FA._sm_count(q.device))
     cap = P * ps
     rows = [min(p + 1, cap) for p in pos]          # valid rows per slot
     row_bytes = KV * Dh * q.element_size()
@@ -231,17 +345,31 @@ def _decode_case(name, B, P, pos, *, rolling=False, ps=16, H=64, KV=8,
     slot_pos = pb - torch.remainder(pb - r, cap) if rolling else r
     mask = ((slot_pos >= 0) & (slot_pos <= pb))[:, None, None, :]
     q4 = q[:, :, None, :]
+
+    def kernel():
+        return FA.paged_decode_attention(q, kp, vp, table, posv,
+                                         rolling=rolling)
+
+    def library():
+        return _sdpa(q4, kf, vf, mask)
+    lib_err = (library()[:, :, 0].float() - ref32).abs().max().item()
+    del ref32
     return {
         "kernel": "paged_decode_attention", "case": name, "dtype": dtype,
         "shape": dict(B=B, pages_per_slot=P, page_size=ps, H=H, KV=KV,
-                      Dh=Dh, rolling=rolling, pos=list(pos)),
-        "max_abs_err": err, "tol": KERNEL_TOL[dtype],
-        "ok": finite and err <= KERNEL_TOL[dtype],
-        "ms": _time_ms(lambda: FA.paged_decode_attention(
-            q, kp, vp, table, posv, rolling=rolling)),
+                      Dh=Dh, rolling=rolling, pos=list(pos),
+                      free_slots=list(free_slots)),
+        "splits": splits, "pages_per_split": pps, "bitwise_repeat": bitwise,
+        "max_abs_err": err, "tol": KERNEL_TOL[dtype], **scale,
+        "ok": finite and bitwise and err <= KERNEL_TOL[dtype]
+        and scale["err32_ok"] and lib_err <= KERNEL_TOL[dtype],
+        "library_err32": lib_err,
+        "ms": _time_ms(kernel),
         "plain_ms": _time_ms(lambda: FA.paged_decode_attention_ref(
             q, kp, vp, table, posv, rolling=rolling)),
-        "library_ms": _time_ms(lambda: _sdpa(q4, kf, vf, mask)),
+        "library_ms": _time_ms(library),
+        "device_ms": _device_ms(kernel),
+        "library_device_ms": _device_ms(library),
         "bound_ms": 1e3 * max(t_flop, t_byte),
         "bound_by": "operations" if t_flop >= t_byte else "bytes",
     }
@@ -378,6 +506,18 @@ def _gemma_small_buckets():
             for _, layout, block, _ in plan if block < 8192]
 
 
+def _split_edges(B, KV, P, ps):
+    """pos 0, then positions on both sides of the first split boundaries
+    of the decode planner at this shape (the last row of a split and the
+    first row of the next)."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    splits, pps = FA.decode_plan(B, KV, P, FA._sm_count(
+        torch.device("cuda")))
+    edge = pps * ps
+    return [0, edge - 1, edge, 2 * edge - 1][:B]
+
+
 def kernel_phase():
     """Every kernel against its plain version. The first case of each
     kernel is the shape the serve phase's main path gives it."""
@@ -392,12 +532,26 @@ def kernel_phase():
         _flash_case("noncausal", 2, 1024, 1024, causal=False),
         _flash_case("q_offset64", 2, 960, 1024, q_offset=64),
         _flash_case("fp32", 1, 256, 256, dtype="float32", H=8, KV=2),
+        # gemma-7b's serve widths (G=1, Dh=256) and a 64-wide head
+        _flash_case("gemma_d256", 1, 1024, 1024, H=16, KV=16, Dh=256),
+        _flash_case("d64", 2, 1024, 1024, H=32, KV=8, Dh=64),
         _decode_case("serve_tick", 4, 128, [964, 980, 1001, 990]),
         _decode_case("linear", 8, 64, mixed),
         _decode_case("rolling", 8, 64, mixed, rolling=True),
         _decode_case("trash_slots", 8, 64, mixed, free_slots=(1, 6)),
         _decode_case("fp32", 4, 8, [0, 40, 127, 300], dtype="float32",
                      H=8, KV=2),
+        # split-K: one slot, every page live (many splits); a batch that
+        # fills the card (one split); pos 0 and pos on both sides of a
+        # split boundary; rolling past cap; gemma-7b's G=1, Dh=256
+        _decode_case("b1_all_pages", 1, 128, [2047]),
+        _decode_case("b32_one_split", 32, 16,
+                     [(37 * i) % 256 for i in range(32)]),
+        _decode_case("split_edges", 4, 128, _split_edges(4, 8, 128, 16)),
+        _decode_case("rolling_wrap", 4, 128, [2048, 2100, 3071, 4095],
+                     rolling=True),
+        _decode_case("gemma_d256", 4, 128, [964, 980, 1001, 990], H=16,
+                     KV=16, Dh=256),
     ]
     embed = 256_000 * 3072                 # gemma-7b's tied embedding
     cases += _adasum_case("embed_fp32", embed, 8192)     # main path first
@@ -411,13 +565,24 @@ def kernel_phase():
     cases += _adasum_case("granule256", 256 * 4096, 256)
     _adasum_refusal()
     print(f"{'kernel':24s} {'case':14s} {'err':>9s} {'tol':>7s} "
-          f"{'ms':>9s} {'plain_ms':>9s} {'lib_ms':>9s} {'bound_ms':>9s}")
+          f"{'err32':>9s} {'lim32':>9s} {'late32':>9s} {'latelim':>9s} "
+          f"{'ms':>9s} {'plain_ms':>9s} {'lib_ms':>9s} {'bound_ms':>9s} "
+          f"{'dev_ms':>9s} {'lib_dev':>9s}")
     for c in cases:
+        e32 = (f"{c['err32']:9.2e} {c['err32_limit']:9.2e}" if "err32" in c
+               else f"{'-':>9s} {'-':>9s}")
+        late = (f"{c['late_err32']:9.2e} {c['late_err32_limit']:9.2e}"
+                if "late_err32" in c else f"{'-':>9s} {'-':>9s}")
+        dev = (f"{c['device_ms']:9.4f} {c['library_device_ms']:9.4f}"
+               if "device_ms" in c else f"{'-':>9s} {'-':>9s}")
         print(f"{c['kernel']:24s} {c['case']:14s} "
               f"{c.get('err', c['max_abs_err']):9.2e} "
-              f"{c['tol']:7.0e} {c['ms']:9.4f} {c['plain_ms']:9.4f} "
-              f"{c['library_ms']:9.4f} {c['bound_ms']:9.4f} "
-              f"{'ok' if c['ok'] else 'FAIL'}")
+              f"{c['tol']:7.0e} {e32} {late} {c['ms']:9.4f} "
+              f"{c['plain_ms']:9.4f} {c['library_ms']:9.4f} "
+              f"{c['bound_ms']:9.4f} {dev} "
+              f"{'ok' if c['ok'] else 'FAIL'}"
+              + (f" splits={c['splits']} bitwise={c['bitwise_repeat']}"
+                 if "splits" in c else ""))
     bad = [f"{c['kernel']}/{c['case']}" for c in cases if not c["ok"]]
     if bad:
         raise AssertionError(f"kernel != plain beyond tolerance: {bad}")
@@ -595,7 +760,8 @@ def profile_windows(ecfg, model, params, prompts, card):
         busy = sum(kern.values())
         top = sorted(kern.items(), key=lambda kv: -kv[1])[:8]
         mine = {k: v for k, v in kern.items()
-                if "flash_fwd_kernel" in k or "paged_decode_kernel" in k}
+                if "flash_wgmma_kernel" in k or "flash_fwd_kernel" in k
+                or "paged_decode_" in k}
         out[name] = {"wall_ms": wall, "device_busy_ms": busy,
                      "idle_share": 1.0 - busy / wall,
                      "port_kernels_ms": sum(mine.values()), "top": top}
@@ -840,12 +1006,44 @@ def train_phase(card: str, profile: bool = False):
             "runs": runs}
 
 
+def serve_ab(other: Path) -> int:
+    """The serve phase on `other`'s package and on this tree's, in turns
+    other, this, this, other, each run a process of this script with
+    --serve-only; prints each run's output and one SERVE_AB line."""
+    trees = [("other", other.resolve() / "src"), ("this", ROOT / "src")]
+    if not (trees[0][1] / "repro_torch").is_dir():
+        print(f"chip_smoke: {other} holds no src/repro_torch",
+              file=sys.stderr)
+        return 2
+    runs = []
+    for tag, src in (trees[0], trees[1], trees[1], trees[0]):
+        print(f"=== serve on {tag}: {src}", flush=True)
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--serve-only",
+             str(src)], capture_output=True, text=True, timeout=900)
+        print(proc.stdout, end="")
+        print(proc.stderr, end="", file=sys.stderr)
+        lines = [ln for ln in proc.stdout.splitlines()
+                 if ln.startswith("SERVE ")]
+        if proc.returncode or not lines:
+            print(f"chip_smoke: serve on {tag} failed "
+                  f"(rc {proc.returncode})", file=sys.stderr)
+            return 1
+        runs.append({"tree": tag, **json.loads(lines[-1][6:])})
+    print("SERVE_AB " + json.dumps(runs))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="trace an admission tick and five decode ticks "
                     "after the serve phase, and a fourth step of each "
                     "train run, with torch.profiler")
+    ap.add_argument("--serve-ab", metavar="DIR",
+                    help="instead of the phases: the serve phase on DIR's "
+                    "checkout and this one, in turns DIR, this, this, DIR")
+    ap.add_argument("--serve-only", metavar="SRC", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     card = _smi()
@@ -854,18 +1052,25 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    src = Path(args.serve_only) if args.serve_only else ROOT / "src"
+    sys.path.insert(0, str(src))
     try:
         from repro_torch.kernels import build
     except ImportError as e:
         print(f"chip_smoke: run from a checkout of the repo ({e})",
               file=sys.stderr)
         return 2
+    if args.serve_ab:
+        return serve_ab(Path(args.serve_ab))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"[smoke] torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} x"
           f"{torch.cuda.device_count()}")
+    if args.serve_only:                 # one run of serve_ab
+        print(f"[smoke] built kernels in {build.build_all():.1f}s")
+        print("SERVE " + json.dumps(serve_phase(card)["metrics"]))
+        return 0
     record = {"card": card}
     try:
         secs = build.build_all()
@@ -914,7 +1119,9 @@ def main(argv=None) -> int:
             "launches": launches.get(c["kernel"], 0),
             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-            "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+            "device_ms": c.get("device_ms"),
+            "library_device_ms": c.get("library_device_ms")})
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

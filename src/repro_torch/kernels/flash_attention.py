@@ -9,14 +9,25 @@ kernel or raises — there is no fallback. The plain versions follow the
 JAX reference paths (`_chunked_attention`, attention.py:119; the gather
 path of `gqa_paged_decode_step`, attention.py:391-409) step for step,
 including the cast of the softmax probabilities to the value dtype
-before P.V. The kernels follow the TPU kernels instead and keep P in
-fp32, so in bf16 the two differ by bf16 rounding of P (the tolerance
-`chip_smoke.py` states).
+before P.V.
+
+Numerics of the kernels. Flash prefill in bf16 runs on the tensor cores
+and, like the plain version, rounds the (unnormalised) probabilities P
+to bf16 before P.V, accumulating in fp32; the TPU kernel kept P in fp32.
+fp32 inputs go to a CUDA-core kernel that keeps everything in fp32 (a
+dispatch by dtype: TF32 tensor cores would not meet the fp32 tolerance).
+Paged decode in bf16 also runs its products on the tensor cores and
+rounds P to bf16 before P.V, as the plain version does, accumulating in
+fp32; the TPU kernel kept P in fp32. fp32 inputs go to a CUDA-core form
+of the same kernel, all in fp32. Its split-K partials are merged in a
+fixed order: equal inputs give equal bits.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import Callable, Tuple
 
 import torch
 
@@ -38,22 +49,29 @@ def _kernels() -> ctypes.CDLL:
         lib.flash_attention_fwd.argtypes = [_vp] * 4 + [_int] * 9 + [
             _float, _int, _vp]
         lib.flash_attention_fwd.restype = _int
-        lib.paged_decode_fwd.argtypes = [_vp] * 6 + [_int] * 7 + [
+        lib.paged_decode_fwd.argtypes = [_vp] * 8 + [_int] * 9 + [
             _float, _int, _vp]
         lib.paged_decode_fwd.restype = _int
-        lib.paged_decode_smem_bytes.argtypes = [_int] * 3
+        lib.paged_decode_smem_bytes.argtypes = [_int] * 2
         lib.paged_decode_smem_bytes.restype = ctypes.c_size_t
         _lib = lib
     return _lib
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The handle of PyTorch's current stream on t's device: what
+    `torch.cuda.current_stream(t.device).cuda_stream` gives, without
+    building a Stream object on every launch (host time of the order of
+    the decode kernel's own time on the card)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
-def _check(cond: bool, msg: str) -> None:
+def _check(cond: bool, msg: Callable[[], str]) -> None:
+    """Raise ValueError(msg()) unless cond. The message is built only on
+    failure: the checks run on every decode step, where formatting
+    shapes and devices would cost more host time than the kernel."""
     if not cond:
-        raise ValueError(msg)
+        raise ValueError(msg())
 
 
 def _check_no_grad(name: str, *tensors) -> None:
@@ -67,16 +85,39 @@ def _check_no_grad(name: str, *tensors) -> None:
             f"plain path (attn_impl='plain'; Model.loss uses it)")
 
 
-def _check_common(name: str, tensors, float_names) -> None:
-    dev = tensors[0].device
-    _check(dev.type in ("cpu", "cuda"), f"{name}: unsupported device {dev}")
+def _check_kernel_inputs(name: str, tensors, Dh: int) -> None:
+    """What the CUDA kernels take beyond `_check_common`: a compiled head
+    dim, and 16-byte aligned storage (TMA boxes and 16-byte vector loads
+    read from the start of every tensor)."""
+    _check(Dh in HEAD_DIMS,
+           lambda: f"{name}: head_dim {Dh} not in {HEAD_DIMS}")
+    _check(all(t.data_ptr() % 16 == 0 for t in tensors),
+           lambda: f"{name}: inputs must start on a 16-byte boundary")
+
+
+def _check_common(name: str, tensors, n_float: int) -> None:
+    """One device (cpu or cuda) and contiguous storage for all `tensors`;
+    the first `n_float` share one dtype of DTYPES. The passing path is
+    kept lean: it runs once per layer and decode step."""
+    dev, dt = tensors[0].device, tensors[0].dtype
+    ok = dev.type in ("cpu", "cuda") and dt in DTYPES
+    for i, t in enumerate(tensors):
+        if not ok:
+            break
+        ok = t.device == dev and t.is_contiguous() and (
+            i >= n_float or t.dtype == dt)
+    if ok:
+        return
+    _check(dev.type in ("cpu", "cuda"),
+           lambda: f"{name}: unsupported device {dev}")
     for t in tensors:
-        _check(t.device == dev, f"{name}: inputs on {dev} and {t.device}")
-        _check(t.is_contiguous(), f"{name}: inputs must be contiguous")
-    dts = {tensors[i].dtype for i in float_names}
-    _check(len(dts) == 1 and next(iter(dts)) in DTYPES,
-           f"{name}: q/k/v must share one dtype of {list(DTYPES)}, "
-           f"got {sorted(map(str, dts))}")
+        _check(t.device == dev,
+               lambda: f"{name}: inputs on {dev} and {t.device}")
+        _check(t.is_contiguous(),
+               lambda: f"{name}: inputs must be contiguous")
+    dts = sorted(str(t.dtype) for t in tensors[:n_float])
+    raise ValueError(f"{name}: q/k/v must share one dtype of "
+                     f"{list(DTYPES)}, got {dts}")
 
 
 # ------------------------------------------------------------ flash prefill
@@ -136,21 +177,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kernel masks the ragged edges); head h reads KV head h // (H // KV)."""
     _check_no_grad("flash_attention", q, k, v)
     _check(q.dim() == 4 and k.dim() == 4 and k.shape == v.shape,
-           f"flash_attention: q [B,T,H,Dh], k/v [B,S,KV,Dh]; got "
-           f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+           lambda: f"flash_attention: q [B,T,H,Dh], k/v [B,S,KV,Dh]; "
+           f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     B, T, H, Dh = q.shape
     S, KV = k.shape[1], k.shape[2]
     _check(k.shape[0] == B and k.shape[3] == Dh and KV > 0 and H % KV == 0,
-           f"flash_attention: shapes {tuple(q.shape)} vs {tuple(k.shape)}")
+           lambda: f"flash_attention: shapes {tuple(q.shape)} vs "
+           f"{tuple(k.shape)}")
     _check(T > 0 and S > 0 and q_offset >= 0 and window >= 0,
-           f"flash_attention: T={T} S={S} q_offset={q_offset} "
+           lambda: f"flash_attention: T={T} S={S} q_offset={q_offset} "
            f"window={window}")
-    _check_common("flash_attention", (q, k, v), (0, 1, 2))
+    _check_common("flash_attention", (q, k, v), 3)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset)
-    _check(Dh in HEAD_DIMS, f"flash_attention: head_dim {Dh} not in "
-           f"{HEAD_DIMS}")
+    _check_kernel_inputs("flash_attention", (q, k, v), Dh)
     out = torch.empty_like(q)
     err = _kernels().flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, S, H,
@@ -162,6 +203,57 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 # ------------------------------------------------------------- paged decode
+SPLIT_CTAS_PER_SM = 4      # split-K target: pass-1 blocks per SM
+
+
+def decode_plan(B: int, KV: int, P: int, sms: int) -> Tuple[int, int]:
+    """(splits, pages per split) of the split-K paged decode: one block
+    per (KV head, slot, split), each split a contiguous run of a slot's
+    P logical pages (the last one may be shorter). Where B*KV blocks
+    already fill the `sms` SMs, one split (pass 1 writes the output and
+    pass 2 does not run). Else about SPLIT_CTAS_PER_SM blocks per SM:
+    splits past a slot's position exit at once, and a slot is often
+    half full, so this keeps ~2 working blocks per SM."""
+    if B * KV >= sms or P <= 1:
+        return 1, P
+    want = -(-SPLIT_CTAS_PER_SM * sms // (B * KV))
+    pps = max(1, -(-P // want))
+    return -(-P // pps), pps
+
+
+def decode_workspace_shapes(B: int, KV: int, G: int, Dh: int,
+                            nsplit: int):
+    """fp32 partials of pass 1: acc [B, KV, splits, G, Dh] (unnormalised
+    P.V) and (m, l) [B, KV, splits, G, 2] (running max in log2 units,
+    running sum)."""
+    return (B, KV, nsplit, G, Dh), (B, KV, nsplit, G, 2)
+
+
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=256)
+def _decode_setup(B: int, H: int, KV: int, Dh: int, P: int,
+                  device_index: int) -> Tuple[int, int, int, int]:
+    """Per shape, once: the shared-memory check, the split plan and the
+    workspace size -> (splits, pages per split, acc floats, workspace
+    floats). Cached because a decode step calls the wrapper once per
+    layer and the kernel takes a few microseconds."""
+    G = H // KV
+    smem = _kernels().paged_decode_smem_bytes(G, Dh)
+    _check(smem <= MAX_SMEM,
+           lambda: f"paged_decode_attention: {G} heads per group at "
+           f"head_dim {Dh} need {smem} B of shared memory")
+    nsplit, pps = decode_plan(B, KV, P, _sm_count(
+        torch.device("cuda", device_index)))
+    acc_shape, ml_shape = decode_workspace_shapes(B, KV, G, Dh, nsplit)
+    n_acc = math.prod(acc_shape)
+    return nsplit, pps, n_acc, n_acc + math.prod(ml_shape)
+
+
 def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
                                v_pages: torch.Tensor,
                                page_table: torch.Tensor, pos: torch.Tensor,
@@ -205,37 +297,42 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     _check_no_grad("paged_decode_attention", q, k_pages, v_pages)
     _check(q.dim() == 3 and k_pages.dim() == 4
            and k_pages.shape == v_pages.shape,
-           f"paged_decode_attention: q [B,H,Dh], pages [NP,ps,KV,Dh]; got "
+           lambda: f"paged_decode_attention: q [B,H,Dh], pages "
+           f"[NP,ps,KV,Dh]; got "
            f"{tuple(q.shape)}, {tuple(k_pages.shape)}, "
            f"{tuple(v_pages.shape)}")
     B, H, Dh = q.shape
     NP, ps, KV, _ = k_pages.shape
     _check(k_pages.shape[3] == Dh and KV > 0 and H % KV == 0,
-           f"paged_decode_attention: shapes {tuple(q.shape)} vs "
+           lambda: f"paged_decode_attention: shapes {tuple(q.shape)} vs "
            f"{tuple(k_pages.shape)}")
     _check(page_table.dim() == 2 and page_table.shape[0] == B
            and pos.shape == (B,) and page_table.dtype == torch.int32
            and pos.dtype == torch.int32,
-           f"paged_decode_attention: page_table int32 [B,P], pos int32 [B]; "
-           f"got {page_table.dtype}{tuple(page_table.shape)}, "
+           lambda: f"paged_decode_attention: page_table int32 [B,P], pos "
+           f"int32 [B]; got {page_table.dtype}{tuple(page_table.shape)}, "
            f"{pos.dtype}{tuple(pos.shape)}")
     _check_common("paged_decode_attention",
-                  (q, k_pages, v_pages, page_table, pos), (0, 1, 2))
+                  (q, k_pages, v_pages, page_table, pos), 3)
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pages, v_pages, page_table,
                                           pos, rolling=rolling)
-    _check(Dh in HEAD_DIMS, f"paged_decode_attention: head_dim {Dh} not "
-           f"in {HEAD_DIMS}")
-    lib = _kernels()
-    smem = lib.paged_decode_smem_bytes(H // KV, ps, Dh)
-    _check(smem <= MAX_SMEM, f"paged_decode_attention: page_size {ps}, "
-           f"{H // KV} heads per group need {smem} B of shared memory")
+    _check_kernel_inputs("paged_decode_attention", (q, k_pages, v_pages),
+                         Dh)
+    P = page_table.shape[1]
+    nsplit, pps, n_acc, n_ws = _decode_setup(B, H, KV, Dh, P,
+                                             q.get_device())
     out = torch.empty_like(q)
-    err = lib.paged_decode_fwd(
+    acc_ptr = ml_ptr = None
+    if nsplit > 1:             # one allocation holds both partials
+        ws = torch.empty(n_ws, dtype=torch.float32, device=q.device)
+        acc_ptr = ws.data_ptr()
+        ml_ptr = acc_ptr + 4 * n_acc
+    err = _kernels().paged_decode_fwd(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        page_table.data_ptr(), pos.data_ptr(), out.data_ptr(), B, H, KV, Dh,
-        ps, page_table.shape[1], int(rolling), 1.0 / math.sqrt(Dh),
-        DTYPES[q.dtype], _stream(q))
+        page_table.data_ptr(), pos.data_ptr(), out.data_ptr(), acc_ptr,
+        ml_ptr, B, H, KV, Dh, ps, P, nsplit, pps, int(rolling),
+        1.0 / math.sqrt(Dh), DTYPES[q.dtype], _stream(q))
     build.LAUNCHES["paged_decode_attention"] += 1
     build.check(err, "paged_decode_attention")
     return out
