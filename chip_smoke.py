@@ -38,7 +38,9 @@ Phases (any error fails the run with a non-zero exit and no result):
      embedding bucket (786,432,000 elements a lane, block 8192, read as
      one lane pair of a [2, L] bucket buffer, and in fp32 also as the two
      pairs of a [4, L] buffer, the span-4 tree's level 0) in fp32 and
-     bf16, the
+     bf16, the 1-D halves an RVH round hands them at world 4 (the
+     embedding bucket's round-0 half of 393,216,000 fp32, read in place
+     from the round buffer, and its round-1 quarter), the
      `w_up` leaf bucket, the two norms' buckets (block 2048 with two
      segments, block 1024) and a 256-element granule; one shape must be
      refused.
@@ -68,18 +70,47 @@ Phases (any error fails the run with a non-zero exit and no result):
      to the kernel path's within COMBINED_RTOL of their own scale, and
      the params within TRAIN_PARAM_TOL. Prints ms per step, the
      combine's share (CUDA events around every combine call) and peak
-     memory. With --profile, a fourth step of each run is traced.
+     memory. With --profile, a fourth step of each run is traced;
+  6. ranks: multi-rank Adasum (RVH, the paper's Algorithm 1) through
+     `TrainSession.from_config` in rank processes of this script, started
+     with the environment torchrun gives (RANK, WORLD_SIZE, LOCAL_RANK,
+     MASTER_ADDR/PORT), all on cuda:0 over gloo: this machine has one
+     card and NCCL puts no two ranks on one card, so the exchanged halves
+     are staged through pinned host memory and exchange times are host
+     loopback times (printed so; NCCL is not run). The parent first frees
+     its cached card memory and prints what it still holds. gemma-7b at
+     full width, depth cut to RANK_LAYERS (1 of 28), fp32 params, bf16
+     compute, seq 512, global batch RANK_BATCH, 64 MB buckets, 3 steps:
+     (a) world 4 with sgd (the `pre` point; two RVH rounds), (b) world 2
+     with adam (`post` point, per-rank state) and int8 wire compression.
+     Each rank checks: one `block_dots` and one `block_combine` per
+     bucket per round per step (counters zeroed just before the run);
+     params bitwise equal across ranks after every step (per-leaf
+     checksums gathered); step 1 from fresh state again bitwise equal;
+     step 1 with combine_impl="plain" on the card, the combined tree and
+     CombineStats within COMBINED_RTOL and params within TRAIN_PARAM_TOL
+     (under int8, at most INT8_FLIP_FRACTION of the elements one
+     quantization step apart); and random lanes of ~7 M elements in ten
+     leaves through RVH against the single-process fused tree on rank 0.
+     Prints step ms, the combine's ms and within it the exchange (and
+     staging), dot-sum and dots+combine kernel ms (CUDA events), staged
+     bytes, and each rank's peak allocation and their sum (at most
+     RANK_MEM_GIB).
 
-The line before the last is the kernels JSON, the last line
-{"ok": true, "device": {...}}. Longer records go to
+The line before the last is the kernels JSON (block_dots and
+block_combine rows also carry their phase-6 launches on rank 0,
+`rvh_launches`, and their ms on the round-0 half, `rvh_half_ms`), the
+last line {"ok": true, "device": {...}}. Longer records go to
 chiprun_out/chip_smoke.json. fp32 matmuls run in full fp32: TF32 is
 switched off for cuBLAS and cuDNN.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -375,12 +406,14 @@ def _decode_case(name, B, P, pos, *, rolling=False, ps=16, H=64, KV=8,
     }
 
 
-def _adasum_pair(n, block, dtype, seed, segments=1, pairs=1):
+def _adasum_pair(n, block, dtype, seed, segments=1, pairs=1, flat=False):
     """`pairs` lane pairs of a bucket buffer [2 * pairs, n] on the card,
     read in place as [pairs, n] row views with row stride 2n (how a tree
     level reads its pairs), plus fp32 per-block scalars in [0.5, 1.5],
     pair-major. With segments > 1 every segment gets its own scale, as
-    the leaves of a bucket do."""
+    the leaves of a bucket do. flat=True (one pair): the two 1-D halves
+    of a [2n] round buffer, as an RVH round hands them over (`buf[:n]`,
+    a view of the bucket, and the received half)."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
     buf = torch.randn(2 * pairs, n, generator=g, device="cuda")
@@ -393,48 +426,56 @@ def _adasum_pair(n, block, dtype, seed, segments=1, pairs=1):
     nblk = pairs * (n // block)
     s1 = torch.rand(nblk, generator=g, device="cuda") + 0.5
     s2 = torch.rand(nblk, generator=g, device="cuda") + 0.5
+    if flat:
+        half = buf.view(-1)
+        return buf, half[:n], half[n:], s1, s2
     return buf, y[:, 0], y[:, 1], s1, s2
 
 
 def _adasum_case(name, n, block, dtype="float32", segments=1, seed=2,
-                 pairs=1):
+                 pairs=1, flat=False):
     """block_dots and block_combine on `pairs` lane pairs of n elements
-    each; two result rows. Each pair row is held to the plain versions
-    on its own (a[r] is a unit-stride view: no copy)."""
+    each (flat: RVH's two 1-D halves); two result rows. Each pair row is
+    held to the plain versions on its own (a[r] is a unit-stride view: no
+    copy)."""
     import torch
     from repro_torch.kernels import adasum as K
-    buf, a, b, s1, s2 = _adasum_pair(n, block, dtype, seed, segments, pairs)
+    buf, a, b, s1, s2 = _adasum_pair(n, block, dtype, seed, segments, pairs,
+                                     flat)
     item = buf.element_size()
     nb = n // block                               # blocks a pair row
     dots = K.block_dots(a, b, block_elems=block)
     out = K.block_combine(a, b, s1, s2, block_elems=block)
     torch.cuda.synchronize()
+    rows_of = (lambda t: [t]) if flat else list
+    A, B, O = rows_of(a), rows_of(b), rows_of(out)
+    assert not flat or a.data_ptr() == buf.data_ptr(), "the half was copied"
     d_abs = d_rel = c_abs = ulps = 0.0
     for r in range(pairs):
         rows = slice(r * nb, (r + 1) * nb)
-        dref = K.block_dots_ref(a[r], b[r], block)
+        dref = K.block_dots_ref(A[r], B[r], block)
         scale = torch.stack([(dref[:, 1] * dref[:, 2]).sqrt(), dref[:, 1],
                              dref[:, 2]], dim=-1)
         d_err = (dots[rows] - dref).abs()
         d_abs = max(d_abs, d_err.max().item())
         d_rel = max(d_rel, (d_err / scale.clamp(min=1e-30)).max().item())
-        cref = K.combine_fp32_ref(a[r], b[r], s1[rows], s2[rows], block)
-        c_err = (out[r].float() - cref.float()).reshape(nb, block).abs()
+        cref = K.combine_fp32_ref(A[r], B[r], s1[rows], s2[rows], block)
+        c_err = (O[r].float() - cref.float()).reshape(nb, block).abs()
         del cref
-        mag = (s1[rows, None] * a[r].reshape(nb, block).float()).abs()
-        mag += (s2[rows, None] * b[r].reshape(nb, block).float()).abs()
+        mag = (s1[rows, None] * A[r].reshape(nb, block).float()).abs()
+        mag += (s2[rows, None] * B[r].reshape(nb, block).float()).abs()
         c_abs = max(c_abs, c_err.max().item())
         ulps = max(ulps, (c_err / (EPS_OF[dtype] * mag).clamp(min=1e-30)
                           ).max().item())
         del c_err, mag
     finite = bool(torch.isfinite(dots).all() and torch.isfinite(out).all())
-    del out
+    del out, O
     # yardsticks: one library call on the same work (copies not timed)
     X = buf.view(pairs, 2, nb, block).transpose(1, 2).reshape(
         pairs * nb, 2, block)
     S = torch.stack([s1, s2], -1)[:, None, :].to(X.dtype)
-    shape = dict(n=n, block_elems=block, rows=pairs, row_stride=2 * n,
-                 segments=segments)
+    shape = dict(n=n, block_elems=block, rows=pairs,
+                 row_stride=0 if flat else 2 * n, segments=segments)
     elems = pairs * n
     t_dots = 2 * elems * item / HBM_BYTES_S
     t_comb = (3 * elems * item + 8 * pairs * nb) / HBM_BYTES_S
@@ -461,7 +502,7 @@ def _adasum_case(name, n, block, dtype="float32", segments=1, seed=2,
         "bound_ms": 1e3 * max(t_comb, 3 * elems / TFLOPS["float32"]),
         "bound_by": "bytes",
     }]
-    del X, S, buf, a, b, dots
+    del X, S, buf, a, b, A, B, dots
     torch.cuda.empty_cache()
     return rows
 
@@ -558,6 +599,10 @@ def kernel_phase():
     # the span-4 tree's level 0: two pairs of a [4, L] buffer (row stride
     # 2L), so pair 1's rows, blocks and scalars sit past offset 0
     cases += _adasum_case("embed_fp32_x2", embed, 8192, pairs=2)
+    # RVH at world 4 (phase 6): round 0 dots and combines the bucket's
+    # 1-D halves, round 1 its quarters
+    cases += _adasum_case("rvh_half_w4", embed // 2, 8192, flat=True)
+    cases += _adasum_case("rvh_quarter_w4", embed // 4, 8192, flat=True)
     cases += _adasum_case("embed_bf16", embed, 8192, "bfloat16")
     cases += _adasum_case("w_up", TRAIN_LAYERS * 3072 * 24576, 8192)
     for n, block, segs in _gemma_small_buckets():   # block_norms, final_norm
@@ -817,23 +862,36 @@ class _CombineTimer:
         return ms
 
 
-def _session(model, optimizer, span, timer=None, combine_impl="kernel"):
-    import torch
-    from repro_torch.engine import EngineConfig, TrainSession
+@contextlib.contextmanager
+def _timing_combiners(timer):
+    """Every combiner `build_runtime` makes in the block is wrapped by
+    `timer` (None: left as is)."""
     from repro_torch.engine import build as engine_build
-    cfg = EngineConfig(arch="gemma-7b", span=span, backend="gspmd_tree",
-                       optimizer=optimizer, seq_len=512, global_batch=8,
-                       fusion_threshold_mb=64, steps=3, log_every=1)
     make = engine_build.make_combiner
     if timer is not None:
         engine_build.make_combiner = timer.wrap(make)
     try:
-        return TrainSession.from_config(
-            cfg, model=model, device="cuda",
-            generator=torch.Generator(device="cuda").manual_seed(SEED),
-            callbacks=[], combine_impl=combine_impl)
+        yield
     finally:
         engine_build.make_combiner = make
+
+
+def _session(model, timer=None, combine_impl="kernel", *, device="cuda",
+             comm=None, dist_backend=None, **fields):
+    """`TrainSession.from_config` on gemma-7b at seq 512, global batch 8,
+    64 MB buckets, weights from SEED on `device`; `fields` set the rest
+    of the EngineConfig."""
+    import torch
+    from repro_torch.engine import EngineConfig, TrainSession
+    cfg = EngineConfig(**{**dict(arch="gemma-7b", seq_len=512, global_batch=8,
+                                 fusion_threshold_mb=64, steps=3,
+                                 log_every=1), **fields})
+    with _timing_combiners(timer):
+        return TrainSession.from_config(
+            cfg, model=model, device=device,
+            generator=torch.Generator(device=device).manual_seed(SEED),
+            callbacks=[], combine_impl=combine_impl, comm=comm,
+            dist_backend=dist_backend)
 
 
 def _free():
@@ -849,7 +907,8 @@ def _step_once(model, optimizer, span, combine_impl="kernel"):
     copy of the combine's output (leaves, CombineStats levels)."""
     from repro_torch import tree as T
     timer = _CombineTimer(keep=True)
-    s = _session(model, optimizer, span, timer, combine_impl=combine_impl)
+    s = _session(model, timer, combine_impl, optimizer=optimizer, span=span,
+                 backend="gspmd_tree")
     s.step(s.batch(0))
     params = T.leaves(s.state["params"])
     del s
@@ -906,7 +965,8 @@ def train_phase(card: str, profile: bool = False):
     for optimizer, span in TRAIN_RUNS:
         timer = _CombineTimer()
         torch.cuda.reset_peak_memory_stats()
-        s = _session(model, optimizer, span, timer)
+        s = _session(model, timer, optimizer=optimizer, span=span,
+                     backend="gspmd_tree")
         leaves = T.leaves(s.state["params"])
         plan = C.fused_plan([x.expand((span,) + tuple(x.shape))
                              for x in leaves], C.CombineConfig(
@@ -1006,6 +1066,377 @@ def train_phase(card: str, profile: bool = False):
             "runs": runs}
 
 
+# ------------------------------------------------------------- ranks phase
+RANK_LAYERS = 1    # of gemma-7b's 28: 1.063 B params, 4.25 GB of fp32
+RANK_RUNS = (("sgd", 4, "none"), ("adam", 2, "int8"))  # optimizer, world,
+                                                       # wire compression
+RANK_BATCH = 8     # global batch: 2 rows a rank at world 4, 4 at world 2
+RANK_MEM_GIB = 72  # the ranks' summed peak allocation may not pass this
+RANK_TIMEOUT_S = 420
+# int8 kernel arm vs plain arm: both quantize the same raw lane halves in
+# round 0; after it the two arms' combine outputs differ in the last bits,
+# which can send an element within an ulp of a rounding boundary one
+# quantization step (its 128-block absmax / 127) apart. At most this
+# fraction of the elements may do so, none by more than two steps of the
+# leaf's largest value
+INT8_FLIP_FRACTION = 1e-3
+
+
+def _checksums(tree, piece: int = 1 << 26):
+    """Per leaf: the int64 sum of its bit patterns and its float64 sum,
+    on the card, a piece at a time (a whole-leaf cast of the embedding
+    would take 6 GiB); a different bit anywhere changes them."""
+    import torch
+    from repro_torch import tree as T
+    out = []
+    for x in T.leaves(tree):
+        flat = x.detach().contiguous().view(-1)
+        bits, fsum = 0, 0.0
+        for s in range(0, flat.numel(), piece):
+            part = flat[s:s + piece]
+            bits += int(part.view(torch.int32).long().sum())
+            fsum += float(part.double().sum())
+        out.append((bits, fsum))
+    return out
+
+
+def _all_equal(obj) -> bool:
+    """Whether every rank passed the same `obj`."""
+    import torch.distributed as dist
+    seen = [None] * dist.get_world_size()
+    dist.all_gather_object(seen, obj)
+    return all(x == seen[0] for x in seen)
+
+
+def _int8_close(got, want, tol):
+    """(largest error over the leaf's largest value, fraction of elements
+    beyond tol x that value, largest error in steps of that value / 127)."""
+    got, want = got.double(), want.double()
+    scale = want.abs().max().clamp(min=1e-30)
+    err = (got - want).abs()
+    return ((err.max() / scale).item(), (err > tol * scale).double().mean()
+            .item(), (err.max() / (scale / 127)).item())
+
+
+def _synthetic_rvh(comm, world, compress):
+    """RVH of random lanes (a few M elements, ten leaves of their own
+    scales, several buckets) on the card against the single-process fused
+    tree of all lanes, run on rank 0."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.core import combine as C
+    from repro_torch.core import rvh
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    shapes = [(1536, 1024), (3_000_000,), (4096, 257), (777,), (3, 24576),
+              (250_000,), (64, 64), (1_000_001,), (5,), (8192, 33)]
+    lanes = {f"l{i}": torch.randn((world,) + s, generator=g, device="cuda")
+             * (0.5 + i) for i, s in enumerate(shapes)}
+    cfg = C.CombineConfig(compress=compress, fusion_threshold_mb=4)
+    mine = {k: v[comm.rank].clone() for k, v in lanes.items()}
+    got = rvh.adasum_rvh_pytree(mine, comm, compress=compress,
+                                bucket_bytes=cfg.fusion_bytes, donate=True)
+    same = _all_equal(_checksums(got))
+    res = {"compress": compress, "elements": sum(x.numel() for x in
+                                                 T.leaves(mine)),
+           "bitwise_across_ranks": same}
+    if comm.rank == 0:
+        want = C.fused_combine_tree(lanes, cfg)
+        errs = [_int8_close(got[k], want[k], COMBINED_RTOL) for k in lanes]
+        res["rel_err"] = max(e[0] for e in errs)
+        res["steps"] = max(e[2] for e in errs)
+        res["ok"] = same and (res["rel_err"] <= COMBINED_RTOL
+                              if compress == "none" else res["steps"] <= 2)
+    return res
+
+
+def rank_worker(spec: dict) -> int:
+    """One rank of phase 6 (run as its own process, all on cuda:0): the
+    main path's 3 steps, then step 1 twice more from fresh state (kernel,
+    plain arm), then the synthetic RVH check; writes a JSON record."""
+    import math
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.core import rvh
+    from repro_torch.engine import build_runtime
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model
+    world, optimizer, compress = spec["world"], spec["optimizer"], \
+        spec["compress"]
+    rank = int(os.environ["RANK"])
+    lead = rank == 0
+    cfg = dataclasses.replace(get_config("gemma-7b"), n_layers=RANK_LAYERS)
+    model = build_model(cfg, compute_dtype=torch.bfloat16,
+                        param_dtype=torch.float32)
+    rec = {"rank": rank, "world": world, "optimizer": optimizer,
+           "compress": compress}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    timer = _CombineTimer(keep=lead)
+    # under torchrun's environment the session starts the process group
+    s = _session(model, timer, device="cuda:0", dist_backend="gloo",
+                 optimizer=optimizer, compress=compress,
+                 global_batch=RANK_BATCH)
+    comm = s.comm
+    rec["init_s"] = time.perf_counter() - t0
+    gib = lambda b: f"{b / 2 ** 30:.2f}"
+    mem = lambda: (f"{gib(torch.cuda.memory_allocated())} GiB allocated, "
+                   f"peak {gib(torch.cuda.max_memory_allocated())}")
+    print(f"[rank {rank}] session up in {rec['init_s']:.1f}s: {mem()}",
+          flush=True)
+    leaves = T.leaves(s.state["params"])
+    plan = rvh.rvh_plan(leaves, world, rank,
+                        bucket_bytes=s.runtime.dopt.cfg.fusion_bytes)
+    rounds = int(math.log2(world))
+    rec.update(buckets=len(plan), rounds=rounds,
+               combine_path=s.runtime.combine_path,
+               point=s.runtime.dopt.point,
+               dist_backend=s.run_metadata()["dist_backend"])
+    comm.timing = True
+    comm.take_ms()
+    torch.cuda.synchronize()
+    build.reset_launches()
+    steps = []
+    for step in range(3):
+        staged0 = comm.total_staged_bytes()
+        t0 = time.perf_counter()
+        m = s.step(s.batch(step))
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        sums = _checksums(s.state["params"])
+        steps.append({"step": step, "ms": ms, "combine_ms": timer.take_ms(),
+                      "loss": m["loss"], "lane_cos": m["lane_cos"],
+                      "comm": comm.take_ms(),
+                      "staged_bytes": comm.total_staged_bytes() - staged0,
+                      "mem_gib": torch.cuda.memory_allocated() / 2 ** 30,
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                      "bitwise_across_ranks": _all_equal(sums)})
+        print(f"[rank {rank}] step {step} {ms:.0f} ms: {mem()}", flush=True)
+        if step == 0:
+            sums1 = sums
+            p1 = ([x.to("cpu", copy=True) for x in T.leaves(s.state["params"])]
+                  if lead else None)
+    rec["launches"] = dict(build.LAUNCHES)
+    comm.timing = False
+    rec["steps"] = steps
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    kept = timer.kept
+    s.state = None
+    _free()
+    # step 1 from fresh state: the kernel arm again (bitwise), then the
+    # plain arms on the card. The fresh params are drawn from the same
+    # seed as the session's (which rank 0 broadcast), so the runtimes run
+    # without a second session and broadcast
+    def fresh_step(rt):
+        params = model.init(torch.Generator(device="cuda:0").manual_seed(SEED))
+        state = {"params": params, "opt": rt.dopt.init(params), "step": 0}
+        return rt.train_step(state, batch0)[0]
+
+    batch0 = s.batch(0)
+    again = fresh_step(s.runtime)
+    rec["repeat_bitwise"] = _checksums(again["params"]) == sums1
+    del again
+    _free()
+    ptimer = _CombineTimer(keep=lead)
+    with _timing_combiners(ptimer):
+        prt = build_runtime(model, s.config.run_policy(), lr=s.config.lr,
+                            comm=comm, combine_impl="plain")
+    plain = fresh_step(prt)
+    if lead:   # the combine's output and stats of step 1, then params
+        rec["stats_rel_err"] = _rel_err(kept[1], ptimer.kept[1])
+        cerr = [_int8_close(x, y, COMBINED_RTOL)
+                for x, y in zip(ptimer.kept[0], kept[0])]
+        rec["combined_rel_err"] = max(e[0] for e in cerr)
+        rec["combined_flip_fraction"] = max(e[1] for e in cerr)
+        rec["combined_steps"] = max(e[2] for e in cerr)
+        rec["update_max_abs"] = max(x.abs().max().item() for x in kept[0])
+        perr = [(x.cpu() - y).abs()
+                for x, y in zip(T.leaves(plain["params"]), p1)]
+        rec["params_max_abs_err"] = max(e.max().item() for e in perr)
+        rec["params_flip_fraction"] = max(
+            (e > TRAIN_PARAM_TOL).double().mean().item() for e in perr)
+        del perr
+    del plain, prt, ptimer, kept, p1
+    _free()
+    rec["synthetic"] = [_synthetic_rvh(comm, world, "none")]
+    if compress != "none":
+        rec["synthetic"].append(_synthetic_rvh(comm, world, compress))
+    rec["staged_bytes_total"] = comm.total_staged_bytes()
+    rec["peak_gib_all"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    s.close()
+    Path(spec["out"]).write_text(json.dumps(rec, default=str))
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _launch_ranks(world: int, optimizer: str, compress: str) -> list:
+    """`world` rank processes of this script (RANK, WORLD_SIZE,
+    LOCAL_RANK, MASTER_ADDR/PORT as torchrun sets them); any rank failing
+    or outliving RANK_TIMEOUT_S fails the phase, and every process is
+    stopped before this returns."""
+    out = ROOT / "build" / "ranks"            # gitignored, beside the kernels
+    out.mkdir(parents=True, exist_ok=True)
+    port = _free_port()
+    procs, logs = [], []
+    tag = f"{optimizer}_w{world}"
+    for r in range(world):
+        spec = {"world": world, "optimizer": optimizer, "compress": compress,
+                "out": str(out / f"{tag}_rank{r}.json")}
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+        log = open(out / f"{tag}_rank{r}.log", "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--rank-worker",
+             json.dumps(spec)], env=env, stdout=log,
+            stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"ranks {tag} outlived "
+                                     f"{RANK_TIMEOUT_S}s")
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in logs:
+            log.close()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        for r in bad:
+            text = (out / f"{tag}_rank{r}.log").read_text()
+            print(f"--- rank {r} of {tag} (rc {procs[r].returncode}):\n"
+                  f"{text[-3000:]}", file=sys.stderr)
+        raise AssertionError(f"ranks {tag}: rank(s) {bad} failed")
+    return [json.loads((out / f"{tag}_rank{r}.json").read_text())
+            for r in range(world)]
+
+
+def ranks_phase(card: str):
+    """Phase 6: multi-rank Adasum (RVH across ranks) through
+    `TrainSession` in rank processes that share this machine's one
+    card over gloo."""
+    import torch
+    _free()
+    print(f"[smoke] ranks: before launching, this process holds "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved | {card}")
+    print(f"[smoke] ranks: gloo over host memory, every rank on cuda:0 (this"
+          f" machine has {torch.cuda.device_count()} card); exchanged halves"
+          f" are staged through pinned host buffers; NCCL was not run; "
+          f"exchange times are host loopback times | {card}")
+    runs = {}
+    for optimizer, world, compress in RANK_RUNS:
+        t0 = time.perf_counter()
+        recs = _launch_ranks(world, optimizer, compress)
+        wall = time.perf_counter() - t0
+        lead = recs[0]
+        per_step = lead["buckets"] * lead["rounds"]
+        tag = f"{optimizer} world={world} compress={compress}"
+        for rec in recs:
+            for k in ("block_dots", "block_combine"):
+                assert rec["launches"][k] == 3 * per_step, (
+                    f"{tag} rank {rec['rank']}: {k} launched "
+                    f"{rec['launches'][k]} times, expected {3 * per_step} "
+                    f"({lead['buckets']} buckets x {lead['rounds']} rounds "
+                    f"x 3 steps)")
+        steady = [r["steps"][1:] for r in recs]
+        mean = lambda f: statistics.mean(f(st) for rs in steady for st in rs)
+        part = lambda name: mean(lambda st: st["comm"].get(name, 0.0))
+        peaks = [r["peak_gib"] for r in recs]
+        peaks_all = [r["peak_gib_all"] for r in recs]
+        bitwise = all(st["bitwise_across_ranks"] for r in recs
+                      for st in r["steps"])
+        repeat = all(r["repeat_bitwise"] for r in recs)
+        syn = lead["synthetic"]
+        run = {"world": world, "optimizer": optimizer, "compress": compress,
+               "point": lead["point"], "combine_path": lead["combine_path"],
+               "buckets": lead["buckets"], "rounds": lead["rounds"],
+               "launches": [r["launches"] for r in recs],
+               "losses": [st["loss"] for st in lead["steps"]],
+               "step_ms": [[st["ms"] for st in r["steps"]] for r in recs],
+               "step_ms_steady": mean(lambda st: st["ms"]),
+               "combine_ms_steady": mean(lambda st: st["combine_ms"]),
+               "exchange_ms_steady": part("exchange"),
+               "staging_ms_steady": part("stage"),
+               "dots_sum_ms_steady": part("dots_sum"),
+               "kernels_ms_steady": part("kernels"),
+               "staged_gb_per_step": mean(lambda st: st["staged_bytes"])
+               / 1e9,
+               "peak_gib": peaks, "peak_gib_sum": sum(peaks),
+               "peak_gib_all_checks": peaks_all,
+               "bitwise_across_ranks": bitwise, "repeat_bitwise": repeat,
+               "wall_s": wall, "init_s": [r["init_s"] for r in recs],
+               **{k: lead[k] for k in lead if k.endswith(("_err", "_abs",
+                                                          "_fraction",
+                                                          "_steps"))},
+               "synthetic": syn}
+        runs[f"{optimizer}_w{world}"] = run
+        per_rank = [{k: n[k] for k in ("block_dots", "block_combine")}
+                    for n in run["launches"]]
+        print(f"[smoke] ranks {tag} point={run['point']} "
+              f"path={run['combine_path']} buckets={run['buckets']} "
+              f"rounds={run['rounds']} launches per rank={per_rank} "
+              f"losses={[round(x, 4) for x in run['losses']]} | {card}")
+        print(f"[smoke] ranks {tag}: step_ms={run['step_ms_steady']:.1f} "
+              f"combine_ms={run['combine_ms_steady']:.1f} of which "
+              f"exchange_ms={run['exchange_ms_steady']:.1f} (staging_ms="
+              f"{run['staging_ms_steady']:.1f}; gloo over host loopback, "
+              f"not NCCL) dots_sum_ms={run['dots_sum_ms_steady']:.1f} "
+              f"dots+combine kernels_ms={run['kernels_ms_steady']:.1f}; "
+              f"staged {run['staged_gb_per_step']:.2f} GB a step per rank; "
+              f"peak_gib per rank={[round(x, 2) for x in peaks]} sum="
+              f"{sum(peaks):.2f} (limit {RANK_MEM_GIB}; with the checks "
+              f"after the run {sum(peaks_all):.2f}); phase wall "
+              f"{wall:.1f}s | {card}")
+        print(f"[smoke] ranks {tag}: params bitwise equal across ranks after "
+              f"every step={bitwise}; step 1 repeated bitwise={repeat}; "
+              f"kernel vs plain: combined rel_err="
+              f"{lead['combined_rel_err']:.3e} (flip fraction "
+              f"{lead['combined_flip_fraction']:.2e}, largest "
+              f"{lead['combined_steps']:.3f} steps) stats rel_err="
+              f"{lead['stats_rel_err']:.3e} (tol {COMBINED_RTOL}); params "
+              f"max_abs_err={lead['params_max_abs_err']:.3e} (tol "
+              f"{TRAIN_PARAM_TOL}, flip fraction "
+              f"{lead['params_flip_fraction']:.2e}) against a step-1 "
+              f"update of max {lead['update_max_abs']:.3e}; synthetic RVH vs"
+              f" fused tree (compress, rel_err, steps): "
+              f"{[(x['compress'], x['rel_err'], x['steps']) for x in syn]}"
+              f" | {card}")
+        assert bitwise, f"{tag}: params differ across ranks"
+        assert repeat, f"{tag}: step 1 is not bitwise repeatable"
+        assert all(x["ok"] and x["bitwise_across_ranks"] for x in syn), syn
+        assert lead["stats_rel_err"] <= COMBINED_RTOL, tag
+        if compress == "none":
+            assert lead["combined_rel_err"] <= COMBINED_RTOL, tag
+            assert lead["params_max_abs_err"] <= TRAIN_PARAM_TOL, tag
+        else:
+            assert lead["combined_flip_fraction"] <= INT8_FLIP_FRACTION, tag
+            assert lead["combined_steps"] <= 2, tag
+            assert lead["params_flip_fraction"] <= INT8_FLIP_FRACTION, tag
+            assert lead["params_max_abs_err"] <= (
+                2 * lead["update_max_abs"] / 127 + TRAIN_PARAM_TOL), tag
+        assert sum(peaks) <= RANK_MEM_GIB, (
+            f"{tag}: summed peak {sum(peaks):.1f} GiB > {RANK_MEM_GIB}")
+    return {"layers": RANK_LAYERS, "runs": runs}
+
+
 def serve_ab(other: Path) -> int:
     """The serve phase on `other`'s package and on this tree's, in turns
     other, this, this, other, each run a process of this script with
@@ -1044,10 +1475,17 @@ def main(argv=None) -> int:
                     help="instead of the phases: the serve phase on DIR's "
                     "checkout and this one, in turns DIR, this, this, DIR")
     ap.add_argument("--serve-only", metavar="SRC", help=argparse.SUPPRESS)
+    ap.add_argument("--rank-worker", metavar="SPEC", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.rank_worker:                # one rank of phase 6
+        return rank_worker(json.loads(args.rank_worker))
 
     card = _smi()
     print(card)
+    # before CUDA starts: lets empty_cache return the card memory the
+    # phases leave fragmented, which the rank processes of phase 6 need
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1080,6 +1518,7 @@ def main(argv=None) -> int:
         record["serve"] = serve_phase(card, args.profile)
         _free()
         record["train"] = train_phase(card, args.profile)
+        record["ranks"] = ranks_phase(card)
     except Exception:                   # any phase failing fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -1096,6 +1535,12 @@ def main(argv=None) -> int:
     first = record["train"]["runs"][
         "{}_span{}".format(*TRAIN_RUNS[0])]["launches"]
     launches.update({k: first[k] for k in ("block_dots", "block_combine")})
+    # and beside them, their launches on rank 0 of phase 6's first run and
+    # their times on RVH's 1-D round-0 half
+    rvh_launches = record["ranks"]["runs"]["{}_w{}".format(
+        *RANK_RUNS[0][:2])]["launches"][0]
+    rvh_ms = {c["kernel"]: c["ms"] for c in cases
+              if c["case"] == "rvh_half_w4"}
     main_cases = {"serve_extend", "serve_tick", "embed_fp32"}
     sources = {
         "flash_attention": ("csrc/flash_attention.cu",
@@ -1122,6 +1567,9 @@ def main(argv=None) -> int:
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
             "device_ms": c.get("device_ms"),
             "library_device_ms": c.get("library_device_ms")})
+        if c["kernel"] in rvh_ms:
+            rows[-1].update(rvh_launches=rvh_launches[c["kernel"]],
+                            rvh_half_ms=rvh_ms[c["kernel"]])
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

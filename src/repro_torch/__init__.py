@@ -6,9 +6,11 @@ its own copy, with the same module names so each counterpart is easy to
 find (`configs/`, `models/`, `kernels/`, `engine/`, `engine/serving/`,
 `launch/`).
 
-Slice 1 (this package today) is the serving path of a dense GQA decoder:
-paged continuous batching with shared-prefix reuse, whose prefill and
-decode attention run in hand-written CUDA kernels on an H100
-(`kernels/csrc/flash_attention.cu`). Entry points run on `cuda` unless
+It serves dense GQA decoders (paged continuous batching with
+shared-prefix reuse, prefill and decode attention in hand-written CUDA
+kernels, `kernels/csrc/flash_attention.cu`) and trains them with Adasum:
+the lanes stacked on one device, or one lane per rank over
+`torch.distributed` with the paper's RVH (`core/rvh.py`), the block
+kernels in `kernels/csrc/adasum.cu`. Entry points run on `cuda` unless
 the caller passes `device="cpu"`; see `runtime.resolve_device`.
 """

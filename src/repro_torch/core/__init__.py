@@ -1,2 +1,3 @@
-"""Adasum math, fusion layouts, the fused bucketed combine and the
-distributed optimizer (the port's `repro/core`, one-device subset)."""
+"""Adasum math, fusion layouts, the fused bucketed combine, ADASUMRVH
+across ranks (`rvh`) and the distributed optimizer (the port's
+`repro/core`)."""

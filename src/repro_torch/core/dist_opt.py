@@ -8,9 +8,15 @@ port of `repro/core/dist_opt.py`.
         gradient; the deltas are combined and applied (Adam/LAMB: Adasum
         must not inflate the minibatch the optimizer logic sees).
 
-Lanes run in a Python loop, not `vmap`. Optimizer states are updated in
-place (see `repro_torch.optim.optimizers`); at the post point each
-lane's fp32 delta overwrites that lane's gradient in place when the
+Lanes are either stacked on one device (`stacked=True`: leaves carry a
+leading [span] lane axis) or one per rank (`stacked=False`: each rank
+holds its own lane's gradient and, at the post point, its own lane's
+optimizer state — the reference's per-rank state, build.py:264-282; the
+combiner reduces across ranks and returns the same tree on every rank).
+
+Stacked lanes run in a Python loop, not `vmap`. Optimizer states are
+updated in place (see `repro_torch.optim.optimizers`); at the post point
+each lane's fp32 delta overwrites that lane's gradient in place when the
 gradients are fp32, so no second [span, ...] tree is allocated. `apply`
 writes the params in place. The step counter is a Python int.
 """
@@ -34,6 +40,8 @@ class DistributedOptimizer:
     cfg: CombineConfig
     combiner: Callable[[PyTree], PyTree]
     span: int = 1
+    stacked: bool = True        # lanes stacked on one device; False: one
+                                # lane per rank, no lane axis
 
     @property
     def point(self) -> str:
@@ -45,7 +53,7 @@ class DistributedOptimizer:
 
     def init(self, params: PyTree) -> Dict[str, Any]:
         state = self.opt.init(params)
-        if self.point == "post" and self.span > 1:
+        if self.point == "post" and self.span > 1 and self.stacked:
             # one optimizer state per lane (Horovod: per-node state)
             state = T.map(lambda x: x.expand((self.span,) + tuple(x.shape))
                           .clone(), state)
@@ -53,7 +61,9 @@ class DistributedOptimizer:
 
     def update(self, stacked_grads: PyTree, state: Dict[str, Any],
                params: PyTree) -> Tuple[PyTree, Dict[str, Any]]:
-        """stacked_grads: leaves [span, *shape]. Returns (delta, state)."""
+        """stacked_grads: leaves [span, *shape] (this rank's lane
+        gradient, no lane axis, when not stacked). Returns (delta,
+        state)."""
         delta, new_state, _ = self._update(stacked_grads, state, params,
                                            self.combiner)
         return delta, new_state
@@ -77,7 +87,15 @@ class DistributedOptimizer:
             return out
 
         step = state["step"]
-        if self.point == "pre":
+        if not self.stacked:
+            if self.point == "pre":
+                delta, inner = self.opt.update(combine(stacked_grads),
+                                               state["inner"], params, step)
+            else:       # this rank's own state, then combine the deltas
+                d, inner = self.opt.update(stacked_grads, state["inner"],
+                                           params, step)
+                delta = combine(d)
+        elif self.point == "pre":
             combined = combine(stacked_grads)
             delta, inner = self.opt.update(combined, state["inner"], params,
                                            step)

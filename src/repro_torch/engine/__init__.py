@@ -1,9 +1,11 @@
-"""repro_torch.engine — the port's engine surface (slices 1-2: serving,
-one-device training).
+"""repro_torch.engine — the port's engine surface (serving; training with
+the lanes stacked on one device or one lane per rank).
 
   config    EngineConfig, train and serve fields
-  build     the one-device training runtime; decode steps and sampling
-  registry  string-keyed combiners (sum, mean, adasum-gspmd/-fused/-linear)
+  build     the training runtime (stacked lanes, or ranks over a Comm);
+            decode steps and sampling
+  registry  string-keyed combiners (sum, mean, adasum-gspmd/-fused/
+            -linear, adasum-rvh across ranks)
   session   TrainSession — config -> model, runtime, data, state, fit()
   serving   ServeEngine — continuous batching over a paged KV cache
 """

@@ -6,14 +6,17 @@ the same in both packages; `from_cli` parses the train CLI with the
 reference's flags and preset table. Options a later slice brings raise
 `NotImplementedError` naming their ROADMAP item.
 
-Lanes on one device: the port runs the `span` Adasum lanes stacked on
-one card, so `validate(dp_total)` drops the reference's span <= dp rule
-(config.py:309-313). On a one-device JAX mesh `build_runtime` asserts
-dp % span == 0 and `TrainSession` quietly clamps span > dp to 0, so the
-reference would run no combine there; the function its `sync_step`
-computes does not depend on the mesh, and the port computes that
-function with the lanes stacked. A span must be a power of two that
-divides global_batch.
+Span rules. Across ranks (`validate(dp_total=W)` with W > 1, one
+process per rank) they are the reference's (config.py:309-313): span <=
+dp and dp % span == 0, and global_batch divisible by dp. On one device
+(W = 1) the port runs the `span` Adasum lanes stacked on one card, so
+`validate` drops the span <= dp rule: on a one-device JAX mesh
+`build_runtime` asserts dp % span == 0 and `TrainSession` quietly clamps
+span > dp to 0, so the reference would run no combine there; the
+function its `sync_step` computes does not depend on the mesh, and the
+port computes that function with the lanes stacked. A span must be a
+power of two that divides global_batch. `data_mesh` must be 0 or the
+number of ranks; meshes beyond that are ROADMAP.md queue 1 item 7.
 """
 from __future__ import annotations
 
@@ -24,13 +27,13 @@ from typing import Any, Dict, Optional
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.parallel.policy import RunPolicy
 from repro_torch.runtime import (ITEM_ADASUM_MATH, ITEM_CHECKPOINTS,
-                                 ITEM_ENGINE, ITEM_MULTI_RANK,
-                                 ITEM_SERVING_EXTRAS, ITEM_SHARDING,
-                                 ITEM_SUBSYSTEMS, not_ported)
+                                 ITEM_ENGINE, ITEM_SERVING_EXTRAS,
+                                 ITEM_SHARDING, ITEM_SUBSYSTEMS, not_ported)
 
 PARAM_DTYPES = ("float32", "bfloat16")
 _COMBINE_OPS = ("adasum", "sum", "mean")
 _BACKENDS = ("", "rvh", "gspmd_tree", "fused", "linear")
+_COMPRESS = ("none", "int8")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,8 +45,10 @@ class EngineConfig:
 
     # ---- combiner ----
     combine: str = "adasum"     # 'adasum' | 'sum' | 'mean' | registry entry
-    backend: str = ""           # '' => auto (gspmd_tree on one device)
-    span: int = 0               # #Adasum lanes; 0 => one per DP rank (1)
+    backend: str = ""           # '' => auto (rvh at span == dp across
+                                # ranks, gspmd_tree below it and on one
+                                # device)
+    span: int = 0               # #Adasum lanes; 0 => one per DP rank
     combine_point: str = "auto" # 'pre' | 'post' | 'auto' (by optimizer kind)
     per_layer: bool = True      # paper §3.6 per-layer Adasum
     acc_dtype: str = "float32"  # dot-product accumulation dtype (§4.4.1)
@@ -54,8 +59,8 @@ class EngineConfig:
                                 # gspmd_tree backend
     fusion_threshold_mb: int = 64   # Horovod-style packing bucket budget
 
-    # ---- parallelism (one device: the sharding knobs change nothing) ----
-    data_mesh: int = 0
+    # ---- parallelism (the sharding knobs change nothing yet) ----
+    data_mesh: int = 0          # 0 or the number of ranks
     model_mesh: int = 1
     fsdp: bool = False
     scatter_grads: bool = False
@@ -124,6 +129,9 @@ class EngineConfig:
                     f"{_COMBINE_OPS}, registry {available_combiners()}")
         if self.span < 0:
             raise ValueError(f"span must be >= 0, got {self.span}")
+        if self.compress not in _COMPRESS:
+            raise ValueError(f"compress={self.compress!r}; expected one of "
+                             f"{_COMPRESS}")
         if self.fusion_threshold_mb < 1:
             raise ValueError(f"fusion_threshold_mb must be >= 1, got "
                              f"{self.fusion_threshold_mb}")
@@ -156,11 +164,21 @@ class EngineConfig:
                 "kv_pages=1 is only the reserved trash page; the engine "
                 "needs at least one allocatable page")
         if dp_total is not None:
+            if self.data_mesh not in (0, dp_total):
+                raise not_ported(
+                    f"data_mesh={self.data_mesh} with {dp_total} rank(s)",
+                    ITEM_SHARDING, "the data axis is one rank per lane "
+                    "group member; meshes beyond that are not ported")
             span = self.span or dp_total
             if span & (span - 1):
                 raise ValueError(f"span={span} must be a power of two (the "
                                  f"Adasum tree pairs lanes)")
-            if self.backend == "rvh" and span > 1 and self.strict:
+            if dp_total > 1 and (span > dp_total or dp_total % span):
+                raise ValueError(f"span={span} must divide dp={dp_total}")
+            if dp_total > 1 and self.global_batch % dp_total:
+                raise ValueError(f"global_batch={self.global_batch} not "
+                                 f"divisible by dp={dp_total}")
+            if self.backend == "rvh" and span != dp_total and self.strict:
                 raise ValueError(
                     f"backend='rvh' needs one lane per DP rank (span={span}"
                     f", dp={dp_total}); drop strict=True to fall back to "
@@ -189,10 +207,8 @@ class EngineConfig:
              "(adaptive_batch)", ITEM_SUBSYSTEMS),
             (self.combine_delay, "the delayed combine (combine_delay > 0)",
              ITEM_SUBSYSTEMS),
-            (self.compress != "none", f"compress={self.compress!r} (RVH "
-             f"wire compression)", ITEM_MULTI_RANK),
-            (self.data_mesh > 1 or self.model_mesh > 1,
-             "meshes above one device (data_mesh/model_mesh)", ITEM_SHARDING),
+            (self.model_mesh > 1, "tensor-parallel meshes (model_mesh > 1)",
+             ITEM_SHARDING),
             (self.acc_dtype == "float64", "acc_dtype='float64'",
              ITEM_ADASUM_MATH),
             (self.prefill_mode == "scan", "prefill_mode='scan' (the fused "
@@ -298,7 +314,8 @@ class EngineConfig:
         ap.add_argument("--acc-dtype", default=None, dest="acc_dtype")
         ap.add_argument("--use-pallas", action="store_true", default=None,
                         dest="use_pallas")
-        ap.add_argument("--compress", default=None)
+        ap.add_argument("--compress", default=None, choices=list(_COMPRESS),
+                        help="int8: quantized RVH wire payloads")
         ap.add_argument("--strict", action="store_true", default=None,
                         help="error (not warn) on degraded fallbacks")
         ap.add_argument("--data-mesh", type=int, default=None,
@@ -348,8 +365,8 @@ class EngineConfig:
 
 # Per-arch presets — the reference's table (config.py:580-600), derived
 # there from a TPU memory budget; kept as is so a preset means the same
-# run in both packages. On one device fsdp/scatter_grads/pad_heads change
-# nothing, and backend='rvh' with span > 1 falls back to gspmd_tree.
+# run in both packages. fsdp/scatter_grads/pad_heads change nothing yet;
+# on one device backend='rvh' with span > 1 falls back to gspmd_tree.
 _PRESETS: Dict[str, Dict[str, Any]] = {
     "hymba_1p5b":            dict(backend="rvh", pad_heads=True),
     "moonshot_v1_16b_a3b":   dict(span=4, fsdp=True, scatter_grads=True,

@@ -2,13 +2,15 @@
 
 Every combiner is a *factory*
 
-    factory(cfg: CombineConfig, *, impl="kernel", donate=False) -> combine
+    factory(cfg: CombineConfig, *, impl="kernel", donate=False,
+            comm=None) -> combine
 
 where `combine(stacked) -> combined` reduces a stacked pytree (leading
-lane axis of length `cfg.span`). `impl` and `donate` are the fused
-path's (see `repro_torch.core.combine`); a factory may ignore them. The
-reference's `mesh`, `dp_axes` and `leaf_specs` have no meaning on one
-device and are not taken. Built-in entries:
+lane axis of length `cfg.span`), or, for `adasum-rvh`, this rank's lane
+tree across the ranks of `comm` (a `repro_torch.parallel.comm.Comm`, in
+place of the reference's `mesh` and `dp_axes`). `impl` and `donate` are
+the fused path's (see `repro_torch.core.combine`); a factory may ignore
+them. Built-in entries:
 
     sum            plain sum over lanes (synchronous-SGD baseline)
     mean           arithmetic mean over lanes
@@ -16,9 +18,13 @@ device and are not taken. Built-in entries:
                    combine (cfg.fused, default), else the per-leaf tree
     adasum-fused   the fused bucketed combine, explicitly
     adasum-linear  ring-order recursion (paper §3.4) — ablation variant
+    adasum-rvh     ADASUMRVH (paper Algorithm 1) across the ranks of
+                   `comm`, one lane per rank (`repro_torch.core.rvh`)
 
-`adasum-rvh`, `adascale` and `dasgd` raise `NotImplementedError` naming
-the ROADMAP item that brings them. Register a new combiner with
+Across ranks (a comm of more than one rank) only `adasum-rvh` runs; the
+others are stacked-lane combiners. `adascale` and `dasgd` raise
+`NotImplementedError` naming the ROADMAP item that brings them. Register
+a new combiner with
 
     @register_combiner("mine")
     def _mine(cfg, **_):
@@ -34,6 +40,7 @@ from repro_torch.core.combine import (CombineConfig, _level_triple,
                                       build_fused_combiner, stack_stats,
                                       tree_combine_per_layer,
                                       tree_combine_whole)
+from repro_torch.core.rvh import build_rvh_combiner
 from repro_torch.runtime import (ITEM_ENGINE, ITEM_MULTI_RANK,
                                  ITEM_SUBSYSTEMS, not_ported)
 
@@ -43,8 +50,7 @@ CombinerFactory = Callable[..., Combiner]
 
 _COMBINERS: Dict[str, CombinerFactory] = {}
 # reference registry entries a later slice brings
-LATER = {"adasum-rvh": ITEM_MULTI_RANK, "adascale": ITEM_ENGINE,
-         "dasgd": ITEM_SUBSYSTEMS}
+LATER = {"adascale": ITEM_ENGINE, "dasgd": ITEM_SUBSYSTEMS}
 
 
 def register_combiner(name: str, *, overwrite: bool = False):
@@ -83,16 +89,28 @@ def registry_key(op: str, backend: str = "") -> str:
     return op   # custom registry entries are addressed by op name directly
 
 
+def _check_ranks(key: str, comm) -> None:
+    """Across ranks only the RVH combiner runs."""
+    if comm is not None and comm.world > 1 and key != "adasum-rvh":
+        raise not_ported(f"combiner {key!r} across ranks", ITEM_MULTI_RANK,
+                         "across ranks this slice runs the Adasum tree as "
+                         "RVH (op='adasum')")
+
+
 def make_combiner(cfg: CombineConfig, *, with_stats: bool = False,
-                  impl: str = "kernel", donate: bool = False) -> Combiner:
+                  impl: str = "kernel", donate: bool = False,
+                  comm=None) -> Combiner:
     """The registry-dispatched combiner. Every returned combiner carries
     a `combine_path` naming the implementation that actually runs
-    ('gspmd-fused' vs 'gspmd-reference'). with_stats=True returns a
-    combiner yielding (combined, CombineStats) — see `stats_combiner`."""
+    ('gspmd-fused' vs 'gspmd-reference', 'rvh'). with_stats=True returns
+    a combiner yielding (combined, CombineStats) — see `stats_combiner`.
+    `comm` is the group of ranks `adasum-rvh` combines across."""
     if with_stats:
-        return stats_combiner(cfg, impl=impl, donate=donate)
+        return stats_combiner(cfg, impl=impl, donate=donate, comm=comm)
     key = registry_key(cfg.op, cfg.backend)
-    combiner = get_combiner_factory(key)(cfg, impl=impl, donate=donate)
+    factory = get_combiner_factory(key)
+    _check_ranks(key, comm)
+    combiner = factory(cfg, impl=impl, donate=donate, comm=comm)
     if not hasattr(combiner, "combine_path"):
         try:
             combiner.combine_path = key
@@ -113,12 +131,18 @@ def probe_stats(stacked: PyTree, acc_dtype) -> dict:
 
 
 def stats_combiner(cfg: CombineConfig, *, impl: str = "kernel",
-                   donate: bool = False) -> Combiner:
+                   donate: bool = False, comm=None) -> Combiner:
     """A combiner returning (combined, CombineStats). The adasum gspmd /
-    fused paths surface their own per-level triples; every other
-    combiner is wrapped with the level-0 `probe_stats` (taken before the
-    combine, which may consume its input)."""
+    fused paths surface their own per-level triples, and `adasum-rvh`
+    the reference's level-0 probe from its round-0 dots (registry.py:
+    113-125, :162-171, without exchanging the gradients again); every
+    other combiner is wrapped with the level-0 `probe_stats` (taken
+    before the combine, which may consume its input)."""
     key = registry_key(cfg.op, cfg.backend)
+    _check_ranks(key, comm)
+    if key == "adasum-rvh":
+        return _adasum_rvh(cfg, impl=impl, donate=donate, comm=comm,
+                           with_stats=True)
     if key in ("adasum-gspmd", "adasum-fused"):
         if cfg.fused:
             fused = build_fused_combiner(cfg, with_stats=True, impl=impl,
@@ -177,6 +201,19 @@ def _adasum_fused(cfg, *, impl="kernel", donate=False, **_):
     fused = build_fused_combiner(cfg, impl=impl, donate=donate)
     fused.combine_path = "gspmd-fused"
     return fused
+
+
+@register_combiner("adasum-rvh")
+def _adasum_rvh(cfg, *, impl="kernel", donate=False, comm=None,
+                with_stats=False, **_):
+    """ADASUMRVH across the ranks of `comm`, one lane per rank."""
+    if comm is None:
+        raise ValueError(
+            "adasum-rvh combines across ranks: pass comm= (a repro_torch."
+            "parallel.comm.Comm, one lane per rank); lanes stacked on one "
+            "device take backend='gspmd_tree'")
+    return build_rvh_combiner(cfg, comm, with_stats=with_stats, impl=impl,
+                              donate=donate)
 
 
 @register_combiner("adasum-linear")

@@ -14,10 +14,20 @@ failure drills are ROADMAP.md queue 1 item 4.
 
 Weights come from the port's seeded generator: the reference's
 `jax.random.key(0)` draws cannot be reproduced in torch.
+
+Across ranks: under `python -m torch.distributed.run --nproc-per-node N`
+(WORLD_SIZE > 1 in the environment) `from_config` starts the process
+group itself (`Comm.init`: nccl on cuda, gloo on the CPU, or the
+`dist_backend` named) and runs one lane per rank. Each rank defaults to
+`cuda:LOCAL_RANK`; ranks that share one card name it (`device="cuda:0"`)
+and need gloo. Every rank draws the weights from the same seed and rank
+0's are then broadcast. Only rank 0's `LoggingCallback` prints. `close()`
+destroys the process group the session started.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Any, Dict, List, Optional
 
@@ -28,6 +38,7 @@ from repro_torch.control.noise import STAT_KEYS
 from repro_torch.data import make_source
 from repro_torch.models import build_model
 from repro_torch.models.api import Model
+from repro_torch.parallel.comm import Comm
 from repro_torch.runtime import DeviceLike, make_generator, resolve_device
 
 from .build import Runtime, build_runtime
@@ -56,7 +67,7 @@ class LoggingCallback(Callback):
 
     def on_step_end(self, session, step, metrics, dt):
         last = step == session.config.steps - 1
-        if step % self.every == 0 or last:
+        if session.rank == 0 and (step % self.every == 0 or last):
             print(f"[train] step {step:5d} loss {metrics['loss']:.4f} "
                   f"{dt*1e3:.0f}ms span={session.runtime.span} "
                   f"combine={session.config.combine}")
@@ -67,17 +78,21 @@ def default_callbacks(cfg: EngineConfig) -> List[Callback]:
 
 
 class TrainSession:
-    """One training run on one device: config -> (model, runtime, data,
-    state)."""
+    """One training run on one device or as one rank of several: config ->
+    (model, runtime, data, state)."""
 
     def __init__(self, config: EngineConfig, model: Model, runtime: Runtime,
                  source, generator: torch.Generator,
-                 callbacks: Optional[List[Callback]] = None):
+                 callbacks: Optional[List[Callback]] = None,
+                 owns_comm: bool = False):
         self.config = config
         self.model = model
         self.runtime = runtime
         self.source = source
         self.device = generator.device
+        self.comm = runtime.comm
+        self.rank = self.comm.rank if self.comm is not None else 0
+        self._owns_comm = owns_comm
         self.callbacks = (default_callbacks(config) if callbacks is None
                           else list(callbacks))
         self.state: PyTree = runtime.init_state(generator)
@@ -88,13 +103,22 @@ class TrainSession:
                     device: DeviceLike = None,
                     generator: Optional[torch.Generator] = None,
                     callbacks: Optional[List[Callback]] = None,
-                    combine_impl: str = "kernel") -> "TrainSession":
+                    combine_impl: str = "kernel", comm: Optional[Comm] = None,
+                    dist_backend: Optional[str] = None) -> "TrainSession":
         """Builds everything on `device` (cuda unless the caller names the
         CPU); weights come from `generator` (default: seed 0 on that
-        device)."""
+        device). With WORLD_SIZE > 1 in the environment and no `comm`,
+        starts the process group (`dist_backend`: nccl on cuda, gloo on
+        the CPU by default) and the session owns it; a `comm` passed in
+        stays the caller's."""
         config.validate()
+        world = (comm.world if comm is not None
+                 else int(os.environ.get("WORLD_SIZE", "1")))
+        local_rank = (int(os.environ.get("LOCAL_RANK", "0")) if world > 1
+                      else None)
         dev = resolve_device(device if device is not None
-                             or generator is None else generator.device)
+                             or generator is None else generator.device,
+                             local_rank=local_rank)
         gen = generator if generator is not None else make_generator(dev)
         if gen.device.type != dev.type:
             raise ValueError(f"generator on {gen.device}, session on {dev}")
@@ -107,14 +131,24 @@ class TrainSession:
             model = build_model(
                 mcfg, param_dtype=getattr(torch, config.param_dtype),
                 attn_chunk=min(config.attn_chunk, config.seq_len))
-        # the span and batch checks come after the model's family check
-        config.validate(dp_total=1)
-        runtime = build_runtime(model, config.run_policy(), lr=config.lr,
-                                strict=config.strict,
-                                combine_impl=combine_impl)
-        source = make_source(config.data_config(model.cfg.vocab_size),
-                             model.cfg)
-        return cls(config, model, runtime, source, gen, callbacks)
+        owns = comm is None and world > 1
+        if owns:
+            comm = Comm.init(dist_backend or ("nccl" if dev.type == "cuda"
+                                              else "gloo"), dev)
+        try:
+            # the span and batch checks come after the model's family check
+            config.validate(dp_total=world)
+            runtime = build_runtime(model, config.run_policy(), lr=config.lr,
+                                    strict=config.strict,
+                                    combine_impl=combine_impl, comm=comm)
+            source = make_source(config.data_config(model.cfg.vocab_size),
+                                 model.cfg)
+            return cls(config, model, runtime, source, gen, callbacks,
+                       owns_comm=owns)
+        except BaseException:
+            if owns:
+                comm.close()
+            raise
 
     def run_metadata(self) -> Dict[str, Any]:
         """What actually ran: the resolved combine path, the topology and
@@ -130,6 +164,10 @@ class TrainSession:
                 "local_steps": self.config.local_steps,
                 "devices": 1,
                 "device": str(self.device),
+                "world": rt.dp_total,
+                "dist_backend": self.comm.backend if self.comm else "none",
+                "staged_bytes": (self.comm.total_staged_bytes()
+                                 if self.comm else 0),
                 "stats_enabled": rt.combine_stats,
                 "combine_stats": dict(self._last_stats),
                 "global_batch": self.config.global_batch,
@@ -178,4 +216,8 @@ class TrainSession:
         return history
 
     def close(self) -> None:
-        """Nothing to release (no background threads in the port yet)."""
+        """Destroy the process group the session started (no background
+        threads in the port yet)."""
+        if self._owns_comm:
+            self.comm.close()
+            self._owns_comm = False

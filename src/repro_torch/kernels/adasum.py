@@ -92,8 +92,8 @@ def combine_ref(a: torch.Tensor, b: torch.Tensor, s1b: torch.Tensor,
                 s2b: torch.Tensor, block_elems: int) -> torch.Tensor:
     """s1[blk]*a + s2[blk]*b in the buffer dtype (the oracle's rule)."""
     nb = a.shape[0] // block_elems
-    out = (s1b[:, None].to(a.dtype) * a.reshape(nb, block_elems)
-           + s2b[:, None].to(b.dtype) * b.reshape(nb, block_elems))
+    out = s1b[:, None].to(a.dtype) * a.reshape(nb, block_elems)
+    out += s2b[:, None].to(b.dtype) * b.reshape(nb, block_elems)
     return out.reshape(-1)
 
 
@@ -102,8 +102,8 @@ def combine_fp32_ref(a: torch.Tensor, b: torch.Tensor, s1b: torch.Tensor,
     """s1[blk]*a + s2[blk]*b in fp32, cast once to a.dtype (the TPU
     kernel's rule)."""
     nb = a.shape[0] // block_elems
-    out = (s1b[:, None].float() * a.reshape(nb, block_elems).float()
-           + s2b[:, None].float() * b.reshape(nb, block_elems).float())
+    out = s1b[:, None].float() * a.reshape(nb, block_elems).float()
+    out += s2b[:, None].float() * b.reshape(nb, block_elems).float()
     return out.reshape(-1).to(a.dtype)
 
 

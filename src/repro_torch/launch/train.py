@@ -6,16 +6,26 @@ port's `repro/launch/train.py`, same flags and printed lines).
         --steps 3 --seq 32 --batch 8 --device cpu
 
 Runs on one device (`--device`, default cuda), the `span` Adasum lanes
-stacked on it. Weights are random, drawn on the device from a generator
-seeded with `--seed`. Flags of later slices (`--ckpt-dir`,
-`--ckpt-every`, `--elastic`, `--fail-at`, `--adaptive-batch`,
-`--combine-delay 1`, `--compress int8`, meshes above one device) raise
-NotImplementedError naming their ROADMAP item.
+stacked on it, or one lane per rank under `torch.distributed.run`:
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 2 -m repro_torch.launch.train --device cpu \
+        --arch gemma-7b --reduced --steps 2 --seq 32 --batch 8
+
+There `--dist-backend` is nccl on cuda (one card per rank, `cuda:
+LOCAL_RANK`) and gloo on the CPU; ranks sharing one card pass `--device
+cuda:0 --dist-backend gloo`. Only rank 0 prints. Weights are random,
+drawn on the device from a generator seeded with `--seed` (rank 0's are
+broadcast). Flags of later slices (`--ckpt-dir`, `--ckpt-every`,
+`--elastic`, `--fail-at`, `--adaptive-batch`, `--combine-delay 1`,
+`--model-mesh` above 1) raise NotImplementedError naming their ROADMAP
+item.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 from pathlib import Path
 
 from repro_torch.engine import EngineConfig, TrainSession, default_callbacks
@@ -34,28 +44,40 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the generator the random weights come "
                     "from")
+    ap.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                    help="across ranks: nccl (default on cuda) or gloo "
+                    "(default on cpu; ranks sharing one card)")
     args, engine_argv = ap.parse_known_args(argv)
     if args.fail_at is not None:
         raise not_ported("failure-injection drills (--fail-at)", ITEM_ENGINE)
 
     cfg = EngineConfig.from_cli(engine_argv)
-    device = resolve_device(args.device)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    device = resolve_device(args.device, local_rank=int(
+        os.environ.get("LOCAL_RANK", "0")) if world > 1 else None)
     session = TrainSession.from_config(
         cfg, device=device, generator=make_generator(device, args.seed),
-        callbacks=default_callbacks(cfg))
+        callbacks=default_callbacks(cfg), dist_backend=args.dist_backend)
     rt = session.runtime
-    print(f"[train] {cfg.arch}{' (reduced)' if cfg.reduced else ''} on "
-          f"{device}: span={rt.span} combine={cfg.combine} "
-          f"path={rt.combine_path or 'none'} optimizer={cfg.optimizer} "
-          f"point={rt.dopt.point} stats={'on' if rt.combine_stats else 'off'}"
-          f" prefetch=off (serial loop)")
-    history = session.fit(cfg.steps)
-    session.close()
-    if history:
+    lead = session.rank == 0
+    if lead:
+        meta = session.run_metadata()
+        print(f"[train] {cfg.arch}{' (reduced)' if cfg.reduced else ''} on "
+              f"{device}: span={rt.span} combine={cfg.combine} "
+              f"path={rt.combine_path or 'none'} optimizer={cfg.optimizer} "
+              f"point={rt.dopt.point} "
+              f"stats={'on' if rt.combine_stats else 'off'} "
+              f"world={meta['world']} dist={meta['dist_backend']}"
+              f" prefetch=off (serial loop)")
+    try:
+        history = session.fit(cfg.steps)
+    finally:
+        session.close()
+    if lead and history:
         print(f"[train] done: final loss {history[-1]['loss']:.4f}")
-    else:
+    elif lead:
         print(f"[train] nothing to do: run already at step {cfg.steps}")
-    if args.metrics_out:
+    if args.metrics_out and lead:
         Path(args.metrics_out).write_text(json.dumps(history))
     return history
 

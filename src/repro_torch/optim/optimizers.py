@@ -80,14 +80,19 @@ def momentum(lr, beta: float = 0.9, nesterov: bool = False,
 
 
 def _adam_core(g, m, v, step: int, b1: float, b2: float, eps: float):
-    """Returns (u, m_new, v_new) in fp32 for fp32 m, v."""
+    """Returns (u, m_new, v_new) in fp32 for fp32 m, v, which it updates
+    in place: m_new = b1·m + (1-b1)·g, v_new = b2·v + (1-b2)·g², u =
+    m̂ / (sqrt(v̂) + eps). The same fp32 operations in the same order as
+    the out-of-place formula, with at most two leaf-sized temporaries at a
+    time (the embedding leaf alone would otherwise take five more)."""
     g = g.float()
-    m_new = b1 * m + (1.0 - b1) * g
-    v_new = b2 * v + (1.0 - b2) * (g * g)
+    m.mul_(b1).add_((1.0 - b1) * g)
+    v.mul_(b2).add_((g * g).mul_(1.0 - b2))
     t = torch.tensor(step + 1.0, dtype=torch.float32)
-    mhat = m_new / (1.0 - torch.tensor(b1, dtype=torch.float32) ** t).item()
-    vhat = v_new / (1.0 - torch.tensor(b2, dtype=torch.float32) ** t).item()
-    return mhat / (torch.sqrt(vhat) + eps), m_new, v_new
+    c1 = (1.0 - torch.tensor(b1, dtype=torch.float32) ** t).item()
+    c2 = (1.0 - torch.tensor(b2, dtype=torch.float32) ** t).item()
+    denom = (v / c2).sqrt_().add_(eps)
+    return (m / c1).div_(denom), m, v
 
 
 def _adam_like(lr, b1, b2, eps, weight_decay, state_dtype, trust: bool,
@@ -111,7 +116,7 @@ def _adam_like(lr, b1, b2, eps, weight_decay, state_dtype, trust: bool,
             if weight_decay:
                 u = u + weight_decay * p32
             if not trust:
-                return -a * u
+                return u.mul_(-a)
             pn = torch.linalg.vector_norm(p32.reshape(-1))
             un = torch.linalg.vector_norm(u.reshape(-1))
             ratio = torch.where((pn > 0) & (un > 0),

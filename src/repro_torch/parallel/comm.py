@@ -1,0 +1,334 @@
+"""Collectives for Adasum across ranks: a small object around a
+`torch.distributed` process group, one process per rank. It gives
+`core/rvh.py` what the reference gets from `lax.ppermute` and `lax.psum`
+inside `shard_map` (repro/core/rvh.py:99-105, :172-177):
+
+  exchange(sends, partner)  the XOR-partner swap of `lax.ppermute`: one
+                            `batch_isend_irecv` holding an isend and an
+                            irecv per tensor, so neither side waits on
+                            the other;
+  group_sum(v, block)       the grouped psum over contiguous blocks of
+                            `block` ranks (`axis_index_groups`), as an
+                            all_gather and a sum in rank order: every
+                            rank of the block holds the same bits and a
+                            repeat gives the same bits. Meant for the
+                            small per-segment dot triples;
+  allreduce(x)              an in-place sum over the comm's ranks
+                            (`dist.all_reduce`: every rank gets the bits
+                            the one reduction computed);
+  broadcast(x, src)         rank `src`'s tensor to every rank, in place.
+
+`Comm.init` starts the process group from the launch environment
+(`RANK`, `WORLD_SIZE`, `LOCAL_WORLD_SIZE`, and `MASTER_ADDR` /
+`MASTER_PORT` for the default `env://`, as `torch.distributed.run`
+sets them). Subgroups are made once, when a comm is made, on every rank
+in the same order (`dist.new_group` is collective): the blocks of 2, 4,
+... ranks that `group_sum` uses, and the sub-communicators of `split`.
+
+Staging: gloo carries host memory. A CUDA tensor on a gloo group is
+copied through a pinned host buffer both ways (after a stream
+synchronize), in messages of at most CHUNK_BYTES, and `staged_bytes`
+counts the bytes copied between card and host. On NCCL, tensors go from
+device to device and nothing is staged. NCCL takes one card per rank:
+`init` refuses more ranks on a host than it has cards.
+
+With `timing` on, each kind of call is timed (CUDA events on a card, the
+host clock on the CPU; `take_ms` reads and clears them).
+"""
+from __future__ import annotations
+
+import contextlib
+import datetime
+import os
+import time
+from typing import Dict, List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+DIST_BACKENDS = ("nccl", "gloo")
+CHUNK_BYTES = 256 << 20     # largest single gloo message
+
+
+def _pow2_blocks(n: int) -> List[int]:
+    """Block sizes 2, 4, ... below n that divide n."""
+    out, b = [], 2
+    while b < n and n % b == 0:
+        out.append(b)
+        b *= 2
+    return out
+
+
+class Comm:
+    """One rank's view of a group of ranks: `rank` (local index), `world`
+    and `backend`. Made on every rank by `Comm.init` (all ranks) or
+    `split` (sub-communicators)."""
+
+    def __init__(self, ranks: Sequence[int], group, blocks: Dict[int, object],
+                 device: torch.device, owner: bool = False,
+                 flags: Optional[dict] = None):
+        self.ranks = tuple(ranks)           # global ranks, by local rank
+        self.group = group
+        self._blocks = blocks               # block size -> this rank's group
+        self.rank = self.ranks.index(dist.get_rank())
+        self.world = len(self.ranks)
+        self.backend = str(dist.get_backend(group))
+        self.device = device
+        self.staged_bytes = 0
+        self._flags = flags if flags is not None else {"timing": False}
+        self._owner = owner                 # destroys the process group
+        self._times: Dict[str, list] = {}
+        self._host: Dict[str, torch.Tensor] = {}
+        self._children: List["Comm"] = []
+
+    # ------------------------------------------------------------- creation
+    @classmethod
+    def init(cls, backend: str, device: torch.device,
+             init_method: str = "env://",
+             timeout_s: float = 600.0) -> "Comm":
+        """Start the process group from the launch environment and return
+        the comm of all ranks. Collective: every rank calls it."""
+        if backend not in DIST_BACKENDS:
+            raise ValueError(f"dist backend {backend!r}; one of "
+                             f"{DIST_BACKENDS}")
+        rank = int(os.environ["RANK"])
+        world = int(os.environ["WORLD_SIZE"])
+        device = torch.device(device)
+        if backend == "nccl":
+            local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+            cards = torch.cuda.device_count()
+            if cards < local:
+                raise ValueError(
+                    f"nccl needs one card per rank: {local} ranks on this "
+                    f"host and {cards} card(s). Ranks that share one card "
+                    f"run over gloo (--dist-backend gloo --device cuda:0)")
+            if device.type != "cuda":
+                raise ValueError(f"nccl carries CUDA tensors; the device is "
+                                 f"{device}")
+            local_rank = int(os.environ.get("LOCAL_RANK", rank))
+            if device.index not in (None, local_rank):
+                raise ValueError(
+                    f"nccl takes one card per rank: local rank {local_rank} "
+                    f"runs on cuda:{local_rank}, not {device}. Ranks that "
+                    f"share one card run over gloo (--dist-backend gloo)")
+            torch.cuda.set_device(device)
+        dist.init_process_group(
+            backend, init_method=init_method, rank=rank, world_size=world,
+            timeout=datetime.timedelta(seconds=timeout_s))
+        ranks = list(range(world))
+        return cls(ranks, dist.group.WORLD, cls._block_groups(ranks)[1],
+                   device, owner=True)
+
+    @staticmethod
+    def _block_groups(ranks: Sequence[int]):
+        """Collective: a group per contiguous block of 2, 4, ... of
+        `ranks`; returns (whether this rank is in `ranks`, {block: the
+        group holding this rank})."""
+        me = dist.get_rank()
+        mine = {}
+        for block in _pow2_blocks(len(ranks)):
+            for s in range(0, len(ranks), block):
+                members = list(ranks[s:s + block])
+                g = dist.new_group(members)
+                if me in members:
+                    mine[block] = g
+        return me in ranks, mine
+
+    def split(self, groups: Sequence[Sequence[int]]) -> "Comm":
+        """Sub-communicators, one per list of local ranks in `groups` (a
+        partition of this comm, each list ascending). Collective over
+        this comm; returns the one holding this rank."""
+        mine = None
+        for members in groups:
+            ranks = [self.ranks[i] for i in members]
+            g = dist.new_group(ranks)
+            inside, blocks = self._block_groups(ranks)
+            if inside:
+                mine = Comm(ranks, g, blocks, self.device,
+                            flags=self._flags)
+        if mine is None:
+            raise ValueError(f"rank {self.rank} is in none of {groups}")
+        self._children.append(mine)
+        return mine
+
+    def close(self) -> None:
+        """Destroy the process group (the comm made by `init` only)."""
+        if self._owner and dist.is_initialized():
+            dist.destroy_process_group()
+        self._owner = False
+
+    # ------------------------------------------------------------- timing
+    @property
+    def timing(self) -> bool:
+        """Whether calls are timed (shared with the sub-communicators)."""
+        return self._flags["timing"]
+
+    @timing.setter
+    def timing(self, on: bool) -> None:
+        self._flags["timing"] = bool(on)
+
+    @contextlib.contextmanager
+    def timed(self, name: str):
+        """Time the body under `name` when `timing` is on."""
+        if not self.timing:
+            yield
+            return
+        if self.device.type == "cuda":
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            yield
+            b.record()
+            self._times.setdefault(name, []).append((a, b))
+        else:
+            t0 = time.perf_counter()
+            yield
+            self._times.setdefault(name, []).append(
+                1e3 * (time.perf_counter() - t0))
+
+    def take_ms(self) -> Dict[str, float]:
+        """Milliseconds per name since the last call, this comm and its
+        sub-communicators summed; clears them."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        out: Dict[str, float] = {}
+        for c in [self] + self._children:
+            for name, items in c._times.items():
+                ms = sum(x if isinstance(x, float) else x[0].elapsed_time(x[1])
+                         for x in items)
+                out[name] = out.get(name, 0.0) + ms
+            c._times = {}
+        return out
+
+    def total_staged_bytes(self) -> int:
+        return self.staged_bytes + sum(c.staged_bytes for c in self._children)
+
+    # ------------------------------------------------------------ staging
+    def _staged(self, t: torch.Tensor) -> bool:
+        return self.backend == "gloo" and t.device.type == "cuda"
+
+    def _host_buffer(self, key: str, nbytes: int) -> torch.Tensor:
+        """A pinned uint8 host buffer of at least nbytes, kept for reuse."""
+        buf = self._host.get(key)
+        if buf is None or buf.numel() < nbytes:
+            self._host.pop(key, None)
+            buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+            self._host[key] = buf
+        return buf[:nbytes]
+
+    def _to_host(self, ts: Sequence[torch.Tensor], key: str):
+        """Byte views of `ts` in one pinned buffer (copied from the card)."""
+        sizes = [t.numel() * t.element_size() for t in ts]
+        host = self._host_buffer(key, sum(sizes))
+        with self.timed("stage"):
+            torch.cuda.current_stream(ts[0].device).synchronize()
+            off = 0
+            for t, n in zip(ts, sizes):
+                host[off:off + n].copy_(t.reshape(-1).view(torch.uint8))
+                off += n
+        self.staged_bytes += sum(sizes)
+        return host, sizes
+
+    def _from_host(self, host: torch.Tensor, outs: Sequence[torch.Tensor]):
+        with self.timed("stage"):
+            off = 0
+            for t in outs:
+                n = t.numel() * t.element_size()
+                t.reshape(-1).view(torch.uint8).copy_(host[off:off + n])
+                off += n
+        self.staged_bytes += host.numel()
+
+    # -------------------------------------------------------- collectives
+    def exchange(self, sends: Sequence[torch.Tensor], partner: int,
+                 recvs: Optional[Sequence[torch.Tensor]] = None
+                 ) -> List[torch.Tensor]:
+        """Swap tensors with local rank `partner`, who calls this with
+        tensors of the same shapes and dtypes. `recvs` (contiguous, e.g.
+        views of a larger buffer) receive in place; by default new
+        tensors. Returns the received tensors."""
+        sends = [s.contiguous() for s in sends]
+        if recvs is None:
+            recvs = [torch.empty_like(s) for s in sends]
+        peer = self.ranks[partner]
+        with self.timed("exchange"):
+            if self._staged(sends[0]):
+                hsend, sizes = self._to_host(sends, "send")
+                hrecv = self._host_buffer("recv", sum(sizes))
+                self._p2p([hsend], [hrecv], peer)
+                self._from_host(hrecv, recvs)
+            else:
+                flat = lambda ts: [t.reshape(-1).view(torch.uint8)
+                                   for t in ts]
+                self._p2p(flat(sends), flat(recvs), peer)
+        return list(recvs)
+
+    def _p2p(self, sends, recvs, peer: int) -> None:
+        """isend every byte tensor of `sends` and irecv into `recvs`, in
+        CHUNK_BYTES pieces on gloo, in one batch."""
+        step = CHUNK_BYTES if self.backend == "gloo" else None
+        ops = []
+        for s, r in zip(sends, recvs):
+            n = s.numel()
+            cuts = range(0, n, step) if step else [0]
+            for c in cuts:
+                e = n if step is None else min(n, c + step)
+                ops.append(dist.P2POp(dist.isend, s[c:e], peer))
+                ops.append(dist.P2POp(dist.irecv, r[c:e], peer))
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
+
+    def _group(self, block: int):
+        if block == self.world:
+            return self.group
+        if block not in self._blocks:
+            raise ValueError(f"no block of {block} ranks in a comm of "
+                             f"{self.world}")
+        return self._blocks[block]
+
+    def group_sum(self, v: torch.Tensor, block: int) -> torch.Tensor:
+        """Sum of `v` over the contiguous block of `block` ranks holding
+        this rank, in rank order (an all_gather, then a fixed-order sum).
+        For small tensors."""
+        if block == 1:
+            return v
+        with self.timed("dots_sum"):
+            x = v.detach().contiguous()
+            if self._staged(x):
+                x = x.cpu()
+                self.staged_bytes += 2 * x.numel() * x.element_size()
+            parts = [torch.empty_like(x) for _ in range(block)]
+            dist.all_gather(parts, x, group=self._group(block))
+            out = parts[0].clone()
+            for p in parts[1:]:
+                out += p
+        return out.to(v.device)
+
+    def allreduce(self, x: torch.Tensor) -> torch.Tensor:
+        """In-place sum of `x` over every rank of the comm."""
+        if self.world == 1:
+            return x
+        with self.timed("allreduce"):
+            if self._staged(x):
+                host, _ = self._to_host([x], "send")
+                dist.all_reduce(host.view(x.dtype), group=self.group)
+                self._from_host(host, [x])
+            else:
+                dist.all_reduce(x, group=self.group)
+        return x
+
+    def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """Local rank `src`'s `x` into `x` on every rank, in place."""
+        if self.world == 1:
+            return x
+        root = self.ranks[src]
+        if self._staged(x):
+            if self.rank == src:
+                host, _ = self._to_host([x], "send")
+            else:
+                host = self._host_buffer("send", x.numel() * x.element_size())
+            dist.broadcast(host, root, group=self.group)
+            if self.rank != src:
+                self._from_host(host, [x])
+        else:
+            dist.broadcast(x, root, group=self.group)
+        return x

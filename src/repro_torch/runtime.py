@@ -10,7 +10,9 @@ DeviceLike = Union[str, torch.device, None]
 
 # ROADMAP.md queue 1 items that bring what the port still refuses
 ITEM_ADASUM_MATH = "2.1"    # fp64 dot accumulation (acc_dtype)
-ITEM_MULTI_RANK = "3"       # RVH across ranks, int8 wire compression
+ITEM_MULTI_RANK = "3"       # what remains of multi-rank training (sum /
+                            # mean / linear across ranks; accum and local
+                            # steps at span < dp)
 ITEM_CHECKPOINTS = "4"      # checkpoints, hot-reload
 ITEM_ENGINE = "4"           # engine surface: registry extras, elastic
 ITEM_SERVING_EXTRAS = "5"   # dense layout, speculation, resilience,
@@ -20,17 +22,31 @@ ITEM_SHARDING = "7"         # data/model meshes above one device
 ITEM_SUBSYSTEMS = "8"       # delayed combine, adaptive batch, chaos
 
 
-def resolve_device(device: DeviceLike = None) -> torch.device:
+def resolve_device(device: DeviceLike = None,
+                   local_rank: Optional[int] = None) -> torch.device:
     """The device an entry point runs on: `cuda` unless the caller names
     another one. Without a card, anything but an explicit CPU device
-    raises — an entry point never quietly continues on the CPU."""
+    raises — an entry point never quietly continues on the CPU.
+
+    `cuda:N` names card N. With `local_rank` (one process per rank), a
+    bare `cuda` means `cuda:<local_rank>`, one card per rank."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}; expected cuda or cpu")
+    if dev.type == "cpu":
+        return dev
+    if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch path on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}; expected cuda or cpu")
+    if dev.index is None and local_rank is not None:
+        dev = torch.device("cuda", local_rank)
+    count = torch.cuda.device_count()
+    if dev.index is not None and dev.index >= count:
+        raise ValueError(
+            f"{dev} does not exist: this host has {count} card(s); ranks "
+            f"that share one card name it (device='cuda:0') and need the "
+            f"gloo backend")
     return dev
 
 

@@ -19,36 +19,42 @@ TreeDef = Any       # ("dict", keys, children) | ("tuple"/"list", children)
 LEAF = "*"
 
 
-def flatten(tree: PyTree) -> Tuple[List[Any], TreeDef]:
-    leaves: List[Any] = []
+def _walk(node, leaves: list):
+    if isinstance(node, dict):
+        keys = tuple(sorted(node))
+        return ("dict", keys, tuple(_walk(node[k], leaves) for k in keys))
+    if isinstance(node, (tuple, list)):
+        kind = "tuple" if isinstance(node, tuple) else "list"
+        return (kind, tuple(_walk(c, leaves) for c in node))
+    if node is None:
+        return ("none",)
+    leaves.append(node)
+    return LEAF
 
-    def walk(node):
-        if isinstance(node, dict):
-            keys = tuple(sorted(node))
-            return ("dict", keys, tuple(walk(node[k]) for k in keys))
-        if isinstance(node, (tuple, list)):
-            kind = "tuple" if isinstance(node, tuple) else "list"
-            return (kind, tuple(walk(c) for c in node))
-        if node is None:
-            return ("none",)
-        leaves.append(node)
-        return LEAF
-    return leaves, walk(tree)
+
+def flatten(tree: PyTree) -> Tuple[List[Any], TreeDef]:
+    # module-level helpers, not a recursive closure: a closure that calls
+    # itself is a reference cycle, which would keep every leaf tensor
+    # alive until the cyclic garbage collector happens to run
+    leaves: List[Any] = []
+    treedef = _walk(tree, leaves)
+    return leaves, treedef
+
+
+def _build(td, it):
+    if td == LEAF:
+        return next(it)
+    if td[0] == "dict":
+        return {k: _build(c, it) for k, c in zip(td[1], td[2])}
+    if td[0] == "none":
+        return None
+    out = [_build(c, it) for c in td[1]]
+    return tuple(out) if td[0] == "tuple" else out
 
 
 def unflatten(treedef: TreeDef, leaves) -> PyTree:
     it = iter(leaves)
-
-    def build(td):
-        if td == LEAF:
-            return next(it)
-        if td[0] == "dict":
-            return {k: build(c) for k, c in zip(td[1], td[2])}
-        if td[0] == "none":
-            return None
-        out = [build(c) for c in td[1]]
-        return tuple(out) if td[0] == "tuple" else out
-    out = build(treedef)
+    out = _build(treedef, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the treedef holds")
     return out

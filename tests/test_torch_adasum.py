@@ -605,14 +605,11 @@ def test_registry_entries_match_reference(cfg):
     close(ts(tt)[1]["levels"], js(jt)[1]["levels"], rtol=2e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("name", ["adasum-rvh", "adascale", "dasgd"])
+@pytest.mark.parametrize("name", ["adascale", "dasgd"])
 def test_later_combiners_raise(name):
     cfg = TC.CombineConfig(op=name)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         TR.make_combiner(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        TR.make_combiner(dataclasses.replace(cfg, op="adasum",
-                                             backend="rvh"))
 
 
 def test_combine_config_fields_match_reference():

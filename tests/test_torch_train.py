@@ -510,7 +510,6 @@ def test_train_cli_exits_zero_on_cpu():
     (["--ckpt-dir", "ck"], "4"), (["--ckpt-every", "5"], "4"),
     (["--elastic"], "4"), (["--fail-at", "2"], "4"),
     (["--adaptive-batch"], "8"), (["--combine-delay", "1"], "8"),
-    (["--compress", "int8"], "3"), (["--combine", "adasum-rvh"], "3"),
     (["--combine", "adascale"], "4"), (["--combine", "dasgd"], "8"),
     (["--data-mesh", "2"], "7"), (["--model-mesh", "2"], "7"),
     (["--acc-dtype", "float64"], "2.1"),

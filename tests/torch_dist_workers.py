@@ -1,0 +1,177 @@
+"""Rank processes for the port's multi-rank CPU tests (a helper module,
+not a test file).
+
+`launch(world, job, spec, tmp_path)` starts `world` processes of this
+file, one per rank, with the environment `torch.distributed.run` would
+give them (RANK, WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE), one thread
+each, over gloo with a `file://` store under tmp_path. Each runs
+`JOBS[job](comm, spec)` and saves what it returns to `rank<r>.pt`. A
+rank that fails fails the launch; a launch that outlives `timeout`
+seconds is killed and fails. Nothing here imports jax.
+"""
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+def launch(world, job, spec, tmp_path, timeout=300):
+    """Run `job` on `world` ranks; returns each rank's result, by rank."""
+    tag = f"{job}_w{world}_{int(time.time() * 1e6) % 10**9}"
+    out = Path(tmp_path) / tag
+    out.mkdir(parents=True)
+    spec = dict(spec, store=str(out / "store"), out=str(out),
+                timeout=timeout)
+    procs, logs = [], []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world),
+                   PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+        log = open(out / f"log{r}.txt", "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, __file__, job, json.dumps(spec)], env=env,
+            stdout=log, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{job} on {world} ranks outlived "
+                                     f"{timeout}s")
+            if any(p.poll() not in (None, 0) for p in procs):
+                break               # one rank failed: do not wait for the rest
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in logs:
+            log.close()
+    texts = [(out / f"log{r}.txt").read_text() for r in range(world)]
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    assert not bad, "\n".join(f"--- rank {r} (rc {procs[r].returncode})\n"
+                              f"{texts[r][-4000:]}" for r in bad)
+    import torch
+    return [torch.load(out / f"rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+# -------------------------------------------------------------------- jobs
+def _np_tree(tree):
+    from repro_torch import tree as T
+    leaves, td = T.flatten(tree)
+    return T.unflatten(td, [x.detach().float().numpy().copy()
+                            for x in leaves])
+
+
+def _same_on_all_ranks(comm, tree) -> bool:
+    """Whether every rank holds the same bits of every leaf."""
+    import hashlib
+    import torch.distributed as dist
+    from repro_torch import tree as T
+    h = hashlib.sha256()
+    for x in T.leaves(tree):
+        h.update(x.detach().contiguous().view(-1).numpy().tobytes())
+    seen = [None] * comm.world
+    dist.all_gather_object(seen, h.hexdigest())
+    return len(set(seen)) == 1
+
+
+def job_rvh(comm, spec):
+    """`adasum_rvh_pytree` of this rank's lane over every case of spec;
+    per case the combined tree, the CombineStats levels and whether the
+    ranks agree bitwise."""
+    import numpy as np
+    import torch
+    from repro_torch.core import rvh
+    from repro_torch.core.combine import stack_stats
+    lanes = np.load(spec["lanes"])
+    keys = spec["keys"]
+    out = []
+    for case in spec["cases"]:
+        mine = {k: torch.from_numpy(lanes[k][comm.rank]).clone()
+                for k in keys}
+        collect = []
+        got = rvh.adasum_rvh_pytree(
+            mine, comm, per_layer=case["per_layer"],
+            use_pallas=case["use_pallas"], compress=case["compress"],
+            bucket_bytes=case["bucket_bytes"], impl=case.get("impl",
+                                                             "kernel"),
+            donate=True, collect=collect)
+        out.append({"tree": _np_tree(got),
+                    "levels": stack_stats(collect)["levels"].numpy(),
+                    "bitwise": _same_on_all_ranks(comm, got),
+                    "staged": comm.staged_bytes})
+    return out
+
+
+def job_train(comm, spec):
+    """Train steps of every case of spec from the same params and
+    batches; per case the losses, CombineStats metrics, final params and
+    whether the ranks agreed bitwise after every step."""
+    import numpy as np
+    import torch
+    from repro_torch.bridge import params_from_numpy, params_to_numpy
+    from repro_torch.configs import get_reduced
+    from repro_torch.control.noise import STAT_KEYS
+    from repro_torch.engine import build_runtime
+    from repro_torch.models import build_model
+    from repro_torch.parallel.policy import RunPolicy
+    data = np.load(spec["inputs"])
+    cfg = get_reduced(spec["arch"])
+    model = build_model(cfg, compute_dtype=torch.float32,
+                        attn_chunk=spec["attn_chunk"])
+    init = {}
+    for key in data.files:
+        if key.startswith("init/"):
+            node = init
+            *path, leaf = key[5:].split("/")
+            for p in path:
+                node = node.setdefault(p, {})
+            node[leaf] = data[key]
+    out = []
+    for case in spec["cases"]:
+        rt = build_runtime(model, RunPolicy(**case["policy"]),
+                           lr=case["lr"], comm=comm)
+        params = params_from_numpy(init, device="cpu", cfg=cfg)
+        state = {"params": params, "opt": rt.dopt.init(params), "step": 0}
+        losses, stats, bitwise = [], [], []
+        for s in range(case["steps"]):
+            batch = {k: torch.from_numpy(data[f"batch{s}/{k}"])
+                     for k in ("tokens", "labels")}
+            state, m = rt.train_step(state, batch)
+            losses.append(float(m["loss"]))
+            stats.append({k: float(m[k]) for k in STAT_KEYS if k in m})
+            bitwise.append(_same_on_all_ranks(comm, state["params"]))
+        out.append({"losses": losses, "stats": stats, "bitwise": bitwise,
+                    "path": rt.combine_path,
+                    "params": params_to_numpy(state["params"])})
+    return out
+
+
+JOBS = {"rvh": job_rvh, "train": job_train}
+
+
+def main():
+    job, spec = sys.argv[1], json.loads(sys.argv[2])
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.parallel.comm import Comm
+    comm = Comm.init("gloo", torch.device("cpu"),
+                     init_method="file://" + spec["store"],
+                     timeout_s=spec["timeout"])
+    rank = comm.rank
+    try:
+        result = JOBS[job](comm, spec)
+    finally:
+        comm.close()
+    torch.save(result, Path(spec["out"]) / f"rank{rank}.pt")
+
+
+if __name__ == "__main__":
+    main()
