@@ -91,15 +91,42 @@ Phases (any error fails the run with a non-zero exit and no result):
      CombineStats within COMBINED_RTOL and params within TRAIN_PARAM_TOL
      (under int8, at most INT8_FLIP_FRACTION of the elements one
      quantization step apart); and random lanes of ~7 M elements in ten
-     leaves through RVH against the single-process fused tree on rank 0.
-     Prints step ms, the combine's ms and within it the exchange (and
+     leaves through RVH against the single-process fused tree on rank 0;
+     `Comm.gather_to_host` (a checkpoint's lane rows at the post point)
+     of a CUDA tensor from every other rank (every rank at world 2):
+     rank 0's host rows are each sender's, and the bytes counted staged
+     are one copy a sender. Prints step ms, the combine's ms and within it the exchange (and
      staging), dot-sum and dots+combine kernel ms (CUDA events), staged
      bytes, and each rank's peak allocation and their sum (at most
-     RANK_MEM_GIB).
+     RANK_MEM_GIB). Run (a) also saves the state before its last step
+     (rank 0 writes, all ranks wait), restores it in place on every rank
+     and redoes the step: params bitwise equal to the first time;
+  7. checkpoints: `TrainSession` on gemma-7b at full width, depth cut to
+     CKPT_LAYERS (1 of 28), fp32 params, bf16 compute, seq 512, global
+     batch 8, 64 MB buckets, momentum at span 2 on the `post` point (the
+     state carries the lane axis: 12.75 GB a checkpoint), the async
+     manager, prefetch with the device stage, checkpoints under
+     build/ckpt (deleted at the end; free disk and host RAM must be twice
+     a checkpoint). (a) fit(2) saves step 2, then step 3 runs; fresh
+     sessions on the directory (prefetch on, then off) resume ("resumed
+     from step 2"), their step 3 bitwise the uninterrupted one, with one
+     block_dots and one block_combine per bucket (counters zeroed just
+     before); prints the snapshot ms, write s and GB, restore load / crc
+     / copy s and step ms. (b) `ServeEngine.from_config` with ckpt_dir
+     serves step 2 (params checksums equal to the run's), 6 staggered
+     requests on 4 slots, flash and paged decode launched, greedy tokens
+     equal to an engine given the params directly. (c) hot-reload on the
+     training session's manager: step 3 saved while a request is in
+     flight, a second request after it; one swap, at least one
+     transition tick, each request's tokens equal to an engine on its
+     pinned step alone; prints the swap's poll and restore times and the
+     transition tick ms beside a normal tick's. (d) prints run (a) of
+     phase 6's checkpoint check.
 
 The line before the last is the kernels JSON (block_dots and
 block_combine rows also carry their phase-6 launches on rank 0,
-`rvh_launches`, and their ms on the round-0 half, `rvh_half_ms`), the
+`rvh_launches`, and their ms on the round-0 half, `rvh_half_ms`; every
+row its launches inside phase 7, `phase7_launches`), the
 last line {"ok": true, "device": {...}}. Longer records go to
 chiprun_out/chip_smoke.json. fp32 matmuls run in full fp32: TF32 is
 switched off for cuBLAS and cuDNN.
@@ -1149,6 +1176,26 @@ def _synthetic_rvh(comm, world, compress):
     return res
 
 
+def _gather_check(comm, world) -> bool:
+    """`Comm.gather_to_host` on the card (the path a ranked checkpoint
+    takes at the post point): rows from ranks 0, g, 2g, ... onto rank 0's
+    host, each row its sender's, one copy a sender counted as staged and
+    none elsewhere; every rank's verdict, gathered."""
+    import torch
+    srcs = list(range(0, world, max(1, world // 2)))
+    x = torch.full((1 << 22,), float(comm.rank + 1), device="cuda")
+    before = comm.staged_bytes
+    rows = comm.gather_to_host(x, srcs)
+    staged = comm.staged_bytes - before
+    ok = staged == (x.numel() * 4 if comm.rank in srcs else 0)
+    if comm.rank == 0:
+        ok = ok and rows.device.type == "cpu" and all(
+            bool((rows[i] == r + 1).all()) for i, r in enumerate(srcs))
+    else:
+        ok = ok and rows is None
+    return _all_equal(ok) and ok
+
+
 def rank_worker(spec: dict) -> int:
     """One rank of phase 6 (run as its own process, all on cuda:0): the
     main path's 3 steps, then step 1 twice more from fresh state (kernel,
@@ -1166,6 +1213,7 @@ def rank_worker(spec: dict) -> int:
     from repro_torch.models import build_model
     world, optimizer, compress = spec["world"], spec["optimizer"], \
         spec["compress"]
+    ckpt_dir = spec.get("ckpt_dir")
     rank = int(os.environ["RANK"])
     lead = rank == 0
     cfg = dataclasses.replace(get_config("gemma-7b"), n_layers=RANK_LAYERS)
@@ -1179,7 +1227,7 @@ def rank_worker(spec: dict) -> int:
     # under torchrun's environment the session starts the process group
     s = _session(model, timer, device="cuda:0", dist_backend="gloo",
                  optimizer=optimizer, compress=compress,
-                 global_batch=RANK_BATCH)
+                 global_batch=RANK_BATCH, ckpt_dir=ckpt_dir or "")
     comm = s.comm
     rec["init_s"] = time.perf_counter() - t0
     gib = lambda b: f"{b / 2 ** 30:.2f}"
@@ -1200,7 +1248,12 @@ def rank_worker(spec: dict) -> int:
     torch.cuda.synchronize()
     build.reset_launches()
     steps = []
+    ck = {}
     for step in range(3):
+        if ckpt_dir and step == 2:     # phase 7 (d): save the last step's
+            t0 = time.perf_counter()   # input state, all ranks
+            s.save_sync(2)
+            ck["save_s"] = time.perf_counter() - t0
         staged0 = comm.total_staged_bytes()
         t0 = time.perf_counter()
         m = s.step(s.batch(step))
@@ -1222,6 +1275,17 @@ def rank_worker(spec: dict) -> int:
     rec["launches"] = dict(build.LAUNCHES)
     comm.timing = False
     rec["steps"] = steps
+    if ckpt_dir:   # restore step 2 in place on every rank, redo step 3
+        t0 = time.perf_counter()
+        assert s.restore(2) == 2
+        ck["restore_s"] = time.perf_counter() - t0
+        ck.update({k: v for k, v in s.checkpoint.timings.items()
+                   if k != "snapshot_s" or lead})
+        s.step(s.batch(2))
+        torch.cuda.synchronize()
+        ck["redo_bitwise"] = _checksums(s.state["params"]) == sums
+        rec["ckpt"] = ck
+        print(f"[rank {rank}] checkpoint: {ck}", flush=True)
     rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     kept = timer.kept
     s.state = None
@@ -1264,6 +1328,7 @@ def rank_worker(spec: dict) -> int:
     rec["synthetic"] = [_synthetic_rvh(comm, world, "none")]
     if compress != "none":
         rec["synthetic"].append(_synthetic_rvh(comm, world, compress))
+    rec["gather_ok"] = _gather_check(comm, world)
     rec["staged_bytes_total"] = comm.total_staged_bytes()
     rec["peak_gib_all"] = torch.cuda.max_memory_allocated() / 2 ** 30
     s.close()
@@ -1278,7 +1343,8 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def _launch_ranks(world: int, optimizer: str, compress: str) -> list:
+def _launch_ranks(world: int, optimizer: str, compress: str,
+                  ckpt_dir: str = "") -> list:
     """`world` rank processes of this script (RANK, WORLD_SIZE,
     LOCAL_RANK, MASTER_ADDR/PORT as torchrun sets them); any rank failing
     or outliving RANK_TIMEOUT_S fails the phase, and every process is
@@ -1290,7 +1356,8 @@ def _launch_ranks(world: int, optimizer: str, compress: str) -> list:
     tag = f"{optimizer}_w{world}"
     for r in range(world):
         spec = {"world": world, "optimizer": optimizer, "compress": compress,
-                "out": str(out / f"{tag}_rank{r}.json")}
+                "out": str(out / f"{tag}_rank{r}.json"),
+                "ckpt_dir": ckpt_dir}
         env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
                    LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world),
                    MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
@@ -1341,10 +1408,19 @@ def ranks_phase(card: str):
           f" machine has {torch.cuda.device_count()} card); exchanged halves"
           f" are staged through pinned host buffers; NCCL was not run; "
           f"exchange times are host loopback times | {card}")
+    import shutil
     runs = {}
-    for optimizer, world, compress in RANK_RUNS:
+    for i, (optimizer, world, compress) in enumerate(RANK_RUNS):
+        # the first run also saves, restores and redoes its last step
+        # (phase 7 (d)); its checkpoint goes under build/, gitignored
+        ckpt = ROOT / "build" / "ckpt_ranks" if i == 0 else None
         t0 = time.perf_counter()
-        recs = _launch_ranks(world, optimizer, compress)
+        try:
+            recs = _launch_ranks(world, optimizer, compress,
+                                 str(ckpt) if ckpt else "")
+        finally:
+            if ckpt:
+                shutil.rmtree(ckpt, ignore_errors=True)
         wall = time.perf_counter() - t0
         lead = recs[0]
         per_step = lead["buckets"] * lead["rounds"]
@@ -1386,7 +1462,17 @@ def ranks_phase(card: str):
                **{k: lead[k] for k in lead if k.endswith(("_err", "_abs",
                                                           "_fraction",
                                                           "_steps"))},
-               "synthetic": syn}
+               "synthetic": syn,
+               "gather_ok": [r["gather_ok"] for r in recs]}
+        if ckpt:
+            run["ckpt"] = {
+                "redo_bitwise": [r["ckpt"]["redo_bitwise"] for r in recs],
+                "save_s": lead["ckpt"]["save_s"],
+                "snapshot_s": lead["ckpt"].get("snapshot_s"),
+                "write_s": lead["ckpt"].get("write_s"),
+                "write_bytes": lead["ckpt"].get("write_bytes"),
+                "restore_s": [r["ckpt"]["restore_s"] for r in recs],
+                "crc_s": [r["ckpt"]["crc_s"] for r in recs]}
         runs[f"{optimizer}_w{world}"] = run
         per_rank = [{k: n[k] for k in ("block_dots", "block_combine")}
                     for n in run["launches"]]
@@ -1417,11 +1503,14 @@ def ranks_phase(card: str):
               f"{lead['params_flip_fraction']:.2e}) against a step-1 "
               f"update of max {lead['update_max_abs']:.3e}; synthetic RVH vs"
               f" fused tree (compress, rel_err, steps): "
-              f"{[(x['compress'], x['rel_err'], x['steps']) for x in syn]}"
-              f" | {card}")
+              f"{[(x['compress'], x['rel_err'], x['steps']) for x in syn]};"
+              f" gather_to_host ok={run['gather_ok']} | {card}")
         assert bitwise, f"{tag}: params differ across ranks"
         assert repeat, f"{tag}: step 1 is not bitwise repeatable"
         assert all(x["ok"] and x["bitwise_across_ranks"] for x in syn), syn
+        assert all(r["gather_ok"] for r in recs), (
+            f"{tag}: Comm.gather_to_host rows or staged bytes wrong: "
+            f"{[r['gather_ok'] for r in recs]}")
         assert lead["stats_rel_err"] <= COMBINED_RTOL, tag
         if compress == "none":
             assert lead["combined_rel_err"] <= COMBINED_RTOL, tag
@@ -1435,6 +1524,274 @@ def ranks_phase(card: str):
         assert sum(peaks) <= RANK_MEM_GIB, (
             f"{tag}: summed peak {sum(peaks):.1f} GiB > {RANK_MEM_GIB}")
     return {"layers": RANK_LAYERS, "runs": runs}
+
+
+# -------------------------------------------------------- checkpoint phase
+CKPT_LAYERS = 1    # of gemma-7b's 28: 1.063 B params, 4.25 GB of fp32;
+                   # with momentum's per-lane state at span 2, 12.75 GB a
+                   # checkpoint
+CKPT_SERVE = dict(max_slots=4, max_len=512, page_size=16)
+
+
+def _host_ram_available() -> int:
+    """MemAvailable of /proc/meminfo, in bytes."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def _captured(fn):
+    """fn() with its standard output captured and echoed; returns
+    (result, text)."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    print(buf.getvalue(), end="")
+    return out, buf.getvalue()
+
+
+def _greedy(engine, prompts, arrivals, gen):
+    """Submit prompts in arrival groups, one tick between groups; returns
+    the handles after the engine drains."""
+    from repro_torch.engine import GenerationRequest
+    handles, i = [], 0
+    for size in arrivals:
+        for _ in range(size):
+            handles.append(engine.submit(GenerationRequest(
+                prompts[i], max_new_tokens=gen)))
+            i += 1
+        engine.step()
+    engine.drain()
+    return handles
+
+
+def ckpt_phase(card: str, ranks: dict):
+    """Phase 7: checkpoints, resume, serving a checkpoint, hot-reload."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.core import combine as C
+    from repro_torch.engine import EngineConfig, ServeEngine, TrainSession
+    from repro_torch.engine.session import CheckpointCallback
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model
+
+    full = get_config("gemma-7b")
+    cfg = dataclasses.replace(full, n_layers=CKPT_LAYERS)
+    model = build_model(cfg, compute_dtype=torch.bfloat16,
+                        param_dtype=torch.float32)
+    root = ROOT / "build" / "ckpt"          # gitignored
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    rec = {"layers": CKPT_LAYERS}
+    fields = dict(arch="gemma-7b", seq_len=512, global_batch=8,
+                  fusion_threshold_mb=64, optimizer="momentum", span=2,
+                  backend="gspmd_tree", combine_point="post",
+                  ckpt_dir=str(root), ckpt_every=2, log_every=1)
+
+    def session(callbacks=(), **over):
+        ecfg = EngineConfig(**{**fields, **over})
+        return TrainSession.from_config(
+            ecfg, model=model, device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(SEED),
+            callbacks=list(callbacks))
+
+    def state_sums(s):
+        """Checksums of every tensor leaf and the step counters."""
+        leaves = T.leaves(s.state)
+        return (_checksums([x for x in leaves if isinstance(x, torch.Tensor)]),
+                [x for x in leaves if not isinstance(x, torch.Tensor)])
+
+    try:
+        # (a) train, save, resume ------------------------------------
+        a = session([CheckpointCallback(2)], device_stage=True)
+        size = sum(x.numel() * x.element_size()
+                   for x in T.leaves(a.state) if isinstance(x, torch.Tensor))
+        disk = shutil.disk_usage(root).free
+        ram = _host_ram_available()
+        print(f"[smoke] ckpt: gemma-7b full width, {CKPT_LAYERS} of "
+              f"{full.n_layers} layers, {cfg.param_count() / 1e9:.3f}B "
+              f"params fp32, momentum span 2 at the post point: a "
+              f"checkpoint holds {size / 1e9:.2f} GB; free disk at {root}: "
+              f"{disk / 1e9:.1f} GB, host RAM available {ram / 1e9:.1f} GB")
+        assert disk >= 2 * size and ram >= 2 * size, (
+            f"phase 7 needs twice the checkpoint's {size / 1e9:.2f} GB free "
+            f"on disk ({disk / 1e9:.1f} GB) and in host RAM "
+            f"({ram / 1e9:.1f} GB)")
+        build.reset_launches()
+        hist = a.fit(2)
+        a.checkpoint.wait()
+        t = dict(a.checkpoint.timings)
+        sums2 = _checksums(a.state["params"])
+        a.step(a.batch(2))
+        torch.cuda.synchronize()
+        sums3 = state_sums(a)
+        rec["save"] = {"bytes": t["write_bytes"], "snapshot_s":
+                       t["snapshot_s"], "write_s": t["write_s"],
+                       "steps_ms": [1e3 * h["s"] for h in hist]}
+        print(f"[smoke] ckpt save step 2: caller-blocking snapshot "
+              f"{1e3 * t['snapshot_s']:.0f} ms, background write "
+              f"{t['write_s']:.2f} s for {t['write_bytes'] / 1e9:.2f} GB "
+              f"({t['write_bytes'] / 1e9 / t['write_s']:.2f} GB/s) | {card}")
+
+        leaves = T.leaves(a.state["params"])
+        plan = C.fused_plan([x.expand((2,) + tuple(x.shape)) for x in leaves],
+                            C.CombineConfig(fusion_threshold_mb=64))
+        resumed = {}
+        for tag, over in (("prefetch_on", dict(device_stage=True)),
+                          ("prefetch_off", dict(prefetch=False))):
+            b = session(**over)
+            torch.cuda.synchronize()
+            build.reset_launches()
+            hist, text = _captured(lambda: b.fit(3))
+            torch.cuda.synchronize()
+            launches = dict(build.LAUNCHES)
+            assert "resumed from step 2" in text, text
+            assert [h["step"] for h in hist] == [2] and b.state["step"] == 3
+            bitwise = state_sums(b) == sums3
+            bt = dict(b.checkpoint.timings)
+            # one more step from the live state (no restore: the
+            # checkpoint is behind it), the first one's warm-up gone
+            steady = b.fit(4)[0]["s"]
+            resumed[tag] = {"bitwise": bitwise, "step_ms": 1e3 * hist[0]["s"],
+                            "steady_step_ms": 1e3 * steady,
+                            "launches": launches, "load_s": bt["load_s"],
+                            "crc_s": bt["crc_s"], "copy_s": bt["copy_s"]}
+            adasum = {k: launches[k] for k in ("block_dots",
+                                               "block_combine")}
+            print(f"[smoke] ckpt resume ({tag}): restore load "
+                  f"{bt['load_s']:.2f} s + crc {bt['crc_s']:.2f} s + copy "
+                  f"onto the card {bt['copy_s']:.2f} s; step 2->3 "
+                  f"{1e3 * hist[0]['s']:.1f} ms, 3->4 {1e3 * steady:.1f} ms;"
+                  f" launches "
+                  f"{adasum}"
+                  f" ({len(plan)} buckets x 1 level); step-3 params and "
+                  f"momentum state bitwise equal to the uninterrupted run: "
+                  f"{bitwise} | {card}")
+            assert bitwise, f"{tag}: resumed step 3 differs"
+            for k in ("block_dots", "block_combine"):
+                assert launches[k] == len(plan), (tag, k, launches[k])
+            b.close()
+            del b
+            _free()
+        rec["resume"] = resumed
+
+        # (b) serve the checkpoint -----------------------------------
+        rng = np.random.RandomState(SEED + 7)
+        V = cfg.vocab_size
+        prompts = [rng.randint(0, V, rng.randint(150, 260)) for _ in range(6)]
+        build.reset_launches()
+        eng, text = _captured(lambda: ServeEngine.from_config(
+            EngineConfig(**CKPT_SERVE, ckpt_dir=str(root)), model=model,
+            device="cuda"))
+        assert "serving checkpoint step 2" in text and eng.loaded_step == 2
+        p2 = eng.params
+        assert _checksums(p2) == sums2, "served params != step-2 params"
+        got = [h.tokens for h in _greedy(eng, prompts, [1, 2, 1, 1, 1], 16)]
+        torch.cuda.synchronize()
+        serve_launches = dict(build.LAUNCHES)
+        direct = ServeEngine(EngineConfig(**CKPT_SERVE), model, p2)
+        want = [h.tokens for h in _greedy(direct, prompts, [1, 2, 1, 1, 1],
+                                          16)]
+        st = dict(eng.checkpoint.timings)
+        rec["serve"] = {"tokens_equal": got == want,
+                        "launches": serve_launches,
+                        "restore_load_s": st["load_s"],
+                        "restore_crc_s": st["crc_s"]}
+        attn = {k: serve_launches[k] for k in ("flash_attention",
+                                               "paged_decode_attention")}
+        print(f"[smoke] ckpt serve step 2: 6 requests on 4 slots, greedy "
+              f"tokens equal to an engine given the params directly: "
+              f"{got == want}; launches "
+              f"{attn};"
+              f" params-only restore load {st['load_s']:.2f} s + crc "
+              f"{st['crc_s']:.2f} s | {card}")
+        assert got == want
+        assert all(len(x) == 16 for x in got)
+        for k in ("flash_attention", "paged_decode_attention"):
+            assert serve_launches[k] > 0, f"{k} never launched serving"
+        del eng, direct
+
+        # (c) hot-reload ------------------------------------------------
+        hr = ServeEngine(EngineConfig(**CKPT_SERVE, ckpt_dir=str(root),
+                                      hot_reload=True), model, p2,
+                         checkpoint=a.checkpoint, loaded_step=2)
+        polls, ticks = [], []
+        poll, tick = hr._reloader.poll, hr._decode_tick
+
+        def timed_poll():
+            t0 = time.perf_counter()
+            out = poll()
+            polls.append((time.perf_counter() - t0, out is not None))
+            return out
+
+        def timed_tick():
+            n = hr.stats["transition_ticks"]
+            t0 = time.perf_counter()
+            tick()
+            ticks.append((time.perf_counter() - t0,
+                          hr.stats["transition_ticks"] > n))
+        hr._reloader.poll, hr._decode_tick = timed_poll, timed_tick
+        from repro_torch.engine import GenerationRequest
+        h_old = hr.submit(GenerationRequest(prompts[0], max_new_tokens=24))
+        for _ in range(3):
+            hr.step()
+        assert not h_old.done
+        a.save(3)                      # async: the write is in flight
+        snap = a.checkpoint.timings["snapshot_s"]
+        h_new = hr.submit(GenerationRequest(prompts[1], max_new_tokens=12))
+        hr.drain()
+        rt = dict(a.checkpoint.timings)
+        swap_s = [dt for dt, swapped in polls if swapped]
+        trans = [dt for dt, x in ticks if x]
+        normal = [dt for dt, x in ticks if not x]
+        solo = []
+        for params, h in ((p2, h_old), (a.state["params"], h_new)):
+            e = ServeEngine(EngineConfig(**CKPT_SERVE), model, params)
+            hs = e.submit(GenerationRequest(h.request.prompt,
+                                            max_new_tokens=len(h.tokens)))
+            e.drain()
+            solo.append(hs.tokens == h.tokens)
+            del e
+        rec["hot_reload"] = {
+            "reloads": hr.stats["reloads"],
+            "transition_ticks": hr.stats["transition_ticks"],
+            "versions": [h_old.version, h_new.version],
+            "tokens_equal_pinned": solo, "snapshot_s": snap,
+            "write_s": rt["write_s"], "swap_poll_s": swap_s,
+            "restore_load_s": rt["load_s"], "restore_crc_s": rt["crc_s"],
+            "transition_tick_ms": [1e3 * x for x in trans],
+            "normal_tick_ms_median": 1e3 * statistics.median(normal)}
+        print(f"[smoke] ckpt hot-reload: step 3 saved mid-stream (snapshot "
+              f"{1e3 * snap:.0f} ms, write {rt['write_s']:.2f} s); the poll "
+              f"that swapped took {[round(x, 2) for x in swap_s]} s (barrier "
+              f"on the write, then load {rt['load_s']:.2f} s + crc "
+              f"{rt['crc_s']:.2f} s); reloads={hr.stats['reloads']} "
+              f"transition_ticks={hr.stats['transition_ticks']} tick ms: "
+              f"transition {[round(1e3 * x, 2) for x in trans]}, normal "
+              f"median {1e3 * statistics.median(normal):.2f}; versions "
+              f"{(h_old.version, h_new.version)}; tokens equal to an engine "
+              f"on the pinned step alone (step 2, step 3): {solo} | {card}")
+        assert hr.stats["reloads"] == 1 and hr.stats["transition_ticks"] >= 1
+        assert (h_old.version, h_new.version) == (0, 1) and all(solo)
+        assert hr.leaked_pages() == 0
+        del hr
+        a.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # (d) ranks: phase 6's first run saved its last step, restored it in
+    # place on every rank and redid the step
+    first = ranks["runs"]["{}_w{}".format(*RANK_RUNS[0][:2])]
+    rec["ranks"] = first["ckpt"]
+    print(f"[smoke] ckpt ranks ({RANK_RUNS[0][0]} world={RANK_RUNS[0][1]}):"
+          f" {first['ckpt']} | {card}")
+    assert all(first["ckpt"]["redo_bitwise"]), first["ckpt"]
+    return rec
 
 
 def serve_ab(other: Path) -> int:
@@ -1519,6 +1876,8 @@ def main(argv=None) -> int:
         _free()
         record["train"] = train_phase(card, args.profile)
         record["ranks"] = ranks_phase(card)
+        _free()
+        record["ckpt"] = ckpt_phase(card, record["ranks"])
     except Exception:                   # any phase failing fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -1541,6 +1900,12 @@ def main(argv=None) -> int:
         *RANK_RUNS[0][:2])]["launches"][0]
     rvh_ms = {c["kernel"]: c["ms"] for c in cases
               if c["case"] == "rvh_half_w4"}
+    # and their launches inside phase 7: the resumed step (prefetch on) and
+    # serving the checkpoint
+    ck = record["ckpt"]
+    ck_launches = dict(ck["serve"]["launches"])
+    ck_launches.update({k: ck["resume"]["prefetch_on"]["launches"][k]
+                        for k in ("block_dots", "block_combine")})
     main_cases = {"serve_extend", "serve_tick", "embed_fp32"}
     sources = {
         "flash_attention": ("csrc/flash_attention.cu",
@@ -1566,7 +1931,8 @@ def main(argv=None) -> int:
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
             "device_ms": c.get("device_ms"),
-            "library_device_ms": c.get("library_device_ms")})
+            "library_device_ms": c.get("library_device_ms"),
+            "phase7_launches": ck_launches[c["kernel"]]})
         if c["kernel"] in rvh_ms:
             rows[-1].update(rvh_launches=rvh_launches[c["kernel"]],
                             rvh_half_ms=rvh_ms[c["kernel"]])

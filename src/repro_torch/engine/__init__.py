@@ -6,8 +6,11 @@ the lanes stacked on one device or one lane per rank).
             decode steps and sampling
   registry  string-keyed combiners (sum, mean, adasum-gspmd/-fused/
             -linear, adasum-rvh across ranks)
-  session   TrainSession — config -> model, runtime, data, state, fit()
-  serving   ServeEngine — continuous batching over a paged KV cache
+  session   TrainSession — config -> model, runtime, data, state, fit(),
+            checkpoints; the loop's callbacks
+  pipeline  StepPipeline — resume, prefetch, callbacks, writer barriers
+  serving   ServeEngine — continuous batching over a paged KV cache,
+            checkpoint serving and hot-reload (HotReloader)
 """
 from .config import EngineConfig
 from .build import (EngineWarning, Runtime, build_runtime,
@@ -15,13 +18,18 @@ from .build import (EngineWarning, Runtime, build_runtime,
                     sample_logits)
 from .registry import (available_combiners, make_combiner,
                        register_combiner)
-from .session import (Callback, LoggingCallback, TrainSession,
+from .session import (Callback, CheckpointCallback, FailureInjectionCallback,
+                      LoggingCallback, StragglerCallback, TrainSession,
                       default_callbacks)
-from .serving import GenerationRequest, RequestHandle, ServeEngine
+from .pipeline import StepPipeline
+from .serving import (GenerationRequest, HotReloader, RequestHandle,
+                      ServeEngine)
 
 __all__ = ["EngineConfig", "ServeEngine", "GenerationRequest",
            "RequestHandle", "make_batched_decode_step",
            "make_sampling_decode_step", "sample_logits", "EngineWarning",
            "Runtime", "build_runtime", "available_combiners",
            "make_combiner", "register_combiner", "Callback",
-           "LoggingCallback", "TrainSession", "default_callbacks"]
+           "LoggingCallback", "CheckpointCallback", "StragglerCallback",
+           "FailureInjectionCallback", "TrainSession", "default_callbacks",
+           "StepPipeline", "HotReloader"]

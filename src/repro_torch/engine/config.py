@@ -26,8 +26,7 @@ from typing import Any, Dict, Optional
 
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.parallel.policy import RunPolicy
-from repro_torch.runtime import (ITEM_ADASUM_MATH, ITEM_CHECKPOINTS,
-                                 ITEM_ENGINE, ITEM_SERVING_EXTRAS,
+from repro_torch.runtime import (ITEM_ADASUM_MATH, ITEM_SERVING_EXTRAS,
                                  ITEM_SHARDING, ITEM_SUBSYSTEMS, not_ported)
 
 PARAM_DTYPES = ("float32", "bfloat16")
@@ -90,7 +89,14 @@ class EngineConfig:
     ckpt_every: int = 50
     log_every: int = 10
     strict: bool = False        # hard-error instead of warn+degrade
-    prefetch: bool = True       # no effect: the port's loop is serial
+
+    # ---- pipelined runtime (engine/pipeline.py) ----
+    prefetch: bool = True       # batches built on a background thread
+    prefetch_depth: int = 1     # speculative batches in flight (1 =
+                                # double-buffered; >1 = deeper pipeline)
+    device_stage: bool = False  # the prefetch thread also copies the
+                                # batch to the card (side CUDA stream)
+    async_checkpoint: bool = True   # off-thread checkpoint writes
     elastic: bool = False
     combine_stats: bool = True  # CombineStats per-step metrics
     adaptive_batch: bool = False
@@ -100,6 +106,8 @@ class EngineConfig:
     max_len: int = 0            # per-slot cache capacity; 0 => seq_len
                                 # (rounded up to a page multiple — see
                                 # serve_max_len())
+    hot_reload: bool = False    # poll ckpt_dir mid-stream; new requests
+                                # see new weights, in-flight finish on old
     prefill_mode: str = "auto"  # 'parallel' (one fused forward) | 'auto'
     kv_layout: str = "paged"    # the paged page-pool arena
     page_size: int = 16         # tokens per KV page
@@ -135,6 +143,15 @@ class EngineConfig:
         if self.fusion_threshold_mb < 1:
             raise ValueError(f"fusion_threshold_mb must be >= 1, got "
                              f"{self.fusion_threshold_mb}")
+        if self.prefetch_depth < 1:
+            raise ValueError(f"prefetch_depth must be >= 1, got "
+                             f"{self.prefetch_depth}")
+        if not self.prefetch and (self.prefetch_depth > 1
+                                  or self.device_stage):
+            raise ValueError(
+                "prefetch_depth > 1 / device_stage require prefetch=True "
+                "(they configure the prefetch stage; with prefetch off "
+                "they would be silently ignored)")
         if self.local_steps < 1 or self.accum_steps < 1:
             raise ValueError("local_steps/accum_steps must be >= 1")
         if self.local_steps > 1 and self.accum_steps > 1:
@@ -146,6 +163,9 @@ class EngineConfig:
             raise ValueError(f"max_slots must be >= 1, got {self.max_slots}")
         if self.max_len < 0:
             raise ValueError(f"max_len must be >= 0, got {self.max_len}")
+        if self.hot_reload and not self.ckpt_dir:
+            raise ValueError("hot_reload=True needs ckpt_dir (the serve "
+                             "engine watches it for new checkpoints)")
         if self.prefill_mode not in ("auto", "parallel"):
             raise ValueError(f"prefill_mode={self.prefill_mode!r}; "
                              f"expected auto | parallel | scan")
@@ -201,8 +221,8 @@ class EngineConfig:
     def _refuse_later(self) -> None:
         """Options of later slices, each naming its ROADMAP item."""
         later = [
-            (self.ckpt_dir, "checkpoints (ckpt_dir)", ITEM_CHECKPOINTS),
-            (self.elastic, "elastic restarts (elastic)", ITEM_ENGINE),
+            (self.elastic, "elastic restarts (elastic, fit_elastic)",
+             ITEM_SUBSYSTEMS),
             (self.adaptive_batch, "the adaptive batch controller "
              "(adaptive_batch)", ITEM_SUBSYSTEMS),
             (self.combine_delay, "the delayed combine (combine_delay > 0)",
@@ -330,12 +350,26 @@ class EngineConfig:
         ap.add_argument("--data-seed", type=int, default=None,
                         dest="data_seed")
         ap.add_argument("--no-prefetch", action="store_true",
-                        help="the port's loop is serial either way")
+                        help="synchronous batch pulls (disable the "
+                        "double-buffered prefetch stage)")
+        ap.add_argument("--prefetch-depth", type=int, default=None,
+                        dest="prefetch_depth",
+                        help="speculative batches in flight (1 = "
+                        "double-buffered)")
+        ap.add_argument("--device-stage", action="store_true", default=None,
+                        dest="device_stage",
+                        help="the prefetch thread copies batches to the "
+                        "card on a side stream instead of host staging")
+        ap.add_argument("--sync-checkpoint", action="store_true",
+                        help="block the step loop on checkpoint writes")
         ap.add_argument("--elastic", action="store_true", default=None)
         ap.add_argument("--no-combine-stats", action="store_true",
                         help="drop the CombineStats per-step metrics")
         ap.add_argument("--adaptive-batch", action="store_true",
                         default=None, dest="adaptive_batch")
+        ap.add_argument("--hot-reload", action="store_true", default=None,
+                        dest="hot_reload",
+                        help="serving: pick up new checkpoints mid-stream")
         args, extra = ap.parse_known_args(argv)
         if extra:
             raise SystemExit(f"unknown arguments: {extra}")
@@ -346,14 +380,14 @@ class EngineConfig:
             v = getattr(args, f.name, None)
             if v is not None:
                 over[f.name] = v
-        if args.ckpt_every is not None:
-            raise not_ported("checkpoints (--ckpt-every)", ITEM_CHECKPOINTS)
         if args.no_per_layer:
             over["per_layer"] = False
         if args.no_fused_combine:
             over["fused_combine"] = False
         if args.no_prefetch:
             over["prefetch"] = False
+        if args.sync_checkpoint:
+            over["async_checkpoint"] = False
         if args.no_combine_stats:
             over["combine_stats"] = False
         # local CLI runs: the pod-scale FSDP/ZeRO-2 presets are switched

@@ -20,11 +20,11 @@ them. Built-in entries:
     adasum-linear  ring-order recursion (paper §3.4) — ablation variant
     adasum-rvh     ADASUMRVH (paper Algorithm 1) across the ranks of
                    `comm`, one lane per rank (`repro_torch.core.rvh`)
+    adascale       AdaScale's gain-scaled mean (Johnson et al., 2020)
 
 Across ranks (a comm of more than one rank) only `adasum-rvh` runs; the
-others are stacked-lane combiners. `adascale` and `dasgd` raise
-`NotImplementedError` naming the ROADMAP item that brings them. Register
-a new combiner with
+others are stacked-lane combiners. `dasgd` raises `NotImplementedError`
+naming the ROADMAP item that brings it. Register a new combiner with
 
     @register_combiner("mine")
     def _mine(cfg, **_):
@@ -34,6 +34,8 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict
 
+import torch
+
 from repro_torch import tree as T
 from repro_torch.core import adasum as A
 from repro_torch.core.combine import (CombineConfig, _level_triple,
@@ -41,8 +43,8 @@ from repro_torch.core.combine import (CombineConfig, _level_triple,
                                       tree_combine_per_layer,
                                       tree_combine_whole)
 from repro_torch.core.rvh import build_rvh_combiner
-from repro_torch.runtime import (ITEM_ENGINE, ITEM_MULTI_RANK,
-                                 ITEM_SUBSYSTEMS, not_ported)
+from repro_torch.runtime import (ITEM_MULTI_RANK, ITEM_SUBSYSTEMS,
+                                 not_ported)
 
 PyTree = Any
 Combiner = Callable[[PyTree], PyTree]
@@ -50,7 +52,7 @@ CombinerFactory = Callable[..., Combiner]
 
 _COMBINERS: Dict[str, CombinerFactory] = {}
 # reference registry entries a later slice brings
-LATER = {"adascale": ITEM_ENGINE, "dasgd": ITEM_SUBSYSTEMS}
+LATER = {"dasgd": ITEM_SUBSYSTEMS}
 
 
 def register_combiner(name: str, *, overwrite: bool = False):
@@ -224,3 +226,45 @@ def _adasum_linear(cfg, **_):
         return A.adasum_linear_reduce(lanes, per_layer=cfg.per_layer,
                                       acc_dtype=cfg.acc)
     return lin
+
+
+@register_combiner("adascale")
+def _adascale(cfg, **_):
+    """AdaScale SGD (Johnson et al., 2020) as a combiner (registry.py:
+    241-289 of the reference): the lane mean scaled by the gain ratio
+
+        r = (sigma^2 + mu^2) / (sigma^2 / S + mu^2)      in [1, S]
+
+    (sigma^2: per-lane gradient variance, mu^2: squared mean norm,
+    estimated from the S lanes). r -> 1 when lanes agree (combined ==
+    mean) and r -> S when lanes are orthogonal (combined == sum).
+    `cfg.per_layer` picks per-leaf vs whole-model gain; `cfg.acc` is the
+    moment-accumulation dtype."""
+    eps = 1e-20
+
+    def gain(var, mu2, S):
+        return torch.clamp((var + mu2) / (var / S + mu2 + eps), 1.0, S)
+
+    def moments(x, S):
+        xa = x.to(cfg.acc)
+        m = xa.mean(dim=0)
+        var = torch.square(xa - m).sum() / max(S - 1, 1)
+        return m, var, torch.square(m).sum()
+
+    def combine(stacked):
+        S = T.leaves(stacked)[0].shape[0]
+        if cfg.per_layer:
+            def per_leaf(x):
+                m, var, msq = moments(x, S)
+                mu2 = torch.clamp(msq - var / S, min=0.0)
+                return (gain(var, mu2, S) * m).to(x.dtype)
+            return T.map(per_leaf, stacked)
+        leaves, treedef = T.flatten(stacked)
+        mo = [moments(x, S) for x in leaves]
+        var = sum(v for _, v, _ in mo)
+        mu2 = torch.clamp(sum(m2 for _, _, m2 in mo) - var / S, min=0.0)
+        r = gain(var, mu2, S)
+        return T.unflatten(treedef, [(r * m).to(x.dtype)
+                                     for (m, _, _), x in zip(mo, leaves)])
+
+    return combine

@@ -22,13 +22,24 @@ What it does, as the reference's default path:
     same physical pages and prefill computes only the unshared tail
     (flash kernel with q_offset = prefix length);
   * **decode** — one batched step per tick through the paged-decode
-    kernel, greedy by default, per-slot sampling when a request asks.
+    kernel, greedy by default, per-slot sampling when a request asks;
+  * **checkpoints** — `from_config` with `ckpt_dir` serves the params of
+    the latest checkpoint (a params-only restore by manifest path, in
+    the dtype the checkpoint stored); with `hot_reload` a `HotReloader`
+    polls the directory each tick and params are versioned: new
+    admissions take the newest version, in-flight slots finish on the
+    version they were admitted with, and a swap flushes the prefix
+    index (its pages hold K/V of the old weights).
 
-The engine is single-threaded and tick-driven (`step()` = admit + one
-batched decode + retire). Device state is written in place (see
-`slots`). Hot-reload, speculation, deadlines, preemption and the dense
-layout are later slices (ROADMAP.md queue 1); the options that ask for
-them raise.
+The engine is single-threaded and tick-driven (`step()` = reload poll +
+admit + one batched decode + retire). Device state is written in place
+(see `slots`), so a transition tick — slots of two param versions live
+at once — decodes once per version with the other versions' slots'
+page-table rows pointed at the trash page: each pass writes K/V only
+into the pages of its own version's slots, and each slot keeps the
+token of its own version's pass. Speculation, deadlines, preemption and
+the dense layout are later slices (ROADMAP.md queue 1); the options that
+ask for them raise.
 """
 from __future__ import annotations
 
@@ -43,6 +54,7 @@ from repro_torch.runtime import (ITEM_SERVING_EXTRAS, DeviceLike,
                                  make_generator, not_ported, resolve_device)
 from ..build import make_batched_decode_step, make_sampling_decode_step, \
     sample_logits
+from .reload import HotReloader
 from .scheduler import (ContinuousBatchingScheduler, GenerationRequest,
                         PrefixIndex, RequestHandle)
 from .slots import (PagePool, copy_pages, gather_prefix, paged_insert_rows,
@@ -60,12 +72,27 @@ def _bucket(n: int, max_len: int) -> int:
     return min(b, max_len)
 
 
+def _params_template(model) -> PyTree:
+    """The params tree as meta tensors (shapes only): what a params-only
+    restore reads into."""
+    from repro_torch.models.transformer import param_spec
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return torch.empty(node[0], device="meta")
+    return walk(param_spec(model.cfg))
+
+
 def resolve_serve_parts(config, *, model=None, params=None,
-                        device: DeviceLike = None,
+                        checkpoint=None, device: DeviceLike = None,
                         generator: Optional[torch.Generator] = None):
-    """arch -> model, and params freshly initialised on `device` from
-    `generator` (default: seed 0 on that device). Returns (model,
-    params)."""
+    """arch -> model; a checkpoint manager from ckpt_dir; and params —
+    the params-only restore of the latest checkpoint when there is one
+    (on `device`), else freshly initialised on `device` from `generator`
+    (default: seed 0 on that device). Returns (model, params, checkpoint,
+    loaded_step)."""
+    from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs.base import get_config, get_reduced
     from repro_torch.models import build_model
 
@@ -78,22 +105,40 @@ def resolve_serve_parts(config, *, model=None, params=None,
                 else get_config(config.arch))
         model = build_model(mcfg,
                             param_dtype=getattr(torch, config.param_dtype))
+    if checkpoint is None and config.ckpt_dir:
+        checkpoint = CheckpointManager(config.ckpt_dir)
+    loaded_step = None
     if params is None:
         dev = resolve_device(device)
-        params = model.init(generator or make_generator(dev), device=dev)
-    return model, params
+        if checkpoint is not None and checkpoint.latest_step() is not None:
+            loaded_step = checkpoint.latest_step()
+            params = checkpoint.restore_params(_params_template(model),
+                                               loaded_step, device=dev)
+        else:
+            params = model.init(generator or make_generator(dev), device=dev)
+    return model, params, checkpoint, loaded_step
 
 
 class ServeEngine:
     """Continuous-batching serving engine for one (model, params)."""
 
-    def __init__(self, config, model, params: PyTree):
+    def __init__(self, config, model, params: PyTree, *, checkpoint=None,
+                 loaded_step: Optional[int] = None):
         config.validate()
         cfg = model.cfg
         self.config = config
         self.model = model
-        self.params = params
         self.device = params["embed"]["table"].device
+        # versioned params: in-flight slots pin the version they were
+        # admitted with; hot-reload bumps _version for new admissions
+        self._params: Dict[int, PyTree] = {0: params}
+        self._version = 0
+        self._loaded_step = loaded_step
+        self.checkpoint = checkpoint
+        self._reloader: Optional[HotReloader] = None
+        if checkpoint is not None and config.hot_reload:
+            self._reloader = HotReloader(checkpoint, params,
+                                         loaded_step=loaded_step)
         self.max_slots = config.max_slots
         self.max_len = config.serve_max_len()
         self.scheduler = ContinuousBatchingScheduler(self.max_slots,
@@ -153,21 +198,70 @@ class ServeEngine:
                       "kv_pages_used": 0,
                       "kv_pages_free": self._pool.pages_free,
                       "prefix_hits": 0, "prefix_tokens_reused": 0,
-                      "cow_copies": 0, "started_at": None}
+                      "cow_copies": 0, "reloads": 0, "restore_fallbacks": 0,
+                      "transition_ticks": 0, "started_at": None}
 
     # ------------------------------------------------------- construction
     @classmethod
     def from_config(cls, config, *, model=None, params=None,
-                    device: DeviceLike = None,
+                    checkpoint=None, device: DeviceLike = None,
                     generator: Optional[torch.Generator] = None
                     ) -> "ServeEngine":
-        """Build model and params from the config (random weights from
-        `generator`, on `device` — `cuda` unless the caller says
-        otherwise)."""
-        model, params = resolve_serve_parts(config, model=model,
-                                            params=params, device=device,
-                                            generator=generator)
-        return cls(config, model, params)
+        """Build model and params from the config, on `device` (`cuda`
+        unless the caller says otherwise): with `ckpt_dir`, the params of
+        the latest checkpoint (`checkpoint` may pass a shared manager,
+        e.g. a training run's, which `hot_reload` then polls); else
+        random weights from `generator`."""
+        model, params, checkpoint, loaded_step = resolve_serve_parts(
+            config, model=model, params=params, checkpoint=checkpoint,
+            device=device, generator=generator)
+        if loaded_step is not None:
+            print(f"[serve] serving checkpoint step {loaded_step} from "
+                  f"{checkpoint.root}")
+        return cls(config, model, params, checkpoint=checkpoint,
+                   loaded_step=loaded_step)
+
+    # ------------------------------------------------------------- params
+    def swap_params(self, params: PyTree, step: Optional[int] = None):
+        """Hot-swap: new admissions decode with `params`; slots already
+        in flight finish on their admitted version."""
+        self._version += 1
+        self._params[self._version] = params
+        self._loaded_step = step
+        self.stats["reloads"] += 1
+        # registered prefix pages hold K/V computed under the OLD
+        # weights — flush them so new admissions re-prefill under the
+        # new version (pages still referenced by in-flight old-version
+        # slots survive until those slots retire)
+        self.flush_prefix()
+
+    def flush_prefix(self) -> int:
+        """Release every prefix-index page reference; returns the number
+        of pages flushed."""
+        n = 0
+        if self._prefix is not None:
+            while True:
+                pid = self._prefix.evict_lru()
+                if pid is None:
+                    break
+                self._pool.release([pid])
+                n += 1
+        return n
+
+    def _gc_versions(self):
+        live = {h.version for h in self.scheduler.active.values()}
+        live.add(self._version)
+        for v in [v for v in self._params if v not in live]:
+            del self._params[v]
+
+    @property
+    def params(self) -> PyTree:
+        """The params new admissions will see."""
+        return self._params[self._version]
+
+    @property
+    def loaded_step(self) -> Optional[int]:
+        return self._loaded_step
 
     # ------------------------------------------------------------- submit
     def submit(self, request: GenerationRequest) -> RequestHandle:
@@ -186,11 +280,20 @@ class ServeEngine:
         shared prefixes prefill only the unshared tail) -> one batched
         decode over the active slots (page growth / COW first) -> retire
         finished. Returns True while queued or in-flight work remains."""
+        if self._reloader is not None:
+            # synchronous, as the reference's: a poll that finds a new step
+            # reads and checks the whole checkpoint before this tick admits
+            # or decodes, and a shared async manager first drains its write
+            got = self._reloader.poll()
+            if got is not None:
+                self.swap_params(got[1], step=got[0])
+            self.stats["restore_fallbacks"] = self._reloader.fallbacks
         admitted = self.scheduler.admit(self._reserve_pages)
         if admitted:
             self._admit_batch(admitted)
         if self.scheduler.active:
             self._decode_tick()
+        self._gc_versions()
         used = self._pool.pages_used
         b = used * self._page_bytes
         self.stats["kv_bytes_in_use"] = b
@@ -323,6 +426,7 @@ class ServeEngine:
         groups: Dict[Any, list] = {}
         plans: Dict[int, Any] = {}
         for slot, handle in admitted:
+            handle.version = self._version
             req = handle.request
             self._temp[slot] = req.temperature
             self._topk[slot] = req.top_k
@@ -399,18 +503,48 @@ class ServeEngine:
         active = dict(self.scheduler.active)       # slot -> handle
         toks = self._dev(self._tokens)
         if any(h.request.temperature > 0 for h in active.values()):
-            nxt, self.cache = self._decode_sampled(
-                self.params, toks, self.cache, self._seeds, self._pos,
-                self._temp, self._topk, self._topp)
+            decode = lambda params, cache: self._decode_sampled(
+                params, toks, cache, self._seeds, self._pos, self._temp,
+                self._topk, self._topp)
         else:
-            nxt, self.cache = self._decode(self.params, toks, self.cache)
-        nxt = nxt.cpu().numpy()                    # waits for the device
+            decode = lambda params, cache: self._decode(params, toks, cache)
+        versions = sorted({h.version for h in active.values()})
+        if len(versions) == 1:
+            nxt, self.cache = decode(self._params[versions[0]], self.cache)
+            nxt = nxt.cpu().numpy()                # waits for the device
+        else:
+            nxt = self._transition_decode(decode, active, versions)
+            self.stats["transition_ticks"] += 1
         self.stats["decode_steps"] += 1
         self.stats["decode_s"] += time.perf_counter() - t0
         for slot in active:
             self._host_pos[slot] += 1
         for slot, handle in active.items():
             self._commit(handle, int(nxt[slot, 0]))
+
+    def _transition_decode(self, decode, active, versions) -> np.ndarray:
+        """A tick with slots of several param versions: one pass per
+        version. The arenas are written in place, so in each pass every
+        slot of another version has its page-table rows pointed at the
+        trash page: the pass writes K/V only into its own slots' pages
+        (the others' writes land in trash page 0) and their output rows
+        are discarded. Positions advance once."""
+        att = self.cache.layers["attn"]
+        slot_version = np.full((self.max_slots,), -1)
+        for slot, h in active.items():
+            slot_version[slot] = h.version
+        nxt = np.zeros((self.max_slots, 1), np.int32)
+        for v in versions:
+            mine = slot_version == v
+            keep = self._dev(mine)[None, :, None]
+            view = type(self.cache)({"attn": att._replace(
+                page_table=torch.where(keep, att.page_table,
+                                       PagePool.TRASH))})
+            out, after = decode(self._params[v], view)
+            nxt[mine] = out.cpu().numpy()[mine]    # waits for the device
+        self.cache = type(self.cache)(
+            {"attn": att._replace(pos=after.layers["attn"].pos)})
+        return nxt
 
     def _commit(self, handle: RequestHandle, token: int):
         """Record one generated token; stream it; retire if finished."""
@@ -474,7 +608,10 @@ class ServeEngine:
                "kv_bytes_in_use": self.stats["kv_bytes_in_use"],
                "peak_kv_bytes": self.stats["peak_kv_bytes_in_use"],
                "prefix_hits": self.stats["prefix_hits"],
-               "prefix_tokens_reused": self.stats["prefix_tokens_reused"]}
+               "prefix_tokens_reused": self.stats["prefix_tokens_reused"],
+               "reloads": self.stats["reloads"],
+               "transition_ticks": self.stats["transition_ticks"],
+               "restore_fallbacks": self.stats["restore_fallbacks"]}
         for name, samples in (("ttft", self._ttft), ("tpot", self._tpot)):
             if samples:
                 arr = np.asarray(samples, np.float64)

@@ -75,6 +75,7 @@ class RequestHandle:
         self.tokens: List[int] = []          # generated tokens (no prompt)
         self.status = "queued"               # queued | running | done
         self.slot: Optional[int] = None
+        self.version: Optional[int] = None   # params version when admitted
         self.finish_reason: Optional[str] = None     # eos | length
         self.submitted_at = time.perf_counter()
         self.first_token_at: Optional[float] = None

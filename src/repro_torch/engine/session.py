@@ -1,16 +1,20 @@
-"""TrainSession — the one-line integration the paper sells (the port's
-subset of `repro/engine/session.py`):
+"""TrainSession — the one-line integration the paper sells (the port of
+`repro/engine/session.py`'s TrainSession):
 
     from repro_torch.engine import EngineConfig, TrainSession
     session = TrainSession.from_config(
         EngineConfig(arch="gemma-7b", reduced=True, span=2,
-                     backend="gspmd_tree"), device="cpu")
+                     backend="gspmd_tree", ckpt_dir="runs/g"),
+        device="cpu")
     session.fit(3)
 
-`fit` is the serial loop (the reference's prefetch stage changes no
-result; the port does not overlap batch building with the step). Only
-`LoggingCallback` is ported; checkpoints, straggler monitoring and
-failure drills are ROADMAP.md queue 1 item 4.
+`fit` runs through `repro_torch.engine.pipeline.StepPipeline`: resume
+from the latest checkpoint when one is ahead of the live state, batches
+prefetched on a background thread, periodic atomic checkpoints written
+off-thread (`CheckpointCallback`, the async manager), a SIGTERM save,
+straggler monitoring (`StragglerCallback`) and, for drills, injected
+node failures (`FailureInjectionCallback`). The elastic restart loop
+is ROADMAP.md queue 1 item 8.
 
 Weights come from the port's seeded generator: the reference's
 `jax.random.key(0)` draws cannot be reproduced in torch.
@@ -23,23 +27,35 @@ group itself (`Comm.init`: nccl on cuda, gloo on the CPU, or the
 and need gloo. Every rank draws the weights from the same seed and rank
 0's are then broadcast. Only rank 0's `LoggingCallback` prints. `close()`
 destroys the process group the session started.
+
+Checkpoints across ranks are the reference's files. Params (and state at
+the `pre` point) are replicated bitwise, so rank 0's copy is the
+checkpoint, and only rank 0 writes. At the `post` point each rank holds
+its own lane's optimizer state with no lane axis; a save gathers it to
+rank 0 one leaf at a time as the reference's full logical leaf
+[span, ...] (lane l is rank l·g's state, g = dp / span ranks a lane), and
+a restore gives each rank its own lane's row. Saves and restores are
+collective: every rank calls them.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
-import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
+from repro_torch import tree as T
+from repro_torch.checkpoint import AsyncCheckpointManager, CheckpointManager
+from repro_torch.checkpoint.manager import HostLeaf, host_leaf
 from repro_torch.configs.base import get_config, get_reduced
 from repro_torch.control.noise import STAT_KEYS
 from repro_torch.data import make_source
 from repro_torch.models import build_model
 from repro_torch.models.api import Model
 from repro_torch.parallel.comm import Comm
-from repro_torch.runtime import DeviceLike, make_generator, resolve_device
+from repro_torch.runtime import (DeviceLike, FailureInjector, StepMonitor,
+                                 make_generator, resolve_device)
 
 from .build import Runtime, build_runtime
 from .config import EngineConfig
@@ -73,8 +89,56 @@ class LoggingCallback(Callback):
                   f"combine={session.config.combine}")
 
 
-def default_callbacks(cfg: EngineConfig) -> List[Callback]:
-    return [LoggingCallback(cfg.log_every)]
+class CheckpointCallback(Callback):
+    """Periodic atomic checkpoints + final save via the session manager."""
+
+    def __init__(self, every: int = 50):
+        self.every = every
+
+    def on_step_end(self, session, step, metrics, dt):
+        # every <= 0: periodic saves off — only the final on_fit_end save
+        if session.checkpoint and self.every > 0 \
+                and (step + 1) % self.every == 0:
+            session.save(step + 1)
+
+    def on_fit_end(self, session, history):
+        if session.checkpoint and history:
+            session.save(int(history[-1]["step"]) + 1)
+
+
+class StragglerCallback(Callback):
+    """Feeds step wall-times to the robust z-score StepMonitor."""
+
+    def __init__(self, monitor: Optional[StepMonitor] = None):
+        self.monitor = monitor or StepMonitor()
+
+    def on_step_end(self, session, step, metrics, dt):
+        self.monitor.observe(dt)
+
+    def on_fit_end(self, session, history):
+        if session.rank == 0:
+            print(f"[train] monitor={self.monitor.summary()}")
+
+
+class FailureInjectionCallback(Callback):
+    """Recovery drills: raise at scheduled steps (simulated node loss)."""
+
+    def __init__(self, fail_at: Sequence[int]):
+        self.injector = FailureInjector(list(fail_at))
+
+    def on_step_start(self, session, step):
+        self.injector.check(step)
+
+
+def default_callbacks(cfg: EngineConfig,
+                      fail_at: Sequence[int] = ()) -> List[Callback]:
+    cbs: List[Callback] = [LoggingCallback(cfg.log_every),
+                           StragglerCallback()]
+    if cfg.ckpt_dir:
+        cbs.append(CheckpointCallback(cfg.ckpt_every))
+    if fail_at:
+        cbs.insert(0, FailureInjectionCallback(fail_at))
+    return cbs
 
 
 class TrainSession:
@@ -84,7 +148,8 @@ class TrainSession:
     def __init__(self, config: EngineConfig, model: Model, runtime: Runtime,
                  source, generator: torch.Generator,
                  callbacks: Optional[List[Callback]] = None,
-                 owns_comm: bool = False):
+                 owns_comm: bool = False,
+                 checkpoint: Optional[CheckpointManager] = None):
         self.config = config
         self.model = model
         self.runtime = runtime
@@ -95,6 +160,7 @@ class TrainSession:
         self._owns_comm = owns_comm
         self.callbacks = (default_callbacks(config) if callbacks is None
                           else list(callbacks))
+        self.checkpoint = checkpoint
         self.state: PyTree = runtime.init_state(generator)
         self._last_stats: Dict[str, float] = {}
 
@@ -143,8 +209,12 @@ class TrainSession:
                                     combine_impl=combine_impl, comm=comm)
             source = make_source(config.data_config(model.cfg.vocab_size),
                                  model.cfg)
+            ckpt = None
+            if config.ckpt_dir:
+                ckpt = (AsyncCheckpointManager if config.async_checkpoint
+                        else CheckpointManager)(config.ckpt_dir)
             return cls(config, model, runtime, source, gen, callbacks,
-                       owns_comm=owns)
+                       owns_comm=owns, checkpoint=ckpt)
         except BaseException:
             if owns:
                 comm.close()
@@ -171,7 +241,19 @@ class TrainSession:
                 "stats_enabled": rt.combine_stats,
                 "combine_stats": dict(self._last_stats),
                 "global_batch": self.config.global_batch,
-                "lr": self.config.lr}
+                "lr": self.config.lr,
+                "resilience": self._resilience_metadata()}
+
+    def _resilience_metadata(self) -> Dict[str, Any]:
+        """Fault-recovery accounting: checkpoint restore fallbacks and
+        quarantined steps (from the manager). Restarts and grow-backs
+        belong to the elastic restarts (ROADMAP.md queue 1 item 8) and are
+        0 here."""
+        ck = self.checkpoint
+        return {"restore_fallbacks": ck.restore_fallbacks if ck else 0,
+                "quarantined_steps": ([q["step"] for q in ck.quarantined]
+                                      if ck else []),
+                "restarts": 0, "grow_backs": 0}
 
     def batch(self, step: int) -> Dict[str, torch.Tensor]:
         """The deterministic batch for `step`, on the session's device."""
@@ -192,32 +274,127 @@ class TrainSession:
         return out
 
     def fit(self, steps: Optional[int] = None) -> List[Dict[str, float]]:
-        """Train to `steps` total from the current step. Returns the
-        per-step history."""
+        """Train to `steps` total (resuming from the latest checkpoint when
+        one is ahead of the live state). Returns the per-step history.
+        The loop itself lives in `repro_torch.engine.pipeline`."""
+        from .pipeline import StepPipeline
         steps = self.config.steps if steps is None else steps
         self.config = dataclasses.replace(self.config, steps=steps)
+        return StepPipeline(self).run()
+
+    # ------------------------------------------------------------ checkpoints
+    def _ranked(self) -> bool:
+        return self.comm is not None and self.comm.world > 1
+
+    def _lane_state(self) -> bool:
+        """Whether each rank holds only its own lane's optimizer state."""
+        rt = self.runtime
+        return self._ranked() and rt.dopt.point == "post" and rt.span > 1
+
+    def _from_rank0(self, value: int) -> int:
+        """Rank 0's int on every rank (a barrier too: every rank waits for
+        rank 0 to get here)."""
+        t = torch.tensor([value], dtype=torch.int64, device=self.device)
+        return int(self.comm.broadcast(t, 0).item())
+
+    def _gather_lanes(self, x: torch.Tensor) -> Optional[HostLeaf]:
+        """The lanes' state leaf -> the reference's [span, ...] leaf on
+        rank 0's host (None elsewhere): lane l is rank l·g's copy (g =
+        world / span ranks a lane), and only those ranks send; collective."""
+        g = self.comm.world // self.runtime.span
+        rows = self.comm.gather_to_host(
+            x, [l * g for l in range(self.runtime.span)])
+        return None if rows is None else host_leaf(rows)
+
+    def _save_tree(self) -> Optional[PyTree]:
+        """The tree the checkpoint holds (rank 0), None on other ranks;
+        collective at the post point across ranks."""
+        if not self._ranked():
+            return self.state
+        if not self._lane_state():
+            return self.state if self.rank == 0 else None
+        st = self.state
+        inner = T.map(self._gather_lanes, st["opt"]["inner"])
+        if self.rank != 0:
+            return None
+        return {"params": st["params"], "step": st["step"],
+                "opt": {"inner": inner, "step": st["opt"]["step"]}}
+
+    def _manager(self):
+        if self.checkpoint is None:
+            raise ValueError("no ckpt_dir configured: the session has no "
+                             "checkpoint manager")
+        return self.checkpoint
+
+    def latest_step(self) -> Optional[int]:
+        """The newest checkpoint step (rank 0's view on every rank)."""
+        self._manager()
+        if not self._ranked():
+            return self.checkpoint.latest_step()
+        latest = self.checkpoint.latest_step() if self.rank == 0 else 0
+        got = self._from_rank0(-1 if latest is None else latest)
+        return None if got < 0 else got
+
+    def save(self, step: Optional[int] = None):
+        """Checkpoint the state as `step` (default: the state's own step
+        counter); the write runs on the manager's thread when it is the
+        async one."""
+        self._manager()
+        step = self.state["step"] if step is None else step
+        tree = self._save_tree()
+        if tree is None:
+            return self.checkpoint.root / f"step_{step:08d}"
+        return self.checkpoint.save(step, tree)
+
+    def save_sync(self, step: Optional[int] = None):
+        """save() + barrier: the checkpoint is durably on disk on return
+        (the async writer only guarantees that at the next barrier), on
+        every rank. The path for SIGTERM handlers."""
+        path = self.save(step)
+        wait = getattr(self.checkpoint, "wait", None)
+        if wait is not None:
+            wait()
+        if self._ranked():
+            self._from_rank0(0)
+        return path
+
+    def restore(self, step: Optional[int] = None) -> int:
+        """Restore the state from the latest (or given) checkpoint, if
+        any, into the live tensors (each leaf copied onto the session's
+        device in the live leaf's dtype, one at a time). Returns the
+        resumed step (0 when there is nothing to restore)."""
+        self._manager()
+        if step is None and self.latest_step() is None:
+            return 0
+        rows = None
+        if self._lane_state():
+            lane = self.rank // (self.comm.world // self.runtime.span)
+            rows = {"['opt']['inner']" + T.keystr(p): lane for p, _ in
+                    T.flatten_with_path(self.state["opt"]["inner"])[0]}
+        if self._ranked():
+            # rank 0 validates (and quarantines) first; the others then
+            # read the step it settled on
+            if self.rank == 0:
+                self.state = self.checkpoint.restore(self.state, step, rows)
+            step = self._from_rank0(self.state["step"])
+            if self.rank != 0:
+                self.state = self.checkpoint.restore(self.state, step, rows)
+        else:
+            self.state = self.checkpoint.restore(self.state, step, rows)
         start = self.state["step"]
-        for cb in self.callbacks:
-            cb.on_fit_start(self, start)
-        history: List[Dict[str, float]] = []
-        for step in range(start, steps):
-            for cb in self.callbacks:
-                cb.on_step_start(self, step)
-            t0 = time.perf_counter()
-            metrics = self.step(self.batch(step))
-            dt = time.perf_counter() - t0
-            row = {"step": step, "loss": metrics["loss"], "s": dt}
-            row.update({k: metrics[k] for k in STAT_KEYS if k in metrics})
-            history.append(row)
-            for cb in self.callbacks:
-                cb.on_step_end(self, step, metrics, dt)
-        for cb in self.callbacks:
-            cb.on_fit_end(self, history)
-        return history
+        if self.rank == 0:
+            print(f"[train] resumed from step {start}")
+        return start
 
     def close(self) -> None:
-        """Destroy the process group the session started (no background
-        threads in the port yet)."""
-        if self._owns_comm:
-            self.comm.close()
-            self._owns_comm = False
+        """Release background resources (the async checkpoint writer,
+        after its pending write) and destroy the process group the
+        session started. The session is done after this."""
+        close = getattr(self.checkpoint, "close", None)
+        try:
+            if close is not None:
+                close()
+        finally:
+            if self._owns_comm:
+                self.comm.close()
+                self._owns_comm = False

@@ -9,12 +9,16 @@ Submits `--requests` synthetic prompts (lengths jittered around
 --prompt-len, arrivals staggered by --stagger decode ticks), drives the
 continuous-batching engine to completion, and prints the throughput
 fields (`completed=`, `tok_s=`, ...). Weights are random, drawn on
-`--device` (default cuda) from a generator seeded with `--seed`.
+`--device` (default cuda) from a generator seeded with `--seed`; with
+`--ckpt-dir` the engine serves the params of the latest checkpoint there
+(a train run's) and prints "[serve] serving checkpoint step N from DIR";
+`--hot-reload` also polls the directory every tick, so a checkpoint that
+lands mid-stream serves the requests admitted after it.
 
 Flags of later slices (`--speculation-k`, `--draft-preset`,
-`--ckpt-dir`, `--hot-reload`, `--deadline-s`, `--max-retries`,
-`--pressure-ladder`, `--kv-layout dense`, `--legacy`, meshes above one
-device) raise NotImplementedError naming their ROADMAP item.
+`--deadline-s`, `--max-retries`, `--pressure-ladder`, `--kv-layout
+dense`, `--legacy`, meshes above one device) raise NotImplementedError
+naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -24,9 +28,8 @@ import sys
 import numpy as np
 
 from repro_torch.engine import EngineConfig, GenerationRequest, ServeEngine
-from repro_torch.runtime import (ITEM_CHECKPOINTS, ITEM_SERVING_EXTRAS,
-                                 ITEM_SHARDING, make_generator, not_ported,
-                                 resolve_device)
+from repro_torch.runtime import (ITEM_SERVING_EXTRAS, ITEM_SHARDING,
+                                 make_generator, not_ported, resolve_device)
 
 
 def _refuse_later_flags(args) -> None:
@@ -34,8 +37,6 @@ def _refuse_later_flags(args) -> None:
         (args.speculation_k or args.draft_preset,
          "speculative decoding (--speculation-k/--draft-preset)",
          ITEM_SERVING_EXTRAS),
-        (args.ckpt_dir or args.hot_reload,
-         "serving checkpoints (--ckpt-dir/--hot-reload)", ITEM_CHECKPOINTS),
         (args.deadline_s or args.max_retries is not None
          or args.pressure_ladder,
          "serve resilience (--deadline-s/--max-retries/--pressure-ladder)",
@@ -121,7 +122,9 @@ def main(argv=None):
                        prefill_mode=args.prefill_mode,
                        kv_layout=args.kv_layout, page_size=args.page_size,
                        kv_pages=args.kv_pages,
-                       prefix_sharing=not args.no_prefix_sharing).validate()
+                       prefix_sharing=not args.no_prefix_sharing,
+                       ckpt_dir=args.ckpt_dir,
+                       hot_reload=args.hot_reload).validate()
     rng = np.random.RandomState(1)
     device = resolve_device(args.device)
     engine = ServeEngine.from_config(
@@ -154,11 +157,13 @@ def main(argv=None):
     tp = engine.throughput()
     lat = {k: tp.pop(k) for k in list(tp)
            if k.startswith(("ttft_", "tpot_"))}
+    fallbacks = tp.pop("restore_fallbacks")
     fields = " ".join(
         f"{k}={v:.2f}" if isinstance(v, float) else f"{k}={v}"
         for k, v in tp.items())
     print(f"[serve] {fields}")
-    print(f"[serve] resilience failed={tp['submitted'] - tp['completed']}")
+    print(f"[serve] resilience failed={tp['submitted'] - tp['completed']} "
+          f"restore_fallbacks={fallbacks}")
     if lat:
         print("[serve] latency " + " ".join(
             f"{k[:-2]}_ms={v * 1e3:.1f}" for k, v in lat.items()))

@@ -16,10 +16,23 @@ There `--dist-backend` is nccl on cuda (one card per rank, `cuda:
 LOCAL_RANK`) and gloo on the CPU; ranks sharing one card pass `--device
 cuda:0 --dist-backend gloo`. Only rank 0 prints. Weights are random,
 drawn on the device from a generator seeded with `--seed` (rank 0's are
-broadcast). Flags of later slices (`--ckpt-dir`, `--ckpt-every`,
-`--elastic`, `--fail-at`, `--adaptive-batch`, `--combine-delay 1`,
-`--model-mesh` above 1) raise NotImplementedError naming their ROADMAP
-item.
+broadcast).
+
+Fault tolerance, as the reference's CLI: `--ckpt-dir` (periodic atomic
+checkpoints every `--ckpt-every` steps, written off-thread;
+`--sync-checkpoint` blocks), a SIGTERM save, resume from the latest
+checkpoint, prefetched batches (`--no-prefetch` for the serial loop), the
+straggler monitor and `--fail-at` failure drills:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --arch gemma-7b --reduced --steps 4 --seq 32 --batch 8 \
+        --ckpt-dir runs/ck --ckpt-every 2 --fail-at 3
+
+dies with NodeLossError at step 3; running it again (without --fail-at)
+prints "resumed from step 2" and finishes; once more prints "nothing to
+do". Flags of later slices (`--elastic`, `--adaptive-batch`,
+`--combine-delay 1`, `--model-mesh` above 1) raise NotImplementedError
+naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -29,15 +42,14 @@ import os
 from pathlib import Path
 
 from repro_torch.engine import EngineConfig, TrainSession, default_callbacks
-from repro_torch.runtime import (ITEM_ENGINE, make_generator, not_ported,
-                                 resolve_device)
+from repro_torch.runtime import make_generator, resolve_device
 
 
 def main(argv=None):
     # driver-only flags ride in front of the EngineConfig CLI
     ap = argparse.ArgumentParser(add_help=False)
-    ap.add_argument("--fail-at", type=int, nargs="*", default=None,
-                    help="inject failures at these steps (a later slice)")
+    ap.add_argument("--fail-at", type=int, nargs="*", default=[],
+                    help="inject failures at these steps (recovery drill)")
     ap.add_argument("--metrics-out", default=None)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain kernel versions)")
@@ -48,8 +60,6 @@ def main(argv=None):
                     help="across ranks: nccl (default on cuda) or gloo "
                     "(default on cpu; ranks sharing one card)")
     args, engine_argv = ap.parse_known_args(argv)
-    if args.fail_at is not None:
-        raise not_ported("failure-injection drills (--fail-at)", ITEM_ENGINE)
 
     cfg = EngineConfig.from_cli(engine_argv)
     world = int(os.environ.get("WORLD_SIZE", "1"))
@@ -57,18 +67,22 @@ def main(argv=None):
         os.environ.get("LOCAL_RANK", "0")) if world > 1 else None)
     session = TrainSession.from_config(
         cfg, device=device, generator=make_generator(device, args.seed),
-        callbacks=default_callbacks(cfg), dist_backend=args.dist_backend)
+        callbacks=default_callbacks(cfg, fail_at=args.fail_at),
+        dist_backend=args.dist_backend)
     rt = session.runtime
     lead = session.rank == 0
     if lead:
         meta = session.run_metadata()
+        prefetch = (f"on depth={cfg.prefetch_depth}"
+                    f"{' device-stage' if cfg.device_stage else ''}"
+                    if cfg.prefetch else "off")
         print(f"[train] {cfg.arch}{' (reduced)' if cfg.reduced else ''} on "
               f"{device}: span={rt.span} combine={cfg.combine} "
               f"path={rt.combine_path or 'none'} optimizer={cfg.optimizer} "
               f"point={rt.dopt.point} "
               f"stats={'on' if rt.combine_stats else 'off'} "
-              f"world={meta['world']} dist={meta['dist_backend']}"
-              f" prefetch=off (serial loop)")
+              f"world={meta['world']} dist={meta['dist_backend']} "
+              f"prefetch={prefetch} ckpt={cfg.ckpt_dir or 'off'}")
     try:
         history = session.fit(cfg.steps)
     finally:
@@ -77,6 +91,11 @@ def main(argv=None):
         print(f"[train] done: final loss {history[-1]['loss']:.4f}")
     elif lead:
         print(f"[train] nothing to do: run already at step {cfg.steps}")
+    res = session.run_metadata()["resilience"]
+    if lead and any(res.values()):
+        print("[train] resilience " + " ".join(
+            f"{k}={len(v) if isinstance(v, list) else v}"
+            for k, v in res.items()))
     if args.metrics_out and lead:
         Path(args.metrics_out).write_text(json.dumps(history))
     return history

@@ -16,7 +16,9 @@ inside `shard_map` (repro/core/rvh.py:99-105, :172-177):
   allreduce(x)              an in-place sum over the comm's ranks
                             (`dist.all_reduce`: every rank gets the bits
                             the one reduction computed);
-  broadcast(x, src)         rank `src`'s tensor to every rank, in place.
+  broadcast(x, src)         rank `src`'s tensor to every rank, in place;
+  gather_to_host(x, srcs)   the tensors of ranks `srcs`, stacked in rank
+                            0's host memory (a checkpoint's lane rows).
 
 `Comm.init` starts the process group from the launch environment
 (`RANK`, `WORLD_SIZE`, `LOCAL_WORLD_SIZE`, and `MASTER_ADDR` /
@@ -332,3 +334,51 @@ class Comm:
         else:
             dist.broadcast(x, root, group=self.group)
         return x
+
+    def gather_to_host(self, x: torch.Tensor, srcs: Sequence[int]
+                       ) -> Optional[torch.Tensor]:
+        """The `x` of each local rank in `srcs` (same shape and dtype on
+        each), stacked as [len(srcs), *x.shape] in local rank 0's host
+        memory; None on every other rank. Only the ranks in `srcs` send,
+        one after another, so rank 0 holds one received copy on its card
+        at a time (nccl) or none (gloo). Collective over `srcs` and rank
+        0; the other ranks return at once."""
+        if self.rank != 0 and self.rank not in srcs:
+            return None
+        x = x.detach().contiguous()
+        on_card = x.device.type == "cuda"
+        gloo = self.backend == "gloo"
+        nbytes = x.numel() * x.element_size()
+        with self.timed("gather"):
+            if self.rank != 0:
+                if gloo and on_card:
+                    x = x.cpu()
+                    self.staged_bytes += nbytes
+                self._send_recv(x, self.ranks[0], send=True)
+                return None
+            out = torch.empty((len(srcs),) + tuple(x.shape), dtype=x.dtype)
+            buf = None if gloo or not on_card else torch.empty_like(x)
+            for i, src in enumerate(srcs):
+                if src == 0:
+                    out[i].copy_(x)
+                elif buf is None:
+                    self._send_recv(out[i], self.ranks[src], send=False)
+                else:
+                    self._send_recv(buf, self.ranks[src], send=False)
+                    out[i].copy_(buf)
+            if on_card:     # rows copied from the card: its own, nccl's
+                self.staged_bytes += nbytes * (1 if buf is None
+                                               else len(srcs))
+        return out
+
+    def _send_recv(self, t: torch.Tensor, peer: int, send: bool) -> None:
+        """Send `t` to (or receive it from) global rank `peer`, in
+        CHUNK_BYTES pieces on gloo."""
+        flat = t.reshape(-1).view(torch.uint8)
+        n = flat.numel()
+        step = CHUNK_BYTES if self.backend == "gloo" else max(n, 1)
+        op = dist.isend if send else dist.irecv
+        ops = [dist.P2POp(op, flat[c:c + step], peer, group=self.group)
+               for c in range(0, n, step)]
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()

@@ -1,10 +1,21 @@
 """Device resolution and the not-yet-ported guard shared by every entry
-point of the port."""
+point of the port, and the training loop's runtime pieces (the port of
+`repro/runtime/`):
+
+  monitor   StepMonitor (straggler z-score), StragglerConfig,
+            NodeLossError, FailureInjector, next_power_of_two_below
+  prefetch  Prefetcher — step-addressed batch prefetch with the
+            host-to-card copy on a side CUDA stream
+"""
 from __future__ import annotations
 
 from typing import Optional, Union
 
 import torch
+
+from .monitor import (FailureInjector, NodeLossError, StepMonitor,
+                      StragglerConfig, next_power_of_two_below)
+from .prefetch import Prefetcher
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -13,13 +24,12 @@ ITEM_ADASUM_MATH = "2.1"    # fp64 dot accumulation (acc_dtype)
 ITEM_MULTI_RANK = "3"       # what remains of multi-rank training (sum /
                             # mean / linear across ranks; accum and local
                             # steps at span < dp)
-ITEM_CHECKPOINTS = "4"      # checkpoints, hot-reload
-ITEM_ENGINE = "4"           # engine surface: registry extras, elastic
 ITEM_SERVING_EXTRAS = "5"   # dense layout, speculation, resilience,
                             # preemption, legacy loop, scan prefill
 ITEM_FAMILIES = "6"         # MoE, MLA, ssm, hybrid, enc-dec, frontends
 ITEM_SHARDING = "7"         # data/model meshes above one device
-ITEM_SUBSYSTEMS = "8"       # delayed combine, adaptive batch, chaos
+ITEM_SUBSYSTEMS = "8"       # delayed combine, adaptive batch, chaos,
+                            # elastic restarts (fit_elastic)
 
 
 def resolve_device(device: DeviceLike = None,

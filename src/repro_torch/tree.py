@@ -64,6 +64,35 @@ def leaves(tree: PyTree) -> List[Any]:
     return flatten(tree)[0]
 
 
+def _walk_paths(node, path: tuple, out: list) -> None:
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _walk_paths(node[k], path + (k,), out)
+    elif isinstance(node, (tuple, list)):
+        for i, c in enumerate(node):
+            _walk_paths(c, path + (i,), out)
+    elif node is not None:
+        out.append((path, node))
+
+
+def flatten_with_path(tree: PyTree) -> Tuple[List[Tuple[tuple, Any]],
+                                             TreeDef]:
+    """`jax.tree_util.tree_flatten_with_path`: ([(path, leaf)], treedef),
+    leaves in `flatten` order; a path is the tuple of dict keys and
+    sequence indices from the root."""
+    out: List[Tuple[tuple, Any]] = []
+    _walk_paths(tree, (), out)
+    return out, flatten(tree)[1]
+
+
+def keystr(path: tuple) -> str:
+    """`jax.tree_util.keystr`: "['opt']['inner']['m']['embed']['table']"
+    for dict keys, "[0]" for sequence indices — the leaf names a
+    checkpoint manifest records."""
+    return "".join(f"[{k!r}]" if isinstance(k, str) else f"[{k}]"
+                   for k in path)
+
+
 def map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
     """`jax.tree.map`: fn over the leaves of `tree` and, leaf for leaf,
     of each tree in `rest` (which must share its structure)."""

@@ -607,9 +607,12 @@ def test_registry_entries_match_reference(cfg):
 
 @pytest.mark.parametrize("name", ["adascale", "dasgd"])
 def test_later_combiners_raise(name):
+    """dasgd is a later slice; adascale runs on stacked lanes and is a
+    later slice across ranks."""
+    from types import SimpleNamespace
     cfg = TC.CombineConfig(op=name)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        TR.make_combiner(cfg)
+        TR.make_combiner(cfg, comm=SimpleNamespace(world=2))
 
 
 def test_combine_config_fields_match_reference():

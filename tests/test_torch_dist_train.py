@@ -199,6 +199,71 @@ def test_train_steps_match_reference_build_runtime(runs, name):
             assert diff.max() <= 1e-5, (key, diff.max())
 
 
+@pytest.mark.parametrize("world,span", [(2, 0), (4, 2)])
+def test_checkpoint_across_ranks_is_the_stacked_layout(tmp_path, world,
+                                                       span):
+    """Adam at the post point (each rank holds its own lane's state), at
+    span == dp (world 2) and below it (world 4, span 2: lane l is ranks
+    2l and 2l+1): rank 0 writes the reference's logical layout — the same
+    files, paths, shapes and dtypes as one process with the lanes
+    stacked; at span == dp its lane-axis optimizer state and counters are
+    bitwise that process's (the lane gradients are the same arithmetic on
+    the same rows); below it the lane gradient is the lane group's
+    token-weighted all-reduce, so the state is held within rtol 1e-4;
+    params within the tolerances above (RVH and the stacked tree sum the
+    Adasum dots in another order) — and restoring step 1 in place (each
+    rank its own lane's row) and redoing step 2 is bitwise the
+    uninterrupted run on every rank."""
+    import json
+    from pathlib import Path
+    ck, single = tmp_path / "ck", tmp_path / "single"
+    ranks = launch(world, "ckpt", {
+        "arch": ARCH, "attn_chunk": CHUNK, "seed": 7, "dir": str(ck),
+        "single": str(single),
+        "config": dict(arch=ARCH, reduced=True, optimizer="adam", lr=LR,
+                       span=span, backend="gspmd_tree" if span else "",
+                       seq_len=SEQ, global_batch=BATCH)}, tmp_path)
+    assert all(r["resumed_bitwise"] for r in ranks)
+    read = lambda root: json.loads(
+        (Path(root) / "step_00000001" / "manifest.json").read_text())
+    got, want = read(ck), read(single)
+    keys = ("file", "path", "shape", "dtype")
+    assert [[e[k] for k in keys] for e in got["leaves"]] == \
+        [[e[k] for k in keys] for e in want["leaves"]]
+    m = [e for e in got["leaves"] if e["path"].startswith("['opt']['inner']")]
+    assert m and all(e["shape"][0] == 2 for e in m)
+    for g, w in zip(got["leaves"], want["leaves"]):
+        a = np.load(ck / "step_00000001" / g["file"])
+        b = np.load(single / "step_00000001" / w["file"])
+        if g["path"].startswith("['params']"):
+            diff = np.abs(a - b)
+            assert diff.max() <= LR and (diff > 1e-6).mean() < 1e-2
+        elif span and g["path"].startswith("['opt']['inner']"):
+            np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-9,
+                                       err_msg=g["path"])
+        else:
+            assert g["crc32"] == w["crc32"], g["path"]
+            np.testing.assert_array_equal(a, b)
+    # each rank holds its own lane's state, with no lane axis
+    for rank in ranks:
+        assert rank["inner"]["m"]["embed"]["table"].ndim == 2
+
+
+@pytest.mark.parametrize("world,srcs", [(2, [0, 1]), (4, [0, 2])])
+def test_gather_to_host_takes_the_lane_leaders_rows(tmp_path, world, srcs):
+    """The gather a checkpoint at the post point makes: the tensors of the
+    source ranks (one a lane), stacked in rank order on rank 0's host,
+    sent in many gloo messages; the other ranks get None; CPU tensors
+    stage nothing."""
+    ranks = launch(world, "gather", {"srcs": srcs}, tmp_path)
+    rows = ranks[0]["rows"]
+    assert rows.shape == (len(srcs), 3, 5)
+    for i, r in enumerate(srcs):
+        assert (rows[i] == r + 1).all(), (i, rows[i])
+    assert all(r["rows"] is None for r in ranks[1:])
+    assert all(r["staged"] == 0 for r in ranks)
+
+
 def test_train_cli_on_two_cpu_ranks():
     """`torch.distributed.run` on two CPU ranks: rank 0 alone prints the
     [train] line (path rvh, world 2, gloo) and the final loss; the two

@@ -109,8 +109,6 @@ def test_explicit_cpu_runs():
 LATER_FLAGS = {
     "speculation": ["--speculation-k", "2"],
     "draft": ["--draft-preset", "qwen3-32b"],
-    "ckpt": ["--ckpt-dir", "/nonexistent"],
-    "hot_reload": ["--hot-reload"],
     "deadline": ["--deadline-s", "5"],
     "retries": ["--max-retries", "1"],
     "ladder": ["--pressure-ladder"],

@@ -25,6 +25,7 @@ from repro_torch.engine import (EngineConfig, GenerationRequest, ServeEngine,
                                 sample_logits)
 from repro_torch.engine.serving import PagePool, PrefixIndex
 from repro_torch.engine.serving import slots as TS
+from repro_torch import tree as T
 from repro_torch.models import build_model
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -154,6 +155,190 @@ def test_cli_serve_on_cpu():
     assert res.returncode == 0, res.stdout + res.stderr
     assert "completed=3" in res.stdout and "prefix_hits=" in res.stdout
     assert "[serve] kv layout=paged" in res.stdout
+
+
+# ------------------------------------------- checkpoints and hot-reload
+def _jax_engine_parts():
+    jax = pytest.importorskip("jax")
+    from repro.configs.base import get_reduced as jax_reduced
+    from repro.models import build_model as jax_build
+    jm = jax_build(jax_reduced("qwen3-32b"), compute_dtype=jax.numpy.float32,
+                   attn_chunk=16)
+    return jax, jm
+
+
+def _save_ref_state(root, step, params):
+    """A train-state checkpoint written by `repro`: params, a momentum
+    state and the step counters."""
+    import jax
+    import jax.numpy as jnp
+    from repro.checkpoint import CheckpointManager as JCM
+    JCM(root).save(step, {
+        "params": params,
+        "opt": {"inner": {"m": jax.tree.map(jnp.zeros_like, params)},
+                "step": jnp.asarray(step, jnp.int32)},
+        "step": jnp.asarray(step, jnp.int32)})
+
+
+def _fp32_port_model():
+    return build_model(get_reduced("qwen3-32b"), compute_dtype=torch.float32)
+
+
+def test_serves_reference_checkpoint(tmp_path, capsys):
+    """`from_config` with ckpt_dir serves the params of repro's latest
+    checkpoint (params-only restore by manifest path): the reference
+    engine's greedy tokens on the same params."""
+    jax, jm = _jax_engine_parts()
+    from repro.engine import EngineConfig as JEC
+    from repro.engine import GenerationRequest as JReq
+    from repro.engine import ServeEngine as JEngine
+    jp = jm.init(jax.random.key(0))
+    _save_ref_state(tmp_path, 5, jp)
+    eng = ServeEngine.from_config(
+        EngineConfig(max_slots=3, max_len=48, page_size=4,
+                     ckpt_dir=str(tmp_path)),
+        model=_fp32_port_model(), device="cpu")
+    assert eng.loaded_step == 5
+    assert "[serve] serving checkpoint step 5" in capsys.readouterr().out
+    assert eng.params["embed"]["table"].dtype == torch.float32
+    prompts = _workload(jm.cfg.vocab_size, n=4)
+    jh = []
+    jeng = JEngine(JEC(max_slots=3, max_len=48, page_size=4), jm, None, jp)
+    for size in [1, 2, 1]:
+        for _ in range(size):
+            jh.append(jeng.submit(JReq(prompts[len(jh)], max_new_tokens=6)))
+        jeng.step()
+    jeng.drain()
+    th = _drive(eng, prompts, [1, 2, 1])
+    assert [h.tokens for h in th] == [h.tokens for h in jh]
+
+
+def test_cli_serves_checkpoint_with_hot_reload(tmp_path, capsys):
+    """The serve CLI's --ckpt-dir / --hot-reload (a later slice's flags
+    until this one): it serves the directory's latest step and says so."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import serve
+    model = build_model(get_reduced("qwen3-32b"))
+    CheckpointManager(tmp_path).save(
+        7, {"params": model.init(device="cpu"), "step": 7})
+    handles = serve.main(["--arch", "qwen3-32b", "--reduced", "--device",
+                          "cpu", "--requests", "2", "--gen", "3",
+                          "--prompt-len", "8", "--ckpt-dir", str(tmp_path),
+                          "--hot-reload"])
+    out = capsys.readouterr().out
+    assert f"serving checkpoint step 7 from {tmp_path}" in out
+    assert "reloads=0" in out and "restore_fallbacks=0" in out
+    assert all(h.done for h in handles)
+
+
+def _drop_in(src, dst, step):
+    """Land a finished step directory atomically, as a writer does."""
+    import shutil
+    name = f"step_{step:08d}"
+    shutil.copytree(src / name, dst / (name + ".tmp"))
+    os.rename(dst / (name + ".tmp"), dst / name)
+
+
+def test_hot_reload_matches_reference(tmp_path):
+    """tests/test_serving.py's mid-stream swap on both engines, from the
+    same checkpoints: a request in flight when step 4 lands finishes on
+    step 2's weights, a later one decodes on step 4's, at least one tick
+    decodes two versions, and every request's tokens equal the
+    reference engine's."""
+    jax, jm = _jax_engine_parts()
+    import jax.numpy as jnp
+    from repro.engine import EngineConfig as JEC
+    from repro.engine import GenerationRequest as JReq
+    from repro.engine import ServeEngine as JEngine
+    p2 = jm.init(jax.random.key(0))
+    noise = jm.init(jax.random.key(1))
+    p4 = jax.tree.map(lambda a, b: a + 0.5 * b, p2, noise)
+    stage = tmp_path / "stage"
+    _save_ref_state(stage, 2, p2)
+    _save_ref_state(stage, 4, p4)
+    rng = np.random.RandomState(3)
+    V = jm.cfg.vocab_size
+    prompts = [rng.randint(0, V, 6), rng.randint(0, V, 6)]
+    runs = {}
+    for kind in ("ref", "port"):
+        root = tmp_path / kind
+        root.mkdir()
+        _drop_in(stage, root, 2)
+        if kind == "ref":
+            eng = JEngine.from_config(
+                JEC(max_slots=2, max_len=40, page_size=4, ckpt_dir=str(root),
+                    hot_reload=True), model=jm)
+            Req = JReq
+        else:
+            eng = ServeEngine.from_config(
+                EngineConfig(max_slots=2, max_len=40, page_size=4,
+                             ckpt_dir=str(root), hot_reload=True),
+                model=_fp32_port_model(), device="cpu")
+            Req = GenerationRequest
+        assert eng.loaded_step == 2
+        h_old = eng.submit(Req(prompt=prompts[0], max_new_tokens=12))
+        eng.step()                     # h_old in flight on version 0
+        assert not h_old.done
+        _drop_in(stage, root, 4)
+        h_new = eng.submit(Req(prompt=prompts[1], max_new_tokens=4))
+        eng.drain()                    # the poll swaps, then admits
+        assert eng.stats["reloads"] == 1 and eng.loaded_step == 4
+        assert (h_old.version, h_new.version) == (0, 1)
+        assert len(h_old.tokens) == 12 and len(h_new.tokens) == 4
+        runs[kind] = (eng, [h_old.tokens, h_new.tokens])
+    assert runs["port"][1] == runs["ref"][1]
+    assert runs["port"][0].stats["transition_ticks"] >= 1
+    assert runs["port"][0].leaked_pages() == 0
+
+
+def test_transition_passes_write_only_their_own_pages():
+    """During a transition tick each version's decode pass may write K/V
+    only into its own slots' pages (or the trash page): the arenas are
+    written in place, so a write into another version's page would
+    corrupt that request. Each request's tokens equal an engine serving
+    its pinned version alone."""
+    base = _port_engine(max_slots=2).params
+    g = torch.Generator().manual_seed(5)
+    new = T.map(lambda x: x + 0.5 * torch.randn(x.shape, generator=g), base)
+    V = get_reduced("qwen3-32b").vocab_size
+    rng = np.random.RandomState(4)
+    p_old, p_new = rng.randint(0, V, 7), rng.randint(0, V, 9)
+
+    eng = _port_engine(base, max_slots=2)
+    passes = []
+    decode = eng._decode
+
+    def spy(params, toks, cache):
+        k = cache.layers["attn"].k
+        before = k.clone()
+        out = decode(params, toks, cache)
+        changed = (k != before).reshape(k.shape[0], k.shape[1], -1)
+        pages = set(changed.any(-1).any(0).nonzero()[:, 0].tolist())
+        v = 0 if params is base else 1
+        own = set()
+        for slot, h in eng.scheduler.active.items():
+            if h.version == v:
+                own |= set(eng._tables[slot][eng._owned[slot]].tolist())
+        passes.append((v, pages, own))
+        return out
+    eng._decode = spy
+    h_old = eng.submit(GenerationRequest(p_old, max_new_tokens=10))
+    eng.step()
+    eng.step()
+    eng.swap_params(new)
+    h_new = eng.submit(GenerationRequest(p_new, max_new_tokens=5))
+    eng.drain()
+    assert eng.stats["transition_ticks"] >= 1
+    assert {v for v, _, _ in passes} == {0, 1}
+    for v, pages, own in passes:
+        assert pages <= own | {PagePool.TRASH}, (v, pages, own)
+    for params, prompt, h in ((base, p_old, h_old), (new, p_new, h_new)):
+        solo = _port_engine(params, max_slots=2)
+        hs = solo.submit(GenerationRequest(prompt, max_new_tokens=len(
+            h.tokens)))
+        solo.drain()
+        assert hs.tokens == h.tokens
+    assert eng.leaked_pages() == 0 and len(eng._params) == 1
 
 
 # ------------------------------------------------------- host pieces

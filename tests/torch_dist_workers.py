@@ -9,6 +9,7 @@ each, over gloo with a `file://` store under tmp_path. Each runs
 rank that fails fails the launch; a launch that outlives `timeout`
 seconds is killed and fails. Nothing here imports jax.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -154,7 +155,69 @@ def job_train(comm, spec):
     return out
 
 
-JOBS = {"rvh": job_rvh, "train": job_train}
+def job_ckpt(comm, spec):
+    """A TrainSession across the ranks with a checkpoint directory: fit to
+    step 1, save it, fit to step 2; then restore step 1 in place and
+    redo the step. Rank 0 also takes step 1 as one process with the
+    lanes stacked and saves it (the single-process layout). Returns the
+    uninterrupted and the resumed states and whether every leaf agrees
+    bitwise."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_reduced
+    from repro_torch.engine import EngineConfig, TrainSession, build_runtime
+    from repro_torch.models import build_model
+    model = build_model(get_reduced(spec["arch"]),
+                        compute_dtype=torch.float32,
+                        attn_chunk=spec["attn_chunk"])
+    cfg = EngineConfig(**spec["config"], ckpt_dir=spec["dir"])
+    s = TrainSession.from_config(
+        cfg, model=model, device="cpu", comm=comm, callbacks=[],
+        generator=torch.Generator().manual_seed(spec["seed"]))
+    s.fit(1)
+    s.save_sync(1)
+    s.fit(2)
+    full = [x.clone() if isinstance(x, torch.Tensor) else x
+            for x in T.leaves(s.state)]
+    live = [x for x in T.leaves(s.state) if isinstance(x, torch.Tensor)]
+    assert s.restore(1) == 1
+    # restored in place: the session's own tensors hold step 1 again
+    assert all(a is b for a, b in zip(
+        live, [x for x in T.leaves(s.state) if isinstance(x, torch.Tensor)]))
+    s.step()
+    again = T.leaves(s.state)
+    same = all(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+               for a, b in zip(full, again))
+    if comm.rank == 0:
+        one = dataclasses.replace(cfg, span=cfg.span or comm.world,
+                                  backend="gspmd_tree", ckpt_dir="")
+        rt = build_runtime(model, one.run_policy(), lr=one.lr)
+        params = model.init(torch.Generator().manual_seed(spec["seed"]))
+        state = {"params": params, "opt": rt.dopt.init(params), "step": 0}
+        state, _ = rt.train_step(state, s.batch(0))
+        CheckpointManager(spec["single"]).save(1, state)
+    return {"resumed_bitwise": same, "world_leaves": len(full),
+            "inner": _np_tree(s.state["opt"]["inner"])}
+
+
+def job_gather(comm, spec):
+    """`Comm.gather_to_host` of a tensor holding rank + 1 from spec's
+    source ranks onto rank 0, in 16-byte gloo messages; the rows (rank 0)
+    and the bytes counted staged."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.parallel import comm as C
+    C.CHUNK_BYTES = 16
+    x = torch.full((3, 5), float(comm.rank + 1))
+    rows = comm.gather_to_host(x, spec["srcs"])
+    dist.barrier()
+    return {"rows": None if rows is None else rows.numpy(),
+            "staged": comm.total_staged_bytes()}
+
+
+JOBS = {"rvh": job_rvh, "train": job_train, "ckpt": job_ckpt,
+        "gather": job_gather}
 
 
 def main():
