@@ -12,7 +12,8 @@ DIR's package and on this one, in turns DIR, this, this, DIR, each in a
 process of its own (this script's code, the package and its kernels
 from the tree), and a `SERVE_AB` JSON line gives the four runs' metrics.
 
-Phases (any error fails the run with a non-zero exit and no result):
+Phases, in the order they run: 1, 2, 3, 4, 8, 5, 6, 7 (any error
+fails the run with a non-zero exit and no result):
   1. card: print `nvidia-smi --query-gpu=name,power.limit` and require
      CUDA;
   2. build: compile every kernel under src/repro_torch/kernels/csrc with
@@ -56,6 +57,43 @@ Phases (any error fails the run with a non-zero exit and no result):
      position logits are held to a stated bf16 tolerance. With
      --profile, an admission tick and five decode ticks then run under
      torch.profiler (device busy time, idle share, top kernels);
+  8. serving extensions (runs right after phase 4, on its model, params
+     and prompts; launch counters zeroed before, read after: flash and
+     paged decode must both launch; one `SERVE_EXT {json}` line):
+     (a) phase 4's requests without prefix sharing on kv_layout="dense"
+     and "paged": under attn_impl="plain" the tokens must be equal; the
+     kernel paged run against the plain dense one gives the share of
+     equal tokens, the first divergences and, at each, the margin by
+     which the kernel path's logits prefer its token (at most LOGIT_TOL:
+     rounding, not a fault); the first step's logits within LOGIT_TOL;
+     the decode-tick ms of each layout;
+     (b) speculation, k=SPEC_K, on the reference benchmark's workload
+     (`benchmarks/serve_spec.py`: SPEC_WORKLOAD, 4 slots, arrivals
+     SPEC_STAGGER ticks apart): the target's blocks 1.. get attention
+     `wo` and the MLP down-projection zeroed and the draft is its
+     one-layer slice (acceptance's upper bound, 1.0). Plain and spec in
+     turns (plain, spec, spec, plain, after a warm-up of each): tok/s,
+     wall s, target dispatches per generated token, acceptance (> 0.9
+     required), spec ticks, the draft's kernel launches in one tick
+     (torch.profiler), acceptance on the ticks after a full-accept tick
+     (the k+1 trap; its mean capped at 1 a tick > 0.9), the share of spec
+     tokens equal to plain with divergence margins as in (a), and the
+     first tick's verify rows against plain decodes of the same tokens;
+     then the auto-derived draft (quarter depth, random weights);
+     (c) phase 4's requests with kv_pages=PREEMPT_PAGES: preemptions > 0,
+     all done, no page leaked after drain + flush_prefix; token agreement
+     with phase 4, divergence margins as in (a);
+     (d) a 5 ms deadline kills two requests terminally; request_drain()
+     fails two queued requests as 'drained'; the pressure ladder, spec on,
+     half the pages: it reaches level >= 1 and no tick at level >= 1
+     speculates; no leaks;
+     (e) scan prefill vs parallel prefill of two prompts (40 and 64
+     tokens), plain attention: logits within LOGIT_TOL, first tokens
+     equal unless the top-2 gap is within twice the logit difference,
+     and the engines' first tokens the functions';
+     (f) `ServeSession.generate` on a batch of 2 x 48 tokens, plain
+     attention: the stepped loop vs the engine, compared as (e) on the
+     first step, and the share of equal tokens;
   5. train: `TrainSession` on gemma-7b at full width, depth cut to
      TRAIN_LAYERS (2 of 28), fp32 params, bf16 compute, seq 512, global
      batch 8, 64 MB fusion buckets, weights from a generator seeded with
@@ -126,7 +164,8 @@ Phases (any error fails the run with a non-zero exit and no result):
 The line before the last is the kernels JSON (block_dots and
 block_combine rows also carry their phase-6 launches on rank 0,
 `rvh_launches`, and their ms on the round-0 half, `rvh_half_ms`; every
-row its launches inside phase 7, `phase7_launches`), the
+row its launches inside phase 7, `phase7_launches`; the attention rows
+their launches inside phase 8, `phase8_launches`), the
 last line {"ok": true, "device": {...}}. Longer records go to
 chiprun_out/chip_smoke.json. fp32 matmuls run in full fp32: TF32 is
 switched off for cuBLAS and cuDNN.
@@ -789,7 +828,9 @@ def serve_phase(card: str, profile: bool = False):
     if profile:
         result["profile"] = profile_windows(ecfg, model, params, prompts,
                                             card)
-    return result
+    # phase 8 serves the same model, params and prompts
+    return result, (cfg, model, params, prompts,
+                    [h.tokens for h in handles])
 
 
 def _profiled(fn):
@@ -842,6 +883,535 @@ def profile_windows(ecfg, model, params, prompts, card):
               f"port_kernels_ms={sum(mine.values()):.2f} | {card}")
         for k, v in top:
             print(f"[smoke]   {v:9.3f} ms  {k[:100]}")
+    return out
+
+
+# ------------------------------------------------- serving extensions phase
+SPEC_K = 4
+# the reference benchmark's workload (benchmarks/serve_spec.py):
+# (prompt tokens, generated tokens), 4 slots, arrivals 2 ticks apart
+SPEC_WORKLOAD = [(12, 96), (17, 92), (9, 100), (14, 94)]
+SPEC_STAGGER = 2
+SPEC_ARRIVALS = ([1] + [0] * (SPEC_STAGGER - 1)) * len(SPEC_WORKLOAD)
+# phase 8 (c): phase 4's six requests need ~62 pages of 16 rows each at
+# the end (64 shared system-prompt rows), so half of full provisioning
+# (257 of 513 pages) holds all four slots and never preempts; 180 pages
+# fill up at admission with three requests, whose growth then preempts
+# the youngest (page arithmetic of these prompt lengths, host-side only)
+PREEMPT_PAGES = 180
+
+
+def _agreement(a, b) -> dict:
+    """Token streams a vs b (lists of lists): the share of positions
+    equal, and each stream's first differing index (None if equal)."""
+    n = sum(len(x) for x in a)
+    eq = sum(int(x == y) for s, t in zip(a, b) for x, y in zip(s, t))
+    first = [next((i for i, (x, y) in enumerate(zip(s, t)) if x != y), None)
+             for s, t in zip(a, b)]
+    return {"equal_share": eq / n, "first_divergence": first,
+            "all_equal": a == b}
+
+
+def _timed(fn):
+    """(fn(), its wall seconds), the card synchronised on both sides."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _top2_gaps(x) -> list:
+    """Per row of x [n,V]: top-1 minus top-2."""
+    import torch
+    v = torch.topk(x, 2, -1).values
+    return (v[:, 0] - v[:, 1]).tolist()
+
+
+def _first_tokens(a, b) -> dict:
+    """Greedy tokens of two paths' logits a, b [n,V] (fp32): equal or
+    not, the largest logit difference, the smallest top-1/top-2 gap of
+    b, and the rows whose tokens differ although their gap is wider than
+    twice that difference (rounding cannot explain those)."""
+    diff = (a - b).abs().max().item()
+    gaps = _top2_gaps(b)
+    ta, tb = a.argmax(-1).tolist(), b.argmax(-1).tolist()
+    return {"tokens": [ta, tb], "equal": ta == tb,
+            "max_abs_logit_diff": diff, "min_top2_gap": min(gaps),
+            "unexplained": [i for i, (x, y) in enumerate(zip(ta, tb))
+                            if x != y and gaps[i] > 2 * diff]}
+
+
+def _launch_count(fn) -> dict:
+    """fn() under torch.profiler: the kernels it launched (the runtime's
+    launch calls) and the device operations the card ran."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    launches = device_ops = 0
+    for e in prof.key_averages():
+        if e.key.startswith("cudaLaunchKernel"):
+            launches += e.count
+        elif getattr(e, "device_type", None) is not None \
+                and "CUDA" in str(e.device_type):
+            device_ops += e.count
+    return {"kernel_launches": launches, "device_ops": device_ops}
+
+
+def _one_slot_cache(model, params, prompt, cap):
+    """A one-slot paged cache of capacity `cap` holding `prompt`'s
+    prefill rows; returns (last-position logits [1,V] fp32, cache)."""
+    import numpy as np
+    import torch
+    from repro_torch.engine.serving.slots import paged_insert_rows
+    toks = torch.tensor(np.asarray(prompt, np.int32)[None], device="cuda")
+    lens = torch.tensor([len(prompt)], dtype=torch.int32, device="cuda")
+    logits, rows = model.prefill_cache(params, toks, lens, cap)
+    pps = cap // 16
+    cache = model.init_cache(params, 1, cap, paged=(16, pps + 1))
+    tables = torch.arange(1, pps + 1, device="cuda",
+                          dtype=torch.int32)[None]
+    paged_insert_rows(cache, rows, torch.zeros(1, device="cuda",
+                                               dtype=torch.long),
+                      tables, tables)
+    return logits[:, -1].float(), cache
+
+
+def _divergence_margins(model, params, prompts, a, b, cap) -> list:
+    """For each pair of greedy streams a, b that differ, at their first
+    differing index i: how much `model`'s logits at that position (one
+    slot: prefill, then one-row paged decodes of the common tokens
+    a[:i]) prefer a[i] over b[i]. A divergence that rounding explains has
+    a margin within the paths' logit difference (LOGIT_TOL); a fault in
+    a path (a row read from the wrong place) gives O(1)."""
+    import torch
+    out = []
+    for p, s, t in zip(prompts, a, b):
+        i = next((j for j, (x, y) in enumerate(zip(s, t)) if x != y), None)
+        if i is None:
+            continue
+        lg, cache = _one_slot_cache(model, params, p, cap)
+        for j in range(i):
+            step, cache = model.decode_step(params, torch.tensor(
+                [[s[j]]], dtype=torch.int32, device="cuda"), cache)
+            lg = step[:, -1].float()
+        out.append(lg[0, s[i]].item() - lg[0, t[i]].item())
+        del cache
+    return out
+
+
+def _sliced_target(params, layers):
+    """benchmarks/serve_spec.py's construction: blocks 1.. get attention
+    `wo` and the MLP down-projection zeroed (each a residual
+    passthrough), so the target computes exactly its first block; the
+    draft is that block (views of the same tensors)."""
+    import torch
+    mask = torch.zeros(layers, 1, 1, device="cuda",
+                       dtype=params["blocks"]["attn"]["wo"].dtype)
+    mask[0] = 1
+    blocks = dict(params["blocks"])
+    blocks["attn"] = dict(blocks["attn"], wo=blocks["attn"]["wo"] * mask)
+    blocks["mlp"] = dict(blocks["mlp"], w_down=blocks["mlp"]["w_down"] * mask)
+    target = dict(params, blocks=blocks)
+
+    def first(node):
+        return ({k: first(v) for k, v in node.items()}
+                if isinstance(node, dict) else node[:1])
+    return target, dict(target, blocks=first(blocks))
+
+
+def ext_phase(card: str, cfg, model, params, prompts, served):
+    """Phase 8: the serving extensions on phase 4's qwen3-32b (full
+    width, LAYERS deep, bf16 random weights from SEED), its prompts and
+    `served`, its greedy tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.engine import (EngineConfig, GenerationRequest,
+                                    ServeEngine, ServeSession)
+    from repro_torch.engine.serving.engine import (_make_parallel_prefill,
+                                                   _make_scan_prefill)
+    from repro_torch.engine.serving.slots import (insert_rows_at,
+                                                  paged_insert_rows)
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model
+
+    plain = build_model(cfg, compute_dtype=torch.bfloat16,
+                        param_dtype=torch.bfloat16, attn_impl="plain")
+    V = cfg.vocab_size
+    base = dict(max_slots=4, max_len=2048, page_size=16,
+                param_dtype="bfloat16")
+    arrivals = [1, 2, 1, 1, 1]                  # phase 4's
+    out = {"card": card}
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    build.reset_launches()
+
+    # (a) dense vs paged: phase 4's requests without prefix sharing (the
+    # dense layout has none), so under plain attention both layouts run
+    # the same shapes and the same arithmetic
+    runs = {}
+    for tag, m, layout in (("dense_plain", plain, "dense"),
+                           ("paged_plain", plain, "paged"),
+                           ("dense_kernel", model, "dense"),
+                           ("paged_kernel", model, "paged")):
+        eng = ServeEngine(EngineConfig(kv_layout=layout, prefix_sharing=False,
+                                       **base), m, params)
+        hs, wall = _timed(lambda: _greedy(eng, prompts, arrivals, 32))
+        tp = eng.throughput()
+        assert tp["completed"] == 6 and eng.leaked_pages() == 0, tp
+        runs[tag] = {"tokens": [h.tokens for h in hs],
+                     "decode_tick_ms": tp["decode_tick_ms_mean"],
+                     "prefill_ms": tp["prefill_ms_mean"], "wall_s": wall,
+                     "tok_s": tp["tok_s"]}
+        del eng
+    plain_eq = _agreement(runs["paged_plain"]["tokens"],
+                          runs["dense_plain"]["tokens"])
+    kern_eq = _agreement(runs["paged_kernel"]["tokens"],
+                         runs["dense_plain"]["tokens"])
+    # the first step's logits (prefill, then one decode of the same
+    # token): paged kernel path vs dense plain path, two prompts
+    n = 2
+    toks = np.zeros((n, 1024), np.int32)
+    lens = np.asarray([len(p) for p in prompts[:n]], np.int32)
+    for i in range(n):
+        toks[i, :lens[i]] = prompts[i]
+    toks_t, lens_t = torch.from_numpy(toks).cuda(), \
+        torch.from_numpy(lens).cuda()
+    first, nxt = {}, None
+    for tag, m in (("kernel_paged", model), ("plain_dense", plain)):
+        logits, rows = m.prefill_cache(params, toks_t, lens_t, 2048)
+        logits = logits[:, -1].float()
+        if nxt is None:
+            nxt = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        slots = torch.arange(n, device="cuda")
+        if tag == "kernel_paged":
+            pps = 2048 // 16
+            cache = m.init_cache(params, n, 2048, paged=(16, n * pps + 1))
+            tables = (torch.arange(n * pps, device="cuda", dtype=torch.int32)
+                      .reshape(n, pps) + 1)
+            paged_insert_rows(cache, rows, slots, tables, tables)
+        else:
+            cache = m.init_cache(params, n, 2048, per_slot=True)
+            insert_rows_at(cache, rows, slots)
+        dl, _ = m.decode_step(params, nxt, cache)
+        first[tag] = (logits, dl[:, -1].float())
+        del cache, rows
+    kern_eq["margins"] = _divergence_margins(
+        model, params, prompts, runs["paged_kernel"]["tokens"],
+        runs["dense_plain"]["tokens"], 2048)
+    errs = {step: (first["kernel_paged"][i] - first["plain_dense"][i])
+            .abs().max().item() for i, step in enumerate(("prefill",
+                                                          "decode"))}
+    out["a_dense_vs_paged"] = {
+        "prefix_sharing": False,
+        "plain_paged_vs_plain_dense": plain_eq,
+        "kernel_paged_vs_plain_dense": kern_eq,
+        "first_step_logit_err": errs, "tol": LOGIT_TOL,
+        **{f"{k}_ms": {t: r[f"{k}_ms"] for t, r in runs.items()}
+           for k in ("decode_tick", "prefill")},
+        "tok_s": {t: r["tok_s"] for t, r in runs.items()}}
+    print(f"[smoke] ext (a) dense vs paged, plain attention: tokens equal="
+          f"{plain_eq['all_equal']}; kernel paged vs plain dense: equal "
+          f"share={kern_eq['equal_share']:.3f} first divergence="
+          f"{kern_eq['first_divergence']} margins="
+          f"{[round(m, 4) for m in kern_eq['margins']]}; first-step logits "
+          f"max_abs "
+          f"prefill={errs['prefill']:.4f} decode={errs['decode']:.4f} (tol "
+          f"{LOGIT_TOL}); decode_tick_ms " + " ".join(
+              f"{t}={r['decode_tick_ms']:.2f}" for t, r in runs.items())
+          + f" | {card}")
+    assert plain_eq["all_equal"], "dense != paged under plain attention"
+    assert max(errs.values()) <= LOGIT_TOL, errs
+    assert all(abs(m) <= LOGIT_TOL for m in kern_eq["margins"]), kern_eq
+    del runs, first
+    _free()
+
+    # (b) speculation, k=4, on the reference benchmark's workload
+    target, dparams = _sliced_target(params, cfg.n_layers)
+    rng = np.random.RandomState(SEED + 1)
+    sprompts = [rng.randint(0, V, p) for p, _ in SPEC_WORKLOAD]
+    sgen = [g for _, g in SPEC_WORKLOAD]
+    scfg = dict(max_slots=4, page_size=16, param_dtype="bfloat16",
+                max_len=max(p + g for p, g in SPEC_WORKLOAD) + 1 + SPEC_K)
+    scap = EngineConfig(**scfg).serve_max_len()
+    draft_cfg = {"n_layers": 1, "name": f"{cfg.name}-slice"}
+
+    def spec_engine(k, tgt, draft=None, spec=None, **kw):
+        return ServeEngine(EngineConfig(speculation_k=k, draft_config=spec,
+                                        **scfg, **kw), model, tgt,
+                           draft_params=draft)
+    make = {"plain": lambda: spec_engine(0, target),
+            "spec": lambda: spec_engine(SPEC_K, target, dparams, draft_cfg)}
+    toks_b, accs = {}, []
+    for tag in ("plain", "spec"):        # warm-up; tokens; acceptance a tick
+        eng = make[tag]()
+        if tag == "spec":
+            verify = eng._verify
+
+            def spy(*a, _e=eng, _v=verify):
+                o = _v(*a)
+                acc = o[2].tolist()
+                accs.append({h.request.request_id: acc[s]
+                             for s, h in _e.scheduler.active.items()})
+                return o
+            eng._verify = spy
+        hs = _greedy(eng, sprompts, SPEC_ARRIVALS, sgen)
+        toks_b[tag] = [h.tokens for h in hs]
+    res = {}
+    for tag in ("plain", "spec", "spec", "plain"):    # timed, in turns
+        eng = make[tag]()
+        hs, wall = _timed(lambda: _greedy(eng, sprompts, SPEC_ARRIVALS,
+                                          sgen))
+        tp = eng.throughput()
+        assert tp["completed"] == 4 and eng.leaked_pages() == 0, tp
+        r = res.setdefault(tag, {"wall_s": [], "tok_s": []})
+        r["wall_s"].append(wall)
+        r["tok_s"].append(tp["generated_tokens"] / wall)
+        r["dispatches_per_token"] = tp["decode_steps"] / tp[
+            "generated_tokens"]
+        r["decode_tick_ms"] = tp["decode_tick_ms_mean"]
+        if tag == "spec":
+            r.update(acceptance=tp["spec_acceptance_rate"],
+                     spec_ticks=tp["spec_ticks"],
+                     draft_prefills=tp["draft_prefills"])
+            spec = eng
+    # the draft's launches in one tick: one propose at the workload's
+    # positions, profiled
+    tok1 = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
+    pos1 = torch.tensor([p for p, _ in SPEC_WORKLOAD], dtype=torch.int32,
+                        device="cuda")
+    res["spec"]["draft_tick"] = _launch_count(lambda: spec._propose(
+        spec._draft_params, tok1, spec._draft_cache, pos1))
+    del eng, spec
+    # the k+1 trap: a request's acceptance on the tick after one of its
+    # full-accept ticks (a k-step draft leaves a hole there)
+    after_full = [nxt[r] for cur, nxt in zip(accs, accs[1:])
+                  for r, a in cur.items() if a == SPEC_K and r in nxt]
+    # the first tick of request 0: verify row t against a plain decode at
+    # pos + t over the same tokens (its plain greedy continuation)
+    spec_toks = torch.tensor([toks_b["plain"][0][:SPEC_K + 1]],
+                             dtype=torch.int32, device="cuda")
+    _, cache = _one_slot_cache(model, target, sprompts[0], scap)
+    vlog, _ = model.verify_step(target, spec_toks, cache)
+    _, cache = _one_slot_cache(model, target, sprompts[0], scap)
+    dlog = []
+    for t in range(SPEC_K + 1):
+        lg, cache = model.decode_step(target, spec_toks[:, t:t + 1], cache)
+        dlog.append(lg[0, -1].float())
+    vd = _first_tokens(vlog[0].float(), torch.stack(dlog))
+    del cache, vlog, dlog
+    spec_eq = _agreement(toks_b["spec"], toks_b["plain"])
+    spec_eq["margins"] = _divergence_margins(model, target, sprompts,
+                                             toks_b["plain"], toks_b["spec"],
+                                             scap)
+    # the auto-derived draft: quarter depth, random weights
+    eng = spec_engine(SPEC_K, params)
+    hs, wall = _timed(lambda: _greedy(eng, sprompts, SPEC_ARRIVALS, sgen))
+    tp = eng.throughput()
+    assert tp["completed"] == 4, tp
+    derived = {"wall_s": wall, "tok_s": tp["generated_tokens"] / wall,
+               "acceptance": tp["spec_acceptance_rate"],
+               "dispatches_per_token": tp["dispatches_per_token"],
+               "spec_ticks": tp["spec_ticks"],
+               "draft_layers": eng._draft_model.cfg.n_layers,
+               "draft_tick": _launch_count(lambda: eng._propose(
+                   eng._draft_params, tok1, eng._draft_cache, pos1))}
+    del eng
+    for r in res.values():
+        r["tok_s_mean"] = statistics.mean(r["tok_s"])
+        r["wall_s_mean"] = statistics.mean(r["wall_s"])
+    rs, rp = res["spec"], res["plain"]
+    out["b_speculation"] = {
+        "k": SPEC_K, "workload": SPEC_WORKLOAD, "stagger": SPEC_STAGGER,
+        "plain": rp, "spec_sliced": rs, "spec_derived": derived,
+        "spec_vs_plain_tokens": spec_eq,
+        "accept_after_full_accept": after_full,
+        "first_tick_verify_vs_decode": vd}
+    print(f"[smoke] ext (b) k={SPEC_K}: plain tok_s={rp['tok_s_mean']:.1f} "
+          f"wall_s={rp['wall_s_mean']:.3f} dispatches/token="
+          f"{rp['dispatches_per_token']:.3f}; sliced draft tok_s="
+          f"{rs['tok_s_mean']:.1f} wall_s={rs['wall_s_mean']:.3f} "
+          f"dispatches/token={rs['dispatches_per_token']:.3f} acceptance="
+          f"{rs['acceptance']:.3f} spec_ticks={rs['spec_ticks']} draft "
+          f"launches/tick={rs['draft_tick']['kernel_launches']}; derived "
+          f"draft ({derived['draft_layers']} layers) tok_s="
+          f"{derived['tok_s']:.1f} acceptance={derived['acceptance']:.3f} "
+          f"dispatches/token={derived['dispatches_per_token']:.3f} "
+          f"launches/tick={derived['draft_tick']['kernel_launches']}; spec "
+          f"tokens equal to plain share={spec_eq['equal_share']:.3f} first "
+          f"divergence={spec_eq['first_divergence']} margins="
+          f"{[round(m, 4) for m in spec_eq['margins']]}; "
+          f"verify vs decode, first tick: logits max_abs="
+          f"{vd['max_abs_logit_diff']:.4f} min top-2 gap="
+          f"{vd['min_top2_gap']:.4f} | {card}")
+    assert rs["acceptance"] > 0.9, rs
+    assert all(abs(m) <= LOGIT_TOL for m in spec_eq["margins"]), spec_eq
+    assert after_full and statistics.mean(
+        min(a, 1) for a in after_full) > 0.9, after_full
+
+    # (c) recompute preemption under a short pool, phase 4's requests
+    eng = ServeEngine(EngineConfig(kv_pages=PREEMPT_PAGES, **base), model,
+                      params)
+    hs, wall = _timed(lambda: _greedy(eng, prompts, arrivals, 32))
+    tp = eng.throughput()
+    assert tp["completed"] == 6 and tp["preemptions"] > 0, tp
+    eng.flush_prefix()
+    assert eng.leaked_pages() == 0 and eng._pool.pages_used == 0
+    pre_eq = _agreement([h.tokens for h in hs], served)
+    pre_eq["margins"] = _divergence_margins(model, params, prompts, served,
+                                            [h.tokens for h in hs], 2048)
+    out["c_preemption"] = {"kv_pages": PREEMPT_PAGES, "full": 4 * 128 + 1,
+                           "preemptions": tp["preemptions"],
+                           "retries": tp["retries"],
+                           "prefill_calls": tp["prefill_calls"],
+                           "wall_s": wall, "tok_s": tp["tok_s"],
+                           "vs_phase4": pre_eq}
+    print(f"[smoke] ext (c) kv_pages={PREEMPT_PAGES} of {4 * 128 + 1}: "
+          f"preemptions={tp['preemptions']} completed={tp['completed']} "
+          f"leaked=0; tokens equal to phase 4 (full provisioning) share="
+          f"{pre_eq['equal_share']:.3f} first divergence="
+          f"{pre_eq['first_divergence']} margins="
+          f"{[round(m, 4) for m in pre_eq['margins']]} | {card}")
+    assert all(abs(m) <= LOGIT_TOL for m in pre_eq["margins"]), pre_eq
+    del eng, hs
+
+    # (d) resilience: deadlines, drain, the ladder
+    eng = ServeEngine(EngineConfig(**base), model, params)
+    kill = _greedy(eng, prompts[:2], [2], 32, deadline_s=0.005)
+    assert all(h.failed and h.finish_reason == "deadline" for h in kill)
+    assert eng.stats["deadline_kills"] == 2
+    hs = [eng.submit(GenerationRequest(p, max_new_tokens=8))
+          for p in prompts]
+    eng.step()                                 # four admitted, two queued
+    eng.request_drain()
+    eng.drain()
+    reasons = [h.finish_reason for h in hs]
+    assert reasons.count("drained") == 2 and reasons.count("length") == 4
+    eng.flush_prefix()
+    assert eng.leaked_pages() == 0 and eng._pool.pages_used == 0
+    del eng
+    # the ladder: speculation on, an arena of half full provisioning
+    ladder_pages = 4 * (scap // 16) // 2 + 1
+    eng = spec_engine(SPEC_K, target, dparams, draft_cfg,
+                      pressure_ladder=True, kv_pages=ladder_pages)
+    ticks = []
+    tick = eng._decode_tick
+
+    def watch():
+        before = eng.stats["spec_ticks"]
+        tick()
+        ticks.append((eng._ladder.level, eng.stats["spec_ticks"] - before))
+    eng._decode_tick = watch
+    _greedy(eng, sprompts, SPEC_ARRIVALS, sgen)
+    tp = eng.throughput()
+    eng.flush_prefix()
+    shed = [k for lv, k in ticks if lv >= 1]
+    out["d_resilience"] = {
+        "deadline_kills": 2, "drained": reasons.count("drained"),
+        "ladder_kv_pages": ladder_pages,
+        "ladder_max_level": max(lv for lv, _ in ticks),
+        "ladder_changes": tp["degradation_changes"],
+        "ticks_at_level_ge1": len(shed), "spec_ticks_at_level_ge1": sum(shed),
+        "spec_ticks": tp["spec_ticks"], "preemptions": tp["preemptions"],
+        "completed": tp["completed"]}
+    print(f"[smoke] ext (d) deadline kills=2 (terminal), drained="
+          f"{reasons.count('drained')}; ladder (kv_pages={ladder_pages} of "
+          f"{4 * (scap // 16) + 1}, spec on) "
+          f"max level={out['d_resilience']['ladder_max_level']}, "
+          f"{len(shed)} ticks at level >= 1 with {sum(shed)} spec ticks "
+          f"({tp['spec_ticks']} in all), preemptions={tp['preemptions']}; "
+          f"no leaks | {card}")
+    assert out["d_resilience"]["ladder_max_level"] >= 1 and sum(shed) == 0
+    assert tp["completed"] == 4 and eng.leaked_pages() == 0 \
+        and eng._pool.pages_used == 0
+    del eng, target, dparams
+    _free()
+
+    # (e) scan prefill vs parallel prefill, plain attention: two prompts
+    # (each request's own tokens, past the shared system prompt)
+    short = [prompts[0][64:104], prompts[1][64:128]]
+    toks = np.zeros((2, 64), np.int32)
+    for i, p in enumerate(short):
+        toks[i, :len(p)] = p
+    tt = torch.from_numpy(toks).cuda()
+    lt = torch.tensor([len(p) for p in short], dtype=torch.int32,
+                      device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scan_lg, _ = _make_scan_prefill(plain, 2048)(params, tt, lt)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    par_lg, _ = _make_parallel_prefill(plain, 2048)(params, tt, lt)
+    e = _first_tokens(scan_lg, par_lg.float())
+    e_tok = {}
+    for mode in ("scan", "parallel"):
+        eng = ServeEngine(EngineConfig(prefill_mode=mode,
+                                       prefix_sharing=False, **base), plain,
+                          params)
+        e_tok[mode] = [h.tokens[0] for h in
+                       _greedy(eng, short, [2], 1)]
+        del eng
+    out["e_scan_prefill"] = {**e, "engine_first_tokens": e_tok,
+                             "scan_s": scan_s, "prompt_lens": [40, 64]}
+    print(f"[smoke] ext (e) scan vs parallel prefill (40, 64 tokens), plain "
+          f"attention: first tokens equal={e['equal']} {e['tokens']}; logits "
+          f"max_abs={e['max_abs_logit_diff']:.4f} min top-2 gap="
+          f"{e['min_top2_gap']:.4f}; engines {e_tok}; scan prefill "
+          f"{scan_s * 1e3:.0f} ms | {card}")
+    assert e["max_abs_logit_diff"] <= LOGIT_TOL and not e["unexplained"], e
+    assert e_tok["scan"] == e["tokens"][0] and \
+        e_tok["parallel"] == e["tokens"][1], e_tok
+
+    # (f) the legacy ServeSession loop, one batch of 2, plain attention:
+    # stepped (one token at a time, dense cache) vs fused (the engine)
+    batch = np.stack([prompts[2][64:112], prompts[3][64:112]])
+    sess = ServeSession(EngineConfig(prefix_sharing=False, **base), plain,
+                        params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stepped = sess.generate(batch, 16, stepped_prefill=True).cpu().numpy()
+    f_stepped_s = time.perf_counter() - t0
+    fused = sess.generate(batch, 16).cpu().numpy()
+    # the first step of each path on the shapes it runs: the stepped loop
+    # on a cache of 48 + 16 + 1 rows, the engine's prefill on its bucket
+    # (64) and capacity (128)
+    bt = torch.from_numpy(batch.astype(np.int32)).cuda()
+    cache = plain.init_cache(params, 2, 48 + 16 + 1)
+    for t in range(48):
+        slg, cache = plain.decode_step(params, bt[:, t:t + 1], cache)
+    flg, _ = plain.prefill_cache(
+        params, torch.nn.functional.pad(bt, (0, 16)),
+        torch.full((2,), 48, dtype=torch.int32, device="cuda"), 128)
+    f1 = _first_tokens(slg[:, -1].float(), flg[:, -1].float())
+    f_eq = _agreement(stepped[:, 48:].tolist(), fused[:, 48:].tolist())
+    del sess, cache
+    out["f_legacy"] = {"stepped_vs_fused": f_eq, "first_step": f1,
+                       "stepped_s": f_stepped_s}
+    print(f"[smoke] ext (f) legacy ServeSession.generate, batch 2 x 48: "
+          f"stepped vs fused tokens equal={f_eq['all_equal']} share="
+          f"{f_eq['equal_share']:.3f} first divergence="
+          f"{f_eq['first_divergence']}; first-step logits max_abs="
+          f"{f1['max_abs_logit_diff']:.4f} min top-2 gap="
+          f"{f1['min_top2_gap']:.4f}; stepped loop {f_stepped_s:.2f} s"
+          f" | {card}")
+    assert (stepped[:, :48] == batch).all() and (fused[:, :48] == batch).all()
+    assert f1["max_abs_logit_diff"] <= LOGIT_TOL and not f1["unexplained"]
+    assert [r[0] for r in stepped[:, 48:].tolist()] == f1["tokens"][0]
+    assert [r[0] for r in fused[:, 48:].tolist()] == f1["tokens"][1]
+
+    torch.cuda.synchronize()
+    out["launches"] = dict(build.LAUNCHES)
+    out["phase_s"] = time.perf_counter() - t_phase
+    for name in ("flash_attention", "paged_decode_attention"):
+        assert out["launches"][name] > 0, f"{name} never launched in phase 8"
+    print(f"[smoke] ext launches={out['launches']} phase_s="
+          f"{out['phase_s']:.1f} | {card}")
+    print("SERVE_EXT " + json.dumps(out, default=str))
     return out
 
 
@@ -1552,15 +2122,18 @@ def _captured(fn):
     return out, buf.getvalue()
 
 
-def _greedy(engine, prompts, arrivals, gen):
-    """Submit prompts in arrival groups, one tick between groups; returns
-    the handles after the engine drains."""
+def _greedy(engine, prompts, arrivals, gen, **req):
+    """Submit prompts in arrival groups of the given sizes (0: a tick
+    with no arrival), one tick after each group; returns the handles
+    after the engine drains. gen: tokens a request, or one per prompt;
+    req: further GenerationRequest fields."""
     from repro_torch.engine import GenerationRequest
+    gens = gen if isinstance(gen, (list, tuple)) else [gen] * len(prompts)
     handles, i = [], 0
     for size in arrivals:
         for _ in range(size):
             handles.append(engine.submit(GenerationRequest(
-                prompts[i], max_new_tokens=gen)))
+                prompts[i], max_new_tokens=gens[i], **req)))
             i += 1
         engine.step()
     engine.drain()
@@ -1864,7 +2437,7 @@ def main(argv=None) -> int:
           f"{torch.cuda.device_count()}")
     if args.serve_only:                 # one run of serve_ab
         print(f"[smoke] built kernels in {build.build_all():.1f}s")
-        print("SERVE " + json.dumps(serve_phase(card)["metrics"]))
+        print("SERVE " + json.dumps(serve_phase(card)[0]["metrics"]))
         return 0
     record = {"card": card}
     try:
@@ -1872,7 +2445,9 @@ def main(argv=None) -> int:
         print(f"[smoke] built kernels {build.sources()} in {secs:.1f}s")
         record["build_s"] = secs
         cases = record["kernel_cases"] = kernel_phase()
-        record["serve"] = serve_phase(card, args.profile)
+        record["serve"], parts = serve_phase(card, args.profile)
+        record["serve_ext"] = ext_phase(card, *parts)
+        del parts
         _free()
         record["train"] = train_phase(card, args.profile)
         record["ranks"] = ranks_phase(card)
@@ -1906,6 +2481,8 @@ def main(argv=None) -> int:
     ck_launches = dict(ck["serve"]["launches"])
     ck_launches.update({k: ck["resume"]["prefetch_on"]["launches"][k]
                         for k in ("block_dots", "block_combine")})
+    # and the attention kernels' launches inside phase 8
+    ext_launches = record["serve_ext"]["launches"]
     main_cases = {"serve_extend", "serve_tick", "embed_fp32"}
     sources = {
         "flash_attention": ("csrc/flash_attention.cu",
@@ -1933,6 +2510,8 @@ def main(argv=None) -> int:
             "device_ms": c.get("device_ms"),
             "library_device_ms": c.get("library_device_ms"),
             "phase7_launches": ck_launches[c["kernel"]]})
+        if c["kernel"] in ("flash_attention", "paged_decode_attention"):
+            rows[-1]["phase8_launches"] = ext_launches[c["kernel"]]
         if c["kernel"] in rvh_ms:
             rows[-1].update(rvh_launches=rvh_launches[c["kernel"]],
                             rvh_half_ms=rvh_ms[c["kernel"]])

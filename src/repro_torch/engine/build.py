@@ -601,3 +601,68 @@ def make_sampling_decode_step(model: Model):
                             top_k, top_p)
         return nxt[:, None], cache
     return decode_step
+
+
+def make_serve_step(model: Model):
+    """One greedy decode step of the legacy batch loop: tokens [B,1] ->
+    (next tokens [B,1] in the tokens' dtype, cache)."""
+    def serve_step(params, tokens, cache):
+        logits, cache = model.decode_step(params, tokens, cache)
+        nxt = torch.argmax(logits[:, -1:, :], dim=-1).to(tokens.dtype)
+        return nxt, cache
+    return serve_step
+
+
+def make_verify_step(model: Model):
+    """Greedy speculative verification, ONE target forward per tick
+    (build.py:558).
+
+    tokens [B, k+1] = [last committed token, draft_1..draft_k]; the
+    model's verify_step scores all k+1 positions (writing their K/V
+    rows), then: per-slot greedy argmax g [B, k+1], acceptance = the
+    longest prefix of drafts matching g, and the cache pos set to pos +
+    accepted + 1 — which commits the accepted rows and rolls back the
+    rejected ones. Returns (next feed token [B,1], g [B,k+1], accepted
+    [B], cache); row b commits g[b, :accepted[b]+1]."""
+    from .serving.slots import set_positions, slot_positions
+
+    def verify(params, tokens, cache):
+        pos = slot_positions(cache)
+        logits, cache = model.verify_step(params, tokens, cache)
+        g = torch.argmax(logits, dim=-1).to(torch.int32)         # [B,k+1]
+        match = (g[:, :-1] == tokens[:, 1:]).to(torch.int32)
+        acc = torch.cumprod(match, dim=1).sum(dim=1)             # [B] 0..k
+        cache = set_positions(cache, pos + acc + 1)
+        nxt = torch.gather(g, 1, acc[:, None].long())            # [B,1]
+        return nxt, g, acc, cache
+    return verify
+
+
+def make_draft_propose(draft_model: Model, k: int):
+    """k greedy draft tokens per slot from k+1 draft decode steps over
+    the draft's dense per-slot cache (the reference's `lax.scan`,
+    build.py:589, as a loop that never waits for the device: each
+    argmax feeds the next step on the card). `pos` [B] (the committed
+    position per slot) is written into the draft cache first — that
+    rewrite heals last tick's overrun.
+
+    tokens [B,1] = last committed token; returns (drafts [B,k], cache
+    at pos + k + 1).
+
+    k+1 steps, not k: step t writes the K/V row of its INPUT token, so k
+    steps would leave d_k proposed but never fed — a hole at row pos+k.
+    After a full-accept tick the target commits through d_k and the
+    next propose would attend across that hole, and acceptance would
+    collapse. The extra step feeds d_k (its output is discarded)."""
+    from .serving.slots import set_positions
+
+    def propose(params, tokens, cache, pos):
+        cache = set_positions(cache, pos)
+        tok, drafts = tokens, []
+        for _ in range(k + 1):
+            logits, cache = draft_model.decode_step(params, tok, cache)
+            tok = torch.argmax(logits[:, -1, :], dim=-1).to(
+                torch.int32)[:, None]
+            drafts.append(tok)
+        return torch.cat(drafts[:k], dim=1), cache               # [B,k]
+    return propose

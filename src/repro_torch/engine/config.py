@@ -26,8 +26,8 @@ from typing import Any, Dict, Optional
 
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.parallel.policy import RunPolicy
-from repro_torch.runtime import (ITEM_ADASUM_MATH, ITEM_SERVING_EXTRAS,
-                                 ITEM_SHARDING, ITEM_SUBSYSTEMS, not_ported)
+from repro_torch.runtime import (ITEM_ADASUM_MATH, ITEM_SHARDING,
+                                 ITEM_SUBSYSTEMS, not_ported)
 
 PARAM_DTYPES = ("float32", "bfloat16")
 _COMBINE_OPS = ("adasum", "sum", "mean")
@@ -108,15 +108,28 @@ class EngineConfig:
                                 # serve_max_len())
     hot_reload: bool = False    # poll ckpt_dir mid-stream; new requests
                                 # see new weights, in-flight finish on old
-    prefill_mode: str = "auto"  # 'parallel' (one fused forward) | 'auto'
-    kv_layout: str = "paged"    # the paged page-pool arena
-    page_size: int = 16         # tokens per KV page
+    prefill_mode: str = "auto"  # 'parallel' (one fused forward) | 'scan'
+                                # (stepped decode prefill) | 'auto'
+    kv_layout: str = "paged"    # 'paged' (page-pool arena, the default)
+                                # | 'dense' (per-slot max_len buffers)
+    page_size: int = 16         # tokens per KV page (paged layout)
     kv_pages: int = 0           # physical pages in the arena (incl. the
                                 # reserved trash page); 0 => enough for
                                 # every slot at full capacity
     prefix_sharing: bool = True # map page-aligned shared prompt prefixes
                                 # onto the same read-only pages; prefill
                                 # computes only the unshared tail
+    speculation_k: int = 0      # draft-model speculative decoding: draft
+                                # tokens proposed + verified per tick
+                                # (0 = off); greedy ticks only
+    draft_config: Optional[Dict[str, Any]] = None
+                                # draft model: {'arch': preset[, 'reduced':
+                                # bool, field overrides]} or ModelConfig
+                                # field overrides of the target; None =>
+                                # the target at quarter depth
+    pressure_ladder: bool = False # serve graceful degradation under
+                                # kv/queue pressure: no speculation ->
+                                # no admissions -> preempt-by-recompute
 
     # ------------------------------------------------------------ validation
     def validate(self, dp_total: Optional[int] = None) -> "EngineConfig":
@@ -166,23 +179,40 @@ class EngineConfig:
         if self.hot_reload and not self.ckpt_dir:
             raise ValueError("hot_reload=True needs ckpt_dir (the serve "
                              "engine watches it for new checkpoints)")
-        if self.prefill_mode not in ("auto", "parallel"):
+        if self.prefill_mode not in ("auto", "parallel", "scan"):
             raise ValueError(f"prefill_mode={self.prefill_mode!r}; "
                              f"expected auto | parallel | scan")
-        if self.kv_layout != "paged":
+        if self.kv_layout not in ("paged", "dense"):
             raise ValueError(f"kv_layout={self.kv_layout!r}; "
                              f"expected paged | dense")
-        if self.page_size < 1:
+        if self.kv_layout == "paged":
+            if self.page_size < 1:
+                raise ValueError(
+                    f"page_size must be >= 1 for kv_layout='paged', got "
+                    f"{self.page_size} (each KV page holds page_size "
+                    f"token rows)")
+            if self.kv_pages < 0:
+                raise ValueError(f"kv_pages must be >= 0 (0 = full "
+                                 f"provisioning), got {self.kv_pages}")
+            if self.kv_pages == 1:
+                raise ValueError(
+                    "kv_pages=1 is only the reserved trash page; the "
+                    "engine needs at least one allocatable page")
+        if self.speculation_k < 0:
             raise ValueError(
-                f"page_size must be >= 1 for kv_layout='paged', got "
-                f"{self.page_size} (each KV page holds page_size token rows)")
-        if self.kv_pages < 0:
-            raise ValueError(f"kv_pages must be >= 0 (0 = full "
-                             f"provisioning), got {self.kv_pages}")
-        if self.kv_pages == 1:
-            raise ValueError(
-                "kv_pages=1 is only the reserved trash page; the engine "
-                "needs at least one allocatable page")
+                f"speculation_k must be >= 0 (draft tokens per tick; 0 "
+                f"disables speculation), got {self.speculation_k}")
+        if self.draft_config is not None:
+            if not self.speculation_k:
+                raise ValueError(
+                    "draft_config is set but speculation_k=0; speculation "
+                    "is off without draft tokens — set speculation_k >= 1 "
+                    "or drop draft_config")
+            if not isinstance(self.draft_config, dict) or not self.draft_config:
+                raise ValueError(
+                    f"draft_config must be a non-empty dict ({{'arch': "
+                    f"preset[, 'reduced': bool]}} or ModelConfig field "
+                    f"overrides), got {self.draft_config!r}")
         if dp_total is not None:
             if self.data_mesh not in (0, dp_total):
                 raise not_ported(
@@ -231,11 +261,6 @@ class EngineConfig:
              ITEM_SHARDING),
             (self.acc_dtype == "float64", "acc_dtype='float64'",
              ITEM_ADASUM_MATH),
-            (self.prefill_mode == "scan", "prefill_mode='scan' (the fused "
-             "decode-scan prefill of recurrent families)",
-             ITEM_SERVING_EXTRAS),
-            (self.kv_layout == "dense", "kv_layout='dense'",
-             ITEM_SERVING_EXTRAS),
         ]
         for asked, what, item in later:
             if asked:
@@ -247,10 +272,12 @@ class EngineConfig:
 
     def serve_max_len(self) -> int:
         """The per-slot cache capacity the serve engine builds: `max_len`
-        (0 => seq_len), rounded UP to a page multiple so logical rows
-        tile pages exactly."""
+        (0 => seq_len), rounded UP to a page multiple under
+        kv_layout='paged' so logical rows tile pages exactly."""
         n = self.max_len or self.seq_len
-        return -(-n // self.page_size) * self.page_size
+        if self.kv_layout == "paged" and self.page_size > 0:
+            n = -(-n // self.page_size) * self.page_size
+        return n
 
     # ------------------------------------------------------------ round-trip
     def to_dict(self) -> Dict[str, Any]:

@@ -6,9 +6,11 @@ is admitted the moment a slot frees up and retired on EOS or on its
 token budget. Slot count and cache capacity are fixed at engine build,
 so the churn of the active set never changes a device-side shape.
 
-Left for a later slice (ROADMAP.md queue 1, item 5): per-request
-deadlines and retry budgets (`deadline_s`, `max_retries`), recompute
-preemption, terminal failure, and the pressure ladder.
+Resilience, as in the reference: per-request deadlines and retry budgets
+(`deadline_s`, `max_retries`), recompute preemption back to the queue
+front (`preempt`), terminal failure from queue or slot (`fail`), and the
+`PressureLadder` that sheds speculation, then admissions, then preempts
+as the page pool runs dry.
 """
 from __future__ import annotations
 
@@ -35,7 +37,14 @@ class GenerationRequest:
     optional `top_k` (0 = off) and nucleus `top_p` (1.0 = off)
     truncation. Decode stays reproducible: token t of a request is a
     pure function of (`seed`, t) — `seed` defaults to the request_id —
-    independent of batch composition or admission timing."""
+    independent of batch composition or admission timing.
+
+    Resilience: `deadline_s` is a wall-clock budget from submission —
+    an expired request fails terminally with finish_reason 'deadline'
+    (it is never left hanging in the queue or a slot). `max_retries`
+    bounds recompute preemptions: the (max_retries+1)-th preemption
+    fails the request with finish_reason 'retries' instead of requeueing
+    it. Both default to off (None)."""
     prompt: np.ndarray                      # [T] int token ids
     max_new_tokens: int = 16
     eos_id: Optional[int] = None
@@ -44,6 +53,8 @@ class GenerationRequest:
     top_k: int = 0                          # 0 => no top-k truncation
     top_p: float = 1.0                      # 1.0 => no nucleus truncation
     seed: Optional[int] = None              # None => request_id
+    deadline_s: Optional[float] = None      # wall-clock budget (None = none)
+    max_retries: Optional[int] = None       # preemption budget (None = inf)
     request_id: int = dataclasses.field(
         default_factory=lambda: next(_REQ_IDS))
 
@@ -60,6 +71,12 @@ class GenerationRequest:
             raise ValueError(f"top_k must be >= 0, got {self.top_k}")
         if not 0 < self.top_p <= 1.0:
             raise ValueError(f"top_p must be in (0, 1], got {self.top_p}")
+        if self.deadline_s is not None and self.deadline_s <= 0:
+            raise ValueError(f"deadline_s must be > 0, got "
+                             f"{self.deadline_s}")
+        if self.max_retries is not None and self.max_retries < 0:
+            raise ValueError(f"max_retries must be >= 0, got "
+                             f"{self.max_retries}")
 
     @property
     def sampling_seed(self) -> int:
@@ -73,17 +90,38 @@ class RequestHandle:
     def __init__(self, request: GenerationRequest):
         self.request = request
         self.tokens: List[int] = []          # generated tokens (no prompt)
-        self.status = "queued"               # queued | running | done
+        self.status = "queued"               # queued | running | done | failed
         self.slot: Optional[int] = None
         self.version: Optional[int] = None   # params version when admitted
-        self.finish_reason: Optional[str] = None     # eos | length
+        self.finish_reason: Optional[str] = None
+        # eos | length | deadline | retries | drained
         self.submitted_at = time.perf_counter()
         self.first_token_at: Optional[float] = None
         self.done_at: Optional[float] = None
+        self.retries = 0                     # recompute preemptions so far
+        # speculation accounting: draft tokens proposed for / accepted by
+        # this request
+        self.spec_proposed = 0
+        self.spec_accepted = 0
 
     @property
     def done(self) -> bool:
-        return self.status == "done"
+        """Terminal — completed OR failed (deadline/retries/drained). A
+        submitted request always becomes done; it is never left hanging."""
+        return self.status in ("done", "failed")
+
+    @property
+    def failed(self) -> bool:
+        return self.status == "failed"
+
+    @property
+    def deadline_at(self) -> Optional[float]:
+        d = self.request.deadline_s
+        return None if d is None else self.submitted_at + d
+
+    def past_deadline(self, now: float) -> bool:
+        da = self.deadline_at
+        return da is not None and now > da
 
     @property
     def output(self) -> np.ndarray:
@@ -152,6 +190,54 @@ class ContinuousBatchingScheduler:
             self.active[slot] = handle
             out.append((slot, handle))
         return out
+
+    def preempt(self, slot: int) -> RequestHandle:
+        """Evict a running request back to the FRONT of the queue
+        (recompute preemption under page-pool pressure). Its generated
+        tokens are kept; re-admission prefills prompt+generated.
+
+        With a `max_retries` budget, the (budget+1)-th preemption fails
+        the request terminally (finish_reason 'retries') instead of
+        requeueing — the caller checks `handle.failed` on the return."""
+        handle = self.active.pop(slot)
+        handle.status, handle.slot = "queued", None
+        self._free.append(slot)
+        handle.retries += 1
+        budget = handle.request.max_retries
+        if budget is not None and handle.retries > budget:
+            handle.status = "failed"
+            handle.finish_reason = "retries"
+            handle.done_at = time.perf_counter()
+        else:
+            self.queue.appendleft(handle)
+        return handle
+
+    def fail(self, handle: RequestHandle, reason: str) -> None:
+        """Terminal failure (deadline expiry, drain, retry exhaustion):
+        remove the handle from wherever it sits — queue or slot — and
+        mark it failed. Idempotent on already-terminal handles. The
+        caller releases any KV pages the slot held BEFORE calling."""
+        if handle.done:
+            return
+        if handle.status == "running" and handle.slot is not None:
+            self.active.pop(handle.slot, None)
+            self._free.append(handle.slot)
+            handle.slot = None
+        elif handle.status == "queued":
+            try:
+                self.queue.remove(handle)
+            except ValueError:
+                pass
+        handle.status = "failed"
+        handle.finish_reason = reason
+        handle.done_at = time.perf_counter()
+
+    def expired(self, now: Optional[float] = None) -> List[RequestHandle]:
+        """Queued + running handles past their deadline (host-side
+        bookkeeping only; the engine releases pages then calls fail)."""
+        now = time.perf_counter() if now is None else now
+        return [h for h in list(self.queue) + list(self.active.values())
+                if h.past_deadline(now)]
 
     def should_retire(self, handle: RequestHandle, token: int) -> Optional[str]:
         req = handle.request
@@ -286,3 +372,60 @@ class PrefixIndex:
 
     def __len__(self) -> int:
         return len(self._pages)
+
+
+class PressureLadder:
+    """Serve-side graceful degradation (host logic only). Levels, in
+    escalation order:
+
+        0 normal   — everything on
+        1 no_spec  — speculation off (draft dispatches stop competing
+                     with real decode work)
+        2 no_admit — admissions paused while anything is active
+        3 preempt  — preempt-by-recompute the youngest slot when the
+                     pool is dry, so older slots can grow
+
+    `update` maps (free page fraction, queue depth) to a level with
+    hysteresis: a level is entered when free_frac drops below its
+    `enter` threshold, and only decays once free_frac clears
+    `exit_margin` x that threshold AND the queue is no longer hot. Deep
+    queues (>= queue_factor x max_slots) alone raise level 1."""
+
+    LEVELS = ("normal", "no_spec", "no_admit", "preempt")
+
+    def __init__(self, *, enter=(0.25, 0.10, 0.02), exit_margin: float = 1.5,
+                 queue_factor: int = 4):
+        if not enter[0] > enter[1] > enter[2] >= 0:
+            raise ValueError(f"enter thresholds must strictly decrease to "
+                             f">= 0, got {enter}")
+        if exit_margin <= 1.0:
+            raise ValueError(f"exit_margin must be > 1, got {exit_margin}")
+        self.enter = tuple(enter)
+        self.exit_margin = exit_margin
+        self.queue_factor = queue_factor
+        self.level = 0
+        self.changes = 0
+
+    @property
+    def name(self) -> str:
+        return self.LEVELS[self.level]
+
+    def update(self, *, free_frac: float, queue_len: int,
+               max_slots: int) -> int:
+        target = 0
+        for i, thr in enumerate(self.enter):
+            if free_frac < thr:
+                target = i + 1
+        queue_hot = queue_len >= self.queue_factor * max(1, max_slots)
+        if queue_hot:
+            target = max(target, 1)
+        if target < self.level:
+            clear = (free_frac >= min(1.0, self.enter[self.level - 1]
+                                      * self.exit_margin)
+                     and not queue_hot)
+            if not clear:
+                target = self.level        # hysteresis: hold the level
+        if target != self.level:
+            self.level = target
+            self.changes += 1
+        return self.level

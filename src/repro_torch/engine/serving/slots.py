@@ -1,15 +1,22 @@
-"""The page pool and the paged-cache device ops (the port's paged subset
-of `repro/engine/serving/slots.py`).
+"""Slotted-cache device ops, the page pool and the paged-cache device ops
+(the port's GQA subset of `repro/engine/serving/slots.py`).
+
+A slotted cache keeps the slot axis at position 1 of every leaf (the
+layer axis is 0), per-slot positions included ([L, B]). `insert_rows`
+/ `insert_rows_at` admit freshly prefilled rows into a dense cache,
+`select_rows` merges two cache versions per slot, and
+`slot_positions` / `set_positions` read and rewrite the per-slot
+positions — the rewrite is speculation's accept and rollback.
 
 `PagePool` is the host-side allocator — refcounted physical pages, a
 free list, copy-on-write — copied from the reference. The device ops
-rewrite arena rows and page tables without changing a shape. Unlike the
-reference, which rebuilds every arena functionally (`.at[].set`), they
-write IN PLACE (`index_put_` / `copy_`) and return the cache they were
-given: copying a `[L, num_pages, page_size, KV, Dh]` arena per admission
-or COW would swamp the card. Physical page 0 is the trash page: free
-slots and unallocated table entries point at it, making their garbage
-writes inert.
+rewrite cache rows and page tables without changing a shape. Unlike the
+reference, which rebuilds every cache functionally (`.at[].set`), the
+row and page ops write IN PLACE (`index_put_` / `copy_`) and return the
+cache they were given: copying a `[L, num_pages, page_size, KV, Dh]`
+arena per admission or COW would swamp the card. Physical page 0 is the
+trash page: free slots and unallocated table entries point at it,
+making their garbage writes inert.
 """
 from __future__ import annotations
 
@@ -20,6 +27,69 @@ import torch
 
 from repro_torch.models import attention as ATT
 from repro_torch.models.transformer import DecodeCache
+
+
+# ======================================================== slotted caches
+def insert_rows(cache: DecodeCache, row: DecodeCache,
+                slot: int) -> DecodeCache:
+    """Write a one-slot cache into `cache` at slot index `slot`, in
+    place (every leaf of the slot: rows and position)."""
+    c, r = cache.layers["attn"], row.layers["attn"]
+    for dst, src in zip(c, r):
+        dst[:, slot:slot + 1] = src.to(dst.dtype)
+    return cache
+
+
+def insert_rows_at(cache: DecodeCache, rows: DecodeCache,
+                   slots: torch.Tensor) -> DecodeCache:
+    """Scatter an n-slot cache (a group's prefill rows) into `cache` at
+    slot indices `slots` [n], in place — the dense layout's admission."""
+    c, r = cache.layers["attn"], rows.layers["attn"]
+    idx = slots.long()
+    for dst, src in zip(c, r):
+        dst[:, idx] = src.to(dst.dtype)
+    return cache
+
+
+def select_rows(mask: torch.Tensor, new: DecodeCache,
+                old: DecodeCache) -> DecodeCache:
+    """Per-slot select: slots where mask[b] take `new`, the others keep
+    `old`. mask: bool [B] over the slot axis. Returns new tensors."""
+    n, o = new.layers["attn"], old.layers["attn"]
+
+    def sel(a, b):
+        m = mask.reshape((1, mask.shape[0]) + (1,) * (a.dim() - 2))
+        return torch.where(m, a, b)
+    return DecodeCache({"attn": type(n)(*(sel(a, b) for a, b in zip(n, o)))})
+
+
+def slot_positions(cache: DecodeCache) -> torch.Tensor:
+    """The per-slot positions [B] (layer 0's; every layer holds the
+    same)."""
+    pos = cache.layers["attn"].pos
+    if pos.dim() != 2:
+        raise ValueError("cache has no per-slot pos; was it built with "
+                         "per_slot=True?")
+    return pos[0]
+
+
+def set_positions(cache: DecodeCache, pos: torch.Tensor) -> DecodeCache:
+    """The cache with every layer's per-slot pos set to `pos` [B]. This
+    values-only rewrite IS speculative accept and rollback: advancing
+    pos to old_pos + accepted + 1 commits the accepted rows, and what the
+    verify wrote beyond it becomes masked garbage that the next writes
+    overwrite. Rows and arenas are shared with `cache`."""
+    att = cache.layers["attn"]
+    return DecodeCache({"attn": att._replace(
+        pos=pos.to(torch.int32).expand_as(att.pos).clone())})
+
+
+def dense_kv_bytes(cache: DecodeCache) -> int:
+    """Bytes of the dense K/V rows (positions excluded): the constant
+    footprint of kv_layout='dense', which the paged arena's
+    `kv_bytes_in_use` is compared against."""
+    c = cache.layers["attn"]
+    return sum(a.numel() * a.element_size() for a in (c.k, c.v))
 
 
 # ============================================================== page pool

@@ -1,5 +1,5 @@
-"""TrainSession — the one-line integration the paper sells (the port of
-`repro/engine/session.py`'s TrainSession):
+"""TrainSession — the one-line integration the paper sells — and the
+legacy ServeSession (the port of `repro/engine/session.py`):
 
     from repro_torch.engine import EngineConfig, TrainSession
     session = TrainSession.from_config(
@@ -43,6 +43,7 @@ import dataclasses
 import os
 from typing import Any, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch import tree as T
@@ -57,7 +58,7 @@ from repro_torch.parallel.comm import Comm
 from repro_torch.runtime import (DeviceLike, FailureInjector, StepMonitor,
                                  make_generator, resolve_device)
 
-from .build import Runtime, build_runtime
+from .build import Runtime, build_runtime, make_serve_step
 from .config import EngineConfig
 
 PyTree = Any
@@ -398,3 +399,90 @@ class TrainSession:
             if self._owns_comm:
                 self.comm.close()
                 self._owns_comm = False
+
+
+# ---------------------------------------------------------------- ServeSession
+class ServeSession:
+    """Legacy batched serving (session.py:344-441), a thin wrapper over
+    `ServeEngine`: `generate(prompts, gen_len)` submits one request per
+    row and drains the engine. `stepped_prefill=True` runs the old loop
+    instead — the prompt fed one token at a time through the greedy
+    serve step on a dense cache with one shared position, then greedy
+    decode: the stepped reference the engine's paths are held to."""
+
+    def __init__(self, config: EngineConfig, model: Model, params: PyTree,
+                 checkpoint=None, loaded_step: Optional[int] = None):
+        self.config = config
+        self.model = model
+        self.params = params
+        self.checkpoint = checkpoint
+        self._loaded_step = loaded_step
+        self._step = make_serve_step(model)
+        self._engine = None                     # built lazily
+
+    @classmethod
+    def from_config(cls, config: EngineConfig, *,
+                    model: Optional[Model] = None,
+                    params: Optional[PyTree] = None,
+                    device: DeviceLike = None,
+                    generator: Optional[torch.Generator] = None
+                    ) -> "ServeSession":
+        """Model and params as `ServeEngine.from_config` builds them (on
+        `device`, `cuda` unless the caller says otherwise; with
+        `ckpt_dir`, the latest checkpoint's params)."""
+        from .serving.engine import resolve_serve_parts
+        model, params, checkpoint, loaded_step = resolve_serve_parts(
+            config, model=model, params=params, device=device,
+            generator=generator)
+        return cls(config, model, params, checkpoint=checkpoint,
+                   loaded_step=loaded_step)
+
+    def engine(self, max_len: Optional[int] = None):
+        """The ServeEngine behind this session: one engine, built lazily
+        and rebuilt larger (capacity a power of two) when a call needs
+        more. It shares the session's checkpoint manager."""
+        from .serving import ServeEngine
+        need = max_len or self.config.max_len or self.config.seq_len
+        if self._engine is None or self._engine.max_len < need:
+            cap = 1 << (need - 1).bit_length()
+            cfg = dataclasses.replace(self.config, max_len=cap)
+            self._engine = ServeEngine(cfg, self.model, self.params,
+                                       checkpoint=self.checkpoint,
+                                       loaded_step=self._loaded_step)
+        return self._engine
+
+    def generate(self, prompts, gen_len: int, max_len: Optional[int] = None,
+                 stepped_prefill: bool = False) -> torch.Tensor:
+        """prompts: [B, T] int token ids (array or tensor). Returns
+        [B, T+gen_len] int32 on the params' device: the prompts and the
+        greedy continuations."""
+        prompts = torch.as_tensor(np.asarray(prompts, np.int32)).to(
+            self.params["embed"]["table"].device)
+        B, T_ = prompts.shape
+        max_len = max_len or (T_ + gen_len + 1)
+        if stepped_prefill:
+            return self._generate_stepped(prompts, gen_len, max_len)
+        from .serving import GenerationRequest
+        eng = self.engine(max_len)
+        handles = [eng.submit(GenerationRequest(
+            prompt=prompts[i].cpu().numpy(), max_new_tokens=gen_len))
+            for i in range(B)]
+        eng.drain()
+        return torch.from_numpy(np.stack([h.output for h in handles])).to(
+            prompts.device)
+
+    def _generate_stepped(self, prompts: torch.Tensor, gen_len: int,
+                          max_len: int) -> torch.Tensor:
+        """The pre-engine loop: T serve steps over the prompt, then
+        gen_len greedy steps, on a dense cache with one shared position
+        (no host sync until the caller reads the result)."""
+        B, T_ = prompts.shape
+        cache = self.model.init_cache(self.params, B, max_len)
+        nxt = prompts[:, :1]
+        for t in range(T_):
+            nxt, cache = self._step(self.params, prompts[:, t:t + 1], cache)
+        cur, gen = nxt, []
+        for _ in range(gen_len):
+            gen.append(cur)
+            cur, cache = self._step(self.params, cur, cache)
+        return torch.cat([prompts] + gen, dim=1)

@@ -254,26 +254,24 @@ def _decode_setup(B: int, H: int, KV: int, Dh: int, P: int,
     return nsplit, pps, n_acc, n_acc + math.prod(ml_shape)
 
 
-def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
-                               v_pages: torch.Tensor,
-                               page_table: torch.Tensor, pos: torch.Tensor,
-                               *, rolling: bool = False) -> torch.Tensor:
-    """Plain version: the gather path of `gqa_paged_decode_step`
-    (attention.py:391-409) — gather each slot's pages back into the dense
-    [B, cap] layout, mask by position, exact softmax. Returns [B,H,Dh] in
-    the value dtype."""
+def masked_decode_attention(q: torch.Tensor, kfull: torch.Tensor,
+                            vfull: torch.Tensor, pos: torch.Tensor, *,
+                            rolling: bool = False) -> torch.Tensor:
+    """One-token GQA attention over dense per-slot rows: q [B,H,Dh]
+    against kfull/vfull [B,cap,KV,Dh] (the current token already
+    written), rows at slot positions 0..pos attended, the rest masked to
+    NEG_INF; pos int [B] (per slot) or a scalar (every row at one
+    position). The masked exact softmax of `gqa_decode_step`
+    (attention.py:266-277), probabilities cast to the value dtype before
+    P.V. Returns [B,H,Dv] in the value dtype."""
     B, H, Dh = q.shape
-    _, ps, KV, _ = k_pages.shape
-    cap = page_table.shape[1] * ps
-    idx = page_table.long()
-    kfull = k_pages[idx].reshape(B, cap, KV, Dh)
-    vfull = v_pages[idx].reshape(B, cap, KV, v_pages.shape[-1])
+    cap, KV = kfull.shape[1], kfull.shape[2]
     rows = torch.arange(cap, device=q.device)
-    posb = pos.long()[:, None]
+    posb = pos.long().reshape(-1, 1)                         # [B|1, 1]
     if rolling:
         slot_pos = posb - torch.remainder(posb - rows[None, :], cap)
     else:
-        slot_pos = rows[None, :].expand(B, cap)
+        slot_pos = rows[None, :].expand(posb.shape[0], cap)
     valid = (slot_pos >= 0) & (slot_pos <= posb)
     scale = 1.0 / math.sqrt(Dh)
     qg = q.reshape(B, KV, H // KV, Dh)
@@ -282,6 +280,24 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(vfull.dtype)
     return torch.einsum("bkgs,bskd->bkgd", probs, vfull).reshape(B, H, -1)
+
+
+def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                               v_pages: torch.Tensor,
+                               page_table: torch.Tensor, pos: torch.Tensor,
+                               *, rolling: bool = False) -> torch.Tensor:
+    """Plain version: the gather path of `gqa_paged_decode_step`
+    (attention.py:391-409) — gather each slot's pages back into the dense
+    [B, cap] layout, then `masked_decode_attention` (the dense decode's
+    own math, so the two layouts agree bitwise). Returns [B,H,Dh] in the
+    value dtype."""
+    B, H, Dh = q.shape
+    _, ps, KV, _ = k_pages.shape
+    cap = page_table.shape[1] * ps
+    idx = page_table.long()
+    kfull = k_pages[idx].reshape(B, cap, KV, Dh)
+    vfull = v_pages[idx].reshape(B, cap, KV, v_pages.shape[-1])
+    return masked_decode_attention(q, kfull, vfull, pos, rolling=rolling)
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,

@@ -15,41 +15,29 @@ fields (`completed=`, `tok_s=`, ...). Weights are random, drawn on
 `--hot-reload` also polls the directory every tick, so a checkpoint that
 lands mid-stream serves the requests admitted after it.
 
-Flags of later slices (`--speculation-k`, `--draft-preset`,
-`--deadline-s`, `--max-retries`, `--pressure-ladder`, `--kv-layout
-dense`, `--legacy`, meshes above one device) raise NotImplementedError
-naming their ROADMAP item.
+Serving options, as in the reference: `--kv-layout dense` (per-slot
+rows instead of the page arena), `--kv-pages N` below full provisioning
+(backpressure and recompute preemption), `--prefill-mode scan` (stepped
+prefill), `--speculation-k K` with `--draft-preset ARCH` (default: the
+target at quarter depth; random draft weights, so acceptance is ~0 and
+the tokens are plain decode's), `--deadline-s`, `--max-retries` and
+`--pressure-ladder` (a `[serve] resilience ...` line counts kills,
+retries, drains and the ladder's levels), and `--legacy`, the old
+`ServeSession.generate` stepped loop on the same prompts. Meshes above
+one device raise NotImplementedError naming their ROADMAP item.
 """
 from __future__ import annotations
 
 import argparse
 import sys
+import time
 
 import numpy as np
 
-from repro_torch.engine import EngineConfig, GenerationRequest, ServeEngine
-from repro_torch.runtime import (ITEM_SERVING_EXTRAS, ITEM_SHARDING,
-                                 make_generator, not_ported, resolve_device)
-
-
-def _refuse_later_flags(args) -> None:
-    later = [
-        (args.speculation_k or args.draft_preset,
-         "speculative decoding (--speculation-k/--draft-preset)",
-         ITEM_SERVING_EXTRAS),
-        (args.deadline_s or args.max_retries is not None
-         or args.pressure_ladder,
-         "serve resilience (--deadline-s/--max-retries/--pressure-ladder)",
-         ITEM_SERVING_EXTRAS),
-        (args.legacy, "the legacy ServeSession loop (--legacy)",
-         ITEM_SERVING_EXTRAS),
-        (args.data_mesh > 1 or args.model_mesh > 1,
-         "meshes above one device (--data-mesh/--model-mesh)",
-         ITEM_SHARDING),
-    ]
-    for asked, what, item in later:
-        if asked:
-            raise not_ported(what, item)
+from repro_torch.engine import (EngineConfig, GenerationRequest, ServeEngine,
+                                ServeSession)
+from repro_torch.runtime import (ITEM_SHARDING, make_generator, not_ported,
+                                 resolve_device)
 
 
 def main(argv=None):
@@ -68,7 +56,8 @@ def main(argv=None):
                     choices=["auto", "parallel", "scan"])
     ap.add_argument("--kv-layout", default="paged",
                     choices=["paged", "dense"],
-                    help="paged KV arena (default); dense is a later slice")
+                    help="paged KV arena (default) or dense per-slot "
+                    "buffers")
     ap.add_argument("--page-size", type=int, default=16, dest="page_size",
                     help="token rows per KV page")
     ap.add_argument("--kv-pages", type=int, default=0, dest="kv_pages",
@@ -81,8 +70,12 @@ def main(argv=None):
                     help="prepend this many shared system-prompt tokens "
                     "to every request (exercises prefix sharing)")
     ap.add_argument("--speculation-k", type=int, default=0,
-                    dest="speculation_k")
-    ap.add_argument("--draft-preset", default="", dest="draft_preset")
+                    dest="speculation_k",
+                    help="draft tokens per speculation tick (0 = off); "
+                    "greedy requests only")
+    ap.add_argument("--draft-preset", default="", dest="draft_preset",
+                    help="registry arch for the draft model (default: "
+                    "the target at quarter depth); honours --reduced")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="0 = greedy argmax (default); >0 samples")
     ap.add_argument("--top-k", type=int, default=0, dest="top_k",
@@ -93,14 +86,21 @@ def main(argv=None):
                     dest="sample_seed",
                     help="base sampling seed (default: per request_id)")
     ap.add_argument("--deadline-s", type=float, default=0.0,
-                    dest="deadline_s")
+                    dest="deadline_s",
+                    help="per-request wall-clock deadline in seconds "
+                    "(0 = none); past it the request fails terminally")
     ap.add_argument("--max-retries", type=int, default=None,
-                    dest="max_retries")
+                    dest="max_retries",
+                    help="preemption retry budget per request (default: "
+                    "unlimited)")
     ap.add_argument("--pressure-ladder", action="store_true",
-                    dest="pressure_ladder")
+                    dest="pressure_ladder",
+                    help="graceful degradation under kv/queue pressure: "
+                    "shed speculation, pause admissions, preempt")
     ap.add_argument("--ckpt-dir", default="", dest="ckpt_dir")
     ap.add_argument("--hot-reload", action="store_true", dest="hot_reload")
-    ap.add_argument("--legacy", action="store_true")
+    ap.add_argument("--legacy", action="store_true",
+                    help="the old ServeSession.generate stepped loop")
     ap.add_argument("--data-mesh", type=int, default=0)
     ap.add_argument("--model-mesh", type=int, default=1)
     ap.add_argument("--device", default="cuda",
@@ -109,7 +109,9 @@ def main(argv=None):
                     help="seed of the generator the random weights come "
                     "from")
     args = ap.parse_args(argv)
-    _refuse_later_flags(args)
+    if args.data_mesh > 1 or args.model_mesh > 1:
+        raise not_ported("meshes above one device (--data-mesh/--model-mesh)",
+                         ITEM_SHARDING)
 
     max_len = args.max_len or (args.system_prompt + args.prompt_len
                                + args.gen + 1)
@@ -117,18 +119,41 @@ def main(argv=None):
         ap.error(f"--max-len {max_len} leaves no room for a prompt "
                  f"beyond --system-prompt {args.system_prompt} + --gen "
                  f"{args.gen} tokens")
+    draft_config = None
+    if args.draft_preset:
+        draft_config = {"arch": args.draft_preset, "reduced": args.reduced}
     cfg = EngineConfig(arch=args.arch, reduced=args.reduced,
                        max_slots=args.max_slots, max_len=max_len,
                        prefill_mode=args.prefill_mode,
                        kv_layout=args.kv_layout, page_size=args.page_size,
                        kv_pages=args.kv_pages,
                        prefix_sharing=not args.no_prefix_sharing,
+                       speculation_k=args.speculation_k,
+                       draft_config=draft_config,
+                       pressure_ladder=args.pressure_ladder,
                        ckpt_dir=args.ckpt_dir,
                        hot_reload=args.hot_reload).validate()
     rng = np.random.RandomState(1)
     device = resolve_device(args.device)
-    engine = ServeEngine.from_config(
-        cfg, device=device, generator=make_generator(device, args.seed))
+    generator = make_generator(device, args.seed)
+
+    if args.legacy:
+        session = ServeSession.from_config(cfg, device=device,
+                                           generator=generator)
+        V = session.model.cfg.vocab_size
+        prompts = rng.randint(0, V, (args.requests, args.prompt_len))
+        t0 = time.perf_counter()
+        out = session.generate(prompts, args.gen, max_len=max_len,
+                               stepped_prefill=True).cpu().numpy()
+        wall = time.perf_counter() - t0
+        toks = args.requests * args.gen
+        print(f"[serve] legacy completed={args.requests} "
+              f"generated_tokens={toks} wall_s={wall:.2f} "
+              f"tok_s={toks / wall:.1f}")
+        print(out[:, args.prompt_len:])
+        return out
+
+    engine = ServeEngine.from_config(cfg, device=device, generator=generator)
     V = engine.model.cfg.vocab_size
 
     def stream(handle, token):
@@ -149,7 +174,9 @@ def main(argv=None):
         handles.append(engine.submit(GenerationRequest(
             prompt=prompt, max_new_tokens=args.gen,
             temperature=args.temperature, top_k=args.top_k,
-            top_p=args.top_p, seed=seed, stream=stream)))
+            top_p=args.top_p, seed=seed, stream=stream,
+            deadline_s=args.deadline_s or None,
+            max_retries=args.max_retries)))
         for _ in range(args.stagger):
             engine.step()
     engine.drain()
@@ -157,28 +184,47 @@ def main(argv=None):
     tp = engine.throughput()
     lat = {k: tp.pop(k) for k in list(tp)
            if k.startswith(("ttft_", "tpot_"))}
-    fallbacks = tp.pop("restore_fallbacks")
+    res = {k: tp.pop(k) for k in
+           ("failed", "deadline_kills", "retries", "drained",
+            "restore_fallbacks", "degradation_level",
+            "degradation_changes", "ladder_preempts") if k in tp}
     fields = " ".join(
         f"{k}={v:.2f}" if isinstance(v, float) else f"{k}={v}"
         for k, v in tp.items())
     print(f"[serve] {fields}")
-    print(f"[serve] resilience failed={tp['submitted'] - tp['completed']} "
-          f"restore_fallbacks={fallbacks}")
+    print("[serve] resilience " + " ".join(
+        f"{k}={v}" for k, v in res.items()))
     if lat:
         print("[serve] latency " + " ".join(
             f"{k[:-2]}_ms={v * 1e3:.1f}" for k, v in lat.items()))
     kv = engine.kv_stats()
+    if args.speculation_k:
+        print(f"[serve] spec k={args.speculation_k} "
+              f"ticks={tp.get('spec_ticks', 0)} "
+              f"proposed={tp.get('spec_tokens_proposed', 0)} "
+              f"accepted={tp.get('spec_tokens_accepted', 0)} "
+              f"acceptance={kv['spec_acceptance_rate']:.3f} "
+              f"dispatches_per_token="
+              f"{tp.get('dispatches_per_token', 0.0):.3f}")
     print(f"[serve] kv layout={kv['kv_layout']} "
           f"in_use={kv['kv_bytes_in_use']} peak={kv['peak_kv_bytes_in_use']} "
           f"capacity={kv['kv_capacity_bytes']} "
           f"pages={kv['kv_pages_used']}/{kv['kv_pages_used'] + kv['kv_pages_free']} "
           f"prefix_hits={kv['prefix_hits']} "
           f"prefix_tokens_reused={kv['prefix_tokens_reused']} "
-          f"cow={kv['cow_copies']}")
+          f"cow={kv['cow_copies']} preemptions={kv['preemptions']}")
     for h in handles:
         print(f"[serve] req {h.request.request_id} "
               f"({h.finish_reason}): {h.tokens}")
-    if tp["completed"] != args.requests:
+    # every submitted request must be terminal (completed or, with
+    # deadlines/retry budgets in force, failed) — never hung
+    terminal = tp["completed"] + res.get("failed", 0)
+    if terminal != args.requests:
+        print(f"[serve] ERROR: {terminal}/{args.requests} terminal",
+              file=sys.stderr)
+        sys.exit(1)
+    if tp["completed"] != args.requests and not (
+            args.deadline_s or args.max_retries is not None):
         print(f"[serve] ERROR: {tp['completed']}/{args.requests} completed",
               file=sys.stderr)
         sys.exit(1)

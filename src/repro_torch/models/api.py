@@ -4,7 +4,8 @@
     params = model.init(generator)               # on cuda by default
     loss, metrics = model.loss(params, batch)    # training (plain attention)
     logits, cache = model.prefill_cache(params, tokens, lengths, max_len)
-    logits, cache = model.decode_step(params, tokens, paged_cache)
+    logits, cache = model.decode_step(params, tokens, cache)
+    logits, cache = model.verify_step(params, tokens_k1, cache)
 """
 from __future__ import annotations
 
@@ -25,12 +26,17 @@ class Model:
     cfg: ModelConfig
     init: Callable          # (generator=None, device=None) -> params
     forward: Callable       # (params, tokens) -> logits [B,T,V]
-    init_cache: Callable    # (params, batch, max_len, paged) -> cache
+    # (params, batch, max_len, per_slot=False, paged=None) -> cache
+    init_cache: Callable
     decode_step: Callable   # (params, tokens, cache) -> (logits, cache)
     # fused serving prefill: (params, tokens [B,P], lengths [B], max_len
     # [, prefix_kv, prefix_len]) -> (last-position logits, dense rows)
     prefill_cache: Optional[Callable] = None
     loss: Optional[Callable] = None   # (params, batch) -> (total, metrics)
+    # speculative verify: (params, tokens [B,T], cache) -> (logits
+    # [B,T,V], cache with K/V rows written and pos unchanged)
+    verify_step: Optional[Callable] = None
+    attn_impl: str = "kernel"         # what serving attention runs through
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -72,10 +78,11 @@ def build_model(cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
         return TF.forward(params, cfg, tokens, compute_dtype, attn_impl,
                           attn_chunk=attn_chunk)
 
-    def init_cache(params, batch, max_len, paged=None):
+    def init_cache(params, batch, max_len, per_slot=False, paged=None):
         # cache rows live in the compute dtype, as in the reference
         return TF.init_decode_cache(cfg, batch, max_len, compute_dtype,
-                                    paged, params["embed"]["table"].device)
+                                    params["embed"]["table"].device,
+                                    per_slot, paged)
 
     def decode_step(params, tokens, cache):
         return TF.decode_step(params, cfg, tokens, cache, compute_dtype,
@@ -92,8 +99,11 @@ def build_model(cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
         return TF.lm_loss(params, cfg, batch, compute_dtype, attn_chunk,
                           remat=remat)
 
+    def verify_step(params, tokens, cache):
+        return TF.verify_step(params, cfg, tokens, cache, compute_dtype)
+
     return Model(cfg, init, forward, init_cache, decode_step, prefill_cache,
-                 loss)
+                 loss, verify_step, attn_impl)
 
 
 def count_params(cfg: ModelConfig) -> int:

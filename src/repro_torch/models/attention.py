@@ -1,5 +1,6 @@
-"""GQA attention for the dense decoders: prefill forward and paged decode
-(the port's subset of `repro/models/attention.py`).
+"""GQA attention for the dense decoders: prefill forward, decode over a
+dense per-slot cache or a page arena, and the multi-token speculative
+verify over either (the port's GQA subset of `repro/models/attention.py`).
 
 Routing of the attention core (`attn_impl`):
   * "kernel" (the default) — the wrappers in `repro_torch.kernels`: on a
@@ -16,17 +17,20 @@ Paged layout as in the reference: K/V rows live in per-layer arenas
 [B, pages_per_slot]; physical page 0 is the trash page that free slots
 and unallocated entries point at.
 
-In place, unlike the reference: JAX rebuilds each arena functionally
-(`arena.at[pg, off].set`, attention.py:352-356). Copying an arena every
-decode step would swamp the card, so `_paged_write` writes the new K/V
-rows into the arena tensors with `index_put_`, and a decode step returns
-the same arena tensors it was given. This is safe because nothing in
-the port decodes one cache under two param versions (hot-reload, the
-one reason the JAX engine keeps old buffers, is a later slice).
+In place, unlike the reference: JAX rebuilds each arena and dense cache
+functionally (`.at[].set`, attention.py:258-263, :352-356). Copying a
+cache every decode step would swamp the card, so the steps here write
+the new K/V rows into the cache tensors with `index_put_` and return the
+same tensors with a new `pos`. Rows a verify writes beyond the accepted
+prefix stay behind as garbage, masked by `pos` exactly as the
+reference's are, and the next writes overwrite them. A caller that
+decodes one cache under two param versions (a hot-reload transition
+tick) keeps each version's rows apart itself (`engine/serving/engine.py`).
 """
 from __future__ import annotations
 
 import functools
+import math
 from typing import Any, NamedTuple, Tuple
 
 import torch
@@ -110,12 +114,64 @@ def gqa_forward(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
 
 # --------------------------------------------------------------- KV caches
 class KVCache(NamedTuple):
-    """Dense per-slot rows — what the prefill emits before the engine
-    scatters them into the page arena. Inside a DecodeCache every field
-    gains a leading layer axis."""
+    """Dense per-slot rows: the decode cache of kv_layout='dense' and the
+    draft, and what the prefill emits before the engine scatters it into
+    the page arena. Inside a DecodeCache every field gains a leading
+    layer axis."""
     k: torch.Tensor      # [B, cap, KV, Dh] (RoPE'd at write)
     v: torch.Tensor      # [B, cap, KV, Dh]
-    pos: torch.Tensor    # int32 [B] tokens seen
+    pos: torch.Tensor    # int32 tokens seen: [B] per slot, or a scalar
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                  device: torch.device, per_slot: bool = False) -> KVCache:
+    """Zero rows [B, cap, KV, Dh] (cap: the window for SWA, else
+    max_len); pos int32 [B] with per_slot, else one scalar."""
+    cap = paged_capacity(cfg, max_len)
+    kv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    return KVCache(
+        torch.zeros((batch, cap, kv, dh), dtype=dtype, device=device),
+        torch.zeros((batch, cap, kv, dh), dtype=dtype, device=device),
+        torch.zeros((batch,) if per_slot else (), dtype=torch.int32,
+                    device=device))
+
+
+def _write_row(pos: torch.Tensor, cap: int, cfg: ModelConfig) -> torch.Tensor:
+    """The cache row position `pos` writes: rolling for SWA, clamped to
+    the last row otherwise."""
+    return pos % cap if cfg.sliding_window > 0 else torch.clamp(pos,
+                                                                max=cap - 1)
+
+
+def gqa_decode_step(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
+                    cache: KVCache, compute_dtype=torch.bfloat16
+                    ) -> Tuple[torch.Tensor, KVCache]:
+    """One-token decode over the dense cache. x: [B,1,D].
+
+    cache.pos scalar: every row at the same position (the legacy batch
+    loop). cache.pos [B]: slotted serving — each row writes and masks at
+    its own position. Writes the new K/V rows in place; returns (out
+    [B,1,D], cache with pos + 1 and the same row tensors)."""
+    B = x.shape[0]
+    h, dh = cfg.n_heads, cfg.resolved_head_dim
+    cap = cache.k.shape[1]
+    pos = cache.pos
+    per_slot = pos.dim() == 1
+    posv = (pos[:, None] if per_slot else pos.reshape(1, 1)).float()
+    q, k, v = _qkv(params, cfg, x, posv, compute_dtype)
+    row = _write_row(pos, cap, cfg)
+    if per_slot:
+        rows_b = torch.arange(B, device=x.device)
+        cache.k.index_put_((rows_b, row.long()), k[:, 0].to(cache.k.dtype))
+        cache.v.index_put_((rows_b, row.long()), v[:, 0].to(cache.v.dtype))
+    else:
+        cache.k.index_copy_(1, row.reshape(1).long(), k.to(cache.k.dtype))
+        cache.v.index_copy_(1, row.reshape(1).long(), v.to(cache.v.dtype))
+    out = FA.masked_decode_attention(q[:, 0], cache.k, cache.v, pos,
+                                     rolling=cfg.sliding_window > 0)
+    out = out.reshape(B, 1, h * dh).to(compute_dtype) \
+        @ params["wo"].to(compute_dtype)
+    return out, cache._replace(pos=pos + 1)
 
 
 class PagedKVCache(NamedTuple):
@@ -180,8 +236,7 @@ def gqa_paged_decode_step(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
     cap = cache.page_table.shape[1] * ps
     pos = cache.pos
     q, k, v = _qkv(params, cfg, x, pos[:, None].float(), compute_dtype)
-    row = pos % cap if cfg.sliding_window > 0 else torch.clamp(pos,
-                                                               max=cap - 1)
+    row = _write_row(pos, cap, cfg)
     pg, off = _paged_slot(cache.page_table, row, ps)
     _paged_write(cache.k, pg, off, k[:, 0])
     _paged_write(cache.v, pg, off, v[:, 0])
@@ -191,3 +246,99 @@ def gqa_paged_decode_step(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
     out = out.reshape(B, 1, h * dh).to(compute_dtype) \
         @ params["wo"].to(compute_dtype)
     return out, cache._replace(pos=pos + 1)
+
+
+# ------------------------------------------------- speculative verification
+#
+# Multi-token verify for speculative decoding (attention.py:412-532): x
+# holds the embeds of [last committed token, draft_1 .. draft_{T-1}] and
+# row b scores positions pos_b..pos_b+T-1 against the cache in ONE
+# forward. All T K/V rows are written first, then query t masks rows at
+# positions > pos_b + t to NEG_INF — the key set a one-token decode at
+# pos_b + t sees. The returned cache keeps `pos` UNCHANGED: the caller
+# commits the accepted prefix by rewriting pos (and, paged, page-table
+# values); rejected rows beyond the new pos stay as masked garbage.
+#
+# Caller contract (the engine runs a plain tick otherwise): per-slot pos
+# [B], and pos + T - 1 < capacity for every live row — no rolling wrap
+# and no clamping, so live rows are written at exactly pos + t.
+
+def _verify_rows(cfg: ModelConfig, pos: torch.Tensor, T: int, cap: int):
+    """(absolute positions [B,T], write rows [B,T]). For live rows
+    rows == positions; the mod/min only keeps free-slot rows in bounds."""
+    post = pos.long()[:, None] + torch.arange(T, device=pos.device)
+    return post, _write_row(post, cap, cfg)
+
+
+def _verify_valid(cfg: ModelConfig, post: torch.Tensor, cap: int):
+    """Validity [B,T,cap]: query t sees exactly the rows a one-token
+    decode at pos+t would (rolling or linear)."""
+    B, T = post.shape
+    idx = torch.arange(cap, device=post.device)
+    posb = post[:, :, None]                                  # [B,T,1]
+    if cfg.sliding_window:
+        slot_pos = posb - torch.remainder(posb - idx[None, None, :], cap)
+    else:
+        slot_pos = idx[None, None, :].expand(B, T, cap)
+    return (slot_pos >= 0) & (slot_pos <= posb)
+
+
+def _gqa_verify_attend(params: PyTree, cfg: ModelConfig, q: torch.Tensor,
+                       kfull: torch.Tensor, vfull: torch.Tensor,
+                       valid: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """Masked multi-position GQA attention: q [B,T,H,Dh] against dense
+    rows [B,cap,KV,Dh] under `valid` [B,T,cap]; scores in fp32, masked to
+    NEG_INF, softmax, probabilities cast to the value dtype; then `wo`."""
+    B, T = q.shape[:2]
+    h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    scale = 1.0 / math.sqrt(dh)
+    qg = q.reshape(B, T, kvh, h // kvh, dh)
+    scores = torch.einsum("btkgd,bskd->btkgs", qg.float(),
+                          kfull.float()) * scale
+    scores = torch.where(valid[:, :, None, None, :], scores, FA.NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(vfull.dtype)
+    out = torch.einsum("btkgs,bskd->btkgd", probs, vfull).reshape(B, T,
+                                                                  h * dh)
+    return out.to(compute_dtype) @ params["wo"].to(compute_dtype)
+
+
+def gqa_verify_step(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
+                    cache: KVCache, compute_dtype=torch.bfloat16
+                    ) -> Tuple[torch.Tensor, KVCache]:
+    """T-token verify over the dense slotted cache. x: [B,T,D]. Writes
+    rows pos..pos+T-1 in place; returns (out [B,T,D], cache, pos
+    unchanged)."""
+    B, T, _ = x.shape
+    cap = cache.k.shape[1]
+    post, row = _verify_rows(cfg, cache.pos, T, cap)
+    q, k, v = _qkv(params, cfg, x, post.float(), compute_dtype)
+    rows_b = torch.arange(B, device=x.device)[:, None].expand(B, T)
+    cache.k.index_put_((rows_b, row), k.to(cache.k.dtype))
+    cache.v.index_put_((rows_b, row), v.to(cache.v.dtype))
+    out = _gqa_verify_attend(params, cfg, q, cache.k, cache.v,
+                             _verify_valid(cfg, post, cap), compute_dtype)
+    return out, cache
+
+
+def gqa_paged_verify_step(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
+                          cache: PagedKVCache, compute_dtype=torch.bfloat16
+                          ) -> Tuple[torch.Tensor, PagedKVCache]:
+    """T-token verify over the paged arena: the math of `gqa_verify_step`
+    on each slot's gathered pages (free slots write through trash page 0,
+    inert as ever). Returns (out [B,T,D], cache, pos unchanged)."""
+    B, T, _ = x.shape
+    kvh, dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    ps = cache.k.shape[1]
+    cap = cache.page_table.shape[1] * ps
+    post, row = _verify_rows(cfg, cache.pos, T, cap)
+    q, k, v = _qkv(params, cfg, x, post.float(), compute_dtype)
+    pgs = torch.gather(cache.page_table.long(), 1, row // ps)
+    offs = row % ps
+    cache.k.index_put_((pgs, offs), k.to(cache.k.dtype))
+    cache.v.index_put_((pgs, offs), v.to(cache.v.dtype))
+    idx = cache.page_table.long()
+    kfull = cache.k[idx].reshape(B, cap, kvh, dh)
+    vfull = cache.v[idx].reshape(B, cap, kvh, dh)
+    out = _gqa_verify_attend(params, cfg, q, kfull, vfull,
+                             _verify_valid(cfg, post, cap), compute_dtype)
+    return out, cache

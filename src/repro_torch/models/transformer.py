@@ -8,7 +8,8 @@ weight, layer on axis 0); a Python loop over layers takes the place of
 `lax.scan`, reading each layer as views `blocks[...][l]`. Decode caches
 stack the same way: `DecodeCache.layers = {"attn": PagedKVCache}` with
 arenas `[L, num_pages, page_size, KV, Dh]`, page tables `[L, B, P]` and
-positions `[L, B]`.
+positions `[L, B]`, or `{"attn": KVCache}` with dense rows
+`[L, B, cap, KV, Dh]` and positions `[L, B]` (per slot) or `[L]`.
 """
 from __future__ import annotations
 
@@ -21,7 +22,6 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.runtime import ITEM_SERVING_EXTRAS, not_ported
 from . import attention as ATT
 from . import layers as L
 
@@ -183,20 +183,23 @@ class DecodeCache(NamedTuple):
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
-                      paged: Tuple[int, int],
-                      device: torch.device) -> DecodeCache:
-    """paged=(page_size, num_pages): per-layer page arenas
+                      device: torch.device, per_slot: bool = False,
+                      paged: Optional[Tuple[int, int]] = None
+                      ) -> DecodeCache:
+    """All zero. paged=(page_size, num_pages): per-layer page arenas
     `[L, num_pages, page_size, KV, Dh]`, int32 page tables
-    `[L, B, pages_per_slot]` and positions `[L, B]`, all zero (every
-    table entry at trash page 0)."""
-    if paged is None:
-        raise not_ported("the dense per-slot decode cache",
-                         ITEM_SERVING_EXTRAS, "slice 1 decodes paged")
-    ps, num_pages = paged
-    one = ATT.init_paged_kv_cache(cfg, batch, max_len, ps, num_pages, dtype,
-                                  device)
+    `[L, B, pages_per_slot]` (every entry at trash page 0) and positions
+    `[L, B]`. Otherwise dense rows `[L, B, cap, KV, Dh]` with positions
+    `[L, B]` under per_slot (the serving layout: the slot axis is axis 1
+    of every leaf) or `[L]` (the legacy batch loop)."""
+    if paged is not None:
+        ps, num_pages = paged
+        one = ATT.init_paged_kv_cache(cfg, batch, max_len, ps, num_pages,
+                                      dtype, device)
+    else:
+        one = ATT.init_kv_cache(cfg, batch, max_len, dtype, device, per_slot)
     Lyr = cfg.n_layers
-    return DecodeCache({"attn": ATT.PagedKVCache(
+    return DecodeCache({"attn": type(one)(
         *(t.unsqueeze(0).repeat((Lyr,) + (1,) * t.dim()) for t in one))})
 
 
@@ -295,14 +298,23 @@ def prefill_decode_cache(params: PyTree, cfg: ModelConfig,
     return logits, DecodeCache({"attn": att})
 
 
+def _layer_cache(att, l: int):
+    """Layer l's cache as views of the stacked leaves (in-place writes
+    land in the stack)."""
+    return type(att)(*(t[l] for t in att))
+
+
 def _block_decode(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
-                  cache: ATT.PagedKVCache, compute_dtype,
-                  attn_impl: str) -> torch.Tensor:
+                  cache, compute_dtype, attn_impl: str) -> torch.Tensor:
     """One token through one block. x: [B,1,D]; `cache` is this layer's
-    paged cache (its arena rows are written in place)."""
+    paged or dense cache (its rows are written in place)."""
     h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
-    a, _ = ATT.gqa_paged_decode_step(params["attn"], cfg, h, cache,
-                                     compute_dtype, attn_impl)
+    if isinstance(cache, ATT.PagedKVCache):
+        a, _ = ATT.gqa_paged_decode_step(params["attn"], cfg, h, cache,
+                                         compute_dtype, attn_impl)
+    else:
+        a, _ = ATT.gqa_decode_step(params["attn"], cfg, h, cache,
+                                   compute_dtype)
     x = x + a
     h = L.rmsnorm(params["norm2"], x, cfg.norm_eps)
     return x + L.mlp_apply(params["mlp"], h, cfg.mlp_type, compute_dtype)
@@ -312,19 +324,47 @@ def decode_step(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
                 cache: DecodeCache, compute_dtype=torch.bfloat16,
                 attn_impl: str = "kernel"
                 ) -> Tuple[torch.Tensor, DecodeCache]:
-    """tokens [B,1] -> (logits [B,1,V] fp32, cache). The arenas are
-    written in place; the returned cache shares them and carries
-    pos + 1."""
+    """tokens [B,1] -> (logits [B,1,V] fp32, cache), over a paged or a
+    dense cache. The rows are written in place; the returned cache
+    shares them and carries pos + 1."""
     att = cache.layers["attn"]
-    if not isinstance(att, ATT.PagedKVCache):
-        raise not_ported("decode over a dense per-slot cache",
-                         ITEM_SERVING_EXTRAS, "slice 1 decodes paged")
     x = L.embed(params["embed"], tokens, compute_dtype)
     for l in range(cfg.n_layers):
-        one = ATT.PagedKVCache(att.k[l], att.v[l], att.page_table[l],
-                               att.pos[l])
-        x = _block_decode(layer_params(params["blocks"], l), cfg, x, one,
-                          compute_dtype, attn_impl)
+        x = _block_decode(layer_params(params["blocks"], l), cfg, x,
+                          _layer_cache(att, l), compute_dtype, attn_impl)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return (_logits(params, cfg, x, compute_dtype),
             DecodeCache({"attn": att._replace(pos=att.pos + 1)}))
+
+
+def _block_verify(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
+                  cache, compute_dtype) -> torch.Tensor:
+    """T speculative tokens through one block. x: [B,T,D]."""
+    h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
+    if isinstance(cache, ATT.PagedKVCache):
+        a, _ = ATT.gqa_paged_verify_step(params["attn"], cfg, h, cache,
+                                         compute_dtype)
+    else:
+        a, _ = ATT.gqa_verify_step(params["attn"], cfg, h, cache,
+                                   compute_dtype)
+    x = x + a
+    h = L.rmsnorm(params["norm2"], x, cfg.norm_eps)
+    return x + L.mlp_apply(params["mlp"], h, cfg.mlp_type, compute_dtype)
+
+
+def verify_step(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
+                cache: DecodeCache, compute_dtype=torch.bfloat16
+                ) -> Tuple[torch.Tensor, DecodeCache]:
+    """Speculative verification (transformer.py:517): tokens [B,T] =
+    [last committed token, draft_1..draft_{T-1}] -> (logits [B,T,V]
+    fp32, cache). ONE forward scores all T positions and writes their
+    K/V rows in place; `pos` is UNCHANGED — the caller advances it by
+    accepted + 1 (`engine/build.make_verify_step`), which is both the
+    accept and the rollback."""
+    att = cache.layers["attn"]
+    x = L.embed(params["embed"], tokens, compute_dtype)
+    for l in range(cfg.n_layers):
+        x = _block_verify(layer_params(params["blocks"], l), cfg, x,
+                          _layer_cache(att, l), compute_dtype)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return _logits(params, cfg, x, compute_dtype), cache

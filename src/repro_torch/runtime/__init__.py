@@ -24,8 +24,6 @@ ITEM_ADASUM_MATH = "2.1"    # fp64 dot accumulation (acc_dtype)
 ITEM_MULTI_RANK = "3"       # what remains of multi-rank training (sum /
                             # mean / linear across ranks; accum and local
                             # steps at span < dp)
-ITEM_SERVING_EXTRAS = "5"   # dense layout, speculation, resilience,
-                            # preemption, legacy loop, scan prefill
 ITEM_FAMILIES = "6"         # MoE, MLA, ssm, hybrid, enc-dec, frontends
 ITEM_SHARDING = "7"         # data/model meshes above one device
 ITEM_SUBSYSTEMS = "8"       # delayed combine, adaptive batch, chaos,

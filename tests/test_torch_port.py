@@ -107,17 +107,8 @@ def test_explicit_cpu_runs():
 
 # ---------------------------------------------------- later-slice options
 LATER_FLAGS = {
-    "speculation": ["--speculation-k", "2"],
-    "draft": ["--draft-preset", "qwen3-32b"],
-    "deadline": ["--deadline-s", "5"],
-    "retries": ["--max-retries", "1"],
-    "ladder": ["--pressure-ladder"],
-    "dense_layout": ["--kv-layout", "dense"],
-    "legacy": ["--legacy"],
-    "mesh": ["--model-mesh", "2"],
-    "scan_prefill": ["--prefill-mode", "scan"],
-    "preemption": ["--kv-pages", "3"],
-    "family": ["--arch", "mixtral-8x22b"],
+    "mesh": (["--model-mesh", "2"], "7"),
+    "family": (["--arch", "mixtral-8x22b"], "6"),
 }
 
 
@@ -126,9 +117,67 @@ def test_later_slice_flags_raise(name):
     from repro_torch.launch import serve
     argv = ["--arch", "qwen3-32b", "--reduced", "--device", "cpu",
             "--requests", "1", "--gen", "2", "--prompt-len", "8"]
-    argv += LATER_FLAGS[name]
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md queue 1, item"):
+    flags, item = LATER_FLAGS[name]
+    argv += flags
+    with pytest.raises(NotImplementedError,
+                       match=rf"ROADMAP.md queue 1, item {item}\b"):
         serve.main(argv)
+
+
+# the serve flags ROADMAP item 5 brought: each runs on the CPU, and the
+# check shows it took effect (the output it prints, or what it changed)
+ITEM5_FLAGS = {
+    "speculation": ["--speculation-k", "2"],
+    "draft": ["--speculation-k", "2", "--draft-preset", "qwen3-32b"],
+    "deadline": ["--deadline-s", "1e-6"],
+    "retries": ["--max-retries", "0", "--kv-pages", "3"],
+    "ladder": ["--pressure-ladder", "--kv-pages", "3"],
+    "dense_layout": ["--kv-layout", "dense"],
+    "legacy": ["--legacy"],
+    "scan_prefill": ["--prefill-mode", "scan"],
+    "preemption": ["--kv-pages", "3"],
+}
+
+
+def _field(out: str, key: str) -> float:
+    import re
+    return float(re.search(rf"\b{key}=([0-9.]+)", out).group(1))
+
+
+@pytest.mark.parametrize("name", sorted(ITEM5_FLAGS))
+def test_item5_flags_serve_on_cpu(name, capsys, monkeypatch):
+    from repro_torch.engine.serving import engine as E
+    from repro_torch.launch import serve
+    scans = []
+    make_scan = E._make_scan_prefill
+    monkeypatch.setattr(E, "_make_scan_prefill",
+                        lambda *a: scans.append(a) or make_scan(*a))
+    argv = ["--arch", "qwen3-32b", "--reduced", "--device", "cpu",
+            "--requests", "3", "--gen", "6", "--prompt-len", "12",
+            "--max-slots", "2"] + ITEM5_FLAGS[name]
+    got = serve.main(argv)
+    out = capsys.readouterr().out
+    if name == "legacy":
+        assert "[serve] legacy completed=3 generated_tokens=18" in out
+        assert got.shape == (3, 12 + 6)
+        return
+    assert all(h.done for h in got)
+    if name in ("speculation", "draft"):
+        assert _field(out, "ticks") > 0 and _field(out, "draft_prefills") == 3
+    elif name == "deadline":
+        assert [h.finish_reason for h in got] == ["deadline"] * 3
+        assert _field(out, "deadline_kills") == 3
+    elif name == "retries":
+        assert "retries" in [h.finish_reason for h in got]
+        assert _field(out, "failed") >= 1
+    elif name == "ladder":
+        assert _field(out, "degradation_changes") > 0
+    elif name == "dense_layout":
+        assert "[serve] kv layout=dense" in out
+    elif name == "scan_prefill":
+        assert len(scans) == 1 and _field(out, "completed") == 3
+    else:
+        assert _field(out, "preemptions") > 0 and _field(out, "completed") == 3
 
 
 # ------------------------------------------------------------- configs
@@ -166,8 +215,12 @@ def test_engine_config_serve_len_matches_reference(kw):
     (dict(page_size=0), ValueError), (dict(kv_pages=1), ValueError),
     (dict(prefill_mode="bogus"), ValueError),
     (dict(param_dtype="float16"), ValueError),
-    (dict(kv_layout="dense"), NotImplementedError)])
+    (dict(kv_layout="dense"), None)])
 def test_engine_config_validate(kw, err):
+    if err is None:                 # a valid config validates to itself
+        cfg = EngineConfig(**kw)
+        assert cfg.validate() is cfg
+        return
     with pytest.raises(err):
         EngineConfig(**kw).validate()
 
