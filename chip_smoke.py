@@ -4,6 +4,7 @@
     python3 chip_smoke.py                  # one H100, ~a few minutes
     python3 chip_smoke.py --profile        # + torch.profiler windows
     python3 chip_smoke.py --serve-ab DIR   # serve phase, DIR vs this tree
+    python3 chip_smoke.py --combiners-only # phase 9 alone, no result line
 
 --serve-ab compares two commits on one card within one call: DIR is
 another checkout of the repo (e.g. `git archive <parent> | tar -x -C
@@ -12,7 +13,7 @@ DIR's package and on this one, in turns DIR, this, this, DIR, each in a
 process of its own (this script's code, the package and its kernels
 from the tree), and a `SERVE_AB` JSON line gives the four runs' metrics.
 
-Phases, in the order they run: 1, 2, 3, 4, 8, 5, 6, 7 (any error
+Phases, in the order they run: 1, 2, 3, 4, 8, 5, 6, 7, 9 (any error
 fails the run with a non-zero exit and no result):
   1. card: print `nvidia-smi --query-gpu=name,power.limit` and require
      CUDA;
@@ -159,13 +160,46 @@ fails the run with a non-zero exit and no result):
      transition tick, each request's tokens equal to an engine on its
      pinned step alone; prints the swap's poll and restore times and the
      transition tick ms beside a normal tick's. (d) prints run (a) of
-     phase 6's checkpoint check.
+     phase 6's checkpoint check;
+  9. combiners (runs last): (a) the delayed combine (combine_delay=1) on
+     phase 5's model, momentum at span P9_SPAN (the carry is span x 5.36
+     GB fp32, double-buffered): 3 single-program steps, then 3 rounds from
+     the same start through `DelayedCombineStream.step` and its
+     `serial_step` in turns (each takes the state the other left), params
+     and carry bitwise equal; the step-0 correction exactly zero; the
+     step-1 carry's correction, kernel arm vs combine_impl="plain", within
+     COMBINED_RTOL; compute_s / combine_wait_s, the correction's own ms,
+     and, as `benchmarks/delayed_combine.py` measures it, with latency
+     added to the exchange leg to match a local step, P9_OVERLAP_ROUNDS
+     overlapped and serial rounds in turns after an untimed overlapped
+     one (hidden fraction from their medians; with --profile the untimed
+     round and one more of each under torch.profiler: busy
+     time per CUDA stream, the time both streams ran, host threads'
+     launches and runtime calls, traces in chiprun_out/); peaks at most
+     P9_MEM_GIB. (b) acc_dtype="float64": two steps of phase 5's first
+     train run (momentum, span 4) with fp64 dots, kernel arm and plain arm
+     (combined tree and CombineStats within COMBINED_RTOL, params within
+     TRAIN_PARAM_TOL, the per-level dot triples summed in float64; the
+     CombineStats levels are fp32, as the reference's), and in fp32 with
+     combine_delay=0 named (no delayed piece built; step 1 bitwise phase
+     5's); the combine ms of each. (c) phase 6's model in rank processes
+     on cuda:0 over gloo, one launch a world size, each run's steps as
+     P9_RANK_RUNS gives them: world 4 sum and adascale (sgd),
+     accumulation 2 and local steps 2 at span 2 (sgd); world 2 mean and
+     adasum-linear (sgd) and momentum with combine_delay=1; params
+     bitwise equal across ranks after every step; step, combine,
+     exchange, all-reduce and staging ms, staged bytes and each rank's
+     peak (their sum at most RANK_MEM_GIB). `block_dots` and
+     `block_combine` must launch in the phase (counters zeroed at its
+     start; rank 0's of each launch added). `--combiners-only` builds the
+     kernels and runs this phase alone.
 
 The line before the last is the kernels JSON (block_dots and
 block_combine rows also carry their phase-6 launches on rank 0,
 `rvh_launches`, and their ms on the round-0 half, `rvh_half_ms`; every
 row its launches inside phase 7, `phase7_launches`; the attention rows
-their launches inside phase 8, `phase8_launches`), the
+their launches inside phase 8, `phase8_launches`; the Adasum rows theirs
+inside phase 9, `phase9_launches`), the
 last line {"ok": true, "device": {...}}. Longer records go to
 chiprun_out/chip_smoke.json. fp32 matmuls run in full fp32: TF32 is
 switched off for cuBLAS and cuDNN.
@@ -177,6 +211,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -1419,12 +1454,14 @@ def ext_phase(card: str, cfg, model, params, prompts, served):
 class _CombineTimer:
     """Wraps every combiner `build_runtime` makes so each call is
     bracketed by CUDA events (the engine's own combiners, timed from
-    outside). keep=True also keeps a host copy of the first call's
-    combined leaves and CombineStats levels in `kept`."""
+    outside). keep=True also keeps a copy of the first call's combined
+    leaves and CombineStats levels in `kept`, on the host or on
+    `keep_on`."""
 
-    def __init__(self, keep: bool = False):
+    def __init__(self, keep: bool = False, keep_on: str = "cpu"):
         self.events = []
         self.keep = keep
+        self.keep_on = keep_on
         self.kept = None
 
     def wrap(self, make):
@@ -1444,8 +1481,10 @@ class _CombineTimer:
                     comb, stats = out if isinstance(out, tuple) \
                         else (out, None)
                     self.kept = (
-                        [x.to("cpu", copy=True) for x in T.leaves(comb)],
-                        None if stats is None else stats["levels"].cpu())
+                        [x.to(self.keep_on, copy=True)
+                         for x in T.leaves(comb)],
+                        None if stats is None else
+                        stats["levels"].to(self.keep_on, copy=True))
                 return out
             timed.combine_path = getattr(fn, "combine_path", "")
             return timed
@@ -1584,6 +1623,7 @@ def train_phase(card: str, profile: bool = False):
                           "loss": m["loss"],
                           **{k: m[k] for k in STAT_KEYS}})
             if step == 0:      # kept on the host: no card memory
+                sums1 = _checksums(s.state["params"])
                 p1 = [x.to("cpu", copy=True)
                       for x in T.leaves(s.state["params"])]
                 update = max((x - y).abs().max().item()
@@ -1634,7 +1674,7 @@ def train_phase(card: str, profile: bool = False):
                "plain_tol": TRAIN_PARAM_TOL, "update_max_abs": update,
                "combined_rel_err": comb_err, "stats_rel_err": stats_err,
                "combined_rtol": COMBINED_RTOL, "levels": levels_kern,
-               "profile": prof}
+               "params_sums_step1": sums1, "profile": prof}
         runs[f"{optimizer}_span{span}"] = run
         print(f"[smoke] train {optimizer} span={span} point={meta[1]} "
               f"path={meta[0]} buckets={len(plan)} levels={levels} "
@@ -1697,11 +1737,12 @@ def _checksums(tree, piece: int = 1 << 26):
     return out
 
 
-def _all_equal(obj) -> bool:
-    """Whether every rank passed the same `obj`."""
+def _all_equal(obj, group=None) -> bool:
+    """Whether every rank (of `group`, default all) passed the same
+    `obj`."""
     import torch.distributed as dist
-    seen = [None] * dist.get_world_size()
-    dist.all_gather_object(seen, obj)
+    seen = [None] * dist.get_world_size(group)
+    dist.all_gather_object(seen, obj, group=group)
     return all(x == seen[0] for x in seen)
 
 
@@ -1915,19 +1956,25 @@ def _free_port() -> int:
 
 def _launch_ranks(world: int, optimizer: str, compress: str,
                   ckpt_dir: str = "") -> list:
-    """`world` rank processes of this script (RANK, WORLD_SIZE,
-    LOCAL_RANK, MASTER_ADDR/PORT as torchrun sets them); any rank failing
-    or outliving RANK_TIMEOUT_S fails the phase, and every process is
-    stopped before this returns."""
+    """Phase 6's `world` rank processes (see `_spawn_ranks`)."""
+    return _spawn_ranks(world, f"{optimizer}_w{world}", {
+        "world": world, "optimizer": optimizer, "compress": compress,
+        "ckpt_dir": ckpt_dir})
+
+
+def _spawn_ranks(world: int, tag: str, spec: dict,
+                 flag: str = "--rank-worker") -> list:
+    """`world` rank processes of this script, run with `flag` and `spec`
+    (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR/PORT as torchrun sets
+    them); any rank failing or outliving RANK_TIMEOUT_S fails the phase,
+    and every process is stopped before this returns. Each rank writes
+    its record to the JSON file `spec["out"]` names."""
     out = ROOT / "build" / "ranks"            # gitignored, beside the kernels
     out.mkdir(parents=True, exist_ok=True)
     port = _free_port()
     procs, logs = [], []
-    tag = f"{optimizer}_w{world}"
     for r in range(world):
-        spec = {"world": world, "optimizer": optimizer, "compress": compress,
-                "out": str(out / f"{tag}_rank{r}.json"),
-                "ckpt_dir": ckpt_dir}
+        rspec = dict(spec, out=str(out / f"{tag}_rank{r}.json"))
         env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
                    LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world),
                    MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
@@ -1935,8 +1982,8 @@ def _launch_ranks(world: int, optimizer: str, compress: str,
         log = open(out / f"{tag}_rank{r}.log", "w")
         logs.append(log)
         procs.append(subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), "--rank-worker",
-             json.dumps(spec)], env=env, stdout=log,
+            [sys.executable, str(Path(__file__).resolve()), flag,
+             json.dumps(rspec)], env=env, stdout=log,
             stderr=subprocess.STDOUT))
     deadline = time.monotonic() + RANK_TIMEOUT_S
     try:
@@ -2395,6 +2442,558 @@ def serve_ab(other: Path) -> int:
     return 0
 
 
+# -------------------------------------------------------- combiners phase
+# (a) the delayed combine on stacked lanes: the train phase's model with
+# momentum at span P9_SPAN; the pending carry is span lanes of fp32
+# params, and a round holds two of it (the one the correction reads, the
+# one the local step writes)
+P9_SPAN = 2
+P9_STEPS = 3
+P9_MEM_GIB = 70
+# overlapped and serial rounds, in turns; their medians give the hidden
+# fraction
+P9_OVERLAP_ROUNDS = 5
+# (c) the other combiners, accumulation, local steps and the delayed
+# combine across ranks: phase 6's model, all ranks on cuda:0 over gloo,
+# one launch a world size (a world of 2 is its own process group: torch's
+# new_group is collective over every process, so two ranks of a
+# four-rank launch cannot build their runtime's groups alone). Each run:
+# (name, EngineConfig fields, steps); one step runs every leg of a
+# stateless (sgd) path, the delayed run's second step is its first with
+# a nonzero carry
+P9_RANK_RUNS = {
+    4: (("sum_sgd", dict(combine="sum", optimizer="sgd"), 1),
+        ("adascale_sgd", dict(combine="adascale", optimizer="sgd"), 1),
+        ("span2_accum2_sgd", dict(span=2, backend="gspmd_tree",
+                                  optimizer="sgd", accum_steps=2), 1),
+        ("span2_local2_sgd", dict(span=2, backend="gspmd_tree",
+                                  optimizer="sgd", local_steps=2), 1)),
+    2: (("mean_sgd", dict(combine="mean", optimizer="sgd"), 1),
+        ("linear_sgd", dict(backend="linear", optimizer="sgd"), 1),
+        ("delay_momentum", dict(optimizer="momentum", combine_delay=1), 2)),
+}
+
+
+def _host_leaves(tree) -> list:
+    from repro_torch import tree as T
+    return [x.to("cpu", copy=True) for x in T.leaves(tree)]
+
+
+def _delay_session(model, timer=None, impl="kernel", **fields):
+    return _session(model, timer, impl, **{**dict(
+        optimizer="momentum", span=P9_SPAN, backend="gspmd_tree",
+        combine_delay=1), **fields})
+
+
+def _timed_s(fn):
+    """(fn(), wall seconds to the end of its work on the card)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _union(spans):
+    """Sorted, merged copies of the (start, end) intervals `spans`."""
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _stream_trace(fn, path: Path) -> dict:
+    """fn() under torch.profiler, its trace gzipped to `path`. Returns,
+    in ms from the window's start: per CUDA stream its busy time (the
+    union of its kernels, copies and sets), first and last activity and
+    its three longest idle gaps; the time two or more streams were busy
+    at once; per host thread its kernel launches and CUDA runtime time;
+    and the runtime calls with the most time."""
+    import gzip
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    raw = path.with_suffix("")
+    prof.export_chrome_trace(str(raw))
+    events = [e for e in json.loads(raw.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    with gzip.open(path, "wb") as f:
+        f.write(raw.read_bytes())
+    raw.unlink()
+    start = min(e["ts"] for e in events)
+    ms = lambda us: (us - start) / 1e3
+    by_stream, runtime, threads = {}, {}, {}
+    for e in events:
+        cat = e.get("cat", "")
+        if cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            sid = (e.get("args") or {}).get("stream", e.get("tid"))
+            by_stream.setdefault(str(sid), []).append(
+                (ms(e["ts"]), ms(e["ts"] + e["dur"])))
+        elif cat in ("cuda_runtime", "cuda_driver"):
+            n, t = runtime.get(e["name"], (0, 0.0))
+            runtime[e["name"]] = (n + 1, t + e["dur"] / 1e3)
+            th = threads.setdefault(str(e.get("tid")), {
+                "launches": 0, "runtime_ms": 0.0})
+            th["runtime_ms"] += e["dur"] / 1e3
+            th["launches"] += "LaunchKernel" in e["name"]
+    streams, edges = {}, []
+    for sid, spans in by_stream.items():
+        merged = _union(spans)
+        gaps = sorted(((b[0] - a[1], a[1]) for a, b in zip(merged,
+                                                            merged[1:])),
+                      reverse=True)[:3]
+        streams[sid] = {"ops": len(spans),
+                        "busy_ms": sum(b - a for a, b in merged),
+                        "first_ms": merged[0][0], "last_ms": merged[-1][1],
+                        "gaps_ms": [[at, g] for g, at in gaps]}
+        edges += [(a, 1) for a, _ in merged] + [(b, -1) for _, b in merged]
+    multi, live, prev = 0.0, 0, None
+    for at, d in sorted(edges):
+        if live >= 2:
+            multi += at - prev
+        live, prev = live + d, at
+    top = sorted(runtime.items(), key=lambda kv: -kv[1][1])[:6]
+    return {"wall_ms": 1e3 * wall, "streams": streams,
+            "multi_stream_busy_ms": multi, "threads": threads,
+            "runtime_top": [[k, n, t] for k, (n, t) in top]}
+
+
+def _trace_line(tag: str, tr: dict) -> str:
+    main = max(tr["streams"], key=lambda k: tr["streams"][k]["busy_ms"])
+    parts = []
+    for sid, st in sorted(tr["streams"].items(),
+                          key=lambda kv: -kv[1]["busy_ms"]):
+        parts.append(f"stream {sid}{' (main)' if sid == main else ''}: "
+                     f"{st['ops']} ops busy {st['busy_ms']:.1f} ms from "
+                     f"{st['first_ms']:.1f} to {st['last_ms']:.1f}, longest "
+                     f"gaps {[[round(a, 1), round(g, 1)] for a, g in st['gaps_ms']]}")
+    threads = {k: (v["launches"], round(v["runtime_ms"], 1))
+               for k, v in tr["threads"].items()}
+    runtime = [[k, n, round(t, 1)] for k, n, t in tr["runtime_top"]]
+    return (f"{tag} round: wall {tr['wall_ms']:.1f} ms; "
+            f"{'; '.join(parts)}; two streams busy at once "
+            f"{tr['multi_stream_busy_ms']:.1f} ms; host threads (launches, "
+            f"runtime ms) {threads}; runtime calls (count, ms) {runtime}")
+
+
+@contextlib.contextmanager
+def _triple_dtypes(seen: set):
+    """Each CombineStats the combiners stack in the block adds the dtypes
+    of its per-level dot triples to `seen` (taken before the cast to fp32
+    that CombineStats makes, as the reference's does)."""
+    from repro_torch.core import combine, rvh
+    from repro_torch.engine import registry
+    mods = (combine, rvh, registry)
+    stack = combine.stack_stats
+
+    def spy(collect):
+        seen.update(str(t.dtype).replace("torch.", "") for t in collect)
+        return stack(collect)
+    for m in mods:
+        m.stack_stats = spy
+    try:
+        yield seen
+    finally:
+        for m in mods:
+            m.stack_stats = stack
+
+
+def _alloc_counts() -> dict:
+    """The caching allocator's counts of device allocations and frees and
+    of allocations retried after it released cached memory, and the
+    reserved GiB."""
+    import torch
+    st = torch.cuda.memory_stats()
+    return {"device_allocs": st.get("num_device_alloc", 0),
+            "device_frees": st.get("num_device_free", 0),
+            "alloc_retries": st.get("num_alloc_retries", 0),
+            "reserved_gib": torch.cuda.memory_reserved() / 2 ** 30}
+
+
+def delayed_part(card: str, model, profile: bool = False) -> dict:
+    """Phase 9 (a): the delayed combine on stacked lanes."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.core.combine import build_delayed_correction
+    med = statistics.median
+    n = model.cfg.param_count()
+    lane_gb = 4 * n / 1e9
+    rec = {"span": P9_SPAN, "params": n, "pending_gb": P9_SPAN * lane_gb,
+           "pending_double_gb": 2 * P9_SPAN * lane_gb}
+    print(f"[smoke] combiners (a) delayed momentum span={P9_SPAN}: pending "
+          f"carry {P9_SPAN} x {lane_gb:.2f} GB fp32 = "
+          f"{P9_SPAN * lane_gb:.2f} GB, double-buffered "
+          f"{2 * P9_SPAN * lane_gb:.2f} GB (at span 4: "
+          f"{8 * lane_gb:.1f} GB, over the {P9_MEM_GIB} GiB peak with the "
+          f"params, state and a step) | {card}")
+    torch.cuda.reset_peak_memory_stats()
+    # the single-program step; the cold start; kernel vs plain correction
+    s = _delay_session(model)
+    zero = all(bool((x == 0).all()) for x in T.leaves(
+        s.runtime.correction_fn(s.state["pending"])))
+    single_ms = []
+    for step in range(P9_STEPS):
+        _, dt = _timed_s(lambda: s.step(s.batch(step)))
+        single_ms.append(1e3 * dt)
+        if step == 0:          # the step-1 carry: a real one
+            corr, dt = _timed_s(
+                lambda: s.runtime.correction_fn(s.state["pending"]))
+            rec["correction_ms"] = 1e3 * dt
+            kern = _host_leaves(corr)
+            del corr
+            plain = build_delayed_correction(s.runtime.dopt.cfg,
+                                             impl="plain")(s.state["pending"])
+            rec["correction_rel_err"] = max(
+                _rel_err(x.cuda(), y) for x, y in zip(kern, T.leaves(plain)))
+            del plain, kern
+            _free()
+    single = _checksums([s.state["params"], s.state["pending"]])
+    rec["single_step_ms"] = single_ms
+    rec["peak_gib_single"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    rec["cold_start_zero"] = zero
+    del s
+    _free()
+    # the stream (the correction on a thread and a CUDA stream of its own)
+    # and the serial step from the same start, in turns, each taking the
+    # state the other left: stream (the zero carry), serial, stream
+    torch.cuda.reset_peak_memory_stats()
+    s = _delay_session(model)
+    stream = s.use_delayed_stream()
+
+    def serial_round(step):
+        s.state, _ = stream.serial_step(s.state, s.batch(step))
+    compute, waits = [], []
+    for step in range(P9_STEPS):
+        if step % 2:
+            serial_round(step)
+            continue
+        m = s.step(s.batch(step))
+        compute.append(m["compute_s"])
+        waits.append(m["combine_wait_s"])
+    rec["stream_serial_bitwise"] = _checksums(
+        [s.state["params"], s.state["pending"]]) == single
+    rec["compute_s"], rec["combine_wait_s"] = compute, waits
+    # the overlap, as benchmarks/delayed_combine.py measures it: latency
+    # added to the exchange leg so one exchange ~ one local step (the last
+    # stream round's, past the warm-up), then overlapped and serial
+    # (exchange first) rounds in turns
+    exch = med(stream.combine_time(s.state["pending"]) for _ in range(3))
+    stream.comm_delay = max(compute[-1] - exch, 1e-3)
+    combine_s = med(stream.combine_time(s.state["pending"])
+                    for _ in range(3))
+    out = ROOT / "chiprun_out"
+    rec["trace"] = {}
+    # a first overlapped round at this delay, untimed (traced with
+    # --profile): its correction lands beside the local step's backward
+    # for the first time
+    step = P9_STEPS
+    alloc0 = _alloc_counts()
+    if profile:
+        out.mkdir(exist_ok=True)
+        rec["trace"]["first_overlapped"] = _stream_trace(
+            lambda: s.step(s.batch(step)),
+            out / "p9_first_overlapped_trace.json.gz")
+    else:
+        s.step(s.batch(step))
+    step += 1
+    alloc1 = _alloc_counts()
+    overlap, serial = [], []
+    for _ in range(P9_OVERLAP_ROUNDS):
+        overlap.append(_timed_s(lambda: s.step(s.batch(step)))[1])
+        serial.append(_timed_s(lambda: serial_round(step + 1))[1])
+        step += 2
+    alloc2 = _alloc_counts()
+    rec["allocator"] = {
+        "first_overlapped": {k: alloc1[k] - alloc0[k] for k in alloc0},
+        "timed_rounds": {k: alloc2[k] - alloc1[k] for k in alloc0}}
+    rec.update(exchange_exec_s=exch, injected_comm_delay_s=
+               stream.comm_delay, combine_s=combine_s,
+               overlap_step_s=overlap, serial_step_s=serial,
+               overlap_median_s=med(overlap), serial_median_s=med(serial),
+               hidden_fraction=(med(serial) - med(overlap)) / combine_s)
+    if profile:            # one more round of each, traced
+        rec["trace"].update(
+            overlapped=_stream_trace(lambda: s.step(s.batch(step)),
+                                     out / "p9_overlapped_trace.json.gz"),
+            serial=_stream_trace(lambda: serial_round(step + 1),
+                                 out / "p9_serial_trace.json.gz"))
+        for tag, tr in rec["trace"].items():
+            print(f"[smoke] combiners (a) profile {_trace_line(tag, tr)} "
+                  f"| {card}")
+    rec["peak_gib_stream"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    s.close()
+    del s, stream
+    _free()
+    print(f"[smoke] combiners (a): single-program step_ms="
+          f"{[round(x, 1) for x in single_ms]}; stream compute_s="
+          f"{[round(x, 4) for x in compute]} combine_wait_s="
+          f"{[round(x, 4) for x in waits]}; correction alone "
+          f"{rec['correction_ms']:.1f} ms; with comm_delay "
+          f"{rec['injected_comm_delay_s']:.4f} s, {P9_OVERLAP_ROUNDS} rounds "
+          f"each: serial {[round(x, 4) for x in serial]} (median "
+          f"{rec['serial_median_s']:.4f}) s, overlapped "
+          f"{[round(x, 4) for x in overlap]} (median "
+          f"{rec['overlap_median_s']:.4f}) s, exchange {combine_s:.4f} s, "
+          f"hidden_fraction {rec['hidden_fraction']:.3f}; allocator over "
+          f"the untimed first overlapped round {rec['allocator']['first_overlapped']}"
+          f", over the timed rounds {rec['allocator']['timed_rounds']}; "
+          f"peak_gib single "
+          f"{rec['peak_gib_single']:.1f} stream {rec['peak_gib_stream']:.1f}"
+          f" | {card}")
+    print(f"[smoke] combiners (a): cold-start correction zero={zero}; "
+          f"stream and serial rounds in turns bitwise="
+          f"{rec['stream_serial_bitwise']}; correction kernel vs plain "
+          f"rel_err={rec['correction_rel_err']:.3e} (tol {COMBINED_RTOL})")
+    assert zero, "the step-0 correction of the zero carry is not zero"
+    assert rec["stream_serial_bitwise"], \
+        "stream and serial rounds differ from single-program"
+    assert rec["correction_rel_err"] <= COMBINED_RTOL, rec
+    assert max(rec["peak_gib_single"], rec["peak_gib_stream"]) \
+        <= P9_MEM_GIB, rec
+    return rec
+
+
+def fp64_part(card: str, model, sync_sums=None) -> dict:
+    """Phase 9 (b): two steps of phase 5's first train run (momentum,
+    span 4) with fp64 dots, kernel arm and plain arm, beside fp32. The
+    fp32 run names combine_delay=0: it builds no delayed piece and its
+    first step is bitwise phase 5's synchronous one (`sync_sums`, its
+    params checksums; None when phase 5 did not run)."""
+    import torch
+    from repro_torch import tree as T
+    optimizer, span = TRAIN_RUNS[0]
+    rec = {}
+    runs = (("fp64_kernel", "float64", "kernel", {}),
+            ("fp64_plain", "float64", "plain", {}),
+            ("fp32_kernel", "float32", "kernel", {"combine_delay": 0}))
+    base = None
+    for tag, acc, impl, extra in runs:
+        timer = _CombineTimer(keep=True, keep_on="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        s = _session(model, timer, impl, optimizer=optimizer, span=span,
+                     backend="gspmd_tree", acc_dtype=acc, **extra)
+        rt = s.runtime
+        delayed = "pending" in s.state or any(
+            f is not None for f in (rt.correction_fn, rt.local_fn,
+                                    rt.fold_fn))
+        with _triple_dtypes(set()) as triples:
+            s.step(s.batch(0))
+            first = timer.take_ms()
+            sums = _checksums(s.state["params"])
+            s.step(s.batch(1))
+        run = {"acc_dtype": acc, "impl": impl, "combine_ms_step1": first,
+               "combine_ms_step2": timer.take_ms(),
+               "triples_dtype": sorted(triples),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        p2 = T.leaves(s.state["params"])
+        del s, rt
+        _free()
+        comb, levels = timer.kept
+        run["levels_dtype"] = str(levels.dtype).replace("torch.", "")
+        if base is None:
+            base = (p2, comb, levels)
+        else:
+            run["combined_rel_err"] = max(
+                _rel_err(x, y) for x, y in zip(base[1], comb))
+            run["stats_rel_err"] = _rel_err(base[2], levels)
+            run["params_max_abs_diff"] = max(
+                (x - y).abs().max().item() for x, y in zip(base[0], p2))
+        if extra:
+            run["delayed_pieces"] = delayed
+            run["sync_bitwise"] = (None if sync_sums is None
+                                   else sums == sync_sums)
+        rec[tag] = run
+        del p2, comb, levels
+    del base
+    _free()
+    kp, pp, fp = rec["fp64_kernel"], rec["fp64_plain"], rec["fp32_kernel"]
+    print(f"[smoke] combiners (b) acc_dtype: combine ms (step 2) fp64 "
+          f"kernel {kp['combine_ms_step2']:.1f}, fp64 plain "
+          f"{pp['combine_ms_step2']:.1f}, fp32 kernel "
+          f"{fp['combine_ms_step2']:.1f}; dot triples dtype "
+          f"{[rec[t]['triples_dtype'] for t in rec]} (CombineStats levels "
+          f"{[rec[t]['levels_dtype'] for t in rec]}); fp64 kernel vs plain: "
+          f"combined rel_err={pp['combined_rel_err']:.3e} stats rel_err="
+          f"{pp['stats_rel_err']:.3e} (tol {COMBINED_RTOL}) params (step 2) "
+          f"max_abs_diff={pp['params_max_abs_diff']:.3e}; fp64 vs fp32 "
+          f"params max_abs_diff={fp['params_max_abs_diff']:.3e}; fp32 "
+          f"combine_delay=0: delayed pieces built={fp['delayed_pieces']}, "
+          f"step 1 bitwise phase 5's synchronous step="
+          f"{'not checked (phase 5 did not run)' if sync_sums is None else fp['sync_bitwise']}"
+          f" | {card}")
+    assert pp["combined_rel_err"] <= COMBINED_RTOL, rec
+    assert pp["stats_rel_err"] <= COMBINED_RTOL, rec
+    assert pp["params_max_abs_diff"] <= TRAIN_PARAM_TOL, rec
+    assert [rec[t]["triples_dtype"] for t in rec] == [
+        ["float64"], ["float64"], ["float32"]], \
+        "the dots were summed in another dtype"
+    assert not fp["delayed_pieces"], "combine_delay=0 built delayed pieces"
+    assert fp["sync_bitwise"] in (None, True), \
+        "combine_delay=0 differs from the synchronous step"
+    return rec
+
+
+def combiners_worker(spec: dict) -> int:
+    """One rank of phase 9 (c) (its own process, all on cuda:0 over
+    gloo): every run of P9_RANK_RUNS[world] for its steps through
+    `TrainSession`, params checked bitwise across the ranks after every
+    step; writes a JSON record."""
+    import math
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model
+    from repro_torch.parallel.comm import Comm
+    world, rank = spec["world"], int(os.environ["RANK"])
+    cfg = dataclasses.replace(get_config("gemma-7b"), n_layers=RANK_LAYERS)
+    model = build_model(cfg, compute_dtype=torch.bfloat16,
+                        param_dtype=torch.float32)
+    comm = Comm.init("gloo", torch.device("cuda:0"))
+    build.reset_launches()
+    runs = []
+    for name, fields, steps in P9_RANK_RUNS[world]:
+        torch.cuda.reset_peak_memory_stats()
+        timer = _CombineTimer()
+        t0 = time.perf_counter()
+        s = _session(model, timer, device="cuda:0", comm=comm,
+                     global_batch=RANK_BATCH, **fields)
+        run = {"name": name, "init_s": time.perf_counter() - t0,
+               "path": s.runtime.combine_path,
+               "point": s.runtime.dopt.point, "steps": []}
+        comm.timing = True
+        comm.take_ms()
+        for step in range(steps):
+            staged0 = comm.total_staged_bytes()
+            m, dt = _timed_s(lambda: s.step(s.batch(step)))
+            run["steps"].append({
+                "ms": 1e3 * dt, "loss": m["loss"],
+                "finite": math.isfinite(m["loss"]),
+                "combine_ms": timer.take_ms(), "comm": comm.take_ms(),
+                "staged_bytes": comm.total_staged_bytes() - staged0,
+                "bitwise_across_ranks": _all_equal(
+                    _checksums(s.state["params"]))})
+            print(f"[rank {rank}] {name} step {step} {1e3 * dt:.0f} ms",
+                  flush=True)
+        comm.timing = False
+        run["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        s.state = None
+        del s
+        comm.free_buffers()
+        _free()
+        runs.append(run)
+    rec = {"rank": rank, "world": world, "runs": runs,
+           "launches": dict(build.LAUNCHES)}
+    comm.close()
+    Path(spec["out"]).write_text(json.dumps(rec, default=str))
+    return 0
+
+
+def combiners_phase(card: str, profile: bool = False,
+                    sync_sums=None) -> dict:
+    """Phase 9: the delayed combine on stacked lanes, fp64 dots, and the
+    combiners, accumulation, local steps and the delayed combine across
+    ranks."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config("gemma-7b"), n_layers=TRAIN_LAYERS)
+    model = build_model(cfg, compute_dtype=torch.bfloat16,
+                        param_dtype=torch.float32)
+    build.reset_launches()
+    print(f"[smoke] combiners: before the phase this process holds "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved | {card}")
+    part_s = {}
+    rec = {"delayed": delayed_part(card, model, profile)}
+    part_s["a"] = time.perf_counter() - t_phase
+    rec["acc_dtype"] = fp64_part(card, model, sync_sums)
+    part_s["b"] = time.perf_counter() - t_phase - part_s["a"]
+    launches = dict(build.LAUNCHES)
+    _free()
+    print(f"[smoke] combiners (c) ranks: gloo over host memory, every rank "
+          f"on cuda:0; this process holds "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved | {card}")
+    ranks = {}
+    for world in sorted(P9_RANK_RUNS, reverse=True):
+        t0 = time.perf_counter()
+        recs = _spawn_ranks(world, f"combiners_w{world}", {"world": world},
+                            flag="--combiners-worker")
+        part_s[f"c_world{world}"] = time.perf_counter() - t0
+        for k in ("block_dots", "block_combine"):   # rank 0's
+            launches[k] += recs[0]["launches"][k]
+        for i, (name, fields, steps) in enumerate(P9_RANK_RUNS[world]):
+            runs = [r["runs"][i] for r in recs]
+            # the last step over ranks
+            mean = lambda f: statistics.mean(f(run["steps"][-1])
+                                             for run in runs)
+            part = lambda key: mean(lambda st: st["comm"].get(key, 0.0))
+            peaks = [run["peak_gib"] for run in runs]
+            out = {"world": world, "fields": fields, "steps": steps,
+                   "path": runs[0]["path"], "point": runs[0]["point"],
+                   "losses": [st["loss"] for st in runs[0]["steps"]],
+                   "step_ms_each": [statistics.mean(
+                       run["steps"][k]["ms"] for run in runs)
+                       for k in range(steps)],
+                   "step_ms": mean(lambda st: st["ms"]),
+                   "combine_ms": mean(lambda st: st["combine_ms"]),
+                   "exchange_ms": part("exchange"),
+                   "allreduce_ms": part("allreduce"),
+                   "staging_ms": part("stage"),
+                   "dots_sum_ms": part("dots_sum"),
+                   "staged_gb_per_step": mean(lambda st: st["staged_bytes"])
+                   / 1e9,
+                   "peak_gib": peaks, "peak_gib_sum": sum(peaks),
+                   "init_s": max(run["init_s"] for run in runs),
+                   "bitwise_across_ranks": all(
+                       st["bitwise_across_ranks"] for run in runs
+                       for st in run["steps"]),
+                   "finite": all(st["finite"] for run in runs
+                                 for st in run["steps"])}
+            ranks[name] = out
+            print(f"[smoke] combiners (c) world={world} {name} path="
+                  f"{out['path']} point={out['point']}: step_ms="
+                  f"{[round(x, 1) for x in out['step_ms_each']]}, the last:"
+                  f" combine_ms={out['combine_ms']:.1f} "
+                  f"exchange_ms={out['exchange_ms']:.1f} allreduce_ms="
+                  f"{out['allreduce_ms']:.1f} (staging_ms="
+                  f"{out['staging_ms']:.1f}; gloo host loopback) staged "
+                  f"{out['staged_gb_per_step']:.2f} GB a step a rank; peak "
+                  f"GiB a rank {[round(x, 2) for x in peaks]} (sum "
+                  f"{sum(peaks):.1f}); init {out['init_s']:.1f} s; losses "
+                  f"{[round(x, 4) for x in out['losses']]}; bitwise across "
+                  f"ranks={out['bitwise_across_ranks']} | {card}")
+            assert out["bitwise_across_ranks"], f"{name}: params differ"
+            assert out["finite"], f"{name}: non-finite loss"
+            assert sum(peaks) <= RANK_MEM_GIB, (name, peaks)
+        ranks[f"wall_s_world{world}"] = part_s[f"c_world{world}"]
+    rec["ranks"] = ranks
+    rec["launches"] = launches
+    rec["part_s"] = part_s
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"[smoke] combiners launches={ {k: launches[k] for k in ('block_dots', 'block_combine')} } "
+          f"parts { {k: round(v, 1) for k, v in part_s.items()} } s, "
+          f"phase {rec['phase_s']:.1f}s | {card}")
+    for k in ("block_dots", "block_combine"):
+        assert launches[k] > 0, f"{k} never launched in phase 9"
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2406,9 +3005,17 @@ def main(argv=None) -> int:
                     "checkout and this one, in turns DIR, this, this, DIR")
     ap.add_argument("--serve-only", metavar="SRC", help=argparse.SUPPRESS)
     ap.add_argument("--rank-worker", metavar="SPEC", help=argparse.SUPPRESS)
+    ap.add_argument("--combiners-worker", metavar="SPEC",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--combiners-only", action="store_true",
+                    help="build the kernels and run phase 9 alone (with "
+                    "--profile: and trace one overlapped and one serial "
+                    "delayed round); prints no result line")
     args = ap.parse_args(argv)
     if args.rank_worker:                # one rank of phase 6
         return rank_worker(json.loads(args.rank_worker))
+    if args.combiners_worker:           # one rank of phase 9 (c)
+        return combiners_worker(json.loads(args.combiners_worker))
 
     card = _smi()
     print(card)
@@ -2444,6 +3051,9 @@ def main(argv=None) -> int:
         secs = build.build_all()
         print(f"[smoke] built kernels {build.sources()} in {secs:.1f}s")
         record["build_s"] = secs
+        if args.combiners_only:
+            record["combiners"] = combiners_phase(card, args.profile)
+            return 0
         cases = record["kernel_cases"] = kernel_phase()
         record["serve"], parts = serve_phase(card, args.profile)
         record["serve_ext"] = ext_phase(card, *parts)
@@ -2453,6 +3063,14 @@ def main(argv=None) -> int:
         record["ranks"] = ranks_phase(card)
         _free()
         record["ckpt"] = ckpt_phase(card, record["ranks"])
+        # phase 7's last session stays reachable from the SIGTERM handler
+        # its checkpoint manager installed (as the reference's does): 12
+        # GiB of params and state on the card until the handler goes
+        signal.signal(signal.SIGTERM, signal.SIG_DFL)
+        _free()
+        record["combiners"] = combiners_phase(
+            card, args.profile, record["train"]["runs"][
+                "{}_span{}".format(*TRAIN_RUNS[0])]["params_sums_step1"])
     except Exception:                   # any phase failing fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -2481,8 +3099,10 @@ def main(argv=None) -> int:
     ck_launches = dict(ck["serve"]["launches"])
     ck_launches.update({k: ck["resume"]["prefetch_on"]["launches"][k]
                         for k in ("block_dots", "block_combine")})
-    # and the attention kernels' launches inside phase 8
+    # and the attention kernels' launches inside phase 8, the Adasum
+    # kernels' inside phase 9
     ext_launches = record["serve_ext"]["launches"]
+    p9_launches = record["combiners"]["launches"]
     main_cases = {"serve_extend", "serve_tick", "embed_fp32"}
     sources = {
         "flash_attention": ("csrc/flash_attention.cu",
@@ -2514,7 +3134,8 @@ def main(argv=None) -> int:
             rows[-1]["phase8_launches"] = ext_launches[c["kernel"]]
         if c["kernel"] in rvh_ms:
             rows[-1].update(rvh_launches=rvh_launches[c["kernel"]],
-                            rvh_half_ms=rvh_ms[c["kernel"]])
+                            rvh_half_ms=rvh_ms[c["kernel"]],
+                            phase9_launches=p9_launches[c["kernel"]])
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,9 @@ of `repro/core/adasum.py`.
 
 Pairwise op, reference recursive-tree reduction, and per-layer pytree
 application: the reference (non-distributed) forms the fused combine is
-held against. Dot products and norms accumulate in `acc_dtype` (fp32;
-the paper's fp64 on GPU is ROADMAP.md queue 1 item 2.1).
+held against, and the ring-order recursion across ranks
+(`adasum_linear_ranks`). Dot products and norms accumulate in
+`acc_dtype` (fp32, or the paper's fp64, §4.4.1).
 """
 from __future__ import annotations
 
@@ -118,3 +119,57 @@ def sum_reduce(grads, mean: bool = False) -> PyTree:
     if mean:
         acc = T.map(lambda x: x / len(grads), acc)
     return acc
+
+
+def _chunks(n: int, world: int):
+    """Rank q's range of an n-element leaf: [q·c, min((q+1)·c, n)), c =
+    ceil(n / world)."""
+    c = -(-n // world)
+    return [(min(q * c, n), min((q + 1) * c, n)) for q in range(world)]
+
+
+def adasum_linear_ranks(tree: PyTree, comm, *, per_layer: bool = True,
+                        acc_dtype=torch.float32) -> PyTree:
+    """`adasum_linear_reduce` over the lanes of the ranks of `comm`, one
+    lane (this rank's `tree`) per rank: the combined tree, the same bits
+    on every rank.
+
+    Each rank owns a 1/W chunk of every leaf and receives that chunk of
+    every rank's lane (one `all_to_all`), so it holds about two lanes,
+    not W. The recursion runs on the chunks in ring order, lane 0 with
+    lane 1, then the result with lane 2, ...; at each step each leaf's
+    partial [acc·x, acc·acc, x·x] (summed over leaves when not
+    per_layer) is summed over the ranks in rank order (`group_sum`), so
+    every rank forms the same scalars. The combined chunks then go to
+    every rank (a second `all_to_all`)."""
+    leaves, treedef = T.flatten(tree)
+    W, me = comm.world, comm.rank
+    if W == 1 or not leaves:
+        return tree
+    flat = [x.reshape(-1) for x in leaves]
+    cuts = [_chunks(x.numel(), W) for x in flat]
+    own = [c[me] for c in cuts]
+    lanes = [[torch.empty(hi - lo, dtype=x.dtype, device=x.device)
+              for x, (lo, hi) in zip(flat, own)] for _ in range(W)]
+    comm.all_to_all([[x[c[q][0]:c[q][1]] for x, c in zip(flat, cuts)]
+                     for q in range(W)], lanes)
+    acc = lanes[0]
+    for q in range(1, W):
+        x = lanes[q]
+        v = torch.stack([torch.stack([_flat_dot(a, b, acc_dtype),
+                                      _flat_dot(a, a, acc_dtype),
+                                      _flat_dot(b, b, acc_dtype)])
+                         for a, b in zip(acc, x)])
+        v = comm.group_sum(v, W)
+        if not per_layer:
+            v = v.sum(dim=0, keepdim=True).expand(len(acc), 3)
+        s1, s2 = adasum_segment_scalars(v)
+        acc = [s1[i].to(a.dtype) * a + s2[i].to(b.dtype) * b
+               for i, (a, b) in enumerate(zip(acc, x))]
+        lanes[q] = None
+    del lanes
+    out = [torch.empty_like(x) for x in flat]
+    comm.all_to_all([acc] * W, [[o[c[q][0]:c[q][1]] for o, c in
+                                 zip(out, cuts)] for q in range(W)])
+    return T.unflatten(treedef, [o.reshape(x.shape)
+                                 for o, x in zip(out, leaves)])

@@ -1,5 +1,6 @@
 """Gradient-combination primitives: Sum / Mean / Adasum over stacked lanes
-(the port of `repro/core/combine.py`, one-device subset).
+(the port of `repro/core/combine.py`), the sums and means across ranks,
+and the delayed combine's correction.
 
 All combiners operate on a *stacked* gradient pytree — leaves carry a
 leading lane axis of length `span` (one lane per Adasum leaf). Dispatch
@@ -20,6 +21,13 @@ the kernel wrappers (CUDA kernels on a card, their plain versions on the
 CPU); `impl="plain"` asks the same wrappers for their plain versions on
 any device (the on-card reference `chip_smoke.py` holds the kernels
 to).
+
+Accumulation (`cfg.acc_dtype`, fp32 or the paper's fp64, §4.4.1): every
+dot, segment sum and Adasum scalar is taken in it. The block passes
+follow the reference's two arms: impl='kernel' casts the kernel's fp32
+block partials, impl='plain' accumulates in acc_dtype throughout; the
+scalars then go to `block_combine` as they are (the kernel reads them
+as fp32, its plain arm by the rule `use_pallas` names).
 
 Memory: a level's buffer is dropped once the next level is written, and
 with `donate=True` the stacked input leaves are released (their storage
@@ -204,14 +212,23 @@ class _Meta:
     seg_sum: K.SegmentSum
 
 
+def block_partials(a, b, block: int, acc_dtype, impl: str):
+    """Per-block dot triples in acc_dtype, by the reference's two arms
+    (combine.py:233-240): the kernel's fp32 partials cast to acc_dtype
+    (impl='kernel'), or the plain version accumulating in acc_dtype
+    throughout (impl='plain')."""
+    if impl == "plain":
+        return K.block_dots(a, b, block_elems=block, plain=True,
+                            acc_dtype=acc_dtype)
+    return K.block_dots(a, b, block_elems=block).to(acc_dtype)
+
+
 def _bucket_dots(a, b, meta: _Meta, acc_dtype, impl: str):
     """Single-pass per-(pair, segment) dot triples for one bucket level:
     [p, L] lane halves -> [p, nseg1, 3] via per-block partials and the
     order-fixed segment sum."""
-    blocks = K.block_dots(a, b, block_elems=meta.block,
-                          plain=impl == "plain")
-    blocks = blocks.reshape(a.shape[0], meta.nblk, 3).to(acc_dtype)
-    return meta.seg_sum(blocks)
+    blocks = block_partials(a, b, meta.block, acc_dtype, impl)
+    return meta.seg_sum(blocks.reshape(a.shape[0], meta.nblk, 3))
 
 
 def _bucket_combine(a, b, s1b, s2b, block: int, use_pallas: bool,
@@ -224,8 +241,12 @@ def _bucket_combine(a, b, s1b, s2b, block: int, use_pallas: bool,
 
 def _release(t: torch.Tensor) -> None:
     """Free a donated tensor's storage now (its Python object may still
-    be referenced by the caller, who must not read it again)."""
-    t.untyped_storage().resize_(0)
+    be referenced by the caller, who must not read it again). A storage
+    shared with numpy (`.numpy()` was called on it) cannot be resized
+    and is left to its last reference."""
+    storage = t.untyped_storage()
+    if storage.resizable():
+        storage.resize_(0)
 
 
 def _block_segments(layout: fusion.FusionLayout, block: int) -> np.ndarray:
@@ -336,6 +357,20 @@ def _unpack_buffers(bufs, plan, n_leaves: int, treedef):
     return T.unflatten(treedef, out_leaves)
 
 
+def _cached_plan(leaves, cfg: CombineConfig, cache: Optional[dict]):
+    """The fused plan and bucket maps of these leaves, from `cache` (keyed
+    by leaf shapes, dtypes and device) when it holds them."""
+    key = (tuple((tuple(x.shape), x.dtype) for x in leaves),
+           leaves[0].device)
+    if cache is not None and key in cache:
+        return cache[key]
+    plan = fused_plan(leaves, cfg)
+    metas = _bucket_metas(plan, leaves[0].device)
+    if cache is not None:
+        cache[key] = plan, metas
+    return plan, metas
+
+
 def fused_combine_tree(stacked: PyTree, cfg: CombineConfig,
                        collect: Optional[list] = None, *,
                        impl: str = "kernel", donate: bool = False,
@@ -359,15 +394,7 @@ def fused_combine_tree(stacked: PyTree, cfg: CombineConfig,
     if n & (n - 1):
         raise ValueError(f"fused combine needs a power-of-two lane count, "
                          f"got {n}")
-    key = (tuple((tuple(x.shape), x.dtype) for x in leaves),
-           leaves[0].device)
-    if cache is not None and key in cache:
-        plan, metas = cache[key]
-    else:
-        plan = fused_plan(leaves, cfg)
-        metas = _bucket_metas(plan, leaves[0].device)
-        if cache is not None:
-            cache[key] = plan, metas
+    plan, metas = _cached_plan(leaves, cfg, cache)
     n_leaves = len(leaves)
     packed = _pack_buckets(leaves, plan, donate)
     del leaves
@@ -410,6 +437,116 @@ def build_fused_combiner(cfg: CombineConfig, *, with_stats: bool = False,
     return run
 
 
+def _mean_rows(x: torch.Tensor, acc_dtype) -> torch.Tensor:
+    """Mean over the leading axis of x [n, ...], summed in acc_dtype lane
+    after lane (one lane's worth of acc_dtype memory): the same function
+    on a leaf or on a packed bucket buffer, element by element."""
+    s = x[0].to(acc_dtype, copy=True)
+    for i in range(1, x.shape[0]):
+        s += x[i]
+    return s.div_(x.shape[0]).to(x.dtype)
+
+
 def lane_mean(stacked: PyTree, acc_dtype=torch.float32) -> PyTree:
-    """Mean over the leading lane axis, accumulated in acc_dtype."""
-    return T.map(lambda x: x.to(acc_dtype).mean(dim=0).to(x.dtype), stacked)
+    """Mean over the leading lane axis, accumulated in acc_dtype — the
+    delayed mode's immediate local estimate, the same bits as the mean
+    the correction subtracts (combine.py:517-524)."""
+    return T.map(lambda x: _mean_rows(x, acc_dtype), stacked)
+
+
+def rank_sum(tree: PyTree, comm, *, dtype=None,
+             donate: bool = False) -> PyTree:
+    """Each leaf of this rank's `tree` summed over the ranks of `comm`
+    (`Comm.allreduce`: every rank holds the bits of the one reduction),
+    in `dtype` (default: the leaf's). donate=True reduces the leaves in
+    place where no cast is asked for."""
+    def one(x):
+        dt = dtype or x.dtype
+        t = x if donate and dt == x.dtype else x.to(dt, copy=True)
+        return comm.allreduce(t)
+    return T.map(one, tree)
+
+
+def rank_mean(tree: PyTree, comm, acc_dtype=torch.float32) -> PyTree:
+    """`lane_mean` across ranks, one lane per rank: the sum over `comm`
+    in acc_dtype, over the rank count, in each leaf's dtype. The same
+    bits on every rank."""
+    sums = rank_sum(tree, comm, dtype=acc_dtype)
+    return T.map(lambda t, x: t.div_(comm.world).to(x.dtype), sums, tree)
+
+
+# ------------------------------------------------------- delayed correction
+def fused_correction_tree(stacked: PyTree, cfg: CombineConfig, *,
+                          impl: str = "kernel", donate: bool = False,
+                          cache: Optional[dict] = None) -> PyTree:
+    """The delayed combine's correction on the pending carry [n, ...]
+    (combine.py:398-432):
+
+        correction = Adasum(deltas) - lane_mean(deltas)
+
+    from one packing: each bucket's lane mean is taken from its packed
+    buffer just before the bucket's tree chain consumes it, so each
+    pending buffer is read by both. n == 1 gives zeros (a lane combines
+    to itself). `donate` releases the pending leaves as they are packed."""
+    leaves, treedef = T.flatten(stacked)
+    if not leaves:
+        return stacked
+    n = leaves[0].shape[0]
+    if n == 1:
+        return T.map(lambda x: torch.zeros(x.shape[1:], dtype=x.dtype,
+                                           device=x.device), stacked)
+    if n & (n - 1):
+        raise ValueError(f"fused correction needs a power-of-two lane "
+                         f"count, got {n}")
+    plan, metas = _cached_plan(leaves, cfg, cache)
+    n_leaves = len(leaves)
+    packed = _pack_buckets(leaves, plan, donate)
+    del leaves
+    if cfg.per_layer:
+        out = []
+        for meta in metas:      # pop: each bucket's level-0 buffer dies
+            mean = _mean_rows(packed[0], cfg.acc)
+            out.append(_bucket_chain(packed.pop(0), meta, cfg, impl)
+                       .sub_(mean))
+            del mean
+    else:
+        means = [_mean_rows(buf, cfg.acc) for buf in packed]
+        out = [c.sub_(m) for c, m in zip(
+            _whole_model_levels(packed, metas, cfg, impl), means)]
+    return _unpack_buffers(out, plan, n_leaves, treedef)
+
+
+def build_delayed_correction(cfg: CombineConfig, *, impl: str = "kernel",
+                             comm=None) -> Callable:
+    """The delayed-combine exchange (combine.py:535-559):
+    correction(pending, donate=False) = combine(pending) -
+    lane_mean(pending), the same bits on every call.
+
+    On stacked lanes an adasum gspmd / fused config takes
+    `fused_correction_tree` (one packing, the block kernels); any other
+    config wraps the combiner the registry resolves. With `comm` (one
+    lane per rank) the combiner reduces across its ranks and the mean is
+    `rank_mean` over them: the reference's span == dp fallback, which
+    in the port is RVH minus the cross-rank mean. donate=True lets the
+    call consume `pending` (the caller reads it no more)."""
+    from repro_torch.engine.registry import make_combiner
+    ranked = comm is not None and comm.world > 1
+    if (not ranked and cfg.op == "adasum" and cfg.fused
+            and cfg.backend in ("", "gspmd_tree", "fused")):
+        cache: dict = {}
+
+        def fused(pending: PyTree, donate: bool = False) -> PyTree:
+            return fused_correction_tree(pending, cfg, impl=impl,
+                                         donate=donate, cache=cache)
+        return fused
+    combiners = {d: make_combiner(cfg, impl=impl, donate=d, comm=comm)
+                 for d in (False, True)}
+
+    def correction(pending: PyTree, donate: bool = False) -> PyTree:
+        local = (rank_mean(pending, comm, cfg.acc) if ranked
+                 else lane_mean(pending, cfg.acc))
+        combined = combiners[donate](pending)
+        return T.map(lambda c, m: c.sub_(m), combined, local)
+
+    correction.combine_path = getattr(combiners[False], "combine_path", "")
+    return correction

@@ -121,6 +121,8 @@ class DistributedOptimizer:
 
     @staticmethod
     def apply(params: PyTree, delta: PyTree) -> PyTree:
-        """params <- (params.float() + delta).to(params.dtype), in place."""
-        T.map(lambda p, d: p.copy_(p.float() + d), params, delta)
+        """params <- (params.float() + delta).to(params.dtype), in place
+        (``.float()`` of fp32 params is the params themselves, so there
+        the add is in place with no param-sized temporary)."""
+        T.map(lambda p, d: p.copy_(p.float().add_(d)), params, delta)
         return params

@@ -52,7 +52,7 @@ from repro_torch.runtime import ITEM_SHARDING, not_ported
 from . import fusion
 from .adasum import adasum_segment_scalars
 from .combine import COMBINE_IMPLS, CombineConfig, _block_segments, \
-    _release, stack_stats
+    _release, block_partials, stack_stats
 
 PyTree = Any
 QBLOCK = 128                # int8 scale granule (rvh.py:81)
@@ -73,11 +73,10 @@ def segment_dots(a: torch.Tensor, b: torch.Tensor, meta: RoundMeta,
                  acc_dtype=torch.float32, impl: str = "kernel"
                  ) -> torch.Tensor:
     """Per-segment [a·b, a·a, b·b] -> [num_segments + 1, 3] in acc_dtype:
-    `block_dots` partials summed per segment in a fixed order
-    (rvh.py:41-56)."""
-    blocks = K.block_dots(a, b, block_elems=meta.block,
-                          plain=impl == "plain")
-    return meta.seg_sum(blocks.to(acc_dtype))
+    block partials (the kernel's fp32 ones cast, or the plain arm's in
+    acc_dtype throughout: `block_partials`) summed per segment in a
+    fixed order (rvh.py:41-56)."""
+    return meta.seg_sum(block_partials(a, b, meta.block, acc_dtype, impl))
 
 
 def combine_halves(a: torch.Tensor, b: torch.Tensor, v: torch.Tensor,

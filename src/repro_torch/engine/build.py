@@ -18,6 +18,16 @@ Gradients and deltas are detached: the combine and the optimizer run
 under `torch.no_grad()`, as in JAX where they sit outside
 `value_and_grad`.
 
+`combine_delay = 1` (DaSGD-style, build.py:22-30 of the reference):
+round i takes its lanes' local optimizer-step deltas, applies their lane
+mean at once and parks them in `state["pending"]`; the correction of
+round i-1's carry, `combine(pending) - lane_mean(pending)`, folds in at
+the end of round i. Step 0 runs on a zero carry, whose correction is
+exactly zero. The pieces are on the Runtime (`correction_fn`, `local_fn`,
+`fold_fn`), so `runtime.delayed.DelayedCombineStream` can run the
+correction beside the local step; `train_step` runs them one after the
+other.
+
 Across ranks (`build_runtime(..., comm=Comm of W > 1 ranks)`, one process
 per rank, the reference's DP mesh with dp = W): every rank gets the whole
 global batch and takes its own rows.
@@ -26,14 +36,22 @@ global batch and takes its own rows.
     the lanes across ranks (the paper's Algorithm 1);
   * span < W (the reference's hierarchical gspmd_tree regime): a lane is
     g = W/span contiguous ranks, rank r holding the (r mod g)-th 1/g of
-    lane r // g's rows. `lm_loss` is a masked token mean, so the lane
-    gradient is the group's rank gradients weighted by mask count, summed
-    by an all-reduce in the lane group; RVH then combines the lanes
+    every microbatch of lane r // g's rows (one microbatch, the whole
+    lane, unless accum_steps or local_steps split it). `lm_loss` is a
+    masked token mean, so a microbatch's gradient is the group's rank
+    gradients weighted by their share of its labelled tokens, summed by
+    an all-reduce in the lane group; the combiner then reduces the lanes
     across the `span` ranks of equal position (r mod g). The g position
     groups compute the same result.
-The optimizer steps at the pre point on replicated state, or at the post
-point on each rank's own lane state; every rank ends the step with the
-same parameters. Metrics are the lane means, the same on every rank.
+The combiner is RVH for the Adasum tree (op 'adasum' with backend '',
+'rvh', 'gspmd_tree' or 'fused'), else the registry's entry across ranks
+(sum, mean, adasum-linear, adascale, or one registered). The optimizer
+steps at the pre point on replicated state, or at the post point on each
+rank's own lane state; every rank ends the step with the same
+parameters. Metrics are the lane means, the same on every rank. With
+combine_delay the pending carry is this rank's lane delta, its lane mean
+the cross-rank mean, and the correction runs on an exchange comm of its
+own (a second process group over the same ranks).
 """
 from __future__ import annotations
 
@@ -45,7 +63,9 @@ import torch
 
 from repro_torch import tree as T
 from repro_torch.control.noise import summarize_stats
-from repro_torch.core.combine import COMBINE_IMPLS, CombineConfig
+from repro_torch.core.combine import (COMBINE_IMPLS, CombineConfig,
+                                      build_delayed_correction, lane_mean,
+                                      rank_mean)
 from repro_torch.core.dist_opt import DistributedOptimizer
 from repro_torch.models.api import Model
 from repro_torch.optim.optimizers import Optimizer, get_optimizer
@@ -73,6 +93,12 @@ class Runtime:
     combine_stats: bool = False # per-step CombineStats metrics emitted
     dp_total: int = 1
     comm: Any = None            # the ranks' Comm (None: one device)
+    # the delayed combine's pieces (combine_delay = 1 only): train_step
+    # == fold(local_fn, correction_fn(pending)); DelayedCombineStream
+    # runs correction_fn beside local_fn
+    correction_fn: Optional[Callable] = None
+    local_fn: Optional[Callable] = None
+    fold_fn: Optional[Callable] = None
 
 
 def _resolve_combine_cfg(rpol: RunPolicy, span: int,
@@ -174,15 +200,12 @@ def build_runtime(model: Model, rpol: RunPolicy, *, lr=1e-3,
     if span & (span - 1):
         raise ValueError(f"span={span} must be a power of two")
     ccfg = _resolve_combine_cfg(rpol, span, combine, strict)
-    if rpol.combine_delay:
-        from repro_torch.runtime import ITEM_SUBSYSTEMS, not_ported
-        raise not_ported("the delayed combine (combine_delay > 0)",
-                         ITEM_SUBSYSTEMS)
+    delayed = _check_delay(rpol)
     # the runtime owns the stacked lane tensors it hands the combiner,
     # so the combiner may free them as it packs them
     combiner = make_combiner(ccfg, impl=combine_impl, donate=True)
     scombiner = None
-    if rpol.combine_stats and span > 1:
+    if rpol.combine_stats and span > 1 and not delayed:
         scombiner = make_combiner(ccfg, with_stats=True, impl=combine_impl,
                                   donate=True)
     opt = _make_opt(rpol, lr, optimizer)
@@ -191,7 +214,10 @@ def build_runtime(model: Model, rpol: RunPolicy, *, lr=1e-3,
 
     def init_state(generator: torch.Generator) -> Dict[str, Any]:
         params = model.init(generator)
-        return {"params": params, "opt": dopt.init(params), "step": 0}
+        state = {"params": params, "opt": dopt.init(params), "step": 0}
+        if delayed:
+            state["pending"] = _zero_carry(params, span)
+        return state
 
     def split_lanes(batch):
         return T.map(lambda x: x.reshape((span, x.shape[0] // span)
@@ -226,8 +252,7 @@ def build_runtime(model: Model, rpol: RunPolicy, *, lr=1e-3,
                 if A <= 1:
                     T.map(lambda out, x: out[i].copy_(x), G, g)
                 else:
-                    T.map(lambda out, x: out[i].copy_(out[i].float()
-                                                      + x.float()), G, g)
+                    T.map(lambda out, x: _accumulate(out[i], x), G, g)
                 del g
             mets.append({k: torch.stack([m[k] for m in lane_mets]).mean()
                          for k in lane_mets[0]})
@@ -290,8 +315,9 @@ def build_runtime(model: Model, rpol: RunPolicy, *, lr=1e-3,
                 mets.append(m)
                 with torch.no_grad():
                     d, oi = dopt.opt.update(g, oi, p, opt_state["step"] + j)
+                    del g
                     dopt.apply(p, d)
-                del g, d
+                del d
             with torch.no_grad():
                 if deltas is None:
                     deltas = T.map(lambda x: torch.empty(
@@ -325,10 +351,77 @@ def build_runtime(model: Model, rpol: RunPolicy, *, lr=1e-3,
                         "step": state["opt"]["step"] + rpol.local_steps},
                 "step": state["step"] + 1}, metrics
 
+    if delayed:
+        def local_only_step(state, batch):
+            """The compute half of a delayed round: k local optimizer
+            steps a lane, the lane-mean delta applied at once, the
+            stacked deltas parked as the next round's carry."""
+            deltas, inner, metrics = local_deltas(state["params"],
+                                                  state["opt"], batch)
+            with torch.no_grad():
+                dopt.apply(state["params"], lane_mean(deltas, ccfg.acc))
+            return {"params": state["params"],
+                    "opt": {"inner": inner, "step": state["opt"]["step"]
+                            + max(rpol.local_steps, 1)},
+                    "step": state["step"] + 1, "pending": deltas}, metrics
+
+        correction = build_delayed_correction(ccfg, impl=combine_impl)
+        return _delayed_runtime(
+            Runtime(model, rpol, span, dopt, None, init_state,
+                    combine_path=getattr(combiner, "combine_path", "")),
+            correction, local_only_step)
     step_fn = local_sgd_step if rpol.local_steps > 1 else sync_step
     return Runtime(model, rpol, span, dopt, step_fn, init_state,
                    combine_path=getattr(combiner, "combine_path", ""),
                    combine_stats=scombiner is not None)
+
+
+def _accumulate(out: torch.Tensor, x: torch.Tensor, w: float = 1.0):
+    """out <- out + w·x in fp32, cast to out's dtype (x is consumed; for
+    fp32 out and x all in place, with no lane-sized temporary)."""
+    return out.copy_(out.float().add_(x.float().mul_(w)))
+
+
+def _check_delay(rpol: RunPolicy) -> bool:
+    """Whether the runtime is a delayed one (combine_delay 1)."""
+    if rpol.combine_delay not in (0, 1):
+        raise ValueError(f"combine_delay must be 0 or 1, got "
+                         f"{rpol.combine_delay}")
+    if rpol.combine_delay and rpol.accum_steps > 1:
+        raise ValueError(
+            "combine_delay needs accum_steps == 1 (the delayed path "
+            "combines per-lane optimizer-step deltas)")
+    return bool(rpol.combine_delay)
+
+
+def _zero_carry(params, span: int = 0):
+    """The pending carry before the first round: fp32 zeros, [span, ...]
+    stacked (span > 0) or one lane's (across ranks). Adasum and the lane
+    mean of zeros are both zero, so the step-0 correction is exactly
+    zero with no cold-start branch."""
+    lead = (span,) if span else ()
+    return T.map(lambda p: torch.zeros(lead + tuple(p.shape),
+                                       dtype=torch.float32, device=p.device),
+                 params)
+
+
+def _delayed_runtime(rt: Runtime, correction, local_only_step) -> Runtime:
+    """Fill a Runtime's delayed pieces and its single-program step: the
+    correction of the pending carry (which the step consumes), the local
+    step, then the fold (build.py:428-483)."""
+    def delayed_local_step(state, batch):
+        with torch.no_grad():
+            corr = correction(state["pending"], donate=True)
+        new_state, metrics = local_only_step(state, batch)
+        with torch.no_grad():
+            rt.dopt.apply(new_state["params"], corr)
+        return new_state, metrics
+
+    rt.train_step = delayed_local_step
+    rt.correction_fn = correction
+    rt.local_fn = local_only_step
+    rt.fold_fn = rt.dopt.apply
+    return rt
 
 
 def _make_opt(rpol: RunPolicy, lr, optimizer: Optional[Optimizer]):
@@ -341,53 +434,45 @@ def _make_opt(rpol: RunPolicy, lr, optimizer: Optional[Optimizer]):
 def _build_ranked(model: Model, rpol: RunPolicy, comm, *, lr, combine,
                   optimizer, strict, combine_impl) -> Runtime:
     """One process per rank; see the module docstring."""
-    from repro_torch.runtime import (ITEM_MULTI_RANK, ITEM_SUBSYSTEMS,
-                                     not_ported)
     W = comm.world
     span = rpol.span or W
     if span & (span - 1) or W % span:
         raise ValueError(f"span={span} must be a power of two dividing "
                          f"dp={W}")
     ccfg = _resolve_combine_cfg(rpol, span, combine, strict, dp_total=W)
-    if rpol.combine_delay:
-        raise not_ported("the delayed combine (combine_delay > 0)",
-                         ITEM_SUBSYSTEMS)
+    delayed = _check_delay(rpol)
     key = registry_key(ccfg.op, ccfg.backend)
-    if key not in ("adasum-rvh", "adasum-gspmd", "adasum-fused"):
-        raise not_ported(
-            f"combiner {key!r} across ranks", ITEM_MULTI_RANK,
-            "across ranks this slice runs the Adasum tree as RVH (op "
-            "'adasum' with backend '', 'rvh', 'gspmd_tree' or 'fused', or "
-            "'adasum-rvh')")
     g = W // span                      # ranks in a lane group
-    if g > 1 and (rpol.accum_steps > 1 or rpol.local_steps > 1):
-        raise not_ported(
-            "accum_steps / local_steps at span < dp", ITEM_MULTI_RANK,
-            "the composition of a lane's microbatches across the ranks of "
-            "its lane group is not written yet")
-    if ccfg.backend != "rvh" and g == 1 and span > 1:
-        warnings.warn(
-            f"backend={ccfg.backend!r} with one lane per rank (span == "
-            f"dp={W}): the lanes' Adasum tree runs as RVH across the "
-            f"ranks, the same function", EngineWarning, stacklevel=3)
-    rvh_cfg = dataclasses.replace(ccfg, op="adasum", backend="rvh")
-    if g > 1:     # both splits on every rank, in this order (collective)
-        lane_comm = comm.split([list(range(l * g, (l + 1) * g))
-                                for l in range(span)])
-        rvh_comm = comm.split([list(range(q, W, g)) for q in range(g)])
+    if key in ("adasum-rvh", "adasum-gspmd", "adasum-fused"):
+        if ccfg.backend != "rvh" and g == 1 and span > 1:
+            warnings.warn(
+                f"backend={ccfg.backend!r} with one lane per rank (span == "
+                f"dp={W}): the lanes' Adasum tree runs as RVH across the "
+                f"ranks, the same function", EngineWarning, stacklevel=3)
+        run_cfg = dataclasses.replace(ccfg, op="adasum", backend="rvh")
+        path = "rvh" if g == 1 else "hier-rvh"
     else:
-        lane_comm, rvh_comm = None, comm
-    combiner = make_combiner(rvh_cfg, impl=combine_impl, donate=True,
+        run_cfg, path = ccfg, key
+    # the splits on every rank, in this order (dist.new_group is
+    # collective over all ranks): the lane groups, the ranks of equal
+    # position that the combiner reduces across, and for the delayed
+    # combine the same again as the exchange leg's own process groups
+    position = [list(range(q, W, g)) for q in range(g)]
+    lane_comm = (comm.split([list(range(l * g, (l + 1) * g))
+                             for l in range(span)]) if g > 1 else None)
+    rvh_comm = comm.split(position) if g > 1 else comm
+    combiner = make_combiner(run_cfg, impl=combine_impl, donate=True,
                              comm=rvh_comm)
     scombiner = None
-    if rpol.combine_stats and span > 1:
-        scombiner = make_combiner(rvh_cfg, with_stats=True,
+    if rpol.combine_stats and span > 1 and not delayed:
+        scombiner = make_combiner(run_cfg, with_stats=True,
                                   impl=combine_impl, donate=True,
                                   comm=rvh_comm)
     dopt = DistributedOptimizer(_make_opt(rpol, lr, optimizer), ccfg,
                                 combiner, span, stacked=False)
     grad_fn = _value_and_grad(model)
     r = comm.rank
+    post = dopt.point == "post"
 
     def init_state(generator: torch.Generator) -> Dict[str, Any]:
         """Every rank draws from its generator; rank 0's params are then
@@ -395,64 +480,80 @@ def _build_ranked(model: Model, rpol: RunPolicy, comm, *, lr, combine,
         params = model.init(generator)
         for x in T.leaves(params):
             comm.broadcast(x, 0)
-        return {"params": params, "opt": dopt.init(params), "step": 0}
+        state = {"params": params, "opt": dopt.init(params), "step": 0}
+        if delayed:
+            state["pending"] = _zero_carry(params)
+        return state
 
-    def rank_rows(batch):
-        """Rank r's rows of the global batch, [r·B/W, (r+1)·B/W): lane r's
-        rows at span == W, the (r mod g)-th 1/g of lane r // g's rows
-        below it. Returns (rows, the rank's weight in its lane)."""
+    def rank_micro(batch, A: int):
+        """This rank's rows of each of its lane's A microbatches (the
+        lane's rows [l·B/span, (l+1)·B/span) in A contiguous pieces,
+        build.py:309-336), with each one's weight: its share of the
+        microbatch's labelled tokens (lm_loss is a token mean over labels
+        >= 0), 1 at span == W. At A = 1 rank r takes rows [r·B/W,
+        (r+1)·B/W)."""
         B = T.leaves(batch)[0].shape[0]
         if B % W:
             raise ValueError(f"global batch {B} not divisible by dp={W}")
-        per = B // W
-        mine = T.map(lambda x: x[r * per:(r + 1) * per], batch)
-        if g == 1:
-            return mine, 1.0
-        # lm_loss is a token mean over labels >= 0: the lane gradient is
-        # the ranks' gradients weighted by their share of the lane's tokens
-        lane = (r // g) * (B // span)
+        lane_rows = B // span
+        if lane_rows % A or (lane_rows // A) % g:
+            raise ValueError(
+                f"a lane's {lane_rows} rows do not split into {A} "
+                f"microbatch(es) of a multiple of {g} rows (the ranks of a "
+                f"lane group)")
+        mb = lane_rows // A
+        per = mb // g
         count = lambda x: float((x >= 0).sum())
-        whole = count(batch["labels"][lane:lane + B // span])
-        return mine, count(mine["labels"]) / max(whole, 1.0)
+        out = []
+        for j in range(A):
+            lo = (r // g) * lane_rows + j * mb
+            s = lo + (r % g) * per
+            mine = T.map(lambda x: x[s:s + per], batch)
+            w = 1.0 if g == 1 else count(mine["labels"]) / max(
+                count(batch["labels"][lo:lo + mb]), 1.0)
+            out.append((mine, w))
+        return out
+
+    def group_grad(gr, w=None):
+        """The lane gradient from this rank's part: weighted by `w` (None:
+        weighted already), then summed over the lane group, the same
+        bits on its ranks. In place; nothing to do at span == W."""
+        if lane_comm is not None:
+            with torch.no_grad():
+                for x in T.leaves(gr):
+                    lane_comm.allreduce(x if w is None else x.mul_(w))
+        return gr
+
+    def weighted(m, w):
+        return {k: v.float() * w for k, v in m.items()}
 
     def rank_grads(params, batch):
-        """This rank's lane gradient (summed over accum_steps microbatches
-        in accum_dtype, build.py:325-336; all-reduced over the lane group
-        below span == W), its metrics and its lane weight."""
-        mine, w = rank_rows(batch)
+        """This rank's lane gradient: the sum over accum_steps
+        microbatches (accum_dtype, build.py:325-336) of each one's lane
+        gradient; and the rank's share of the lane metrics."""
         A = rpol.accum_steps
-        micro = [mine] if A <= 1 else [
-            T.map(lambda x: x.reshape((A, x.shape[0] // A)
-                                      + tuple(x.shape[1:]))[j], mine)
-            for j in range(A)]
         G, mets = None, []
-        for mb in micro:
+        for mb, w in rank_micro(batch, A):
             (_, m), gr = grad_fn(params, mb)
-            mets.append(m)
+            mets.append(weighted(m, w))
             if A <= 1:
-                G = gr
-                continue
+                return group_grad(gr, w), _mean(mets)
             if G is None:
                 acc_dt = getattr(torch, rpol.accum_dtype)
                 G = T.map(lambda x: torch.zeros(x.shape, dtype=acc_dt,
                                                 device=x.device), gr)
-            T.map(lambda out, x: out.copy_(out.float() + x.float()), G, gr)
+            T.map(lambda out, x: _accumulate(out, x, w), G, gr)
             del gr
-        if lane_comm is not None:
-            with torch.no_grad():
-                for x in T.leaves(G):
-                    lane_comm.allreduce(x.mul_(w))
-        return G, _mean(mets), w
+        return group_grad(G), _mean(mets)
 
     def _mean(mets):
         return {k: torch.stack([m[k] for m in mets]).mean() for k in mets[0]}
 
-    def lane_metrics(mets, w):
+    def lane_metrics(mets):
         """Mean over lanes of the lane metrics, the same bits on every
-        rank: each rank's weighted share, summed in rank order."""
+        rank: the ranks' weighted shares, summed in rank order."""
         keys = sorted(mets)
-        v = torch.stack([mets[k].float() for k in keys]) * w
-        tot = comm.group_sum(v, W) / span
+        tot = comm.group_sum(torch.stack([mets[k] for k in keys]), W) / span
         out = {k: tot[i] for i, k in enumerate(keys)}
         out["grad_lanes"] = torch.tensor(span, dtype=torch.int32)
         return out
@@ -463,7 +564,7 @@ def _build_ranked(model: Model, rpol: RunPolicy, comm, *, lr, combine,
 
     def sync_step(state, batch):
         params = state["params"]
-        G, mets, w = rank_grads(params, batch)
+        G, mets = rank_grads(params, batch)
         with torch.no_grad():
             if scombiner is not None:
                 delta, opt_state, stats = dopt.update_stats(
@@ -473,43 +574,50 @@ def _build_ranked(model: Model, rpol: RunPolicy, comm, *, lr, combine,
                 stats = None
             del G
             dopt.apply(params, delta)
-        metrics = lane_metrics(mets, w)
+        metrics = lane_metrics(mets)
         if stats is not None:
             metrics.update(stat_metrics(stats, batch))
         return {"params": params, "opt": opt_state,
                 "step": state["step"] + 1}, metrics
 
-    def local_sgd_step(state, batch):
-        """Paper §5.2 at span == W: k local optimizer steps on this
-        rank's lane, then Adasum of the deltas. At the post point each
-        rank keeps its own state; at the pre point every lane starts from
-        the shared state and lane 0's ends the step (build.py:399)."""
-        k = rpol.local_steps
-        params, opt_state = state["params"], state["opt"]
-        mine, _ = rank_rows(batch)
-        rows = T.leaves(mine)[0].shape[0]
-        if rows % k or rows < k:
-            raise ValueError(f"local_steps={k} needs global_batch >= "
-                             f"span*k (got {rows} rows/lane)")
-        post = dopt.point == "post"
+    def local_delta(params, opt_state, batch, k: int):
+        """Paper §5.2 on this rank's lane: k optimizer steps from the
+        shared params, each on its lane group's gradient of one of the
+        lane's k microbatches (every rank of a group applies the same
+        update). At the post point each rank keeps its own lane's state;
+        at the pre point every lane starts from the shared state and
+        lane 0's ends the step (build.py:399), broadcast from rank 0.
+        Returns (fp32 delta, inner state, the rank's metric share)."""
         oi = opt_state["inner"]
         if not post:
             oi = T.map(lambda x: x.clone(), oi)
         p = T.map(lambda x: x.clone(), params)
         mets = []
-        for j in range(k):
-            mb = T.map(lambda x: x.reshape((k, x.shape[0] // k)
-                                           + tuple(x.shape[1:]))[j], mine)
+        for j, (mb, w) in enumerate(rank_micro(batch, k)):
             (_, m), gr = grad_fn(p, mb)
-            mets.append(m)
+            mets.append(weighted(m, w))
             with torch.no_grad():
-                d, oi = dopt.opt.update(gr, oi, p, opt_state["step"] + j)
+                d, oi = dopt.opt.update(group_grad(gr, w), oi, p,
+                                        opt_state["step"] + j)
+                del gr
                 dopt.apply(p, d)
-            del gr, d
-        metrics = lane_metrics(_mean(mets), 1.0)
-        with torch.no_grad():
-            delta = T.map(lambda e, s: e.float() - s.float(), p, params)
+            del d
+        with torch.no_grad():     # in p's own memory where it is fp32
+            delta = T.map(lambda e, s: e.float().sub_(s), p, params)
             del p
+            if not post:
+                for x in T.leaves(oi):
+                    comm.broadcast(x, 0)
+        return delta, oi, _mean(mets)
+
+    def local_sgd_step(state, batch):
+        """Paper §5.2: k local optimizer steps, then the combine of the
+        deltas."""
+        k = rpol.local_steps
+        params, opt_state = state["params"], state["opt"]
+        delta, oi, mets = local_delta(params, opt_state, batch, k)
+        metrics = lane_metrics(mets)
+        with torch.no_grad():
             if scombiner is not None:
                 combined, stats = scombiner(delta)
                 metrics.update(stat_metrics(stats, batch))
@@ -517,18 +625,38 @@ def _build_ranked(model: Model, rpol: RunPolicy, comm, *, lr, combine,
                 combined = combiner(delta)
             del delta
             dopt.apply(params, combined)
-            if not post:
-                for x in T.leaves(oi):
-                    comm.broadcast(x, 0)
         return {"params": params,
                 "opt": {"inner": oi, "step": opt_state["step"] + k},
                 "step": state["step"] + 1}, metrics
 
-    step_fn = local_sgd_step if rpol.local_steps > 1 else sync_step
-    return Runtime(model, rpol, span, dopt, step_fn, init_state,
-                   combine_path="rvh" if g == 1 else "hier-rvh",
-                   combine_stats=scombiner is not None, dp_total=W,
-                   comm=comm)
+    rt = Runtime(model, rpol, span, dopt, None, init_state,
+                 combine_path=path, combine_stats=scombiner is not None,
+                 dp_total=W, comm=comm)
+    if delayed:
+        # the exchange leg's own process groups (trap: two threads on one
+        # gloo group may issue its collectives in another order on
+        # another rank)
+        xcomm = comm.split(position)
+
+        def local_only_step(state, batch):
+            """A delayed round's compute half on this rank's lane: its
+            local delta, the cross-rank lane mean applied at once, the
+            delta parked as the next round's carry."""
+            k = max(rpol.local_steps, 1)
+            params, opt_state = state["params"], state["opt"]
+            delta, oi, mets = local_delta(params, opt_state, batch, k)
+            metrics = lane_metrics(mets)
+            with torch.no_grad():
+                dopt.apply(params, rank_mean(delta, rvh_comm, ccfg.acc))
+            return {"params": params,
+                    "opt": {"inner": oi, "step": opt_state["step"] + k},
+                    "step": state["step"] + 1, "pending": delta}, metrics
+
+        correction = build_delayed_correction(run_cfg, impl=combine_impl,
+                                              comm=xcomm)
+        return _delayed_runtime(rt, correction, local_only_step)
+    rt.train_step = local_sgd_step if rpol.local_steps > 1 else sync_step
+    return rt
 
 
 def _row_generator(device: torch.device, seed: int,

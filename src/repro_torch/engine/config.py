@@ -26,8 +26,7 @@ from typing import Any, Dict, Optional
 
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.parallel.policy import RunPolicy
-from repro_torch.runtime import (ITEM_ADASUM_MATH, ITEM_SHARDING,
-                                 ITEM_SUBSYSTEMS, not_ported)
+from repro_torch.runtime import ITEM_SHARDING, ITEM_SUBSYSTEMS, not_ported
 
 PARAM_DTYPES = ("float32", "bfloat16")
 _COMBINE_OPS = ("adasum", "sum", "mean")
@@ -70,7 +69,10 @@ class EngineConfig:
     optimizer: str = "adam"
     lr: float = 1e-3
     local_steps: int = 1        # paper §5.2 local-SGD steps per sync
-    combine_delay: int = 0      # 1 = DaSGD-style delayed combine (later)
+    combine_delay: int = 0      # 0 = synchronous combine; 1 = DaSGD-style
+                                # delayed mode: round i-1's delta exchange
+                                # overlaps round i's compute, correction
+                                # lands at i+1
     accum_steps: int = 1        # microbatch gradient accumulation (§2.2)
     accum_dtype: str = "float32"
     opt_state_dtype: str = "float32"
@@ -135,6 +137,12 @@ class EngineConfig:
     def validate(self, dp_total: Optional[int] = None) -> "EngineConfig":
         """Cross-field checks; returns self so it chains. Pass `dp_total`
         (1 on one device) for the span and batch checks."""
+        if self.adaptive_batch and self.combine_delay:
+            raise ValueError(
+                "adaptive_batch and combine_delay are mutually exclusive: "
+                "CombineStats are collected on the synchronous combine "
+                "paths only (the delayed carry's dots describe the "
+                "previous round)")
         self._refuse_later()
         if self.param_dtype not in PARAM_DTYPES:
             raise ValueError(f"param_dtype={self.param_dtype!r}; expected "
@@ -170,6 +178,16 @@ class EngineConfig:
         if self.local_steps > 1 and self.accum_steps > 1:
             raise ValueError("local_steps and accum_steps are mutually "
                              "exclusive (both reshape the lane batch)")
+        if self.combine_delay not in (0, 1):
+            raise ValueError(
+                f"combine_delay must be 0 (synchronous) or 1 (DaSGD-style "
+                f"one-round delayed exchange), got {self.combine_delay}")
+        if self.combine_delay and self.accum_steps > 1:
+            raise ValueError(
+                "combine_delay and accum_steps are mutually exclusive: "
+                "the delayed path combines per-lane optimizer-step deltas "
+                "(local_steps semantics), not accumulated raw gradients — "
+                "use local_steps to amortize syncs instead")
         if self.data_kind == "memmap" and not self.data_path:
             raise ValueError("data_kind='memmap' needs data_path")
         if self.max_slots < 1:
@@ -255,20 +273,12 @@ class EngineConfig:
              ITEM_SUBSYSTEMS),
             (self.adaptive_batch, "the adaptive batch controller "
              "(adaptive_batch)", ITEM_SUBSYSTEMS),
-            (self.combine_delay, "the delayed combine (combine_delay > 0)",
-             ITEM_SUBSYSTEMS),
             (self.model_mesh > 1, "tensor-parallel meshes (model_mesh > 1)",
              ITEM_SHARDING),
-            (self.acc_dtype == "float64", "acc_dtype='float64'",
-             ITEM_ADASUM_MATH),
         ]
         for asked, what, item in later:
             if asked:
                 raise not_ported(what, item)
-        from .registry import LATER
-        if self.combine in LATER:
-            raise not_ported(f"combiner {self.combine!r}",
-                             LATER[self.combine])
 
     def serve_max_len(self) -> int:
         """The per-slot cache capacity the serve engine builds: `max_len`

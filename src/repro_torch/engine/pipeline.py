@@ -82,7 +82,11 @@ class StepPipeline:
                 # the overlap hides and the straggler monitor judges
                 dt = time.perf_counter() - t0
                 row = {"step": step, "loss": metrics["loss"], "s": dt}
-                row.update({k: metrics[k] for k in STAT_KEYS
+                # the delayed combine's split accounting (steps through a
+                # DelayedCombineStream): compute vs waiting on the
+                # exchange, per step; and the CombineStats metrics
+                row.update({k: metrics[k] for k in
+                            ("compute_s", "combine_wait_s") + STAT_KEYS
                             if k in metrics})
                 history.append(row)
                 for cb in s.callbacks:

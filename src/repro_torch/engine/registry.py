@@ -6,11 +6,13 @@ Every combiner is a *factory*
             comm=None) -> combine
 
 where `combine(stacked) -> combined` reduces a stacked pytree (leading
-lane axis of length `cfg.span`), or, for `adasum-rvh`, this rank's lane
-tree across the ranks of `comm` (a `repro_torch.parallel.comm.Comm`, in
-place of the reference's `mesh` and `dp_axes`). `impl` and `donate` are
-the fused path's (see `repro_torch.core.combine`); a factory may ignore
-them. Built-in entries:
+lane axis of length `cfg.span`), or, given a `comm` of more than one
+rank (a `repro_torch.parallel.comm.Comm`, in place of the reference's
+`mesh` and `dp_axes`, where GSPMD shards the lane axis), this rank's
+lane tree (no lane axis) across the ranks of `comm`, the same bits on
+every rank. `impl` and `donate` are the fused path's (see
+`repro_torch.core.combine`); a factory may ignore them. Built-in
+entries:
 
     sum            plain sum over lanes (synchronous-SGD baseline)
     mean           arithmetic mean over lanes
@@ -22,9 +24,13 @@ them. Built-in entries:
                    `comm`, one lane per rank (`repro_torch.core.rvh`)
     adascale       AdaScale's gain-scaled mean (Johnson et al., 2020)
 
-Across ranks (a comm of more than one rank) only `adasum-rvh` runs; the
-others are stacked-lane combiners. `dasgd` raises `NotImplementedError`
-naming the ROADMAP item that brings it. Register a new combiner with
+Across ranks: sum and mean are one `Comm.allreduce` (mean over the
+rank count); adascale takes the lane mean that way and sums each rank's
+‖x_r − m‖² in rank order; adasum-linear runs the ring order on
+rank-owned chunks (`core.adasum.adasum_linear_ranks`); adasum-gspmd is
+RVH (the same function, warned); adasum-fused refuses, as the
+reference's does when the lane axis is device-sharded. Register a new
+combiner with
 
     @register_combiner("mine")
     def _mine(cfg, **_):
@@ -39,20 +45,16 @@ import torch
 from repro_torch import tree as T
 from repro_torch.core import adasum as A
 from repro_torch.core.combine import (CombineConfig, _level_triple,
-                                      build_fused_combiner, stack_stats,
-                                      tree_combine_per_layer,
+                                      build_fused_combiner, rank_sum,
+                                      stack_stats, tree_combine_per_layer,
                                       tree_combine_whole)
 from repro_torch.core.rvh import build_rvh_combiner
-from repro_torch.runtime import (ITEM_MULTI_RANK, ITEM_SUBSYSTEMS,
-                                 not_ported)
 
 PyTree = Any
 Combiner = Callable[[PyTree], PyTree]
 CombinerFactory = Callable[..., Combiner]
 
 _COMBINERS: Dict[str, CombinerFactory] = {}
-# reference registry entries a later slice brings
-LATER = {"dasgd": ITEM_SUBSYSTEMS}
 
 
 def register_combiner(name: str, *, overwrite: bool = False):
@@ -71,8 +73,6 @@ def available_combiners() -> tuple:
 
 
 def get_combiner_factory(name: str) -> CombinerFactory:
-    if name in LATER and name not in _COMBINERS:
-        raise not_ported(f"combiner {name!r}", LATER[name])
     try:
         return _COMBINERS[name]
     except KeyError:
@@ -91,12 +91,8 @@ def registry_key(op: str, backend: str = "") -> str:
     return op   # custom registry entries are addressed by op name directly
 
 
-def _check_ranks(key: str, comm) -> None:
-    """Across ranks only the RVH combiner runs."""
-    if comm is not None and comm.world > 1 and key != "adasum-rvh":
-        raise not_ported(f"combiner {key!r} across ranks", ITEM_MULTI_RANK,
-                         "across ranks this slice runs the Adasum tree as "
-                         "RVH (op='adasum')")
+def _ranked(comm) -> bool:
+    return comm is not None and comm.world > 1
 
 
 def make_combiner(cfg: CombineConfig, *, with_stats: bool = False,
@@ -111,7 +107,6 @@ def make_combiner(cfg: CombineConfig, *, with_stats: bool = False,
         return stats_combiner(cfg, impl=impl, donate=donate, comm=comm)
     key = registry_key(cfg.op, cfg.backend)
     factory = get_combiner_factory(key)
-    _check_ranks(key, comm)
     combiner = factory(cfg, impl=impl, donate=donate, comm=comm)
     if not hasattr(combiner, "combine_path"):
         try:
@@ -132,20 +127,51 @@ def probe_stats(stacked: PyTree, acc_dtype) -> dict:
     return stack_stats([_level_triple(leaves, acc_dtype)])
 
 
+def probe_stats_ranks(tree: PyTree, comm, acc_dtype) -> dict:
+    """`probe_stats` with one lane per rank: lanes 2i and 2i+1 (ranks 2i
+    and 2i+1) swap half of each leaf, as RVH's round 0 does (the even
+    rank keeps the first half and receives its partner's, the odd rank
+    the second), each takes its half's [a·b, a·a, b·b] over every leaf,
+    and the ranks' triples are summed in rank order."""
+    if comm.world < 2:
+        return stack_stats([])
+    even = comm.rank % 2 == 0
+    keep, send, recv = [], [], []
+    for x in T.leaves(tree):
+        flat = x.reshape(-1)
+        h = -(-flat.numel() // 2)
+        lo, hi = flat[:h], flat[h:]
+        keep.append(lo if even else hi)
+        send.append(hi if even else lo)
+        recv.append(torch.empty_like(keep[-1]))
+    comm.exchange(send, comm.rank ^ 1, recvs=recv)
+    tot = torch.zeros(3, dtype=acc_dtype, device=keep[0].device)
+    for mine, theirs in zip(keep, recv):
+        a, b = (mine, theirs) if even else (theirs, mine)
+        tot += torch.stack([A._flat_dot(a, b, acc_dtype),
+                            A._flat_dot(a, a, acc_dtype),
+                            A._flat_dot(b, b, acc_dtype)])
+    return stack_stats([comm.group_sum(tot, comm.world)])
+
+
 def stats_combiner(cfg: CombineConfig, *, impl: str = "kernel",
                    donate: bool = False, comm=None) -> Combiner:
     """A combiner returning (combined, CombineStats). The adasum gspmd /
     fused paths surface their own per-level triples, and `adasum-rvh`
     the reference's level-0 probe from its round-0 dots (registry.py:
     113-125, :162-171, without exchanging the gradients again); every
-    other combiner is wrapped with the level-0 `probe_stats` (taken
-    before the combine, which may consume its input)."""
+    other combiner is wrapped with the level-0 `probe_stats` (across
+    ranks `probe_stats_ranks`), taken before the combine, which may
+    consume its input."""
     key = registry_key(cfg.op, cfg.backend)
-    _check_ranks(key, comm)
+    if key == "adasum-gspmd" and _ranked(comm):
+        _warn_rvh()
+        key = "adasum-rvh"
     if key == "adasum-rvh":
         return _adasum_rvh(cfg, impl=impl, donate=donate, comm=comm,
                            with_stats=True)
     if key in ("adasum-gspmd", "adasum-fused"):
+        _stacked_only(key, comm)
         if cfg.fused:
             fused = build_fused_combiner(cfg, with_stats=True, impl=impl,
                                          donate=donate)
@@ -161,31 +187,60 @@ def stats_combiner(cfg: CombineConfig, *, impl: str = "kernel",
         ref.combine_path = "gspmd-reference"
         return ref
 
-    base = make_combiner(cfg, impl=impl, donate=donate)
+    base = make_combiner(cfg, impl=impl, donate=donate, comm=comm)
 
     def probed(stacked):
-        stats = probe_stats(stacked, cfg.acc)
+        stats = (probe_stats_ranks(stacked, comm, cfg.acc) if _ranked(comm)
+                 else probe_stats(stacked, cfg.acc))
         return base(stacked), stats
 
     probed.combine_path = getattr(base, "combine_path", key)
     return probed
 
 
+def _warn_rvh() -> None:
+    import warnings
+    from repro_torch.engine.build import EngineWarning
+    warnings.warn(
+        "adasum-gspmd with one lane per rank: the lanes' Adasum tree runs "
+        "as RVH across the ranks, the same function", EngineWarning,
+        stacklevel=4)
+
+
+def _stacked_only(key: str, comm) -> None:
+    """adasum-fused pairs lanes on one device (registry.py:212-225)."""
+    if _ranked(comm):
+        raise ValueError(
+            f"{key}: the lanes are one per rank; use backend='rvh' (paper "
+            f"Algorithm 1) or backend='gspmd_tree' there")
+
+
 # --------------------------------------------------------------- built-ins
 @register_combiner("sum")
-def _sum(cfg, **_):
+def _sum(cfg, *, donate=False, comm=None, **_):
+    if _ranked(comm):
+        return lambda tree: rank_sum(tree, comm, donate=donate)
     return lambda stacked: A.sum_reduce(stacked, mean=False)
 
 
 @register_combiner("mean")
-def _mean(cfg, **_):
+def _mean(cfg, *, donate=False, comm=None, **_):
+    if _ranked(comm):
+        return lambda tree: T.map(lambda x: x.div_(comm.world),
+                                  rank_sum(tree, comm, donate=donate))
     return lambda stacked: A.sum_reduce(stacked, mean=True)
 
 
 @register_combiner("adasum-gspmd")
-def _adasum_gspmd(cfg, *, impl="kernel", donate=False, **_):
+def _adasum_gspmd(cfg, *, impl="kernel", donate=False, comm=None, **_):
     """Default backend: the fused bucketed combine (cfg.fused, default
-    on), or the per-leaf reference tree when opted out."""
+    on), or the per-leaf reference tree when opted out. With the lanes
+    one per rank, RVH: the reference falls back there, with a warning,
+    to the per-leaf tree that GSPMD runs across the devices
+    (registry.py:184-209), the same function."""
+    if _ranked(comm):
+        _warn_rvh()
+        return _adasum_rvh(cfg, impl=impl, donate=donate, comm=comm)
     if cfg.fused:
         fused = build_fused_combiner(cfg, impl=impl, donate=donate)
         fused.combine_path = "gspmd-fused"
@@ -197,9 +252,10 @@ def _adasum_gspmd(cfg, *, impl="kernel", donate=False, **_):
 
 
 @register_combiner("adasum-fused")
-def _adasum_fused(cfg, *, impl="kernel", donate=False, **_):
-    """The fused bucketed combine, explicitly (backend='fused'). On one
-    device the lane axis is never device-sharded, so it always applies."""
+def _adasum_fused(cfg, *, impl="kernel", donate=False, comm=None, **_):
+    """The fused bucketed combine, explicitly (backend='fused'), on
+    stacked lanes."""
+    _stacked_only("adasum-fused", comm)
     fused = build_fused_combiner(cfg, impl=impl, donate=donate)
     fused.combine_path = "gspmd-fused"
     return fused
@@ -219,7 +275,11 @@ def _adasum_rvh(cfg, *, impl="kernel", donate=False, comm=None,
 
 
 @register_combiner("adasum-linear")
-def _adasum_linear(cfg, **_):
+def _adasum_linear(cfg, *, comm=None, **_):
+    if _ranked(comm):
+        return lambda tree: A.adasum_linear_ranks(
+            tree, comm, per_layer=cfg.per_layer, acc_dtype=cfg.acc)
+
     def lin(stacked):
         n = T.leaves(stacked)[0].shape[0]
         lanes = [T.map(lambda x, i=i: x[i], stacked) for i in range(n)]
@@ -229,7 +289,7 @@ def _adasum_linear(cfg, **_):
 
 
 @register_combiner("adascale")
-def _adascale(cfg, **_):
+def _adascale(cfg, *, comm=None, **_):
     """AdaScale SGD (Johnson et al., 2020) as a combiner (registry.py:
     241-289 of the reference): the lane mean scaled by the gain ratio
 
@@ -239,32 +299,55 @@ def _adascale(cfg, **_):
     estimated from the S lanes). r -> 1 when lanes agree (combined ==
     mean) and r -> S when lanes are orthogonal (combined == sum).
     `cfg.per_layer` picks per-leaf vs whole-model gain; `cfg.acc` is the
-    moment-accumulation dtype."""
+    moment-accumulation dtype. Across ranks, two passes: the lane mean m
+    (`rank_sum` in acc, over S), then each rank's ‖x_r − m‖² per leaf,
+    summed over the ranks in rank order; ‖m‖² is the same on every
+    rank."""
     eps = 1e-20
 
     def gain(var, mu2, S):
         return torch.clamp((var + mu2) / (var / S + mu2 + eps), 1.0, S)
 
-    def moments(x, S):
-        xa = x.to(cfg.acc)
-        m = xa.mean(dim=0)
-        var = torch.square(xa - m).sum() / max(S - 1, 1)
-        return m, var, torch.square(m).sum()
+    def scaled(ms, var_leaf, msq_leaf, leaves, S):
+        """The gained means, per leaf or with one whole-model gain."""
+        if cfg.per_layer:
+            mu2 = torch.clamp(msq_leaf - var_leaf / S, min=0.0)
+            r = gain(var_leaf, mu2, S)
+        else:
+            var = var_leaf.sum()
+            mu2 = torch.clamp(msq_leaf.sum() - var / S, min=0.0)
+            r = gain(var, mu2, S).expand(len(ms))
+        # in the means' own memory
+        return [m.mul_(r[i]).to(x.dtype)
+                for i, (m, x) in enumerate(zip(ms, leaves))]
+
+    def sq_dev(x, m, piece=1 << 24):
+        """‖x − m‖² in acc, a piece at a time (no lane-sized temporary)."""
+        x, m = x.reshape(-1), m.reshape(-1)
+        return sum(torch.square(x[i:i + piece].to(cfg.acc) - m[i:i + piece])
+                   .sum() for i in range(0, x.numel(), piece))
+
+    if _ranked(comm):
+        def combine_ranks(tree):
+            leaves, treedef = T.flatten(tree)
+            S = comm.world
+            ms = [m.div_(S) for m in T.leaves(
+                rank_sum(leaves, comm, dtype=cfg.acc))]
+            dev = torch.stack([sq_dev(x, m) for x, m in zip(leaves, ms)])
+            var_leaf = comm.group_sum(dev, S) / max(S - 1, 1)
+            msq_leaf = torch.stack([torch.square(m).sum() for m in ms])
+            return T.unflatten(treedef, scaled(ms, var_leaf, msq_leaf,
+                                               leaves, S))
+        return combine_ranks
 
     def combine(stacked):
-        S = T.leaves(stacked)[0].shape[0]
-        if cfg.per_layer:
-            def per_leaf(x):
-                m, var, msq = moments(x, S)
-                mu2 = torch.clamp(msq - var / S, min=0.0)
-                return (gain(var, mu2, S) * m).to(x.dtype)
-            return T.map(per_leaf, stacked)
         leaves, treedef = T.flatten(stacked)
-        mo = [moments(x, S) for x in leaves]
-        var = sum(v for _, v, _ in mo)
-        mu2 = torch.clamp(sum(m2 for _, _, m2 in mo) - var / S, min=0.0)
-        r = gain(var, mu2, S)
-        return T.unflatten(treedef, [(r * m).to(x.dtype)
-                                     for (m, _, _), x in zip(mo, leaves)])
+        S = leaves[0].shape[0]
+        ms = [x.to(cfg.acc).mean(dim=0) for x in leaves]
+        var_leaf = torch.stack([sum(sq_dev(x[i], m) for i in range(S))
+                                for x, m in zip(leaves, ms)]) / max(S - 1, 1)
+        msq_leaf = torch.stack([torch.square(m).sum() for m in ms])
+        return T.unflatten(treedef, scaled(ms, var_leaf, msq_leaf, leaves,
+                                           S))
 
     return combine

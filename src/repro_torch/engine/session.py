@@ -14,7 +14,9 @@ prefetched on a background thread, periodic atomic checkpoints written
 off-thread (`CheckpointCallback`, the async manager), a SIGTERM save,
 straggler monitoring (`StragglerCallback`) and, for drills, injected
 node failures (`FailureInjectionCallback`). The elastic restart loop
-is ROADMAP.md queue 1 item 8.
+is ROADMAP.md queue 1 item 8. With combine_delay=1 the state carries the
+pending carry (`state["pending"]`), which checkpoints hold, and
+`use_delayed_stream` runs its correction beside the local step.
 
 Weights come from the port's seeded generator: the reference's
 `jax.random.key(0)` draws cannot be reproduced in torch.
@@ -34,8 +36,10 @@ checkpoint, and only rank 0 writes. At the `post` point each rank holds
 its own lane's optimizer state with no lane axis; a save gathers it to
 rank 0 one leaf at a time as the reference's full logical leaf
 [span, ...] (lane l is rank l·g's state, g = dp / span ranks a lane), and
-a restore gives each rank its own lane's row. Saves and restores are
-collective: every rank calls them.
+a restore gives each rank its own lane's row. The delayed combine's
+pending carry is one lane a rank at every point, and goes the same way:
+the checkpoint holds the reference's [span, ...] fp32 leaves under
+`['pending']`. Saves and restores are collective: every rank calls them.
 """
 from __future__ import annotations
 
@@ -164,6 +168,7 @@ class TrainSession:
         self.checkpoint = checkpoint
         self.state: PyTree = runtime.init_state(generator)
         self._last_stats: Dict[str, float] = {}
+        self._delayed_stream = None
 
     @classmethod
     def from_config(cls, config: EngineConfig, *, model: Optional[Model] = None,
@@ -233,6 +238,7 @@ class TrainSession:
                 "span": rt.span,
                 "dp": rt.dp_total,
                 "local_steps": self.config.local_steps,
+                "combine_delay": self.config.combine_delay,
                 "devices": 1,
                 "device": str(self.device),
                 "world": rt.dp_total,
@@ -256,6 +262,20 @@ class TrainSession:
                                       if ck else []),
                 "restarts": 0, "grow_backs": 0}
 
+    def use_delayed_stream(self, comm_delay: float = 0.0):
+        """Route steps through a `DelayedCombineStream`: the pending
+        carry's correction runs on a thread and CUDA stream of its own
+        (after `comm_delay` seconds of injected interconnect latency)
+        while the local step computes, and metrics gain compute_s /
+        combine_wait_s. The same states, bitwise, as the single-program
+        step. Needs combine_delay=1."""
+        from repro_torch.runtime import DelayedCombineStream
+        if self._delayed_stream is not None:
+            self._delayed_stream.close()
+        self._delayed_stream = DelayedCombineStream(
+            self.runtime, comm_delay=comm_delay)
+        return self._delayed_stream
+
     def batch(self, step: int) -> Dict[str, torch.Tensor]:
         """The deterministic batch for `step`, on the session's device."""
         return {k: torch.from_numpy(v).to(self.device)
@@ -267,7 +287,9 @@ class TrainSession:
         the deterministic batch for the current step counter."""
         if batch is None:
             batch = self.batch(self.state["step"])
-        self.state, metrics = self.runtime.train_step(self.state, batch)
+        step = (self._delayed_stream.step if self._delayed_stream is not None
+                else self.runtime.train_step)
+        self.state, metrics = step(self.state, batch)
         out = {k: float(v) for k, v in metrics.items()}
         stats = {k: out[k] for k in STAT_KEYS if k in out}
         if stats:
@@ -298,6 +320,14 @@ class TrainSession:
         t = torch.tensor([value], dtype=torch.int64, device=self.device)
         return int(self.comm.broadcast(t, 0).item())
 
+    def _lane_trees(self) -> List[str]:
+        """The parts of the state that hold one lane a rank: the
+        optimizer state at the post point, the pending carry."""
+        out = ["inner"] if self._lane_state() else []
+        if self._ranked() and "pending" in self.state:
+            out.append("pending")
+        return out
+
     def _gather_lanes(self, x: torch.Tensor) -> Optional[HostLeaf]:
         """The lanes' state leaf -> the reference's [span, ...] leaf on
         rank 0's host (None elsewhere): lane l is rank l·g's copy (g =
@@ -312,14 +342,17 @@ class TrainSession:
         collective at the post point across ranks."""
         if not self._ranked():
             return self.state
-        if not self._lane_state():
+        parts = self._lane_trees()
+        if not parts:
             return self.state if self.rank == 0 else None
         st = self.state
-        inner = T.map(self._gather_lanes, st["opt"]["inner"])
-        if self.rank != 0:
-            return None
-        return {"params": st["params"], "step": st["step"],
-                "opt": {"inner": inner, "step": st["opt"]["step"]}}
+        tree = dict(st, opt=dict(st["opt"]))
+        if "inner" in parts:
+            tree["opt"]["inner"] = T.map(self._gather_lanes,
+                                         st["opt"]["inner"])
+        if "pending" in parts:
+            tree["pending"] = T.map(self._gather_lanes, st["pending"])
+        return tree if self.rank == 0 else None
 
     def _manager(self):
         if self.checkpoint is None:
@@ -368,10 +401,15 @@ class TrainSession:
         if step is None and self.latest_step() is None:
             return 0
         rows = None
-        if self._lane_state():
+        parts = self._lane_trees()
+        if parts:
             lane = self.rank // (self.comm.world // self.runtime.span)
-            rows = {"['opt']['inner']" + T.keystr(p): lane for p, _ in
-                    T.flatten_with_path(self.state["opt"]["inner"])[0]}
+            where = {"inner": ("['opt']['inner']", self.state["opt"]
+                               .get("inner")),
+                     "pending": ("['pending']", self.state.get("pending"))}
+            rows = {prefix + T.keystr(p): lane for part in parts
+                    for prefix, tree in [where[part]]
+                    for p, _ in T.flatten_with_path(tree)[0]}
         if self._ranked():
             # rank 0 validates (and quarantines) first; the others then
             # read the step it settled on
@@ -391,6 +429,9 @@ class TrainSession:
         """Release background resources (the async checkpoint writer,
         after its pending write) and destroy the process group the
         session started. The session is done after this."""
+        if self._delayed_stream is not None:
+            self._delayed_stream.close()
+            self._delayed_stream = None
         close = getattr(self.checkpoint, "close", None)
         try:
             if close is not None:

@@ -43,6 +43,7 @@ UNIT = 1024          # the TPU kernels' block granule (8 x 128 fp32 tile)
 GRANULE = 256        # the CUDA kernels' granule: one 16-byte load a thread
 BLOCK_ELEMS = 8192   # every layer starts at a multiple of this (ops.py)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+REF_PIECE = 1 << 24  # elements a plain block-dots pass casts at once
 
 _vp, _int, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _lib = None
@@ -78,14 +79,24 @@ def auto_block_elems(n: int, max_elems: int = 8192) -> int:
 # ------------------------------------------------------------ plain versions
 def block_dots_ref(a: torch.Tensor, b: torch.Tensor, block_elems: int,
                    acc_dtype=torch.float32) -> torch.Tensor:
-    """Per-block [a·b, a·a, b·b]: (n,) x2 -> (n // block_elems, 3)."""
+    """Per-block [a·b, a·a, b·b] accumulated in acc_dtype: (n,) x2 ->
+    (n // block_elems, 3). Cast a piece of REF_PIECE elements at a time,
+    so an fp64 pass over a multi-GB bucket holds no fp64 copy of it."""
     n = a.shape[0]
     if n % block_elems:
         raise ValueError(f"n={n} is not a multiple of {block_elems}")
-    af = a.to(acc_dtype).reshape(n // block_elems, block_elems)
-    bf = b.to(acc_dtype).reshape(n // block_elems, block_elems)
-    return torch.stack([(af * bf).sum(-1), (af * af).sum(-1),
-                        (bf * bf).sum(-1)], dim=-1)
+    out = torch.empty((n // block_elems, 3), dtype=acc_dtype,
+                      device=a.device)
+    step = max(REF_PIECE // block_elems, 1) * block_elems
+    for s in range(0, n, step):
+        af = a[s:s + step].to(acc_dtype).reshape(-1, block_elems)
+        bf = b[s:s + step].to(acc_dtype).reshape(-1, block_elems)
+        rows = slice(s // block_elems, s // block_elems + af.shape[0])
+        out[rows, 0] = (af * bf).sum(-1)
+        out[rows, 1] = (af * af).sum(-1)
+        out[rows, 2] = (bf * bf).sum(-1)
+        del af, bf
+    return out
 
 
 def combine_ref(a: torch.Tensor, b: torch.Tensor, s1b: torch.Tensor,
@@ -185,16 +196,27 @@ def _plain_rows(fn, a, b, *scalars):
 
 def block_dots(a: torch.Tensor, b: torch.Tensor, *,
                block_elems: Optional[int] = BLOCK_ELEMS,
-               plain: bool = False) -> torch.Tensor:
+               plain: bool = False,
+               acc_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Per-block fp32 [Σa·b, Σa·a, Σb·b], both operands read once:
     [n] x2 -> [n // block_elems, 3], or [p, L] x2 -> [p * L //
-    block_elems, 3] pair-major. block_elems=None: `auto_block_elems`."""
+    block_elems, 3] pair-major. block_elems=None: `auto_block_elems`.
+
+    `acc_dtype` is the plain arm's accumulator (`plain=True`: e.g. fp64
+    throughout, as the reference's `block_dots_ref(..., acc_dtype)`).
+    The kernel, and its plain version on CPU tensors, accumulate in fp32
+    as the TPU kernel does; a caller wanting fp64 there casts the fp32
+    block partials."""
     if block_elems is None:
         block_elems = auto_block_elems(a.shape[-1])
     p, L, stride = _operands("block_dots", a, b, block_elems)
+    if not plain:
+        _check(acc_dtype == torch.float32,
+               f"block_dots: the kernel accumulates in fp32, not "
+               f"{acc_dtype}; cast its partials, or ask for plain=True")
     if plain or a.device.type == "cpu":
-        out = _plain_rows(lambda x, y: block_dots_ref(x, y, block_elems),
-                          a, b)
+        out = _plain_rows(lambda x, y: block_dots_ref(x, y, block_elems,
+                                                      acc_dtype), a, b)
         return out if a.dim() == 1 else torch.cat(out)
     _cuda_ready("block_dots", a, b, L, stride)
     out = torch.empty((p * (L // block_elems), 3), dtype=torch.float32,
@@ -252,7 +274,9 @@ class SegmentSum:
     partials). Each block lands in its own slot of a dense [num,
     width] grid (unique indices, no accumulation), and the grid is summed
     over its width: no atomics, so two runs give bitwise-equal sums on
-    the card (`index_add_` on CUDA would not)."""
+    the card (`index_add_` on CUDA would not). The sum runs in the
+    partials' dtype: fp64 partials (the plain arm's, or the kernel's
+    fp32 ones cast) give an fp64 sum."""
 
     def __init__(self, seg, num_segments: int, device):
         seg = np.asarray(seg, dtype=np.int64)
@@ -278,13 +302,13 @@ def adasum_segment_dots(a: torch.Tensor, b: torch.Tensor, seg: torch.Tensor,
                         block_elems: Optional[int] = BLOCK_ELEMS
                         ) -> torch.Tensor:
     """[n] x2 + seg [n] -> [num_segments, 3] per-segment [a·b, a·a, b·b]
-    through `block_dots` (each block lies in one segment)."""
+    through `block_dots` (each block lies in one segment). The fp32
+    block partials are cast to acc_dtype before the segment sum."""
     if block_elems is None:
         block_elems = auto_block_elems(a.shape[0])
-    blocks = block_dots(a, b, block_elems=block_elems)
+    blocks = block_dots(a, b, block_elems=block_elems).to(acc_dtype)
     block_seg = seg[::block_elems].cpu().numpy()
-    return SegmentSum(block_seg, num_segments, a.device)(blocks).to(
-        acc_dtype)
+    return SegmentSum(block_seg, num_segments, a.device)(blocks)
 
 
 def adasum_combine(a: torch.Tensor, b: torch.Tensor, s1: torch.Tensor,

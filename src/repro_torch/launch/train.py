@@ -30,9 +30,12 @@ straggler monitor and `--fail-at` failure drills:
 
 dies with NodeLossError at step 3; running it again (without --fail-at)
 prints "resumed from step 2" and finishes; once more prints "nothing to
-do". Flags of later slices (`--elastic`, `--adaptive-batch`,
-`--combine-delay 1`, `--model-mesh` above 1) raise NotImplementedError
-naming their ROADMAP item.
+do". Every combiner of the reference trains, on one device and across
+ranks (`--combine sum | mean | adascale`, `--backend linear`), with
+`--acc-dtype float64` (fp64 dots) and `--combine-delay 1` (the delayed
+combine; its pending carry is in the checkpoints). Flags of later slices
+(`--elastic`, `--adaptive-batch`, `--model-mesh` above 1) raise
+NotImplementedError naming their ROADMAP item.
 """
 from __future__ import annotations
 

@@ -15,7 +15,17 @@ inside `shard_map` (repro/core/rvh.py:99-105, :172-177):
                             small per-segment dot triples;
   allreduce(x)              an in-place sum over the comm's ranks
                             (`dist.all_reduce`: every rank gets the bits
-                            the one reduction computed);
+                            the one reduction computed — gloo's and
+                            NCCL's rings reduce each chunk on one rank
+                            and copy it to the others — and a repeat the
+                            same bits; its order is the library's, not
+                            rank order). The full-vector sums: sum and
+                            mean across ranks, the lane mean of the
+                            delayed combine, adascale's lane mean and a
+                            lane group's gradient;
+  all_to_all(sends, recvs)  tensors to and from every other rank in one
+                            batch of isends and irecvs (the rank-owned
+                            chunks of `adasum_linear_ranks`);
   broadcast(x, src)         rank `src`'s tensor to every rank, in place;
   gather_to_host(x, srcs)   the tensors of ranks `srcs`, stacked in rank
                             0's host memory (a checkpoint's lane rows).
@@ -26,6 +36,11 @@ inside `shard_map` (repro/core/rvh.py:99-105, :172-177):
 sets them). Subgroups are made once, when a comm is made, on every rank
 in the same order (`dist.new_group` is collective): the blocks of 2, 4,
 ... ranks that `group_sum` uses, and the sub-communicators of `split`.
+
+Every collective and every isend / irecv goes through the comm's own
+process group, so two comms over the same ranks (the delayed combine's
+exchange leg on a thread of its own beside the step's comm) never
+interleave their messages in a different order on different ranks.
 
 Staging: gloo carries host memory. A CUDA tensor on a gloo group is
 copied through a pinned host buffer both ways (after a stream
@@ -202,6 +217,13 @@ class Comm:
             c._times = {}
         return out
 
+    def free_buffers(self) -> None:
+        """Drop the pinned host staging buffers this comm and its
+        sub-communicators keep for reuse (each keeps its own, sized to
+        the largest message it staged)."""
+        for c in [self] + self._children:
+            c._host = {}
+
     def total_staged_bytes(self) -> int:
         return self.staged_bytes + sum(c.staged_bytes for c in self._children)
 
@@ -267,17 +289,61 @@ class Comm:
     def _p2p(self, sends, recvs, peer: int) -> None:
         """isend every byte tensor of `sends` and irecv into `recvs`, in
         CHUNK_BYTES pieces on gloo, in one batch."""
+        self._p2p_many([(s, r, peer) for s, r in zip(sends, recvs)])
+
+    def _p2p_many(self, items) -> None:
+        """One batch of (send bytes, receive bytes, global peer) items on
+        the comm's group, each in CHUNK_BYTES pieces on gloo; empty items
+        are skipped (both sides know their sizes)."""
         step = CHUNK_BYTES if self.backend == "gloo" else None
         ops = []
-        for s, r in zip(sends, recvs):
-            n = s.numel()
-            cuts = range(0, n, step) if step else [0]
-            for c in cuts:
-                e = n if step is None else min(n, c + step)
-                ops.append(dist.P2POp(dist.isend, s[c:e], peer))
-                ops.append(dist.P2POp(dist.irecv, r[c:e], peer))
-        for w in dist.batch_isend_irecv(ops):
-            w.wait()
+        for s, r, peer in items:
+            for t, op in ((s, dist.isend), (r, dist.irecv)):
+                n = t.numel()
+                cuts = range(0, n, step) if step else ([0] if n else [])
+                for c in cuts:
+                    e = n if step is None else min(n, c + step)
+                    ops.append(dist.P2POp(op, t[c:e], peer,
+                                          group=self.group))
+        if ops:
+            for w in dist.batch_isend_irecv(ops):
+                w.wait()
+
+    def all_to_all(self, sends: Sequence[Sequence[torch.Tensor]],
+                   recvs: Sequence[Sequence[torch.Tensor]]) -> None:
+        """sends[q]: this rank's tensors for local rank q; recvs[q]:
+        contiguous tensors receiving local rank q's tensors for this rank
+        (the byte sizes q sends), in place. This rank's own entries are
+        copied. One batch of isends and irecvs, staged through pinned
+        host buffers on gloo."""
+        me = self.rank
+        for s, r in zip(sends[me], recvs[me]):
+            r.copy_(s)
+        peers = [q for q in range(self.world) if q != me]
+        if not peers:
+            return
+        flat = lambda ts: [t.contiguous().reshape(-1).view(torch.uint8)
+                           for t in ts]
+        nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+        with self.timed("exchange"):
+            probe = next((t for q in peers for t in sends[q]), None)
+            if probe is not None and self._staged(probe):
+                outs = [t for q in peers for t in sends[q]]
+                hsend, _ = self._to_host(outs, "send")
+                hrecv = self._host_buffer(
+                    "recv", sum(nbytes(recvs[q]) for q in peers))
+                items, so, ro = [], 0, 0
+                for q in peers:
+                    ns, nr = nbytes(sends[q]), nbytes(recvs[q])
+                    items.append((hsend[so:so + ns], hrecv[ro:ro + nr],
+                                  self.ranks[q]))
+                    so, ro = so + ns, ro + nr
+                self._p2p_many(items)
+                self._from_host(hrecv, [t for q in peers for t in recvs[q]])
+            else:
+                self._p2p_many([
+                    (s, r, self.ranks[q]) for q in peers
+                    for s, r in zip(flat(sends[q]), flat(recvs[q]))])
 
     def _group(self, block: int):
         if block == self.world:

@@ -6,6 +6,8 @@ point of the port, and the training loop's runtime pieces (the port of
             NodeLossError, FailureInjector, next_power_of_two_below
   prefetch  Prefetcher — step-addressed batch prefetch with the
             host-to-card copy on a side CUDA stream
+  delayed   DelayedCombineStream — the delayed combine's correction on
+            a thread and CUDA stream of its own, beside the local step
 """
 from __future__ import annotations
 
@@ -15,19 +17,16 @@ import torch
 
 from .monitor import (FailureInjector, NodeLossError, StepMonitor,
                       StragglerConfig, next_power_of_two_below)
+from .delayed import DelayedCombineStream
 from .prefetch import Prefetcher
 
 DeviceLike = Union[str, torch.device, None]
 
 # ROADMAP.md queue 1 items that bring what the port still refuses
-ITEM_ADASUM_MATH = "2.1"    # fp64 dot accumulation (acc_dtype)
-ITEM_MULTI_RANK = "3"       # what remains of multi-rank training (sum /
-                            # mean / linear across ranks; accum and local
-                            # steps at span < dp)
 ITEM_FAMILIES = "6"         # MoE, MLA, ssm, hybrid, enc-dec, frontends
 ITEM_SHARDING = "7"         # data/model meshes above one device
-ITEM_SUBSYSTEMS = "8"       # delayed combine, adaptive batch, chaos,
-                            # elastic restarts (fit_elastic)
+ITEM_SUBSYSTEMS = "8"       # adaptive batch, elastic restarts
+                            # (fit_elastic), chaos
 
 
 def resolve_device(device: DeviceLike = None,

@@ -2,7 +2,10 @@
 the CPU) against the JAX package's real `build_runtime` on a 4-device
 CPU mesh: RVH at span == dp with sgd (lr 1), momentum, adam and lamb,
 local steps, accumulation and int8 wire compression; the hierarchical
-span 2 < dp 4 path with adam. Both sides start from the same params
+span 2 < dp 4 path with adam, accumulation and local steps (each rank
+taking its share of every microbatch); sum, mean, adasum-linear and
+adascale at span == dp; the delayed combine at span == dp and at span 2
+(no CombineStats there, as in the reference). Both sides start from the same params
 (drawn by the port, carried through numpy) and take the same batches
 (the pipeline's, with some labels masked so that the ranks of a lane
 group hold different token counts). Every rank's params must be bitwise
@@ -61,6 +64,24 @@ CASES = {   # name: (RunPolicy kwargs, lr)
     "rvh_int8_momentum": (dict(span=0, backend="rvh", optimizer="momentum",
                                compress="int8"), LR),
     "span2_adam": (dict(span=2, backend="gspmd_tree", optimizer="adam"), LR),
+    # the other combiners across ranks, at span == dp
+    "sum_sgd_lr1": (dict(span=0, combine_op="sum", optimizer="sgd"), 1.0),
+    "mean_momentum": (dict(span=0, combine_op="mean",
+                           optimizer="momentum"), LR),
+    "linear_adam": (dict(span=0, backend="linear", optimizer="adam"), LR),
+    "adascale_sgd_lr1": (dict(span=0, combine_op="adascale",
+                              optimizer="sgd"), 1.0),
+    # accumulation and local steps across the ranks of a lane group
+    "span2_accum2_momentum": (dict(span=2, backend="gspmd_tree",
+                                   optimizer="momentum", accum_steps=2), LR),
+    "span2_local2_momentum": (dict(span=2, backend="gspmd_tree",
+                                   optimizer="momentum", local_steps=2), LR),
+    # the delayed combine: RVH minus the cross-rank mean at span == dp,
+    # the hierarchical RVH below it
+    "rvh_delay_momentum": (dict(span=0, backend="rvh", optimizer="momentum",
+                                combine_delay=1), LR),
+    "span2_delay_adam": (dict(span=2, backend="gspmd_tree", optimizer="adam",
+                              combine_delay=1), LR),
 }
 STEPS = 2
 
@@ -94,7 +115,8 @@ for name, (pol, lr) in cases.items():
                                 for k in ("tokens", "labels")})
         res[f"{name}/loss{s}"] = np.asarray(m["loss"])
         for k in keys:
-            res[f"{name}/{k}{s}"] = np.asarray(m[k])
+            if k in m:          # the delayed path collects no stats
+                res[f"{name}/{k}{s}"] = np.asarray(m[k])
     for k, v in flat(state["params"]).items():
         res[f"{name}/final/{k}"] = v
 np.savez(out_path, **res)
@@ -156,6 +178,15 @@ def runs(tmp_path_factory):
     return port, np.load(tmp / "ref.npz"), inputs
 
 
+def _path(pol):
+    """The combine path the port names: RVH for the Adasum tree (at span
+    < dp the hierarchical one), else the registry entry."""
+    op = pol.get("combine_op", "adasum")
+    if op == "adasum" and pol.get("backend") != "linear":
+        return "hier-rvh" if pol["span"] else "rvh"
+    return "adasum-linear" if op == "adasum" else op
+
+
 def _leaf(tree, key):
     for p in key.split("/"):
         tree = tree[p]
@@ -170,12 +201,15 @@ def test_train_steps_match_reference_build_runtime(runs, name):
     # every rank: the same bits after every step
     assert all(all(r["bitwise"]) for r in ranks), [r["bitwise"]
                                                    for r in ranks]
-    assert ranks[0]["path"] == ("hier-rvh" if pol["span"] else "rvh")
+    assert ranks[0]["path"] == _path(pol)
     got = ranks[0]
     for s in range(STEPS):
         np.testing.assert_allclose(got["losses"][s], ref[f"{name}/loss{s}"],
                                    atol=1e-4)
-        for k in STAT_KEYS:
+        keys = [k for k in STAT_KEYS if f"{name}/{k}{s}" in ref.files]
+        assert sorted(got["stats"][s]) == sorted(keys)
+        assert keys or pol.get("combine_delay")
+        for k in keys:
             want = float(ref[f"{name}/{k}{s}"])
             if pol.get("compress") == "int8":
                 err = abs(got["stats"][s][k] - want) / max(abs(want), 1e-30)
@@ -267,7 +301,8 @@ def test_gather_to_host_takes_the_lane_leaders_rows(tmp_path, world, srcs):
 def test_train_cli_on_two_cpu_ranks():
     """`torch.distributed.run` on two CPU ranks: rank 0 alone prints the
     [train] line (path rvh, world 2, gloo) and the final loss; the two
-    flags a one-device run cannot use run here."""
+    flags a one-device run cannot use run here, and so do a non-Adasum
+    combiner with the delayed combine and fp64 dots."""
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
     base = [sys.executable, "-m", "torch.distributed.run", "--standalone",
             "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
@@ -275,7 +310,10 @@ def test_train_cli_on_two_cpu_ranks():
             "--seq", "32", "--batch", "8"]
     for extra, path in (([], "path=rvh"),
                         (["--compress", "int8", "--combine", "adasum-rvh",
-                          "--optimizer", "momentum"], "path=rvh")):
+                          "--optimizer", "momentum"], "path=rvh"),
+                        (["--combine", "sum", "--optimizer", "momentum",
+                          "--combine-delay", "1", "--acc-dtype", "float64"],
+                         "path=sum")):
         res = subprocess.run(base + extra, env=env, capture_output=True,
                              text=True, timeout=200)
         assert res.returncode == 0, res.stderr[-3000:]

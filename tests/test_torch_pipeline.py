@@ -284,16 +284,18 @@ def test_adascale_matches_reference(case, per_layer):
                                    rtol=1e-4, atol=1e-5)
 
 
-def test_adascale_trains_and_refuses_ranks():
+def test_adascale_trains_and_builds_across_ranks():
+    """Stacked lanes train; across ranks the registry builds the ranked
+    combiner (its run is tests/test_torch_dist_train.py's)."""
     from types import SimpleNamespace
     s = TrainSession.from_config(
         EngineConfig(arch="gemma-7b", reduced=True, combine="adascale",
                      span=2, optimizer="sgd", seq_len=16, global_batch=8),
         device="cpu", callbacks=[])
     assert np.isfinite(s.step()["loss"])
-    with pytest.raises(NotImplementedError, match="item 3"):
-        make_combiner(CombineConfig(op="adascale"),
-                      comm=SimpleNamespace(world=2))
+    c = make_combiner(CombineConfig(op="adascale"),
+                      comm=SimpleNamespace(world=2, rank=0))
+    assert c.combine_path == "adascale"
 
 
 # --------------------------------------------- schedules and loss scaler

@@ -345,7 +345,10 @@ def test_make_combiner_rvh_needs_a_comm():
 def test_make_combiner_rvh_with_a_comm(tmp_path, monkeypatch):
     """A one-rank gloo group in this process: the registry returns the
     RVH combiner (combine_path 'rvh'), which is the identity at world 1;
-    across ranks, the stacked-lane combiners are refused."""
+    across ranks sum builds its cross-rank sum, gspmd_tree warns and runs
+    RVH, and the explicitly fused combine refuses, as the reference's
+    does with the lane axis sharded (their runs are
+    tests/test_torch_dist_train.py's)."""
     monkeypatch.setenv("RANK", "0")
     monkeypatch.setenv("WORLD_SIZE", "1")
     comm = Comm.init("gloo", torch.device("cpu"),
@@ -363,9 +366,15 @@ def test_make_combiner_rvh_with_a_comm(tmp_path, monkeypatch):
     finally:
         comm.close()
     two = _fake_comm(2)
-    for bad in (dict(op="sum"), dict(op="adasum", backend="gspmd_tree")):
-        with pytest.raises(NotImplementedError, match="item 3"):
-            TR.make_combiner(CombineConfig(**bad), comm=two)
+    assert TR.make_combiner(CombineConfig(op="sum"),
+                            comm=two).combine_path == "sum"
+    with pytest.warns(EngineWarning, match="runs as RVH"):
+        c = TR.make_combiner(CombineConfig(op="adasum",
+                                           backend="gspmd_tree"), comm=two)
+    assert c.combine_path == "rvh"
+    with pytest.raises(ValueError, match="one per rank"):
+        TR.make_combiner(CombineConfig(op="adasum", backend="fused"),
+                         comm=two)
 
 
 # -------------------------------------------------------------- refusals
@@ -397,18 +406,6 @@ def test_nccl_refused_for_ranks_sharing_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     with pytest.raises(ValueError, match="one card per rank.*gloo"):
         Comm.init("nccl", torch.device("cuda", 0))
-
-
-@pytest.mark.parametrize("flags", [dict(accum_steps=2), dict(local_steps=2)])
-def test_span_below_dp_refuses_accum_and_local_steps(flags):
-    from repro_torch.configs import get_reduced
-    from repro_torch.engine import build_runtime
-    from repro_torch.models import build_model
-    model = build_model(get_reduced("gemma-7b"))
-    with pytest.raises(NotImplementedError, match="item 3.*microbatches"):
-        build_runtime(model, RunPolicy(span=2, backend="gspmd_tree",
-                                       optimizer="adam", **flags),
-                      comm=_fake_comm(4))
 
 
 def test_explicit_rvh_below_dp_warns_or_raises_under_strict():

@@ -117,6 +117,7 @@ def job_train(comm, spec):
     whether the ranks agreed bitwise after every step."""
     import numpy as np
     import torch
+    from repro_torch import tree as T
     from repro_torch.bridge import params_from_numpy, params_to_numpy
     from repro_torch.configs import get_reduced
     from repro_torch.control.noise import STAT_KEYS
@@ -141,6 +142,9 @@ def job_train(comm, spec):
                            lr=case["lr"], comm=comm)
         params = params_from_numpy(init, device="cpu", cfg=cfg)
         state = {"params": params, "opt": rt.dopt.init(params), "step": 0}
+        if rt.correction_fn is not None:        # the delayed zero carry
+            state["pending"] = T.map(lambda x: torch.zeros(x.shape),
+                                     params)
         losses, stats, bitwise = [], [], []
         for s in range(case["steps"]):
             batch = {k: torch.from_numpy(data[f"batch{s}/{k}"])
@@ -216,8 +220,68 @@ def job_gather(comm, spec):
             "staged": comm.total_staged_bytes()}
 
 
+def job_delayed(comm, spec):
+    """The delayed combine across the ranks through a TrainSession with a
+    checkpoint directory: the build's warnings and combine path, the
+    cold-start correction, then 3 single-program steps (step 2 saved),
+    and step 3 redone from the restored step 2 through the stream and
+    through its serial step. Returns checksums of params and the pending
+    carry after each, and whether the ranks agree on them."""
+    import hashlib
+    import warnings
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.configs import get_reduced
+    from repro_torch.engine import EngineConfig, TrainSession
+    from repro_torch.engine.build import EngineWarning
+    from repro_torch.models import build_model
+    from repro_torch.runtime import DelayedCombineStream
+    model = build_model(get_reduced(spec["arch"]),
+                        compute_dtype=torch.float32,
+                        attn_chunk=spec["attn_chunk"])
+    cfg = EngineConfig(**spec["config"], ckpt_dir=spec["dir"])
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        s = TrainSession.from_config(
+            cfg, model=model, device="cpu", comm=comm, callbacks=[],
+            generator=torch.Generator().manual_seed(spec["seed"]))
+    warned = [str(w.message) for w in rec
+              if issubclass(w.category, EngineWarning)]
+    zero = all(bool((x == 0).all()) for x in T.leaves(
+        s.runtime.correction_fn(s.state["pending"])))
+
+    def digest():
+        h = hashlib.sha256()
+        for x in T.leaves([s.state["params"], s.state["pending"]]):
+            h.update(x.detach().clone().view(-1).numpy().tobytes())
+        return h.hexdigest()
+
+    s.fit(2)
+    s.save_sync(2)
+    s.fit(3)
+    out = {"single": digest()}
+    assert s.restore(2) == 2
+    s.use_delayed_stream(comm_delay=0.01)
+    m = s.step()
+    out["stream"] = digest()
+    out["split_keys"] = sorted(k for k in ("compute_s", "combine_wait_s")
+                               if k in m)
+    assert s.restore(2) == 2
+    serial = DelayedCombineStream(s.runtime)
+    s.state, _ = serial.serial_step(s.state, s.batch(2))
+    serial.close()
+    out["serial"] = digest()
+    # params are replicated; the carry is each rank's own lane
+    out["params_same_on_all_ranks"] = _same_on_all_ranks(
+        comm, s.state["params"])
+    out.update(warned=warned, zero=zero, path=s.run_metadata()[
+        "combine_path"], delay=s.run_metadata()["combine_delay"])
+    s.close()
+    return out
+
+
 JOBS = {"rvh": job_rvh, "train": job_train, "ckpt": job_ckpt,
-        "gather": job_gather}
+        "gather": job_gather, "delayed": job_delayed}
 
 
 def main():
