@@ -5,6 +5,7 @@
     python3 chip_smoke.py --profile        # + torch.profiler windows
     python3 chip_smoke.py --serve-ab DIR   # serve phase, DIR vs this tree
     python3 chip_smoke.py --combiners-only # phase 9 alone, no result line
+    python3 chip_smoke.py --subsystems-only # phase 10 alone, no result line
 
 --serve-ab compares two commits on one card within one call: DIR is
 another checkout of the repo (e.g. `git archive <parent> | tar -x -C
@@ -13,8 +14,8 @@ DIR's package and on this one, in turns DIR, this, this, DIR, each in a
 process of its own (this script's code, the package and its kernels
 from the tree), and a `SERVE_AB` JSON line gives the four runs' metrics.
 
-Phases, in the order they run: 1, 2, 3, 4, 8, 5, 6, 7, 9 (any error
-fails the run with a non-zero exit and no result):
+Phases, in the order they run: 1, 2, 3, 4, 8, 5, 6, 7, 9, 10 (any
+error fails the run with a non-zero exit and no result):
   1. card: print `nvidia-smi --query-gpu=name,power.limit` and require
      CUDA;
   2. build: compile every kernel under src/repro_torch/kernels/csrc with
@@ -119,7 +120,8 @@ fails the run with a non-zero exit and no result):
      loopback times (printed so; NCCL is not run). The parent first frees
      its cached card memory and prints what it still holds. gemma-7b at
      full width, depth cut to RANK_LAYERS (1 of 28), fp32 params, bf16
-     compute, seq 512, global batch RANK_BATCH, 64 MB buckets, 3 steps:
+     compute, seq 512, global batch RANK_BATCH, 64 MB buckets, RANK_STEPS
+     steps:
      (a) world 4 with sgd (the `pre` point; two RVH rounds), (b) world 2
      with adam (`post` point, per-rank state) and int8 wire compression.
      Each rank checks: one `block_dots` and one `block_combine` per
@@ -193,13 +195,43 @@ fails the run with a non-zero exit and no result):
      `block_combine` must launch in the phase (counters zeroed at its
      start; rank 0's of each launch added). `--combiners-only` builds the
      kernels and runs this phase alone.
+ 10. subsystems (ROADMAP item 8; runs last): (a) `fit_adaptive` with the
+     real `BatchController` on phase 5's model (momentum, span P10_SPAN,
+     batch P10_BATCH capped at P10_MAX_BATCH, P10_STEPS steps): the
+     noise scale of every step, the resize step and plan (batch doubled,
+     span kept at dp 1, LR times the AdaScale gain), the boundary save's
+     stall and write and the restore's load / crc / copy seconds, step ms
+     before and after, peak at most P10_MEM_GIB, each step once in order
+     and the rows doubled at the boundary (if the noise scale never
+     enters the band, a FINDING line and the same machinery with a
+     scripted plan). (c) phase 9 (a)'s delayed combine through
+     `DelayedCombineStream`: a warm-up round, then P10_SPIKE_ROUNDS rounds
+     with `comm_spike` events and as many without, params and carry
+     bitwise equal, each round's ms. (d) serve chaos on phase 4's widths
+     at P10_SERVE_LAYERS layers: slow prefill, P10_PAGES pages, two
+     requests with a deadline they cannot meet, a drain, the ladder, and
+     hot-reload watching a checkpoint whose newest step is bit-flipped:
+     every request terminal, the reload falling back to the step before,
+     no page leaked after the drain and the prefix flush, both attention
+     kernels launched. (b) `fit_elastic` in 4 rank processes on cuda:0
+     over gloo with phase 6's model (sgd): a node loss at P10_LOSS_STEP
+     whose boundary save is bit-flipped (4 -> 2 ranks, restored from the
+     periodic save before it and the step replayed), then capacity back
+     after one step (2 -> 4, the gain-rescaled LR): the steps seen, the
+     replayed step's batch checksum equal to the first attempt's, one
+     fallback and the bad step quarantined on every rank, the same logs
+     and LR everywhere, params bitwise across ranks after every step,
+     step ms at each world, the rebuilds' seconds and the saves' and
+     restores' timings. `--subsystems-only` builds the kernels and runs
+     this phase alone.
 
 The line before the last is the kernels JSON (block_dots and
 block_combine rows also carry their phase-6 launches on rank 0,
 `rvh_launches`, and their ms on the round-0 half, `rvh_half_ms`; every
 row its launches inside phase 7, `phase7_launches`; the attention rows
 their launches inside phase 8, `phase8_launches`; the Adasum rows theirs
-inside phase 9, `phase9_launches`), the
+inside phase 9, `phase9_launches`; every row its launches inside phase
+10, `phase10_launches`), the
 last line {"ok": true, "device": {...}}. Longer records go to
 chiprun_out/chip_smoke.json. fp32 matmuls run in full fp32: TF32 is
 switched off for cuBLAS and cuDNN.
@@ -210,6 +242,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import signal
 import statistics
@@ -1539,10 +1572,10 @@ def _free():
 
 
 def _step_once(model, optimizer, span, combine_impl="kernel"):
-    """Step 1 from fresh state; returns the params leaves and the host
-    copy of the combine's output (leaves, CombineStats levels)."""
+    """Step 1 from fresh state; returns the params leaves and a copy of
+    the combine's output on the card (leaves, CombineStats levels)."""
     from repro_torch import tree as T
-    timer = _CombineTimer(keep=True)
+    timer = _CombineTimer(keep=True, keep_on="cuda")
     s = _session(model, timer, combine_impl, optimizer=optimizer, span=span,
                  backend="gspmd_tree")
     s.step(s.batch(0))
@@ -1646,15 +1679,16 @@ def train_phase(card: str, profile: bool = False):
                 f"levels x 3 steps)")
         # step 1 again from fresh state: kernel path (bitwise) and the
         # plain arms on the card (combine output and stats within
-        # COMBINED_RTOL, params within TRAIN_PARAM_TOL)
+        # COMBINED_RTOL, params within TRAIN_PARAM_TOL), compared on the
+        # card now that the main session (and its peak) is gone
+        p1 = [x.cuda() for x in p1]
         again, (g_kern, lv_kern) = _step_once(model, optimizer, span)
-        bitwise = all(torch.equal(x.cuda(), y) for x, y in zip(p1, again))
+        bitwise = all(torch.equal(x, y) for x, y in zip(p1, again))
         del again
         _free()
         plain, (g_plain, lv_plain) = _step_once(model, optimizer, span,
                                                 combine_impl="plain")
-        err = max((x.cuda() - y).abs().max().item()
-                  for x, y in zip(p1, plain))
+        err = max((x - y).abs().max().item() for x, y in zip(p1, plain))
         comb_err = max(_rel_err(x, y) for x, y in zip(g_kern, g_plain))
         stats_err = max(_rel_err(x, y) for x, y in zip(lv_kern, lv_plain))
         levels_kern = lv_kern.tolist()
@@ -1708,6 +1742,8 @@ RANK_LAYERS = 1    # of gemma-7b's 28: 1.063 B params, 4.25 GB of fp32
 RANK_RUNS = (("sgd", 4, "none"), ("adam", 2, "int8"))  # optimizer, world,
                                                        # wire compression
 RANK_BATCH = 8     # global batch: 2 rows a rank at world 4, 4 at world 2
+RANK_STEPS = 2     # the main path's steps a run (the last one is the one
+                   # phase 7 (d) saves before and redoes)
 RANK_MEM_GIB = 72  # the ranks' summed peak allocation may not pass this
 RANK_TIMEOUT_S = 420
 # int8 kernel arm vs plain arm: both quantize the same raw lane halves in
@@ -1809,8 +1845,9 @@ def _gather_check(comm, world) -> bool:
 
 def rank_worker(spec: dict) -> int:
     """One rank of phase 6 (run as its own process, all on cuda:0): the
-    main path's 3 steps, then step 1 twice more from fresh state (kernel,
-    plain arm), then the synthetic RVH check; writes a JSON record."""
+    main path's RANK_STEPS steps, then step 1 twice more from fresh state
+    (kernel, plain arm), then the synthetic RVH check; writes a JSON
+    record."""
     import math
     import torch
     sys.path.insert(0, str(ROOT / "src"))
@@ -1860,10 +1897,11 @@ def rank_worker(spec: dict) -> int:
     build.reset_launches()
     steps = []
     ck = {}
-    for step in range(3):
-        if ckpt_dir and step == 2:     # phase 7 (d): save the last step's
+    last = RANK_STEPS - 1
+    for step in range(RANK_STEPS):
+        if ckpt_dir and step == last:  # phase 7 (d): save the last step's
             t0 = time.perf_counter()   # input state, all ranks
-            s.save_sync(2)
+            s.save_sync(last)
             ck["save_s"] = time.perf_counter() - t0
         staged0 = comm.total_staged_bytes()
         t0 = time.perf_counter()
@@ -1886,13 +1924,13 @@ def rank_worker(spec: dict) -> int:
     rec["launches"] = dict(build.LAUNCHES)
     comm.timing = False
     rec["steps"] = steps
-    if ckpt_dir:   # restore step 2 in place on every rank, redo step 3
+    if ckpt_dir:   # restore the last step's input on every rank, redo it
         t0 = time.perf_counter()
-        assert s.restore(2) == 2
+        assert s.restore(last) == last
         ck["restore_s"] = time.perf_counter() - t0
         ck.update({k: v for k, v in s.checkpoint.timings.items()
                    if k != "snapshot_s" or lead})
-        s.step(s.batch(2))
+        s.step(s.batch(last))
         torch.cuda.synchronize()
         ck["redo_bitwise"] = _checksums(s.state["params"]) == sums
         rec["ckpt"] = ck
@@ -1963,12 +2001,14 @@ def _launch_ranks(world: int, optimizer: str, compress: str,
 
 
 def _spawn_ranks(world: int, tag: str, spec: dict,
-                 flag: str = "--rank-worker") -> list:
+                 flag: str = "--rank-worker", beside=None) -> list:
     """`world` rank processes of this script, run with `flag` and `spec`
     (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR/PORT as torchrun sets
     them); any rank failing or outliving RANK_TIMEOUT_S fails the phase,
     and every process is stopped before this returns. Each rank writes
-    its record to the JSON file `spec["out"]` names."""
+    its record to the JSON file `spec["out"]` names. `beside()`, when
+    given, runs in this process while the ranks run, and the records
+    come back with its result, as (records, result)."""
     out = ROOT / "build" / "ranks"            # gitignored, beside the kernels
     out.mkdir(parents=True, exist_ok=True)
     port = _free_port()
@@ -1987,6 +2027,7 @@ def _spawn_ranks(world: int, tag: str, spec: dict,
             stderr=subprocess.STDOUT))
     deadline = time.monotonic() + RANK_TIMEOUT_S
     try:
+        got = beside() if beside is not None else None
         while any(p.poll() is None for p in procs):
             if any(p.poll() not in (None, 0) for p in procs):
                 break
@@ -2008,8 +2049,9 @@ def _spawn_ranks(world: int, tag: str, spec: dict,
             print(f"--- rank {r} of {tag} (rc {procs[r].returncode}):\n"
                   f"{text[-3000:]}", file=sys.stderr)
         raise AssertionError(f"ranks {tag}: rank(s) {bad} failed")
-    return [json.loads((out / f"{tag}_rank{r}.json").read_text())
+    recs = [json.loads((out / f"{tag}_rank{r}.json").read_text())
             for r in range(world)]
+    return recs if beside is None else (recs, got)
 
 
 def ranks_phase(card: str):
@@ -2044,11 +2086,11 @@ def ranks_phase(card: str):
         tag = f"{optimizer} world={world} compress={compress}"
         for rec in recs:
             for k in ("block_dots", "block_combine"):
-                assert rec["launches"][k] == 3 * per_step, (
+                assert rec["launches"][k] == RANK_STEPS * per_step, (
                     f"{tag} rank {rec['rank']}: {k} launched "
-                    f"{rec['launches'][k]} times, expected {3 * per_step} "
-                    f"({lead['buckets']} buckets x {lead['rounds']} rounds "
-                    f"x 3 steps)")
+                    f"{rec['launches'][k]} times, expected "
+                    f"{RANK_STEPS * per_step} ({lead['buckets']} buckets x "
+                    f"{lead['rounds']} rounds x {RANK_STEPS} steps)")
         steady = [r["steps"][1:] for r in recs]
         mean = lambda f: statistics.mean(f(st) for rs in steady for st in rs)
         part = lambda name: mean(lambda st: st["comm"].get(name, 0.0))
@@ -2994,6 +3036,556 @@ def combiners_phase(card: str, profile: bool = False,
     return rec
 
 
+# ------------------------------------------------ layered subsystems phase
+# (a) the adaptive-batch controller on one card: the train model, momentum,
+# span P10_SPAN, batch P10_BATCH, capped at P10_MAX_BATCH; the real
+# BatchController (warm-up 4) with P10_PATIENCE / P10_COOLDOWN resizes
+# after step 4 at the earliest, so P10_STEPS leaves three steps at the new
+# batch. P10_GROW_THRESHOLD puts the band (ema noise > threshold x batch)
+# below any positive noise scale a step can measure
+P10_SPAN = 2
+P10_BATCH = 8
+P10_MAX_BATCH = 16
+P10_PATIENCE = 2
+P10_COOLDOWN = 1
+P10_STEPS = 8
+P10_GROW_THRESHOLD = 1e-3
+P10_MEM_GIB = 70
+# (b) elastic ranks: phase 6's model at world 4, sgd, span one lane a
+# rank, one save of step P10_SAVE_STEP (no final save), a node loss at
+# P10_LOSS_STEP whose boundary save is bit-flipped, capacity back after
+# one step at world 2; P10_RANK_STEPS in all
+P10_SAVE_STEP = 2
+P10_LOSS_STEP = 3
+P10_RANK_STEPS = 4
+# (c) comm_spike: the delayed combine (phase 9 (a)'s run), an unspiked
+# warm-up round, then P10_SPIKE_ROUNDS rounds: a spike of P10_SPIKE_S
+# after each of them but the last in one run, none in the other
+P10_SPIKE_ROUNDS = 3
+P10_SPIKE_S = 0.5
+# (d) serve chaos: phase 4's widths at P10_SERVE_LAYERS layers (the
+# watched checkpoint is written twice and read back three times), 4
+# slots, P10_PAGES pages of 16 rows (the six requests need ~70 at once),
+# slow prefill, two requests with a deadline they cannot meet, a drain
+P10_SERVE_LAYERS = 2
+P10_PAGES = 40
+P10_PREFILL_SLEEP_S = 0.02
+
+
+def _mem() -> str:
+    """This process's card memory: allocated, peak and reserved GiB."""
+    import torch
+    g = lambda b: f"{b / 2 ** 30:.2f}"
+    return (f"{g(torch.cuda.memory_allocated())} GiB allocated, peak "
+            f"{g(torch.cuda.max_memory_allocated())}, reserved "
+            f"{g(torch.cuda.memory_reserved())}")
+
+
+def _p10_dir(name: str) -> Path:
+    import shutil
+    d = ROOT / "build" / name               # gitignored, beside the kernels
+    shutil.rmtree(d, ignore_errors=True)
+    return d
+
+
+class _P10Record:
+    """A Callback (duck-typed) recording, on this process: each step's
+    start (step, the session's dp, rows, batch checksum), each step's
+    seconds and params checksums, each fit start (start, dp, span, the
+    restore's timings and the wall since the last boundary), and each
+    session's checkpoint manager (its save timings; not the session,
+    whose state would then outlive it)."""
+
+    def __init__(self):
+        self.seen, self.rows, self.sums, self.dps = [], [], {}, []
+        self.steps, self.digests, self.managers = [], {}, []
+        self.boundary_t = None
+        self.replayed_equal = True
+
+    def on_fit_start(self, session, start):
+        ck = session.checkpoint
+        self.managers.append(ck)
+        print(f"[rank {os.environ.get('RANK', 0)}] fit start {start} at dp "
+              f"{session.runtime.dp_total}: {_mem()}", flush=True)
+        self.dps.append({"start": start, "dp": session.runtime.dp_total,
+                         "span": session.runtime.span,
+                         "restore": dict(ck.timings) if ck else {},
+                         "rebuild_s": (None if self.boundary_t is None else
+                                       time.perf_counter() - self.boundary_t)})
+
+    def on_step_start(self, session, step):
+        import numpy as np
+        tok = session.source.batch(step)["tokens"]
+        key = float(np.asarray(tok, np.float64).sum())
+        self.replayed_equal &= self.sums.setdefault(step, key) == key
+        self.seen.append(step)
+        self.rows.append((step, session.config.global_batch, tok.shape[0]))
+
+    def on_step_end(self, session, step, metrics, dt):
+        log = session.elastic_log or {}
+        seg = (log.get("restarts", 0) + log.get("grow_backs", 0)
+               + len(session.resize_log))
+        self.steps.append({"step": step, "dp": session.runtime.dp_total,
+                           "batch": session.config.global_batch, "s": dt,
+                           "noise_scale": metrics.get("noise_scale")})
+        self.digests[f"{seg}:{step}"] = _checksums(session.state["params"])
+        print(f"[rank {os.environ.get('RANK', 0)}] step {step} at dp "
+              f"{session.runtime.dp_total} {1e3 * dt:.0f} ms: {_mem()}",
+              flush=True)
+
+    def on_fit_end(self, session, history):
+        pass
+
+    def boundary(self, session, sig):
+        """`on_restart` hook: the boundary save has just ended."""
+        self.boundary_t = time.perf_counter()
+
+
+def _p10_adaptive(card: str, model) -> dict:
+    """(a): fit_adaptive on one card with the real BatchController."""
+    import torch
+    from repro_torch.control import (BatchController, ControllerConfig,
+                                     fit_adaptive)
+    from repro_torch.engine import EngineConfig
+    from repro_torch.kernels import build
+    from repro_torch.runtime import plan_grow
+    cfg = EngineConfig(arch="gemma-7b", seq_len=512, global_batch=P10_BATCH,
+                       fusion_threshold_mb=64, optimizer="momentum",
+                       span=P10_SPAN, backend="gspmd_tree", log_every=1,
+                       ckpt_every=0, adaptive_batch=True,
+                       grow_threshold=P10_GROW_THRESHOLD,
+                       grow_patience=P10_PATIENCE,
+                       grow_cooldown=P10_COOLDOWN,
+                       max_global_batch=P10_MAX_BATCH,
+                       ckpt_dir=str(_p10_dir("p10_adaptive")))
+
+    class Scripted(BatchController):
+        """The reference's scripted growth (tests/test_chaos.py): the
+        machinery under test when the noise scale reads 0."""
+
+        def observe(self, step, metrics):
+            # where warm-up 4 and patience 2 let the real one resize
+            if step == 4 and self.global_batch == P10_BATCH:
+                return plan_grow(self.global_batch, self.span, self.dp_total,
+                                 self.lr, max_global_batch=P10_MAX_BATCH)
+            return None
+
+    out = {}
+    for mode in ("controller", "scripted"):
+        rec = _P10Record()
+        ctrl = (None if mode == "controller" else Scripted(
+            ControllerConfig.from_engine(cfg), global_batch=P10_BATCH,
+            span=P10_SPAN, dp_total=1, lr=cfg.lr))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        hist, sess = fit_adaptive(cfg, P10_STEPS, callbacks=[rec],
+                                  controller=ctrl, model=model,
+                                  device="cuda", generator=torch.Generator(
+                                      device="cuda").manual_seed(SEED))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        # the last session stays reachable from the SIGTERM handler its
+        # fit installed (10.7 GB of params and momentum on the card)
+        signal.signal(signal.SIGTERM, signal.SIG_DFL)
+        launches = dict(build.LAUNCHES)
+        noise = [st["noise_scale"] for st in rec.steps]
+        print(f"[smoke] p10 (a) {mode}: noise_scale a step {noise} "
+              f"(band: ema > {P10_GROW_THRESHOLD:g} x batch) | {card}")
+        if mode == "controller" and not sess.resize_log:
+            print(f"[smoke] p10 (a) FINDING: the noise scale at random "
+                  f"weights never entered the band ({noise}); the same "
+                  f"machinery with a scripted plan follows | {card}")
+            out["controller_finding"] = {"noise_scale": noise}
+            sess.close()
+            del sess, rec
+            _free()
+            continue
+        first = rec.managers[0]
+        plan = sess.resize_log[0]
+        at = plan["step"]
+        before = [st["s"] for st in rec.steps if 0 < st["step"] < at]
+        after = [st["s"] for st in rec.steps if st["step"] > at]
+        res = {"mode": mode, "resize_step": at, "plan": plan,
+               "resizes": len(sess.resize_log), "noise_scale": noise,
+               "seen": rec.seen, "rows": rec.rows,
+               "save_stall_s": first.timings.get("snapshot_s"),
+               "write_s": first.timings.get("write_s"),
+               "write_gb": first.timings.get("write_bytes", 0) / 1e9,
+               "restore": rec.dps[-1]["restore"],
+               "rebuild_s": wall - sum(st["s"] for st in rec.steps),
+               "step_ms_before": 1e3 * statistics.median(before),
+               "step_ms_after": 1e3 * statistics.median(after),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "launches": launches, "wall_s": wall,
+               "losses": [h["loss"] for h in hist], "lr": sess.config.lr}
+        rows = {s: n for s, _, n in rec.rows}
+        print(f"[smoke] p10 (a) {mode}: resize at step {at}: batch "
+              f"{plan['old_batch']}->{plan['new_batch']} span "
+              f"{plan['old_span']}->{plan['new_span']} lr "
+              f"{plan['old_lr']:g}->{plan['new_lr']:g} ({plan['reason']}); "
+              f"save stall {res['save_stall_s']:.2f} s, write "
+              f"{res['write_s']:.2f} s ({res['write_gb']:.2f} GB), restore "
+              f"load/crc/copy {res['restore'].get('load_s', 0):.2f}/"
+              f"{res['restore'].get('crc_s', 0):.2f}/"
+              f"{res['restore'].get('copy_s', 0):.2f} s; step ms "
+              f"{res['step_ms_before']:.1f} -> {res['step_ms_after']:.1f}; "
+              f"rows {rows[at - 1]} -> {rows[at]}; peak "
+              f"{res['peak_gib']:.2f} GiB; launches "
+              f"{ {k: launches[k] for k in ('block_dots', 'block_combine')} }"
+              f"; wall {wall:.1f} s | {card}")
+        assert rec.seen == list(range(P10_STEPS)), rec.seen
+        assert [h["step"] for h in hist] == list(range(P10_STEPS))
+        assert rows[at] == 2 * rows[at - 1] == P10_MAX_BATCH, rec.rows
+        assert (plan["new_batch"], plan["old_span"], plan["new_span"]) == \
+            (P10_MAX_BATCH, P10_SPAN, P10_SPAN), plan
+        assert sess.config.lr == plan["new_lr"] >= plan["old_lr"]
+        assert all(math.isfinite(x) for x in res["losses"])
+        assert res["peak_gib"] <= P10_MEM_GIB, res["peak_gib"]
+        assert launches["block_dots"] > 0 and launches["block_combine"] > 0
+        sess.close()
+        del sess, rec, first
+        _free()
+        out.update(res)
+        break
+    return out
+
+
+def _p10_spike(card: str, model) -> dict:
+    """(c): comm_spike through DelayedCombineStream is latency-only."""
+    import torch
+    from repro_torch.chaos import ChaosCallback, ChaosSchedule, FaultEvent
+    from repro_torch.kernels import build
+    runs = {}
+    launches = {"block_dots": 0, "block_combine": 0}
+    for name in ("spiked", "plain"):
+        # a spike after round r slows round r + 1's exchange: rounds 1..3
+        # follow an unspiked warm-up round 0, and the spikes after rounds
+        # 1..2 slow rounds 2..3
+        events = ([FaultEvent(r, "comm_spike", P10_SPIKE_S)
+                   for r in range(1, P10_SPIKE_ROUNDS)]
+                  if name == "spiked" else [])
+        build.reset_launches()
+        s = _delay_session(model, optimizer="momentum", span=P9_SPAN,
+                           backend="gspmd_tree")
+        stream = s.use_delayed_stream(comm_delay=0.0)
+        s.fit(1)
+        s.callbacks = [ChaosCallback(ChaosSchedule(events))]
+        hist = s.fit(1 + P10_SPIKE_ROUNDS)
+        torch.cuda.synchronize()
+        runs[name] = {"round_s": [h["s"] for h in hist],
+                      "combine_wait_s": [h["combine_wait_s"] for h in hist],
+                      "delay_after": stream.comm_delay,
+                      "sums": _checksums([s.state["params"],
+                                          s.state["pending"]])}
+        for k in launches:
+            launches[k] += build.LAUNCHES[k]
+        s.close()
+        s.state = None
+        del s, stream
+        _free()
+    sp, pl = runs["spiked"], runs["plain"]
+    out = {"spike_s": P10_SPIKE_S, "rounds": P10_SPIKE_ROUNDS,
+           "spiked_round_s": sp["round_s"], "plain_round_s": pl["round_s"],
+           "spiked_wait_s": sp["combine_wait_s"],
+           "plain_wait_s": pl["combine_wait_s"],
+           "bitwise": sp["sums"] == pl["sums"], "launches": launches}
+    print(f"[smoke] p10 (c) comm_spike {P10_SPIKE_S:g} s after rounds "
+          f"1..{P10_SPIKE_ROUNDS - 1} (round 0 a warm-up): rounds 1.."
+          f"{P10_SPIKE_ROUNDS} ms spiked "
+          f"{[round(1e3 * x, 1) for x in sp['round_s']]} (wait "
+          f"{[round(1e3 * x, 1) for x in sp['combine_wait_s']]}) vs plain "
+          f"{[round(1e3 * x, 1) for x in pl['round_s']]}; params and carry "
+          f"bitwise={out['bitwise']} | {card}")
+    assert out["bitwise"], "comm_spike changed the math"
+    assert sp["delay_after"] == 0.0
+    assert min(sp["round_s"][1:]) >= P10_SPIKE_S, sp["round_s"]
+    return out
+
+
+def _p10_serve(card: str) -> dict:
+    """(d): serve chaos on the serve model at P10_SERVE_LAYERS layers."""
+    import numpy as np
+    import torch
+    from repro_torch.chaos import bitflip_leaf, slow_prefill
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.engine import (EngineConfig, GenerationRequest,
+                                    ServeEngine)
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config("qwen3-32b"),
+                              n_layers=P10_SERVE_LAYERS)
+    model = build_model(cfg, compute_dtype=torch.bfloat16,
+                        param_dtype=torch.bfloat16)
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED),
+                        device="cuda")
+    mgr = CheckpointManager(_p10_dir("p10_serve"), keep=5)
+    t0 = time.perf_counter()
+    for step in (1, 2):
+        mgr.save(step, {"params": params})
+    save_s = time.perf_counter() - t0
+    hit = bitflip_leaf(mgr.root)
+    ecfg = EngineConfig(max_slots=4, max_len=512, page_size=16,
+                        kv_pages=P10_PAGES, pressure_ladder=True,
+                        hot_reload=True, ckpt_dir=str(mgr.root),
+                        param_dtype="bfloat16")
+    eng = ServeEngine(ecfg, model, params, checkpoint=mgr)
+    undo = slow_prefill(eng, P10_PREFILL_SLEEP_S)
+    rng = np.random.RandomState(SEED)
+    V = cfg.vocab_size
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles = [eng.submit(GenerationRequest(
+        rng.randint(0, V, int(rng.randint(150, 200))), max_new_tokens=24,
+        deadline_s=(1e-3 if i in (1, 4) else None))) for i in range(6)]
+    for _ in range(3):
+        eng.step()
+    late = eng.submit(GenerationRequest(rng.randint(0, V, 120),
+                                        max_new_tokens=8))
+    eng.request_drain()
+    eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    undo()
+    launches = dict(build.LAUNCHES)
+    tp = eng.throughput()
+    reasons = [h.finish_reason for h in handles + [late]]
+    leaked = eng.leaked_pages()
+    eng.flush_prefix()
+    out = {"layers": P10_SERVE_LAYERS, "kv_pages": P10_PAGES,
+           "bitflipped_step": hit, "loaded_step": eng.loaded_step,
+           "restore_fallbacks": tp["restore_fallbacks"],
+           "quarantined": [q["step"] for q in mgr.quarantined],
+           "reasons": reasons, "terminal": all(
+               h.done for h in handles + [late]),
+           "completed": tp["completed"], "failed": tp["failed"],
+           "deadline_kills": tp["deadline_kills"],
+           "drained": tp["drained"], "preemptions": tp["preemptions"],
+           "degradation_changes": tp["degradation_changes"],
+           "leaked_after_drain": leaked,
+           "pages_used_after_flush": eng._pool.pages_used,
+           "save_s_two_steps": save_s, "wall_s": wall,
+           "launches": launches}
+    print(f"[smoke] p10 (d) serve chaos, {cfg.name} at "
+          f"{P10_SERVE_LAYERS} layers, kv_pages={P10_PAGES}, slow prefill "
+          f"{P10_PREFILL_SLEEP_S:g} s: finish reasons {reasons}; "
+          f"completed={tp['completed']} deadline_kills="
+          f"{tp['deadline_kills']} drained={tp['drained']} preemptions="
+          f"{tp['preemptions']} ladder changes="
+          f"{tp['degradation_changes']}; hot-reload: step {hit} bit-flipped"
+          f", serving step {eng.loaded_step} (fallbacks "
+          f"{tp['restore_fallbacks']}, quarantined {out['quarantined']}); "
+          f"leaked {leaked} after drain, pages used "
+          f"{out['pages_used_after_flush']} after flush; launches "
+          f"{ {k: launches[k] for k in ('flash_attention', 'paged_decode_attention')} }"
+          f"; wall {wall:.1f} s | {card}")
+    assert out["terminal"], reasons
+    assert out["loaded_step"] == 1 and out["restore_fallbacks"] == 1
+    assert out["quarantined"] == [2] and hit == 2
+    assert leaked == 0 and out["pages_used_after_flush"] == 0
+    assert out["deadline_kills"] >= 1
+    assert launches["flash_attention"] > 0 \
+        and launches["paged_decode_attention"] > 0
+    eng.close()
+    del eng, params, model, undo, handles, late
+    _free()
+    return out
+
+
+def elastic_worker(spec: dict) -> int:
+    """One rank of phase 10 (b) (its own process, all on cuda:0 over
+    gloo): fit_elastic with a node loss, a bit-flipped boundary save and
+    capacity returning; writes a JSON record."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.chaos import (CapacityReturnCallback, ChaosCallback,
+                                   ChaosSchedule, FaultEvent,
+                                   make_chaos_on_restart)
+    from repro_torch.configs import get_config
+    from repro_torch.engine import EngineConfig, fit_elastic
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model
+    from repro_torch.parallel.comm import Comm
+    rank = int(os.environ["RANK"])
+    cfg = dataclasses.replace(get_config("gemma-7b"), n_layers=RANK_LAYERS)
+    model = build_model(cfg, compute_dtype=torch.bfloat16,
+                        param_dtype=torch.float32)
+    comm = Comm.init("gloo", torch.device("cuda:0"))
+    ecfg = EngineConfig(arch="gemma-7b", seq_len=512, global_batch=RANK_BATCH,
+                        fusion_threshold_mb=64, optimizer="sgd",
+                        ckpt_every=0, log_every=1, elastic=True,
+                        ckpt_dir=spec["dir"])
+    sched = ChaosSchedule([FaultEvent(P10_LOSS_STEP, "node_loss"),
+                           FaultEvent(0, "ckpt_bitflip")])
+    rec = _P10Record()
+    hook = make_chaos_on_restart(sched, spec["dir"])
+
+    def on_restart(session, sig):
+        hook(session, sig)
+        rec.boundary(session, sig)
+
+    class SaveAt:
+        """The periodic save the fallback lands on, and no final save."""
+
+        def on_fit_start(self, session, start): ...
+
+        def on_step_start(self, session, step): ...
+
+        def on_fit_end(self, session, history): ...
+
+        def on_step_end(self, session, step, metrics, dt):
+            if step + 1 == P10_SAVE_STEP:
+                session.save(step + 1)
+
+    cbs = [rec, SaveAt(), ChaosCallback(sched),
+           CapacityReturnCallback(delay=1)]
+    build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hist, sess = fit_elastic(
+        ecfg, P10_RANK_STEPS, callbacks=cbs, model=model, device="cuda:0",
+        generator=torch.Generator(device="cuda:0").manual_seed(SEED),
+        comm=comm, on_restart=on_restart)
+    wall = time.perf_counter() - t0
+    saves = [dict(ck.timings) for ck in rec.managers]
+    out = {"rank": rank, "seen": rec.seen, "dps": rec.dps,
+           "steps": rec.steps, "digests": rec.digests,
+           "replayed_equal": rec.replayed_equal,
+           "hist": [h["step"] for h in hist],
+           "losses": [h["loss"] for h in hist], "log": sess.elastic_log,
+           "resilience": sess.run_metadata()["resilience"],
+           "lr": sess.config.lr, "dp": sess.runtime.dp_total,
+           "pending": [e.kind for e in sched.pending()],
+           "save_timings": saves, "wall_s": wall,
+           "launches": dict(build.LAUNCHES),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    sess.close()
+    comm.close()
+    Path(spec["out"]).write_text(json.dumps(out, default=str))
+    return 0
+
+
+def _p10_elastic(card: str, beside) -> tuple:
+    """(b): 4 -> 2 -> 4 gloo ranks on cuda:0 through fit_elastic, with
+    `beside()` run in this process meanwhile; returns (b)'s record and
+    what `beside` returned."""
+    import shutil
+    d = _p10_dir("p10_elastic")
+    t0 = time.perf_counter()
+    recs, got = _spawn_ranks(4, "elastic_w4", {"dir": str(d)},
+                             flag="--elastic-worker", beside=beside)
+    wall = time.perf_counter() - t0
+    shutil.rmtree(d, ignore_errors=True)
+    r0 = recs[0]
+    keys = set().union(*(r["digests"] for r in recs))
+    bitwise = all(len({json.dumps(r["digests"][k]) for r in recs
+                       if k in r["digests"]}) == 1 for k in keys)
+    at = {}
+    for st in r0["steps"]:
+        at.setdefault(st["dp"], []).append(1e3 * st["s"])
+    log = r0["log"]
+    gb = log["plans"][-1]
+    decisions = lambda lg: [lg[k] for k in ("restarts", "grow_backs",
+                                            "plans")]
+    # rank 0's sessions: the restore each began with (none the first),
+    # the last save each made (the boundary's, but the last session's)
+    pick = lambda d, keys: {k: round(d[k], 2) for k in keys if k in d}
+    segments = [{"start": x["start"], "dp": x["dp"], "span": x["span"],
+                 "rebuild_s": (None if x["rebuild_s"] is None
+                               else round(x["rebuild_s"], 2)),
+                 "restore_s": pick(x["restore"], ("load_s", "crc_s",
+                                                  "copy_s")),
+                 "save_s": pick(sv, ("snapshot_s", "write_s"))}
+                for x, sv in zip(r0["dps"], r0["save_timings"])]
+    out = {"seen": r0["seen"], "dps": [(x["start"], x["dp"], x["span"])
+                                       for x in r0["dps"]],
+           "step_ms_by_dp": at, "resilience": r0["resilience"],
+           "plans": log["plans"], "lr": r0["lr"], "segments": segments,
+           "bitwise": bitwise,
+           "replayed_equal": all(r["replayed_equal"] for r in recs),
+           "peak_gib": [r["peak_gib"] for r in recs],
+           "launches": r0["launches"], "wall_s": wall}
+    print(f"[smoke] p10 (b) elastic, 4 gloo ranks on cuda:0 (loopback): "
+          f"seen={out['seen']} fit starts (start, dp, span)={out['dps']}; "
+          f"plans={log['plans']}; resilience={out['resilience']}; step ms "
+          f"by dp { {k: [round(x, 1) for x in v] for k, v in at.items()} }; "
+          f"rank 0's segments (rebuild s from the boundary's save to the "
+          f"fit start, restore load/crc/copy s, boundary save snapshot/"
+          f"write s) {segments}; peaks GiB "
+          f"{[round(x, 2) for x in out['peak_gib']]}; params bitwise across "
+          f"ranks every step={bitwise}; launches rank 0 "
+          f"{ {k: r0['launches'][k] for k in ('block_dots', 'block_combine')} }"
+          f"; wall {wall:.1f} s | {card}")
+    steps = P10_RANK_STEPS
+    want_seen = (list(range(P10_LOSS_STEP + 1))
+                 + list(range(P10_LOSS_STEP - 1, steps)))
+    assert r0["seen"] == want_seen, r0["seen"]
+    assert out["dps"] == [(0, 4, 4), (P10_LOSS_STEP - 1, 2, 2),
+                          (P10_LOSS_STEP, 4, 4)], out["dps"]
+    assert out["replayed_equal"] and bitwise
+    for r in recs:
+        assert r["resilience"]["restore_fallbacks"] == 1, r["resilience"]
+        assert r["resilience"]["quarantined_steps"] == [P10_LOSS_STEP]
+        assert decisions(r["log"]) == decisions(log)
+        assert r["lr"] == gb["new_lr"] and r["pending"] == []
+        assert all(math.isfinite(x) for x in r["losses"])
+    assert [p["kind"] for p in log["plans"]] == ["shrink", "grow_back"]
+    assert sum(out["peak_gib"]) <= RANK_MEM_GIB, out["peak_gib"]
+    assert r0["launches"]["block_dots"] > 0
+    return out, got
+
+
+def subsystems_phase(card: str) -> dict:
+    """Phase 10: the adaptive-batch controller, comm_spike, serve chaos and
+    elastic shrink / grow-back across ranks (ROADMAP item 8)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    t_phase = time.perf_counter()
+    part_s = {}
+    cfg = dataclasses.replace(get_config("gemma-7b"), n_layers=TRAIN_LAYERS)
+    model = build_model(cfg, compute_dtype=torch.bfloat16,
+                        param_dtype=torch.float32)
+    rec = {"adaptive": _p10_adaptive(card, model)}
+    part_s["a"] = time.perf_counter() - t_phase
+    print(f"[smoke] p10 (c): this process holds {_mem()} | {card}")
+    t0 = time.perf_counter()
+    rec["spike"] = _p10_spike(card, model)
+    part_s["c"] = time.perf_counter() - t0
+    del model
+    _free()
+    print(f"[smoke] p10 (b) ranks: gloo over host memory, every rank on "
+          f"cuda:0, with (d) in this process meanwhile (its ~15 GiB beside "
+          f"the ranks' ~48); this process holds {_mem()} | {card}")
+
+    def serve_part():
+        t = time.perf_counter()
+        got = _p10_serve(card)
+        part_s["d"] = time.perf_counter() - t
+        return got
+
+    t0 = time.perf_counter()
+    rec["elastic"], rec["serve"] = _p10_elastic(card, serve_part)
+    part_s["b"] = time.perf_counter() - t0
+    launches = {k: rec["adaptive"]["launches"][k] + rec["spike"][
+        "launches"][k] + rec["elastic"]["launches"][k]
+        for k in ("block_dots", "block_combine")}
+    launches.update({k: rec["serve"]["launches"][k]
+                     for k in ("flash_attention", "paged_decode_attention")})
+    rec["launches"] = launches
+    rec["part_s"] = part_s
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"[smoke] subsystems launches={launches} parts "
+          f"{ {k: round(v, 1) for k, v in part_s.items()} } s, phase "
+          f"{rec['phase_s']:.1f}s | {card}")
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3007,6 +3599,11 @@ def main(argv=None) -> int:
     ap.add_argument("--rank-worker", metavar="SPEC", help=argparse.SUPPRESS)
     ap.add_argument("--combiners-worker", metavar="SPEC",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--elastic-worker", metavar="SPEC",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--subsystems-only", action="store_true",
+                    help="build the kernels and run phase 10 alone; prints "
+                    "no result line")
     ap.add_argument("--combiners-only", action="store_true",
                     help="build the kernels and run phase 9 alone (with "
                     "--profile: and trace one overlapped and one serial "
@@ -3016,6 +3613,8 @@ def main(argv=None) -> int:
         return rank_worker(json.loads(args.rank_worker))
     if args.combiners_worker:           # one rank of phase 9 (c)
         return combiners_worker(json.loads(args.combiners_worker))
+    if args.elastic_worker:             # one rank of phase 10 (b)
+        return elastic_worker(json.loads(args.elastic_worker))
 
     card = _smi()
     print(card)
@@ -3054,23 +3653,47 @@ def main(argv=None) -> int:
         if args.combiners_only:
             record["combiners"] = combiners_phase(card, args.profile)
             return 0
+        if args.subsystems_only:
+            record["subsystems"] = subsystems_phase(card)
+            return 0
+        walls = record["phase_wall_s"] = {"2": secs}
+        t_mark = [time.perf_counter()]
+
+        def mark(phase: str):
+            now = time.perf_counter()
+            walls[phase] = now - t_mark[0]
+            t_mark[0] = now
+
         cases = record["kernel_cases"] = kernel_phase()
+        mark("3")
         record["serve"], parts = serve_phase(card, args.profile)
+        mark("4")
         record["serve_ext"] = ext_phase(card, *parts)
         del parts
         _free()
+        mark("8")
         record["train"] = train_phase(card, args.profile)
+        mark("5")
         record["ranks"] = ranks_phase(card)
         _free()
+        mark("6")
         record["ckpt"] = ckpt_phase(card, record["ranks"])
         # phase 7's last session stays reachable from the SIGTERM handler
         # its checkpoint manager installed (as the reference's does): 12
         # GiB of params and state on the card until the handler goes
         signal.signal(signal.SIGTERM, signal.SIG_DFL)
         _free()
+        mark("7")
         record["combiners"] = combiners_phase(
             card, args.profile, record["train"]["runs"][
                 "{}_span{}".format(*TRAIN_RUNS[0])]["params_sums_step1"])
+        _free()
+        mark("9")
+        record["subsystems"] = subsystems_phase(card)
+        mark("10")
+        print(f"[smoke] phase wall s "
+              f"{ {k: round(v, 1) for k, v in walls.items()} }, phases 2-10 "
+              f"{sum(walls.values()):.1f} s | {card}")
     except Exception:                   # any phase failing fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -3103,6 +3726,7 @@ def main(argv=None) -> int:
     # kernels' inside phase 9
     ext_launches = record["serve_ext"]["launches"]
     p9_launches = record["combiners"]["launches"]
+    p10_launches = record["subsystems"]["launches"]
     main_cases = {"serve_extend", "serve_tick", "embed_fp32"}
     sources = {
         "flash_attention": ("csrc/flash_attention.cu",
@@ -3129,7 +3753,8 @@ def main(argv=None) -> int:
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
             "device_ms": c.get("device_ms"),
             "library_device_ms": c.get("library_device_ms"),
-            "phase7_launches": ck_launches[c["kernel"]]})
+            "phase7_launches": ck_launches[c["kernel"]],
+            "phase10_launches": p10_launches[c["kernel"]]})
         if c["kernel"] in ("flash_attention", "paged_decode_attention"):
             rows[-1]["phase8_launches"] = ext_launches[c["kernel"]]
         if c["kernel"] in rvh_ms:

@@ -345,15 +345,18 @@ class CheckpointManager:
             f"integrity validation (all quarantined)")
 
     def restore(self, like: PyTree, step: Optional[int] = None,
-                rows: Optional[Dict[str, int]] = None) -> PyTree:
+                rows: Optional[Dict[str, Tuple[int, int]]] = None) -> PyTree:
         """Restore into the structure — and the live tensors — of `like`:
         each tensor leaf is overwritten in place (its device and dtype
         kept), ints come back as ints. Shapes may differ on the lane axis
-        (see reshard_lanes). `rows` maps a manifest path to the row of
-        the stored leaf this process holds (a rank's own lane of
-        [world, ...] optimizer state). Every leaf is validated first;
-        with step=None a corrupt newest step is quarantined and the
-        previous one restored."""
+        (see reshard_lanes). `rows` maps a manifest path to (lane, span)
+        for a leaf this process holds one lane of (a rank's own lane of
+        [span, ...] optimizer state or pending carry): the stored [old
+        span, ...] leaf is resharded to [span, ...] first, then the
+        process takes row `lane` — so a span change folds or repeats the
+        lanes as the full leaf does. Every leaf is validated first; with
+        step=None a corrupt newest step is quarantined and the previous
+        one restored."""
         step, meta, arrays = self._resolve_verified(step)
         leaves, treedef = T.flatten(like)
         files = _leaf_files(len(leaves))
@@ -374,11 +377,12 @@ class CheckpointManager:
         out = []
         for leaf, fname, lpath in zip(leaves, files, _leaf_paths(like)):
             arr = arrays.pop(fname)
-            if lpath in rows:
-                arr = arr[rows[lpath]]
             want = tuple(np.shape(leaf))
-            if tuple(arr.shape) != want:
-                arr = reshard_lanes(arr, want)
+            if lpath in rows:
+                lane, span = rows[lpath]
+                arr = _reshard(arr, (span,) + want, dtypes[fname])[lane]
+            elif tuple(arr.shape) != want:
+                arr = _reshard(arr, want, dtypes[fname])
             out.append(_into(leaf, arr, dtypes[fname]))
             del arr
         if torch.cuda.is_available() and torch.cuda.is_initialized():
@@ -524,6 +528,17 @@ class AsyncCheckpointManager(CheckpointManager):
             save_fn()      # session.save_sync: snapshot + barrier
             raise SystemExit(143)
         signal.signal(signal.SIGTERM, handler)
+
+
+def _reshard(arr: np.ndarray, want: tuple, dtype: str) -> np.ndarray:
+    """`reshard_lanes` in the manifest's dtype: bfloat16 leaves (raw
+    16-bit payloads here) are folded as values, in fp32, then rounded
+    back to bfloat16 bits."""
+    if tuple(arr.shape) == tuple(want) or dtype != BF16:
+        return reshard_lanes(arr, want)
+    vals = to_tensor(arr, BF16).float().numpy()
+    out = torch.from_numpy(np.ascontiguousarray(reshard_lanes(vals, want)))
+    return host_leaf(out.to(torch.bfloat16)).arr
 
 
 def reshard_lanes(arr: np.ndarray, want: tuple) -> np.ndarray:

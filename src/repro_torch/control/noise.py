@@ -1,6 +1,6 @@
 """Gradient-noise-scale metrics from Adasum's free dot-product signal (the
-port's subset of `repro/control/noise.py`: `STAT_KEYS` and
-`summarize_stats`; the controller is ROADMAP.md queue 1 item 8).
+port of `repro/control/noise.py`: torch in the step, host floats in the
+controller).
 
 Level 0 of `CombineStats` ({'levels': f32 [L, 3]}, rows [Σ dot, Σ ‖a‖²,
 Σ ‖b‖²]) pairs lanes that computed gradients on independent batch
@@ -11,7 +11,8 @@ noise_scale = b_lane · var / mu2, and AdaScale's gain
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+import math
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -48,3 +49,40 @@ def summarize_stats(stats: Dict[str, Any], span: int, lane_rows: int
             "lane_cos": f32(lane_cos), "grad_var": f32(var),
             "grad_mu2": f32(mu2), "gain_ratio": f32(gain),
             "noise_scale": f32(noise)}
+
+
+def gain_for_factor(var: float, mu2: float, factor: float) -> float:
+    """AdaScale gain of growing the lane count / batch by `factor`,
+    given the current per-lane variance and squared-mean estimates —
+    the LR rescale the controller applies at a resize (host floats)."""
+    if factor <= 1.0:
+        return 1.0
+    g = (var + mu2) / (var / factor + mu2 + EPS)
+    return float(min(max(g, 1.0), factor))
+
+
+class NoiseEMA:
+    """Debiased exponential moving average over a host-side scalar
+    stream, NaN/inf-guarded (a divergent step must not poison the
+    controller): `update(x)` returns the current debiased mean."""
+
+    def __init__(self, decay: float = 0.9):
+        assert 0.0 <= decay < 1.0, decay
+        self.decay = decay
+        self._acc = 0.0
+        self._w = 0.0
+        self.count = 0
+
+    def update(self, x: Optional[float]) -> Optional[float]:
+        if x is None or not math.isfinite(x):
+            return self.value
+        self._acc = self.decay * self._acc + (1.0 - self.decay) * float(x)
+        self._w = self.decay * self._w + (1.0 - self.decay)
+        self.count += 1
+        return self.value
+
+    @property
+    def value(self) -> Optional[float]:
+        if self._w <= 0.0:
+            return None
+        return self._acc / self._w

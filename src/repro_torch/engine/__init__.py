@@ -9,7 +9,9 @@ the lanes stacked on one device or one lane per rank).
   session   TrainSession — config -> model, runtime, data, state, fit(),
             checkpoints; the loop's callbacks; ServeSession, the legacy
             batch-serving surface
-  pipeline  StepPipeline — resume, prefetch, callbacks, writer barriers
+  pipeline  StepPipeline — resume, prefetch, callbacks, writer barriers;
+            fit_elastic (shrink on node loss / a flagged straggler, grow
+            back when capacity returns)
   serving   ServeEngine — continuous batching over a paged or dense KV
             cache, speculation, preemption, deadlines and drain, the
             pressure ladder, checkpoint serving and hot-reload
@@ -23,7 +25,7 @@ from .registry import (available_combiners, make_combiner,
 from .session import (Callback, CheckpointCallback, FailureInjectionCallback,
                       LoggingCallback, ServeSession, StragglerCallback,
                       TrainSession, default_callbacks)
-from .pipeline import StepPipeline
+from .pipeline import StepPipeline, fit_elastic
 from .serving import (GenerationRequest, HotReloader, PressureLadder,
                       RequestHandle, ServeEngine)
 
@@ -35,4 +37,4 @@ __all__ = ["EngineConfig", "ServeEngine", "ServeSession", "GenerationRequest",
            "make_combiner", "register_combiner", "Callback",
            "LoggingCallback", "CheckpointCallback", "StragglerCallback",
            "FailureInjectionCallback", "TrainSession", "default_callbacks",
-           "StepPipeline", "HotReloader"]
+           "StepPipeline", "fit_elastic", "HotReloader"]

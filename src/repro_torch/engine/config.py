@@ -4,7 +4,10 @@
 Field names, defaults and checks match the reference, so a config means
 the same in both packages; `from_cli` parses the train CLI with the
 reference's flags and preset table. Options a later slice brings raise
-`NotImplementedError` naming their ROADMAP item.
+`NotImplementedError` naming their ROADMAP item. The controller knobs
+(`grow_*`, `max_global_batch`, `lr_rescale`, `noise_ema`,
+`shrink_threshold`, `min_global_batch`) drive `fit_adaptive`; `elastic`
+drives `fit_elastic`.
 
 Span rules. Across ranks (`validate(dp_total=W)` with W > 1, one
 process per rank) they are the reference's (config.py:309-313): span <=
@@ -26,7 +29,7 @@ from typing import Any, Dict, Optional
 
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.parallel.policy import RunPolicy
-from repro_torch.runtime import ITEM_SHARDING, ITEM_SUBSYSTEMS, not_ported
+from repro_torch.runtime import ITEM_SHARDING, not_ported
 
 PARAM_DTYPES = ("float32", "bfloat16")
 _COMBINE_OPS = ("adasum", "sum", "mean")
@@ -99,9 +102,35 @@ class EngineConfig:
     device_stage: bool = False  # the prefetch thread also copies the
                                 # batch to the card (side CUDA stream)
     async_checkpoint: bool = True   # off-thread checkpoint writes
-    elastic: bool = False
+    elastic: bool = False       # straggler flag / node loss => checkpoint
+                                # + halve-DP restart (fit_elastic; needs
+                                # ckpt_dir)
+
+    # ---- adaptive batch/span controller (repro_torch.control) ----
     combine_stats: bool = True  # CombineStats per-step metrics
-    adaptive_batch: bool = False
+    adaptive_batch: bool = False # gradient-noise-adaptive controller:
+                                # grow global_batch (and span) when the
+                                # EMA noise scale exceeds the band, via
+                                # save -> rebuild -> resume (needs
+                                # ckpt_dir; driven by fit_adaptive)
+    grow_factor: int = 2        # batch multiplier per resize (AdaBatch
+                                # doubling; power of two when grow_span)
+    grow_threshold: float = 2.0 # resize while ema_noise > threshold *
+                                # global_batch (hysteresis: reset below
+                                # threshold/2)
+    grow_patience: int = 8      # consecutive in-band steps before a resize
+    grow_cooldown: int = 16     # steps after a resize before re-arming
+    max_global_batch: int = 0   # controller hard cap (0 = uncapped)
+    grow_span: bool = True      # grow Adasum span with the batch (kept a
+                                # power-of-two divisor of dp)
+    lr_rescale: str = "adascale" # LR rule at a resize: 'adascale' gain |
+                                # 'linear' | 'none'
+    noise_ema: float = 0.9      # noise-scale EMA decay
+    shrink_threshold: float = 0.0 # shrink while ema_noise < this *
+                                # global_batch (0 = shrink direction off;
+                                # must stay below grow_threshold); LR is
+                                # divided by the gain growth multiplied by
+    min_global_batch: int = 0   # controller shrink floor (0 = span floor)
 
     # ---- serving (engine/serving.ServeEngine) ----
     max_slots: int = 8          # continuous-batching decode slot pool
@@ -137,12 +166,6 @@ class EngineConfig:
     def validate(self, dp_total: Optional[int] = None) -> "EngineConfig":
         """Cross-field checks; returns self so it chains. Pass `dp_total`
         (1 on one device) for the span and batch checks."""
-        if self.adaptive_batch and self.combine_delay:
-            raise ValueError(
-                "adaptive_batch and combine_delay are mutually exclusive: "
-                "CombineStats are collected on the synchronous combine "
-                "paths only (the delayed carry's dots describe the "
-                "previous round)")
         self._refuse_later()
         if self.param_dtype not in PARAM_DTYPES:
             raise ValueError(f"param_dtype={self.param_dtype!r}; expected "
@@ -190,6 +213,7 @@ class EngineConfig:
                 "use local_steps to amortize syncs instead")
         if self.data_kind == "memmap" and not self.data_path:
             raise ValueError("data_kind='memmap' needs data_path")
+        self._validate_controller()
         if self.max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {self.max_slots}")
         if self.max_len < 0:
@@ -266,19 +290,74 @@ class EngineConfig:
                     f"({lane_rows}) divisible by it")
         return self
 
+    def _validate_controller(self) -> None:
+        """The controller knobs and the drivers' cross-field rules (the
+        reference's, config.py:206-262)."""
+        if self.grow_factor < 2:
+            raise ValueError(f"grow_factor must be >= 2 (AdaBatch-style "
+                             f"multiplicative growth), got {self.grow_factor}")
+        if self.grow_span and self.grow_factor & (self.grow_factor - 1):
+            raise ValueError(
+                f"grow_factor={self.grow_factor} must be a power of two "
+                f"when grow_span=True (the span must stay a power-of-two "
+                f"divisor of dp); set grow_span=False for other factors")
+        if self.grow_threshold <= 0:
+            raise ValueError(f"grow_threshold must be > 0, got "
+                             f"{self.grow_threshold}")
+        if self.grow_patience < 1 or self.grow_cooldown < 0:
+            raise ValueError("grow_patience must be >= 1 and grow_cooldown "
+                             ">= 0")
+        if self.max_global_batch < 0:
+            raise ValueError(f"max_global_batch must be >= 0 (0 = "
+                             f"uncapped), got {self.max_global_batch}")
+        if not 0.0 <= self.noise_ema < 1.0:
+            raise ValueError(f"noise_ema must be in [0, 1), got "
+                             f"{self.noise_ema}")
+        if self.shrink_threshold < 0:
+            raise ValueError(f"shrink_threshold must be >= 0 (0 = shrink "
+                             f"off), got {self.shrink_threshold}")
+        if self.shrink_threshold and (self.shrink_threshold
+                                      >= self.grow_threshold):
+            raise ValueError(
+                f"shrink_threshold={self.shrink_threshold} must stay "
+                f"below grow_threshold={self.grow_threshold} (the bands "
+                f"must not overlap or the controller oscillates)")
+        if self.min_global_batch < 0:
+            raise ValueError(f"min_global_batch must be >= 0, got "
+                             f"{self.min_global_batch}")
+        if self.lr_rescale not in ("adascale", "linear", "none"):
+            raise ValueError(f"lr_rescale={self.lr_rescale!r}; expected "
+                             f"adascale | linear | none")
+        if self.adaptive_batch:
+            if not self.ckpt_dir:
+                raise ValueError("adaptive_batch=True needs ckpt_dir (a "
+                                 "resize resumes from the checkpoint "
+                                 "manifest)")
+            if not self.combine_stats:
+                raise ValueError("adaptive_batch=True needs "
+                                 "combine_stats=True (the controller is "
+                                 "driven by the combiner's noise signal)")
+            if self.combine_delay:
+                raise ValueError(
+                    "adaptive_batch and combine_delay are mutually "
+                    "exclusive: CombineStats are collected on the "
+                    "synchronous combine paths only (the delayed carry's "
+                    "dots describe the previous round)")
+            if self.elastic:
+                raise ValueError(
+                    "adaptive_batch and elastic are mutually exclusive "
+                    "drivers (fit_adaptive vs fit_elastic) — straggler "
+                    "shrink + noise growth composition is not supported "
+                    "yet")
+        if self.elastic and not self.ckpt_dir:
+            raise ValueError("elastic=True needs ckpt_dir (restarts "
+                             "resume from the checkpoint manifest)")
+
     def _refuse_later(self) -> None:
         """Options of later slices, each naming its ROADMAP item."""
-        later = [
-            (self.elastic, "elastic restarts (elastic, fit_elastic)",
-             ITEM_SUBSYSTEMS),
-            (self.adaptive_batch, "the adaptive batch controller "
-             "(adaptive_batch)", ITEM_SUBSYSTEMS),
-            (self.model_mesh > 1, "tensor-parallel meshes (model_mesh > 1)",
-             ITEM_SHARDING),
-        ]
-        for asked, what, item in later:
-            if asked:
-                raise not_ported(what, item)
+        if self.model_mesh > 1:
+            raise not_ported("tensor-parallel meshes (model_mesh > 1)",
+                             ITEM_SHARDING)
 
     def serve_max_len(self) -> int:
         """The per-slot cache capacity the serve engine builds: `max_len`
@@ -399,11 +478,49 @@ class EngineConfig:
                         "card on a side stream instead of host staging")
         ap.add_argument("--sync-checkpoint", action="store_true",
                         help="block the step loop on checkpoint writes")
-        ap.add_argument("--elastic", action="store_true", default=None)
+        ap.add_argument("--elastic", action="store_true", default=None,
+                        help="straggler flag => checkpoint + halve-DP "
+                        "restart (needs --ckpt-dir)")
         ap.add_argument("--no-combine-stats", action="store_true",
                         help="drop the CombineStats per-step metrics")
         ap.add_argument("--adaptive-batch", action="store_true",
-                        default=None, dest="adaptive_batch")
+                        default=None, dest="adaptive_batch",
+                        help="noise-adaptive controller: grow batch/span "
+                        "when measured gradient noise exceeds the band "
+                        "(needs --ckpt-dir)")
+        ap.add_argument("--grow-factor", type=int, default=None,
+                        dest="grow_factor",
+                        help="batch multiplier per adaptive resize")
+        ap.add_argument("--grow-threshold", type=float, default=None,
+                        dest="grow_threshold",
+                        help="resize while ema noise_scale > threshold * "
+                        "global_batch")
+        ap.add_argument("--grow-patience", type=int, default=None,
+                        dest="grow_patience",
+                        help="consecutive in-band steps before a resize")
+        ap.add_argument("--grow-cooldown", type=int, default=None,
+                        dest="grow_cooldown",
+                        help="steps after a resize before re-arming")
+        ap.add_argument("--max-global-batch", type=int, default=None,
+                        dest="max_global_batch",
+                        help="adaptive controller batch cap (0 = uncapped)")
+        ap.add_argument("--no-grow-span", action="store_true",
+                        help="adaptive resizes grow only the batch, "
+                        "never the Adasum span")
+        ap.add_argument("--shrink-threshold", type=float, default=None,
+                        dest="shrink_threshold",
+                        help="adaptive shrink band: halve while ema "
+                        "noise_scale < threshold * global_batch (0 = off)")
+        ap.add_argument("--min-global-batch", type=int, default=None,
+                        dest="min_global_batch",
+                        help="adaptive controller shrink floor (0 = span "
+                        "floor only)")
+        ap.add_argument("--lr-rescale", default=None, dest="lr_rescale",
+                        choices=["adascale", "linear", "none"],
+                        help="LR rule at an adaptive resize")
+        ap.add_argument("--noise-ema", type=float, default=None,
+                        dest="noise_ema",
+                        help="noise-scale EMA decay in [0, 1)")
         ap.add_argument("--hot-reload", action="store_true", default=None,
                         dest="hot_reload",
                         help="serving: pick up new checkpoints mid-stream")
@@ -427,6 +544,8 @@ class EngineConfig:
             over["async_checkpoint"] = False
         if args.no_combine_stats:
             over["combine_stats"] = False
+        if args.no_grow_span:
+            over["grow_span"] = False
         # local CLI runs: the pod-scale FSDP/ZeRO-2 presets are switched
         # off, as the reference's CLI does
         over.setdefault("fsdp", False)

@@ -13,10 +13,12 @@ from the latest checkpoint when one is ahead of the live state, batches
 prefetched on a background thread, periodic atomic checkpoints written
 off-thread (`CheckpointCallback`, the async manager), a SIGTERM save,
 straggler monitoring (`StragglerCallback`) and, for drills, injected
-node failures (`FailureInjectionCallback`). The elastic restart loop
-is ROADMAP.md queue 1 item 8. With combine_delay=1 the state carries the
-pending carry (`state["pending"]`), which checkpoints hold, and
-`use_delayed_stream` runs its correction beside the local step.
+node failures (`FailureInjectionCallback`). The elastic driver
+(`pipeline.fit_elastic`) and the adaptive-batch driver
+(`control.resize.fit_adaptive`) rebuild sessions around it and attach
+their logs (`elastic_log`, `resize_log`). With combine_delay=1 the state
+carries the pending carry (`state["pending"]`), which checkpoints hold,
+and `use_delayed_stream` runs its correction beside the local step.
 
 Weights come from the port's seeded generator: the reference's
 `jax.random.key(0)` draws cannot be reproduced in torch.
@@ -39,7 +41,13 @@ rank 0 one leaf at a time as the reference's full logical leaf
 a restore gives each rank its own lane's row. The delayed combine's
 pending carry is one lane a rank at every point, and goes the same way:
 the checkpoint holds the reference's [span, ...] fp32 leaves under
-`['pending']`. Saves and restores are collective: every rank calls them.
+`['pending']`. A restore across a span change reshards the stored
+[old span, ...] leaf to [span, ...] before it takes the rank's row (the
+reference's `reshard_lanes` of the full leaf). Saves and restores are
+collective: every rank calls them; rank 0 validates a restore, and the
+other ranks take its integrity counters. With more ranks than the span
+asked (`span > world`, as after an elastic shrink) `from_config` clamps
+the span to 0, one lane a rank, as the reference does for span > dp.
 """
 from __future__ import annotations
 
@@ -55,6 +63,7 @@ from repro_torch.checkpoint import AsyncCheckpointManager, CheckpointManager
 from repro_torch.checkpoint.manager import HostLeaf, host_leaf
 from repro_torch.configs.base import get_config, get_reduced
 from repro_torch.control.noise import STAT_KEYS
+from repro_torch.control.telemetry import run_fingerprint
 from repro_torch.data import make_source
 from repro_torch.models import build_model
 from repro_torch.models.api import Model
@@ -169,6 +178,10 @@ class TrainSession:
         self.state: PyTree = runtime.init_state(generator)
         self._last_stats: Dict[str, float] = {}
         self._delayed_stream = None
+        # attached by the drivers: fit_elastic's shared restart log, and
+        # fit_adaptive's executed resize plans
+        self.elastic_log: Optional[Dict[str, Any]] = None
+        self.resize_log: List[Dict[str, Any]] = []
 
     @classmethod
     def from_config(cls, config: EngineConfig, *, model: Optional[Model] = None,
@@ -186,11 +199,7 @@ class TrainSession:
         config.validate()
         world = (comm.world if comm is not None
                  else int(os.environ.get("WORLD_SIZE", "1")))
-        local_rank = (int(os.environ.get("LOCAL_RANK", "0")) if world > 1
-                      else None)
-        dev = resolve_device(device if device is not None
-                             or generator is None else generator.device,
-                             local_rank=local_rank)
+        dev = session_device(device, generator, world)
         gen = generator if generator is not None else make_generator(dev)
         if gen.device.type != dev.type:
             raise ValueError(f"generator on {gen.device}, session on {dev}")
@@ -208,6 +217,10 @@ class TrainSession:
             comm = Comm.init(dist_backend or ("nccl" if dev.type == "cuda"
                                               else "gloo"), dev)
         try:
+            # span can't exceed the ranks: one lane a rank (the
+            # reference's clamp of span > dp, session.py:177-180)
+            if world > 1 and config.span > world:
+                config = dataclasses.replace(config, span=0)
             # the span and batch checks come after the model's family check
             config.validate(dp_total=world)
             runtime = build_runtime(model, config.run_policy(), lr=config.lr,
@@ -227,8 +240,9 @@ class TrainSession:
             raise
 
     def run_metadata(self) -> Dict[str, Any]:
-        """What actually ran: the resolved combine path, the topology and
-        the CombineStats keys seen last."""
+        """What actually ran: the resolved combine path, the topology, the
+        CombineStats keys seen last, the fault-recovery counts and the
+        run's fingerprint (git SHA, config hash)."""
         rt = self.runtime
         return {"arch": self.config.arch or self.model.cfg.name,
                 "combine": self.config.combine,
@@ -247,20 +261,29 @@ class TrainSession:
                                  if self.comm else 0),
                 "stats_enabled": rt.combine_stats,
                 "combine_stats": dict(self._last_stats),
+                "adaptive_batch": self.config.adaptive_batch,
                 "global_batch": self.config.global_batch,
                 "lr": self.config.lr,
-                "resilience": self._resilience_metadata()}
+                "resilience": self._resilience_metadata(),
+                **run_fingerprint(self.config)}
 
     def _resilience_metadata(self) -> Dict[str, Any]:
-        """Fault-recovery accounting: checkpoint restore fallbacks and
-        quarantined steps (from the manager). Restarts and grow-backs
-        belong to the elastic restarts (ROADMAP.md queue 1 item 8) and are
-        0 here."""
-        ck = self.checkpoint
-        return {"restore_fallbacks": ck.restore_fallbacks if ck else 0,
-                "quarantined_steps": ([q["step"] for q in ck.quarantined]
-                                      if ck else []),
-                "restarts": 0, "grow_backs": 0}
+        """Fault-recovery accounting for the run: checkpoint restore
+        fallbacks and quarantined steps (from the manager) and the
+        elastic restart / grow-back counts (attached by fit_elastic),
+        cumulative across elastic rebuilds: earlier sessions' counters
+        are banked in elastic_log."""
+        log = self.elastic_log or {}
+        out: Dict[str, Any] = {
+            "restore_fallbacks": log.get("prior_restore_fallbacks", 0),
+            "quarantined_steps": list(log.get("prior_quarantined", [])),
+            "restarts": log.get("restarts", 0),
+            "grow_backs": log.get("grow_backs", 0)}
+        if self.checkpoint is not None:
+            out["restore_fallbacks"] += self.checkpoint.restore_fallbacks
+            out["quarantined_steps"] += [
+                q["step"] for q in self.checkpoint.quarantined]
+        return out
 
     def use_delayed_stream(self, comm_delay: float = 0.0):
         """Route steps through a `DelayedCombineStream`: the pending
@@ -403,21 +426,26 @@ class TrainSession:
         rows = None
         parts = self._lane_trees()
         if parts:
-            lane = self.rank // (self.comm.world // self.runtime.span)
+            span = self.runtime.span
+            lane = self.rank // (self.comm.world // span)
             where = {"inner": ("['opt']['inner']", self.state["opt"]
                                .get("inner")),
                      "pending": ("['pending']", self.state.get("pending"))}
-            rows = {prefix + T.keystr(p): lane for part in parts
+            rows = {prefix + T.keystr(p): (lane, span) for part in parts
                     for prefix, tree in [where[part]]
                     for p, _ in T.flatten_with_path(tree)[0]}
         if self._ranked():
             # rank 0 validates (and quarantines) first; the others then
-            # read the step it settled on
+            # read the step it settled on, and take its counters
+            ck = self.checkpoint
             if self.rank == 0:
-                self.state = self.checkpoint.restore(self.state, step, rows)
-            step = self._from_rank0(self.state["step"])
+                self.state = ck.restore(self.state, step, rows)
+            step, ck.restore_fallbacks, ck.quarantined = \
+                self.comm.broadcast_object(
+                    (self.state["step"], ck.restore_fallbacks,
+                     ck.quarantined) if self.rank == 0 else None)
             if self.rank != 0:
-                self.state = self.checkpoint.restore(self.state, step, rows)
+                self.state = ck.restore(self.state, step, rows)
         else:
             self.state = self.checkpoint.restore(self.state, step, rows)
         start = self.state["step"]
@@ -440,6 +468,17 @@ class TrainSession:
             if self._owns_comm:
                 self.comm.close()
                 self._owns_comm = False
+
+
+def session_device(device: DeviceLike, generator: Optional[torch.Generator],
+                   world: int) -> torch.device:
+    """The device a training run takes: `device`, else the generator's,
+    else cuda; with more than one rank a bare `cuda` is
+    `cuda:LOCAL_RANK`."""
+    local_rank = (int(os.environ.get("LOCAL_RANK", "0")) if world > 1
+                  else None)
+    return resolve_device(device if device is not None or generator is None
+                          else generator.device, local_rank=local_rank)
 
 
 # ---------------------------------------------------------------- ServeSession

@@ -33,9 +33,18 @@ prints "resumed from step 2" and finishes; once more prints "nothing to
 do". Every combiner of the reference trains, on one device and across
 ranks (`--combine sum | mean | adascale`, `--backend linear`), with
 `--acc-dtype float64` (fp64 dots) and `--combine-delay 1` (the delayed
-combine; its pending carry is in the checkpoints). Flags of later slices
-(`--elastic`, `--adaptive-batch`, `--model-mesh` above 1) raise
-NotImplementedError naming their ROADMAP item.
+combine; its pending carry is in the checkpoints).
+
+`--elastic` (needs `--ckpt-dir`) runs `fit_elastic`: on a node loss
+(`--fail-at`) or a flagged straggler it checkpoints and restarts at half
+the ranks ("[elastic] ... restarting at dp=N/2 ... no hyperparameter
+change"), the evicted ranks parked until the run ends; on one process a
+loss has nothing to shrink and is raised. `--adaptive-batch` (needs
+`--ckpt-dir`) runs `fit_adaptive`: the gradient-noise controller grows
+the batch (and, across ranks, the span) through save -> rebuild ->
+resume ("[control] resize at step N: ..."). Under torch.distributed.run
+every rank exits 0, a parked one too. `--model-mesh` above 1 raises
+NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -44,7 +53,8 @@ import json
 import os
 from pathlib import Path
 
-from repro_torch.engine import EngineConfig, TrainSession, default_callbacks
+from repro_torch.engine import (EngineConfig, TrainSession, default_callbacks,
+                                fit_elastic)
 from repro_torch.runtime import make_generator, resolve_device
 
 
@@ -68,33 +78,41 @@ def main(argv=None):
     world = int(os.environ.get("WORLD_SIZE", "1"))
     device = resolve_device(args.device, local_rank=int(
         os.environ.get("LOCAL_RANK", "0")) if world > 1 else None)
-    session = TrainSession.from_config(
-        cfg, device=device, generator=make_generator(device, args.seed),
-        callbacks=default_callbacks(cfg, fail_at=args.fail_at),
-        dist_backend=args.dist_backend)
-    rt = session.runtime
-    lead = session.rank == 0
-    if lead:
-        meta = session.run_metadata()
-        prefetch = (f"on depth={cfg.prefetch_depth}"
-                    f"{' device-stage' if cfg.device_stage else ''}"
-                    if cfg.prefetch else "off")
-        print(f"[train] {cfg.arch}{' (reduced)' if cfg.reduced else ''} on "
-              f"{device}: span={rt.span} combine={cfg.combine} "
-              f"path={rt.combine_path or 'none'} optimizer={cfg.optimizer} "
-              f"point={rt.dopt.point} "
-              f"stats={'on' if rt.combine_stats else 'off'} "
-              f"world={meta['world']} dist={meta['dist_backend']} "
-              f"prefetch={prefetch} ckpt={cfg.ckpt_dir or 'off'}")
-    try:
-        history = session.fit(cfg.steps)
-    finally:
+    callbacks = default_callbacks(cfg, fail_at=args.fail_at)
+    run = dict(device=device, generator=make_generator(device, args.seed),
+               callbacks=callbacks, dist_backend=args.dist_backend)
+    lead = int(os.environ.get("RANK", "0")) == 0
+    if cfg.adaptive_batch:
+        from repro_torch.control import fit_adaptive
+        history, session = fit_adaptive(cfg, cfg.steps, **run)
         session.close()
+    elif cfg.elastic:
+        history, session = fit_elastic(cfg, cfg.steps, **run)
+        session.close()
+    else:
+        session = TrainSession.from_config(cfg, **run)
+        if lead:
+            rt = session.runtime
+            meta = session.run_metadata()
+            prefetch = (f"on depth={cfg.prefetch_depth}"
+                        f"{' device-stage' if cfg.device_stage else ''}"
+                        if cfg.prefetch else "off")
+            print(f"[train] {cfg.arch}{' (reduced)' if cfg.reduced else ''}"
+                  f" on {device}: span={rt.span} combine={cfg.combine} "
+                  f"path={rt.combine_path or 'none'} "
+                  f"optimizer={cfg.optimizer} point={rt.dopt.point} "
+                  f"stats={'on' if rt.combine_stats else 'off'} "
+                  f"world={meta['world']} dist={meta['dist_backend']} "
+                  f"prefetch={prefetch} ckpt={cfg.ckpt_dir or 'off'}")
+        try:
+            history = session.fit(cfg.steps)
+        finally:
+            session.close()
     if lead and history:
         print(f"[train] done: final loss {history[-1]['loss']:.4f}")
     elif lead:
         print(f"[train] nothing to do: run already at step {cfg.steps}")
-    res = session.run_metadata()["resilience"]
+    res = session.run_metadata()["resilience"]     # the final session's
     if lead and any(res.values()):
         print("[train] resilience " + " ".join(
             f"{k}={len(v) if isinstance(v, list) else v}"

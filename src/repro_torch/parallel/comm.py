@@ -27,6 +27,10 @@ inside `shard_map` (repro/core/rvh.py:99-105, :172-177):
                             batch of isends and irecvs (the rank-owned
                             chunks of `adasum_linear_ranks`);
   broadcast(x, src)         rank `src`'s tensor to every rank, in place;
+  broadcast_object(o, src)  rank `src`'s picklable host object to every
+                            rank (the elastic drivers' messages);
+  align_groups()            rank 0's count of process groups made, on
+                            every rank (before a parked rank rejoins);
   gather_to_host(x, srcs)   the tensors of ranks `srcs`, stacked in rank
                             0's host memory (a checkpoint's lane rows).
 
@@ -167,6 +171,18 @@ class Comm:
             raise ValueError(f"rank {self.rank} is in none of {groups}")
         self._children.append(mine)
         return mine
+
+    def align_groups(self) -> None:
+        """Give every rank of this comm rank 0's count of the process
+        groups made so far. `dist.new_group` names a group by that count
+        on each process, and non-members take no part in it beyond the
+        count; a rank that sat out splits the others made (an evicted
+        rank parked while the survivors built their sub-communicators)
+        would name its later groups differently and never meet the
+        others in them. Collective."""
+        from torch.distributed import distributed_c10d as c10d
+        c10d._world.group_count = self.broadcast_object(
+            c10d._world.group_count)
 
     def close(self) -> None:
         """Destroy the process group (the comm made by `init` only)."""
@@ -400,6 +416,17 @@ class Comm:
         else:
             dist.broadcast(x, root, group=self.group)
         return x
+
+    def broadcast_object(self, obj, src: int = 0):
+        """Local rank `src`'s picklable `obj` on every rank (the others
+        pass anything, e.g. None). Collective."""
+        if self.world == 1:
+            return obj
+        box = [obj]
+        dist.broadcast_object_list(
+            box, src=self.ranks[src], group=self.group,
+            device=self.device if self.backend == "nccl" else None)
+        return box[0]
 
     def gather_to_host(self, x: torch.Tensor, srcs: Sequence[int]
                        ) -> Optional[torch.Tensor]:

@@ -8,6 +8,8 @@ point of the port, and the training loop's runtime pieces (the port of
             host-to-card copy on a side CUDA stream
   delayed   DelayedCombineStream — the delayed combine's correction on
             a thread and CUDA stream of its own, beside the local step
+  elastic   RestartSignal / GrowBackSignal / ResizeSignal and the shrink,
+            grow-back and resize planners
 """
 from __future__ import annotations
 
@@ -18,6 +20,9 @@ import torch
 from .monitor import (FailureInjector, NodeLossError, StepMonitor,
                       StragglerConfig, next_power_of_two_below)
 from .delayed import DelayedCombineStream
+from .elastic import (ElasticPlan, GrowBackSignal, ResizePlan, ResizeSignal,
+                      RestartSignal, plan_grow, plan_grow_back, plan_shrink,
+                      plan_shrink_batch)
 from .prefetch import Prefetcher
 
 DeviceLike = Union[str, torch.device, None]
@@ -25,8 +30,6 @@ DeviceLike = Union[str, torch.device, None]
 # ROADMAP.md queue 1 items that bring what the port still refuses
 ITEM_FAMILIES = "6"         # MoE, MLA, ssm, hybrid, enc-dec, frontends
 ITEM_SHARDING = "7"         # data/model meshes above one device
-ITEM_SUBSYSTEMS = "8"       # adaptive batch, elastic restarts
-                            # (fit_elastic), chaos
 
 
 def resolve_device(device: DeviceLike = None,

@@ -1,6 +1,6 @@
 """Step-time / straggler monitoring + elastic-restart decisions (a copy
 of `repro/runtime/monitor.py`; the elastic restart loop that consumes
-the flag is ROADMAP.md queue 1 item 8).
+the flag is `repro_torch.engine.pipeline.fit_elastic`).
 
 At pod scale, synchronous SGD stalls on the slowest participant. The
 mitigation ladder implemented here:

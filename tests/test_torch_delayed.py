@@ -229,7 +229,8 @@ def test_combine_delay_config_validation_and_cli_roundtrip():
         EngineConfig(combine_delay=1, accum_steps=2,
                      global_batch=16).validate()
     with pytest.raises(ValueError, match="mutually exclusive"):
-        EngineConfig(combine_delay=1, adaptive_batch=True).validate()
+        EngineConfig(combine_delay=1, adaptive_batch=True,
+                     ckpt_dir="ck").validate()
     EngineConfig(combine_delay=1, global_batch=16).validate()
     argv = ["--arch", "gemma-7b", "--combine-delay", "1", "--batch", "16"]
     cfg = EngineConfig.from_cli(argv)

@@ -507,8 +507,6 @@ def test_train_cli_exits_zero_on_cpu():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--elastic"], "8"), (["--elastic", "--ckpt-dir", "ck"], "8"),
-    (["--adaptive-batch"], "8"),
     (["--data-mesh", "2"], "7"), (["--model-mesh", "2"], "7"),
     (["--arch", "mixtral-8x22b"], "6")])
 def test_later_slice_flags_raise(flags, item):
@@ -518,6 +516,52 @@ def test_later_slice_flags_raise(flags, item):
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP.md queue 1, item {item}\)"):
         main(argv)
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--elastic"], "elastic=True needs ckpt_dir"),
+    (["--adaptive-batch"], "adaptive_batch=True needs ckpt_dir"),
+    (["--adaptive-batch", "--ckpt-dir", "ck", "--no-combine-stats"],
+     "needs combine_stats=True"),
+    (["--adaptive-batch", "--ckpt-dir", "ck", "--elastic"],
+     "mutually exclusive drivers")])
+def test_driver_flags_are_the_references_errors(flags, match):
+    """--elastic and --adaptive-batch run (fit_elastic, fit_adaptive);
+    their cross-field refusals are the reference's ValueErrors."""
+    from repro.engine import EngineConfig as JEngineConfig
+    from repro_torch.launch.train import main
+    argv = ["--device", "cpu", "--arch", "gemma-7b", "--reduced",
+            "--steps", "1", "--seq", "16", "--batch", "8"] + flags
+    with pytest.raises(ValueError, match=match):
+        main(argv)
+    with pytest.raises(ValueError, match=match):
+        JEngineConfig.from_cli(argv[2:])
+
+
+def test_elastic_cli_on_two_cpu_ranks(tmp_path):
+    """`--elastic --fail-at 2` under torch.distributed.run on two CPU
+    ranks: the loss at step 2 shrinks the run to one rank (rank 1
+    parks), which resumes from the boundary checkpoint and finishes;
+    both ranks exit 0 and rank 0 prints the restart and resilience.
+    Momentum steps at the pre point: adam's per-lane state at span 2
+    has no fold onto one lane without a lane axis, in the reference's
+    reshard_lanes as in the port's."""
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
+         "--device", "cpu", "--arch", "gemma-7b", "--reduced", "--steps",
+         "4", "--seq", "32", "--batch", "8", "--optimizer", "momentum",
+         "--elastic", "--fail-at", "2", "--ckpt-dir", str(tmp_path / "ck")],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    out = res.stdout
+    assert "[elastic] injected node failure at step 2: restarting at dp=1 " \
+           "(was 2), no hyperparameter change" in out, out
+    assert "[control] rebuild #1: batch=8 span=1" in out
+    assert out.count("[train] done: final loss") == 1
+    assert "[train] resilience restore_fallbacks=0 quarantined_steps=0 " \
+           "restarts=1 grow_backs=0" in out
 
 
 def test_unknown_combiner_is_the_references_error():

@@ -20,8 +20,10 @@ from pathlib import Path
 SRC = Path(__file__).resolve().parents[1] / "src"
 
 
-def launch(world, job, spec, tmp_path, timeout=300):
-    """Run `job` on `world` ranks; returns each rank's result, by rank."""
+def launch(world, job, spec, tmp_path, timeout=300, rc=0):
+    """Run `job` on `world` ranks; returns each rank's result, by rank.
+    With `rc` other than 0 every rank must exit with that code, and the
+    ranks' logs are returned instead."""
     tag = f"{job}_w{world}_{int(time.time() * 1e6) % 10**9}"
     out = Path(tmp_path) / tag
     out.mkdir(parents=True)
@@ -43,7 +45,7 @@ def launch(world, job, spec, tmp_path, timeout=300):
             if time.monotonic() > deadline:
                 raise AssertionError(f"{job} on {world} ranks outlived "
                                      f"{timeout}s")
-            if any(p.poll() not in (None, 0) for p in procs):
+            if any(p.poll() not in (None, rc) for p in procs):
                 break               # one rank failed: do not wait for the rest
             time.sleep(0.05)
     finally:
@@ -54,9 +56,11 @@ def launch(world, job, spec, tmp_path, timeout=300):
         for log in logs:
             log.close()
     texts = [(out / f"log{r}.txt").read_text() for r in range(world)]
-    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    bad = [r for r, p in enumerate(procs) if p.returncode != rc]
     assert not bad, "\n".join(f"--- rank {r} (rc {procs[r].returncode})\n"
                               f"{texts[r][-4000:]}" for r in bad)
+    if rc:
+        return texts
     import torch
     return [torch.load(out / f"rank{r}.pt", weights_only=False)
             for r in range(world)]
@@ -67,7 +71,7 @@ def _np_tree(tree):
     from repro_torch import tree as T
     leaves, td = T.flatten(tree)
     return T.unflatten(td, [x.detach().float().numpy().copy()
-                            for x in leaves])
+                            if hasattr(x, "detach") else x for x in leaves])
 
 
 def _same_on_all_ranks(comm, tree) -> bool:
@@ -280,8 +284,283 @@ def job_delayed(comm, spec):
     return out
 
 
+def _model(spec):
+    """spec's model: the reference control tests' tiny dense decoder
+    ("tiny"), or a reduced preset, fp32 compute."""
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models import build_model
+    cfg = (ModelConfig("ctl-tiny", "dense", 2, 64, 4, 2, 128, 257,
+                       head_dim=16) if spec["arch"] == "tiny"
+           else get_reduced(spec["arch"]))
+    return build_model(cfg, compute_dtype=torch.float32,
+                       attn_chunk=spec["attn_chunk"])
+
+
+def _digest(tree) -> str:
+    import hashlib
+    from repro_torch import tree as T
+    h = hashlib.sha256()
+    for x in T.leaves(tree):
+        h.update(x.detach().contiguous().view(-1).numpy().tobytes())
+    return h.hexdigest()
+
+
+class _Record:
+    """Every step start (step, batch checksum), every fit start (start,
+    dp, span) and the params' digest after every step, keyed by the
+    session's place in the run (rebuilds so far, step)."""
+
+    def __init__(self, rank):
+        self.rank = rank
+        self.seen, self.dps, self.sums, self.digests = [], [], [], {}
+
+    def _segment(self, session):
+        log = session.elastic_log or {}
+        return (log.get("restarts", 0) + log.get("grow_backs", 0)
+                + len(session.resize_log))
+
+    def on_fit_start(self, session, start):
+        self.dps.append((start, session.runtime.dp_total,
+                         session.runtime.span))
+
+    def on_step_start(self, session, step):
+        import numpy as np
+        self.seen.append(step)
+        self.sums.append((step, float(np.asarray(
+            session.batch(step)["tokens"], np.float64).sum())))
+
+    def on_step_end(self, session, step, metrics, dt):
+        self.digests[(self._segment(session), step)] = _digest(
+            session.state["params"])
+
+    def on_fit_end(self, session, history):
+        pass
+
+
+def _flag_on(rank, at):
+    """A callback flagging this rank's straggler monitor after step
+    `at` (on `rank` only)."""
+    from repro_torch.engine import StragglerCallback
+
+    class Flag:
+        def on_fit_start(self, session, start): ...
+
+        def on_step_start(self, session, step): ...
+
+        def on_fit_end(self, session, history): ...
+
+        def on_step_end(self, session, step, metrics, dt):
+            if step == at and session.rank == rank:
+                for cb in session.callbacks:
+                    if isinstance(cb, StragglerCallback):
+                        cb.monitor.flagged = True
+    return Flag()
+
+
+def _term_in_window(step, below):
+    """SIGTERM to this process at `step`'s start in a session of fewer
+    than `below` ranks: the window after an elastic rebuild."""
+    import os
+    import signal
+
+    class Term:
+        def on_fit_start(self, session, start): ...
+
+        def on_step_end(self, session, step, metrics, dt): ...
+
+        def on_fit_end(self, session, history): ...
+
+        def on_step_start(self, session, s):
+            if session.runtime.dp_total < below and s == step:
+                os.kill(os.getpid(), signal.SIGTERM)
+    return Term()
+
+
+def job_elastic(comm, spec):
+    """`fit_elastic` across the ranks with the callbacks spec names:
+    FailureInjectionCallback(fail_at), a ChaosCallback and
+    make_chaos_on_restart over spec's events, CapacityReturnCallback
+    (grow_delay), a straggler flag on one rank, SIGTERM in the rebuild
+    window. Returns what the run saw on this rank: the steps started, fit
+    starts, batch checksums, params digests, history, elastic log,
+    resilience and lr, and the final params."""
+    import torch
+    from repro_torch.bridge import params_to_numpy
+    from repro_torch.chaos import (CapacityReturnCallback, ChaosCallback,
+                                   ChaosSchedule, FaultEvent,
+                                   make_chaos_on_restart)
+    from repro_torch.engine import (CheckpointCallback, EngineConfig,
+                                    FailureInjectionCallback,
+                                    LoggingCallback, StragglerCallback,
+                                    fit_elastic)
+    cfg = EngineConfig(**spec["config"], ckpt_dir=spec["dir"])
+    rec = _Record(comm.rank)
+    cbs = [LoggingCallback(1), StragglerCallback(), rec]
+    if cfg.ckpt_every:
+        cbs.append(CheckpointCallback(cfg.ckpt_every))
+    if spec.get("fail_at"):
+        cbs.append(FailureInjectionCallback(spec["fail_at"]))
+    sched = ChaosSchedule([FaultEvent(*e) for e in spec.get("chaos", [])])
+    cbs.append(ChaosCallback(sched))
+    if spec.get("grow_delay"):
+        cbs.append(CapacityReturnCallback(delay=spec["grow_delay"]))
+    if spec.get("flag"):
+        cbs.append(_flag_on(*spec["flag"]))
+    if spec.get("term"):
+        cbs.append(_term_in_window(*spec["term"]))
+    hist, sess = fit_elastic(
+        cfg, spec["steps"], callbacks=cbs, model=_model(spec),
+        device="cpu", generator=torch.Generator().manual_seed(spec["seed"]),
+        comm=comm, on_restart=make_chaos_on_restart(sched, spec["dir"]))
+    out = {"seen": rec.seen, "dps": rec.dps, "sums": rec.sums,
+           "digests": rec.digests, "hist": [h["step"] for h in hist],
+           "losses": [h["loss"] for h in hist], "log": sess.elastic_log,
+           "resilience": sess.run_metadata()["resilience"],
+           "lr": sess.config.lr, "dp": sess.runtime.dp_total,
+           "pending": [e.kind for e in sched.pending()],
+           "params": (None if sess.state is None       # parked at the end
+                      else params_to_numpy(sess.state["params"]))}
+    sess.close()
+    return out
+
+
+def job_compose(comm, spec):
+    """The elastic run of job_elastic composed by hand from plain
+    sessions, one a segment: spec's `segments` list (world, from step, to
+    step, lr, fail step or None); each segment's ranks restore the last
+    checkpoint and fit to its end, then save it. Returns the final params
+    (rank 0)."""
+    import dataclasses
+    import torch
+    from repro_torch.bridge import params_to_numpy
+    from repro_torch.engine import EngineConfig, TrainSession
+    cfg = EngineConfig(**spec["config"], ckpt_dir=spec["dir"])
+    model = _model(spec)
+    out, live = None, comm
+    for world, stop, lr in spec["segments"]:
+        comm.align_groups()
+        if world != live.world:
+            live = comm if world == comm.world else comm.split(
+                [list(range(world)), list(range(world, comm.world))])
+        if comm.rank < world:
+            s = TrainSession.from_config(
+                dataclasses.replace(cfg, lr=lr), model=model, device="cpu",
+                comm=live, callbacks=[],
+                generator=torch.Generator().manual_seed(spec["seed"]))
+            s.fit(stop)
+            s.save_sync()
+            out = params_to_numpy(s.state["params"])
+            s.close()
+        comm.broadcast_object(None)       # every rank waits for them
+    return {"params": out}
+
+
+def job_lanes(comm, spec):
+    """The lane-state restore across a span change at the post point:
+    save at `world` ranks (adam, span auto: one lane a rank), restore on
+    the first `world // 2` ranks of a split (a fold), and save on them and
+    restore at `world` (a repeat). Returns each restore's inner state
+    (and pending carry) on this rank, or None where it took no part."""
+    import torch
+    from repro_torch.engine import EngineConfig, TrainSession
+    model = _model(spec)
+    W = comm.world
+    out = {}
+    for tag, fields in spec["cases"].items():
+        base = EngineConfig(**fields, ckpt_dir=spec["dir"] + "/" + tag)
+
+        def session(c):
+            return TrainSession.from_config(
+                base, model=model, device="cpu", comm=c, callbacks=[],
+                generator=torch.Generator().manual_seed(spec["seed"]))
+
+        full = session(comm)
+        full.fit(1)
+        full.save_sync(1)
+        full.close()
+        half = comm.split([list(range(W // 2)), list(range(W // 2, W))])
+        folded = None
+        if comm.rank < W // 2:
+            s = session(half)
+            assert s.restore(1) == 1
+            folded = _np_tree({k: s.state[k] for k in ("opt", "pending")
+                               if k in s.state})
+            s.step()
+            s.save_sync(2)
+            s.close()
+        comm.broadcast_object(None)
+        comm.align_groups()
+        s = session(comm)
+        assert s.restore(2) == 2
+        grown = _np_tree({k: s.state[k] for k in ("opt", "pending")
+                          if k in s.state})
+        s.close()
+        out[tag] = {"folded": folded, "grown": grown}
+    return out
+
+
+def job_adaptive(comm, spec):
+    """`fit_adaptive` across the ranks (the real BatchController on spec's
+    config), then a plain session at the first resize's operating point
+    restored from its boundary checkpoint and fit to the end. Returns
+    what the run saw on this rank, its resize log, LR and final params,
+    and the plain session's final params."""
+    import dataclasses
+    import torch
+    from repro_torch.bridge import params_to_numpy
+    from repro_torch.control import fit_adaptive
+    from repro_torch.control.resize import apply_resize, log_effective
+    from repro_torch.engine import EngineConfig, TrainSession
+    from repro_torch.runtime import ResizePlan
+    cfg = EngineConfig(**spec["config"], ckpt_dir=spec["dir"])
+    model = _model(spec)
+    rec = _Record(comm.rank)
+
+    class Rows:
+        rows = []
+
+        def on_fit_start(self, session, start): ...
+
+        def on_step_end(self, session, step, metrics, dt): ...
+
+        def on_fit_end(self, session, history): ...
+
+        def on_step_start(self, session, step):
+            self.rows.append((step, session.config.global_batch,
+                              int(session.batch(step)["tokens"].shape[0])))
+
+    gen = lambda: torch.Generator().manual_seed(spec["seed"])
+    hist, sess = fit_adaptive(cfg, spec["steps"], callbacks=[rec, Rows()],
+                              model=model, device="cpu", generator=gen(),
+                              comm=comm)
+    eff = log_effective(sess)
+    out = {"seen": rec.seen, "rows": Rows.rows, "digests": rec.digests,
+           "hist": [h["step"] for h in hist],
+           "losses": [h["loss"] for h in hist],
+           "resize_log": sess.resize_log, "lr": sess.config.lr, "eff": eff,
+           "meta": sess.run_metadata(),
+           "params": params_to_numpy(sess.state["params"])}
+    sess.close()
+    first = sess.resize_log[0]
+    plan = ResizePlan(**{k: v for k, v in first.items() if k != "step"})
+    plain = TrainSession.from_config(
+        apply_resize(dataclasses.replace(cfg, adaptive_batch=False), plan),
+        model=model, device="cpu", comm=comm, callbacks=[],
+        generator=gen())
+    assert plain.restore(first["step"]) == first["step"]
+    plain.fit(spec["steps"] if len(sess.resize_log) == 1
+              else sess.resize_log[1]["step"])
+    out["plain_params"] = params_to_numpy(plain.state["params"])
+    plain.close()
+    return out
+
+
 JOBS = {"rvh": job_rvh, "train": job_train, "ckpt": job_ckpt,
-        "gather": job_gather, "delayed": job_delayed}
+        "gather": job_gather, "delayed": job_delayed,
+        "elastic": job_elastic, "compose": job_compose, "lanes": job_lanes,
+        "adaptive": job_adaptive}
 
 
 def main():
