@@ -6,6 +6,7 @@
     python3 chip_smoke.py --serve-ab DIR   # serve phase, DIR vs this tree
     python3 chip_smoke.py --combiners-only # phase 9 alone, no result line
     python3 chip_smoke.py --subsystems-only # phase 10 alone, no result line
+    python3 chip_smoke.py --families-only  # phase 11 alone, no result line
 
 --serve-ab compares two commits on one card within one call: DIR is
 another checkout of the repo (e.g. `git archive <parent> | tar -x -C
@@ -14,7 +15,7 @@ DIR's package and on this one, in turns DIR, this, this, DIR, each in a
 process of its own (this script's code, the package and its kernels
 from the tree), and a `SERVE_AB` JSON line gives the four runs' metrics.
 
-Phases, in the order they run: 1, 2, 3, 4, 8, 5, 6, 7, 9, 10 (any
+Phases, in the order they run: 1, 2, 3, 4, 8, 5, 6, 7, 9, 10, 11 (any
 error fails the run with a non-zero exit and no result):
   1. card: print `nvidia-smi --query-gpu=name,power.limit` and require
      CUDA;
@@ -36,6 +37,10 @@ error fails the run with a non-zero exit and no result):
      (on its fused backends where it has the mask: plain or lower-right
      causal), each timed on its own; kernel and yardstick also by device
      time alone (CUDA-graph replay, `device_ms`, `library_device_ms`);
+     and at the MoE presets' shapes of phase 11: mixtral's prefill of a
+     4,600-token prompt in window mode (H 48, KV 8, window 4096), its
+     rolling decode over 256 pages a slot, and moonshot's prefix extend
+     (H = KV = 16, q_offset 64);
      The Adasum block kernels (`block_dots`, `block_combine`) are held
      the same way at the shapes the train phase gives them: the gemma-7b
      embedding bucket (786,432,000 elements a lane, block 8192, read as
@@ -224,6 +229,32 @@ error fails the run with a non-zero exit and no result):
      step ms at each world, the rebuilds' seconds and the saves' and
      restores' timings. `--subsystems-only` builds the kernels and runs
      this phase alone.
+ 11. families (ROADMAP item 6's first half; runs last): the MLA and MoE
+     presets at full width, random weights from SEED. (a) mixtral-8x22b,
+     depth P11_MIXTRAL_LAYERS, bf16: `ServeEngine`, paged, 4 slots, a
+     4,600-token prompt (flash in window mode, decode over the rolling
+     pages) and three short ones, P11_GEN tokens each; both attention
+     kernels must launch; then the kernel arm against attn_impl="plain":
+     router choices are recorded (`_RouteLog`) and the forward's logits
+     held within LOGIT_TOL at every position before a request's first
+     routing flip, the serving prefill and one decode held on the rows
+     whose routing agrees; the share of (token, k) choices that agree
+     and the smallest router gap at a flip are printed. (b)
+     moonshot-v1-16b-a3b, depth P11_MOONSHOT_LAYERS (1 dense + 3 MoE):
+     a shared 64-token prefix (prefix extend through flash with
+     q_offset), both cache segments written, then speculation k =
+     P11_SPEC_K with the derived draft: tokens against plain decode,
+     acceptance, pairs dropped in verify forwards. (c) minicpm3-4b at its
+     full 62 layers: paged with and without prefix sharing and dense
+     (dense == paged tokens, margins at divergences as phase 8's), the
+     latent cache's bytes a token against a GQA cache of the same heads.
+     (d) moonshot at P11_TRAIN_MOONSHOT layers, momentum span 2, and (e)
+     minicpm3-4b at P11_TRAIN_MINICPM layers, adam span 2: three
+     `TrainSession` steps (seq 512, batch 8), one `block_dots` and one
+     `block_combine` per bucket a step, step 1 again bitwise and with
+     combine_impl="plain" (as phase 5), step and combine ms, aux loss,
+     drop fraction, peak memory at most P11_MEM_GIB.
+     `--families-only` builds the kernels and runs this phase alone.
 
 The line before the last is the kernels JSON (block_dots and
 block_combine rows also carry their phase-6 launches on rank 0,
@@ -231,7 +262,7 @@ block_combine rows also carry their phase-6 launches on rank 0,
 row its launches inside phase 7, `phase7_launches`; the attention rows
 their launches inside phase 8, `phase8_launches`; the Adasum rows theirs
 inside phase 9, `phase9_launches`; every row its launches inside phase
-10, `phase10_launches`), the
+10, `phase10_launches`, and phase 11, `phase11_launches`), the
 last line {"ok": true, "device": {...}}. Longer records go to
 chiprun_out/chip_smoke.json. fp32 matmuls run in full fp32: TF32 is
 switched off for cuBLAS and cuDNN.
@@ -727,6 +758,15 @@ def kernel_phase():
                      rolling=True),
         _decode_case("gemma_d256", 4, 128, [964, 980, 1001, 990], H=16,
                      KV=16, Dh=256),
+        # the MoE presets' shapes in phase 11: mixtral's prefill of a
+        # ~4,600-token prompt in window mode (H 48, KV 8, window 4096)
+        # and its rolling decode over 256 pages a slot; moonshot's prefix
+        # extend (H = KV = 16: a 64-token prefix, a 256-token tail bucket)
+        _flash_case("mixtral_w4096", 1, 4600, 4600, window=4096, H=48,
+                    KV=8),
+        _flash_case("moonshot_ext", 2, 256, 320, q_offset=64, H=16, KV=16),
+        _decode_case("mixtral_roll", 4, 256, [4615, 315, 532, 827],
+                     rolling=True, H=48, KV=8),
     ]
     embed = 256_000 * 3072                 # gemma-7b's tied embedding
     cases += _adasum_case("embed_fp32", embed, 8192)     # main path first
@@ -1571,13 +1611,14 @@ def _free():
     torch.cuda.empty_cache()
 
 
-def _step_once(model, optimizer, span, combine_impl="kernel"):
+def _step_once(model, optimizer, span, combine_impl="kernel", **fields):
     """Step 1 from fresh state; returns the params leaves and a copy of
-    the combine's output on the card (leaves, CombineStats levels)."""
+    the combine's output on the card (leaves, CombineStats levels).
+    `fields`: further EngineConfig fields (e.g. the arch)."""
     from repro_torch import tree as T
     timer = _CombineTimer(keep=True, keep_on="cuda")
     s = _session(model, timer, combine_impl, optimizer=optimizer, span=span,
-                 backend="gspmd_tree")
+                 backend="gspmd_tree", **fields)
     s.step(s.batch(0))
     params = T.leaves(s.state["params"])
     del s
@@ -3586,6 +3627,588 @@ def subsystems_phase(card: str) -> dict:
     return rec
 
 
+# ------------------------------------------------- phase 11: the families
+P11_MIXTRAL_LAYERS = 2      # of 56: 5.41 B params, 10.8 GB of bf16 weights
+P11_MOONSHOT_LAYERS = 4     # of 48 (1 dense + 3 MoE): 2.46 B, 4.9 GB bf16
+P11_TRAIN_MOONSHOT = 2      # 1 dense + 1 MoE: 1.28 B params in fp32
+P11_TRAIN_MINICPM = 8       # of 62: 0.69 B params in fp32
+P11_MEM_GIB = 70
+P11_GEN = 32
+P11_SPEC_K = 4
+
+
+class _RouteLog:
+    """Every MoE routing decision inside the block: wraps
+    `repro_torch.models.moe.top_k` (called once per `moe_apply`) and
+    keeps, per call, the experts chosen [S, NL, K], each token's margin
+    between its K-th and (K+1)-th router probability, and the (token, k)
+    pairs past capacity (an expert's pairs beyond C, in arrival order).
+    `tag` names the calls that follow (e.g. 'verify')."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.calls = []
+        self.tag = ""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._orig = moe.top_k
+
+        def top_k(probs, k):
+            import torch
+            vals, idx = self._orig(probs, k)
+            with torch.no_grad():
+                v1 = self._orig(probs, k + 1)[0]
+                S, NL, E = probs.shape
+                counts = torch.zeros(S, E, dtype=torch.long,
+                                     device=probs.device)
+                counts.scatter_add_(1, idx.reshape(S, -1),
+                                    torch.ones_like(idx.reshape(S, -1)))
+                cap = moe.capacity(self.cfg, NL)
+                self.calls.append({
+                    "tag": self.tag, "idx": idx.detach().clone(),
+                    "gap": (v1[..., k - 1] - v1[..., k]).detach(),
+                    "drops": (counts - cap).clamp(min=0).sum(),
+                    "pairs": S * NL * k})
+            return vals, idx
+        moe.top_k = top_k
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.top_k = self._orig
+
+    def take(self):
+        out, self.calls = self.calls, []
+        return out
+
+    @staticmethod
+    def drops(calls, tag=None) -> dict:
+        sel = [c for c in calls if tag is None or c["tag"] == tag]
+        d = sum(int(c["drops"]) for c in sel)
+        p = sum(c["pairs"] for c in sel)
+        return {"calls": len(sel), "pairs": p, "dropped": d,
+                "drop_fraction": d / p if p else 0.0}
+
+
+def _route_agreement(a, b) -> dict:
+    """Two arms' routing over the same calls (same order): the share of
+    (token, k) choices of `a` that `b` also made, the tokens whose expert
+    sets differ, the smallest K-th / (K+1)-th margin of `b` (the plain
+    arm) at such a flip, and per call the flipped token positions
+    (`flip_rows`, over the call's tokens in order)."""
+    assert len(a) == len(b), (len(a), len(b))
+    hit = tot = flips = 0
+    gaps, flip_rows = [], []
+    for x, y in zip(a, b):
+        same = (x["idx"][..., :, None] == y["idx"][..., None, :]).any(-1)
+        hit += int(same.sum())
+        tot += same.numel()
+        bad = ~same.all(-1)                               # [S, NL]
+        flips += int(bad.sum())
+        if bool(bad.any()):
+            gaps.append(float(y["gap"][bad].min()))
+        flip_rows.append(bad.reshape(-1).nonzero()[:, 0].tolist())
+    return {"choice_agreement": hit / tot if tot else 1.0,
+            "flipped_tokens": flips,
+            "min_gap_at_flip": min(gaps) if gaps else None,
+            "flip_rows": flip_rows}
+
+
+def _p11_build(name: str, layers: int, param_dtype: str):
+    """(full config, cut config, kernel model, plain model) for a preset
+    at full width, depth cut to `layers` (a MoE config's dense prefix
+    kept)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    full = get_config(name)
+    cfg = dataclasses.replace(full, n_layers=layers)
+    dt = getattr(torch, param_dtype)
+    model = build_model(cfg, compute_dtype=torch.bfloat16, param_dtype=dt)
+    plain = build_model(cfg, compute_dtype=torch.bfloat16, param_dtype=dt,
+                        attn_impl="plain")
+    return full, cfg, model, plain
+
+
+def _p11_init(model):
+    import torch
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED),
+                        device="cuda")
+    torch.cuda.synchronize()
+    return params, time.perf_counter() - t0
+
+
+def _p11_serve_line(tag, eng, handles, launches, card) -> dict:
+    import torch
+    tp, kv = eng.throughput(), eng.kv_stats()
+    res = {"completed": tp["completed"], "decode_steps": tp["decode_steps"],
+           "prefill_calls": tp["prefill_calls"],
+           "prefill_ms_mean": tp["prefill_ms_mean"],
+           "decode_tick_ms_mean": tp["decode_tick_ms_mean"],
+           "tok_s": tp["tok_s"], "prefix_hits": kv["prefix_hits"],
+           "kv_page_bytes": kv["kv_page_bytes"],
+           "peak_kv_bytes": kv["peak_kv_bytes_in_use"],
+           "launches": launches,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "tokens": [h.tokens for h in handles]}
+    print(f"[smoke] p11 {tag}: completed={tp['completed']} prefill_calls="
+          f"{tp['prefill_calls']} decode_steps={tp['decode_steps']} "
+          f"prefix_hits={kv['prefix_hits']} prefill_ms="
+          f"{tp['prefill_ms_mean']:.1f} decode_tick_ms="
+          f"{tp['decode_tick_ms_mean']:.2f} tok_s={tp['tok_s']:.1f} "
+          f"launches={launches} peak_mem_gib={res['peak_mem_gib']:.1f} "
+          f"| {card}")
+    assert eng.leaked_pages() == 0
+    return res
+
+
+def _p11_mixtral(card: str) -> dict:
+    """(a) mixtral-8x22b serving: window 4096, a ~4,600-token prompt."""
+    import numpy as np
+    import torch
+    from repro_torch.engine import EngineConfig, ServeEngine
+    from repro_torch.engine.serving.slots import paged_insert_rows
+    from repro_torch.kernels import build
+    full, cfg, model, plain = _p11_build("mixtral-8x22b", P11_MIXTRAL_LAYERS,
+                                         "bfloat16")
+    params, init_s = _p11_init(model)
+    print(f"[smoke] p11 (a) {cfg.name}: full width d_model={cfg.d_model} "
+          f"heads={cfg.n_heads}/{cfg.n_kv_heads} head_dim="
+          f"{cfg.resolved_head_dim} experts={cfg.n_experts}x"
+          f"{cfg.moe_d_ff} top-{cfg.n_experts_per_tok} window="
+          f"{cfg.sliding_window} vocab={cfg.vocab_size}; depth cut "
+          f"{full.n_layers} -> {cfg.n_layers}; {cfg.param_count() / 1e9:.2f}B "
+          f"params in bf16, init {init_s:.1f}s, {_mem()}")
+    V = cfg.vocab_size
+    rng = np.random.RandomState(SEED + 11)
+    prompts = [rng.randint(0, V, n) for n in (4600, 300, 517, 812)]
+    ecfg = EngineConfig(max_slots=4, max_len=8192, page_size=16,
+                        param_dtype="bfloat16")
+    eng = ServeEngine(ecfg, model, params)
+    assert eng._pages_per_slot == 256, eng._pages_per_slot
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    build.reset_launches()
+    with _RouteLog(cfg) as log:
+        hs, wall = _timed(lambda: _greedy(eng, prompts, [1, 3], P11_GEN))
+        launches = dict(build.LAUNCHES)
+        serve_drops = _RouteLog.drops(log.take())
+    res = _p11_serve_line("(a) serve mixtral", eng, hs, launches, card)
+    res.update(wall_s=wall, drops=serve_drops, init_s=init_s)
+    assert res["completed"] == 4 and all(len(h.tokens) == P11_GEN
+                                         for h in hs)
+    for k in ("flash_attention", "paged_decode_attention"):
+        assert launches[k] > 0, f"{k} never launched on mixtral"
+    del eng
+    _free()
+
+    # kernel arm vs plain arm. A router choice near a tie can flip
+    # between the arms (bf16 attention rounds differently), moving that
+    # token's output, and through attention and capacity the later
+    # positions', by O(1); positions before a request's first flip (in
+    # any layer) cannot see it. (1) the forward of each prompt: logits
+    # held at every position before its first flip; (2) the serving
+    # prefill of each prompt's agreeing prefix, then one decode of the
+    # four slots over a paged cache: held on the rows whose routing
+    # agrees in both calls
+    L = cfg.n_layers
+    fwd, routes = {}, {}
+    for tag, m in (("kernel", model), ("plain", plain)):
+        with _RouteLog(cfg) as log:
+            fwd[tag] = [m.forward(params, torch.tensor(
+                p[None].astype(np.int32), device="cuda"))[0].float()
+                for p in prompts]
+            routes[tag] = log.take()
+    agree = _route_agreement(routes["kernel"], routes["plain"])
+    first_flip = []
+    for i, p in enumerate(prompts):
+        bad = [j for l in range(L) for j in agree["flip_rows"][i * L + l]]
+        first_flip.append(min(bad) if bad else len(p))
+    held_err, all_err, n_held = 0.0, 0.0, 0
+    for i in range(len(prompts)):
+        d = (fwd["kernel"][i] - fwd["plain"][i]).abs().max(-1).values
+        all_err = max(all_err, d.max().item())
+        if first_flip[i]:
+            held_err = max(held_err, d[:first_flip[i]].max().item())
+            n_held += first_flip[i]
+    del fwd
+    print(f"[smoke] p11 (a) forward logits kernel vs plain: first routing "
+          f"flip at positions {first_flip} of {[len(p) for p in prompts]}; "
+          f"max_abs_err before it {held_err:.4f} over {n_held} positions "
+          f"(tol {LOGIT_TOL}), over all positions {all_err:.4f}; (token, k)"
+          f" choices agree {agree['choice_agreement']:.5f}, flipped tokens "
+          f"{agree['flipped_tokens']}, smallest plain-arm router gap at a "
+          f"flip {agree['min_gap_at_flip']} | {card}")
+    assert n_held and held_err <= LOGIT_TOL, (held_err, first_flip)
+    checks = {"forward": {"first_flip": first_flip, "positions_held": n_held,
+                          "max_abs_err_held": held_err,
+                          "max_abs_err_all": all_err, "tol": LOGIT_TOL}}
+    cut = [p[:max(16, f)] for p, f in zip(prompts, first_flip)]
+    cap = 4096
+    pps = cap // 16
+    out = {}
+    for tag, m in (("kernel", model), ("plain", plain)):
+        with _RouteLog(cfg) as log:
+            lg, rows_all = [], []
+            for p in cut:
+                t = torch.tensor(p[None].astype(np.int32), device="cuda")
+                n = torch.tensor([len(p)], dtype=torch.int32, device="cuda")
+                logits, rows = m.prefill_cache(params, t, n, ecfg.max_len)
+                lg.append(logits[:, -1].float())
+                rows_all.append(rows)
+            cache = m.init_cache(params, 4, ecfg.max_len,
+                                 paged=(16, 4 * pps + 1))
+            tables = (torch.arange(4 * pps, device="cuda", dtype=torch.int32)
+                      .reshape(4, pps) + 1)
+            for i, rows in enumerate(rows_all):
+                paged_insert_rows(cache, rows, torch.tensor([i], device="cuda"),
+                                  tables[i:i + 1], tables[i:i + 1])
+            del rows_all
+            if tag == "kernel":
+                nxt = torch.cat(lg).argmax(-1).to(torch.int32)[:, None]
+            dl, _ = m.decode_step(params, nxt, cache)
+            out[tag] = (torch.cat(lg), dl[:, -1].float())
+            routes[tag] = log.take()
+            del cache
+    # calls: prompt by prompt, layer by layer, then the decode's layers
+    # (one row of the four slots' tokens)
+    step_agree = _route_agreement(routes["kernel"], routes["plain"])
+    pre_ok = [all(not step_agree["flip_rows"][i * L + l] for l in range(L))
+              for i in range(len(cut))]
+    dec_ok = [pre_ok[b] and all(b not in step_agree["flip_rows"][
+        len(cut) * L + l] for l in range(L)) for b in range(4)]
+    for i, step in enumerate(("prefill", "decode")):
+        a, b = out["kernel"][i], out["plain"][i]
+        assert a.shape == (4, V) and bool(torch.isfinite(a).all())
+        rows_ok = pre_ok if step == "prefill" else dec_ok
+        err = (a - b).abs().max(-1).values.tolist()
+        held = [e for e, ok in zip(err, rows_ok) if ok]
+        checks[step] = {"prompt_lens": [len(p) for p in cut],
+                        "row_err": err, "routing_agrees": rows_ok,
+                        "max_err_held": max(held) if held else None,
+                        "tol": LOGIT_TOL}
+        print(f"[smoke] p11 (a) {step} logits kernel vs plain on the "
+              f"agreeing prefixes {[len(p) for p in cut]}: per-request "
+              f"max_abs_err={[round(e, 4) for e in err]} routing agrees="
+              f"{rows_ok} (tol {LOGIT_TOL} on the rows whose routing agrees)")
+        assert held, f"{step}: no row with agreeing routing to hold"
+        assert max(held) <= LOGIT_TOL, (step, err, rows_ok)
+    print(f"[smoke] p11 (a) serve drops {serve_drops['dropped']}/"
+          f"{serve_drops['pairs']} pairs | {card}")
+    res["plain_checks"] = checks
+    res["routing"] = {k: v for k, v in agree.items() if k != "flip_rows"}
+    res.update(layers=cfg.n_layers, full_layers=full.n_layers,
+               params_b=cfg.param_count() / 1e9)
+    assert res["peak_mem_gib"] <= P11_MEM_GIB
+    del params, model, plain, out, routes
+    _free()
+    return res
+
+
+def _p11_moonshot(card: str) -> dict:
+    """(b) moonshot-v1-16b-a3b serving: both cache segments, a shared
+    system prompt, speculation with the derived draft."""
+    import numpy as np
+    import torch
+    from repro_torch.engine import EngineConfig, ServeEngine
+    from repro_torch.kernels import build
+    full, cfg, model, _ = _p11_build("moonshot-v1-16b-a3b",
+                                     P11_MOONSHOT_LAYERS, "bfloat16")
+    params, init_s = _p11_init(model)
+    print(f"[smoke] p11 (b) {cfg.name}: full width d_model={cfg.d_model} "
+          f"heads={cfg.n_heads}/{cfg.n_kv_heads} head_dim="
+          f"{cfg.resolved_head_dim} experts={cfg.n_experts}x{cfg.moe_d_ff} "
+          f"top-{cfg.n_experts_per_tok} shared={cfg.n_shared_experts} "
+          f"vocab={cfg.vocab_size}; depth cut {full.n_layers} -> "
+          f"{cfg.n_layers} ({cfg.first_dense_layers} dense + "
+          f"{cfg.n_layers - cfg.first_dense_layers} MoE); "
+          f"{cfg.param_count() / 1e9:.2f}B params in bf16, init "
+          f"{init_s:.1f}s, {_mem()}")
+    V = cfg.vocab_size
+    rng = np.random.RandomState(SEED + 12)
+    system = rng.randint(0, V, 64)
+    prompts = [np.concatenate([system, rng.randint(0, V, n)])
+               for n in (183, 240, 97, 310)]
+    base = dict(max_slots=4, max_len=1024, page_size=16,
+                param_dtype="bfloat16")
+    res = {"init_s": init_s}
+    torch.cuda.reset_peak_memory_stats()
+    streams = {}
+    for k in (0, P11_SPEC_K):
+        eng = ServeEngine(EngineConfig(speculation_k=k, **base), model,
+                          params)
+        with _RouteLog(cfg) as log:
+            verify = eng._verify if k else None
+            if k:
+                def tagged(*a, _v=verify, _log=log):
+                    _log.tag = "verify"
+                    try:
+                        return _v(*a)
+                    finally:
+                        _log.tag = ""
+                eng._verify = tagged
+            torch.cuda.synchronize()
+            build.reset_launches()
+            hs, wall = _timed(lambda: _greedy(eng, prompts, [1, 2, 1],
+                                              P11_GEN))
+            launches = dict(build.LAUNCHES)
+            calls = log.take()
+        tag = f"(b) serve moonshot spec_k={k}"
+        run = _p11_serve_line(tag, eng, hs, launches, card)
+        run.update(wall_s=wall, drops=_RouteLog.drops(calls))
+        assert run["completed"] == 4
+        assert run["prefix_hits"] > 0, "no prefix extend ran"
+        # every prefill runs flash; a plain tick runs paged decode (spec
+        # ticks verify through the plain attention, as the reference's)
+        for name in ("flash_attention",) + (
+                () if k else ("paged_decode_attention",)):
+            assert launches[name] > 0, f"{name} never launched on moonshot"
+        dense = eng.cache.dense_layers["attn"]
+        pages = torch.tensor(sorted(eng._prefix.pages()), device="cuda")
+        run["dense_segment_prefix_abs"] = float(
+            dense.k[:, pages].float().abs().sum())
+        assert run["dense_segment_prefix_abs"] > 0, \
+            "the dense segment's prefix pages were never written"
+        if k:
+            tp = eng.throughput()
+            run.update(spec_ticks=tp["spec_ticks"],
+                       acceptance=tp["spec_acceptance_rate"],
+                       dispatches_per_token=tp["dispatches_per_token"],
+                       draft_layers=eng._draft_model.cfg.n_layers,
+                       verify_drops=_RouteLog.drops(calls, "verify"))
+            assert tp["spec_ticks"] > 0
+        streams[k] = run["tokens"]
+        res[f"spec{k}"] = run
+        del eng
+        _free()
+    agree = _agreement(streams[P11_SPEC_K], streams[0])
+    res["spec_vs_plain"] = agree
+    s = res[f"spec{P11_SPEC_K}"]
+    print(f"[smoke] p11 (b) spec k={P11_SPEC_K} (derived {s['draft_layers']}"
+          f"-layer random draft) vs plain: equal share="
+          f"{agree['equal_share']:.3f} first divergence="
+          f"{agree['first_divergence']}; acceptance={s['acceptance']:.3f} "
+          f"spec_ticks={s['spec_ticks']} target forwards/token="
+          f"{s['dispatches_per_token']:.3f}; drops in verify forwards "
+          f"{s['verify_drops']['dropped']}/{s['verify_drops']['pairs']} "
+          f"pairs over {s['verify_drops']['calls']} MoE calls, all calls "
+          f"{s['drops']['dropped']}/{s['drops']['pairs']} | {card}")
+    res.update(layers=cfg.n_layers, full_layers=full.n_layers,
+               params_b=cfg.param_count() / 1e9,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    assert res["peak_mem_gib"] <= P11_MEM_GIB
+    del params, model
+    _free()
+    return res
+
+
+def _p11_minicpm(card: str) -> dict:
+    """(c) minicpm3-4b serving at full depth: the latent cache, paged and
+    dense."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.engine import EngineConfig, ServeEngine
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model
+    cfg = get_config("minicpm3-4b")
+    model = build_model(cfg, compute_dtype=torch.bfloat16,
+                        param_dtype=torch.bfloat16)
+    params, init_s = _p11_init(model)
+    print(f"[smoke] p11 (c) {cfg.name}: full width d_model={cfg.d_model} "
+          f"heads={cfg.n_heads} q_lora={cfg.q_lora_rank} kv_lora="
+          f"{cfg.kv_lora_rank} qk={cfg.qk_nope_head_dim}+"
+          f"{cfg.qk_rope_head_dim} v={cfg.v_head_dim} vocab="
+          f"{cfg.vocab_size}; full depth {cfg.n_layers}; "
+          f"{cfg.param_count() / 1e9:.2f}B params in bf16, init "
+          f"{init_s:.1f}s, {_mem()}")
+    V = cfg.vocab_size
+    rng = np.random.RandomState(SEED + 13)
+    system = rng.randint(0, V, 64)
+    prompts = [np.concatenate([system, rng.randint(0, V, n)])
+               for n in (150, 233, 71, 288)]
+    base = dict(max_slots=4, max_len=512, page_size=16,
+                param_dtype="bfloat16")
+    res = {"init_s": init_s}
+    torch.cuda.reset_peak_memory_stats()
+    for tag, kw in (("paged_shared", dict(kv_layout="paged")),
+                    ("paged", dict(kv_layout="paged", prefix_sharing=False)),
+                    ("dense", dict(kv_layout="dense"))):
+        eng = ServeEngine(EngineConfig(**kw, **base), model, params)
+        torch.cuda.synchronize()
+        build.reset_launches()
+        hs, wall = _timed(lambda: _greedy(eng, prompts, [1, 2, 1], P11_GEN))
+        run = _p11_serve_line(f"(c) serve minicpm3 {tag}", eng, hs,
+                              dict(build.LAUNCHES), card)
+        run["wall_s"] = wall
+        assert run["completed"] == 4
+        if tag == "paged_shared":
+            assert run["prefix_hits"] > 0
+            run["latent_bytes_per_token"] = \
+                run["kv_page_bytes"] / base["page_size"]
+        res[tag] = run
+        del eng
+        _free()
+    eq = _agreement(res["paged"]["tokens"], res["dense"]["tokens"])
+    shared = _agreement(res["paged_shared"]["tokens"], res["dense"]["tokens"])
+    shared["margins"] = _divergence_margins(
+        model, params, prompts, res["paged_shared"]["tokens"],
+        res["dense"]["tokens"], base["max_len"])
+    lat = res["paged_shared"]["latent_bytes_per_token"]
+    gqa = (cfg.n_layers * cfg.n_heads
+           * (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim + cfg.v_head_dim)
+           * 2)
+    res.update(dense_vs_paged=eq, shared_vs_dense=shared,
+               gqa_bytes_per_token=gqa, layers=cfg.n_layers,
+               params_b=cfg.param_count() / 1e9,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    print(f"[smoke] p11 (c) dense vs paged (no sharing): tokens equal="
+          f"{eq['all_equal']}; paged with prefix sharing vs dense: equal "
+          f"share={shared['equal_share']:.3f} first divergence="
+          f"{shared['first_divergence']} margins="
+          f"{[round(m, 4) for m in shared['margins']]}; latent cache "
+          f"{lat:.0f} B/token against {gqa} B/token for a GQA cache of the "
+          f"same heads (k {cfg.qk_nope_head_dim + cfg.qk_rope_head_dim}, "
+          f"v {cfg.v_head_dim}, {cfg.n_heads} heads): {gqa / lat:.1f}x | "
+          f"{card}")
+    assert eq["all_equal"], "minicpm3: dense != paged"
+    assert all(abs(m) <= LOGIT_TOL for m in shared["margins"]), shared
+    assert res["peak_mem_gib"] <= P11_MEM_GIB
+    del params, model
+    _free()
+    return res
+
+
+def _p11_train(card: str, name: str, layers: int, optimizer: str) -> dict:
+    """(d)/(e): three TrainSession steps at full width, span 2, seq 512,
+    batch 8, then step 1 again on the kernel path (bitwise) and with
+    combine_impl='plain' (held as phase 5 holds it)."""
+    import math
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.core import combine as C
+    from repro_torch.kernels import build
+    full, cfg, model, _ = _p11_build(name, layers, "float32")
+    span = 2
+    fields = dict(arch=name, optimizer=optimizer, span=span,
+                  backend="gspmd_tree")
+    print(f"[smoke] p11 train {cfg.name}: full width d_model={cfg.d_model},"
+          f" depth cut {full.n_layers} -> {layers}"
+          + (f" ({cfg.first_dense_layers} dense + "
+             f"{layers - cfg.first_dense_layers} MoE)" if cfg.n_experts
+             else "")
+          + f"; {cfg.param_count() / 1e9:.3f}B params in fp32, bf16 "
+          f"compute, seq 512, batch 8, {optimizer} span {span}")
+    timer = _CombineTimer()
+    torch.cuda.reset_peak_memory_stats()
+    s = _session(model, timer, **fields)
+    leaves = T.leaves(s.state["params"])
+    plan = C.fused_plan([x.expand((span,) + tuple(x.shape)) for x in leaves],
+                        C.CombineConfig(
+                            fusion_threshold_mb=s.config.fusion_threshold_mb))
+    per_step = len(plan)                  # one tree level at span 2
+    steps = []
+    torch.cuda.synchronize()
+    build.reset_launches()
+    with _RouteLog(cfg) as log:
+        for step in range(3):
+            t0 = time.perf_counter()
+            m = s.step(s.batch(step))
+            torch.cuda.synchronize()
+            steps.append({"step": step,
+                          "ms": 1e3 * (time.perf_counter() - t0),
+                          "combine_ms": timer.take_ms(),
+                          "loss": float(m["loss"]), "aux": float(m["aux"])})
+            if step == 0:
+                p1 = [x.to("cpu", copy=True) for x in leaves]
+        drops = _RouteLog.drops(log.take())
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    meta = s.runtime.combine_path, s.runtime.dopt.point
+    del s, leaves
+    _free()
+    for st in steps:
+        assert math.isfinite(st["loss"]) and math.isfinite(st["aux"]), st
+    for k in ("block_dots", "block_combine"):
+        assert launches[k] == 3 * per_step, (name, k, launches[k], per_step)
+    p1 = [x.cuda() for x in p1]
+    again, (g_kern, lv_kern) = _step_once(model, optimizer, span, arch=name)
+    bitwise = all(torch.equal(x, y) for x, y in zip(p1, again))
+    del again
+    _free()
+    plain, (g_plain, lv_plain) = _step_once(model, optimizer, span,
+                                            combine_impl="plain", arch=name)
+    err = max((x - y).abs().max().item() for x, y in zip(p1, plain))
+    comb_err = max(_rel_err(x, y) for x, y in zip(g_kern, g_plain))
+    stats_err = max(_rel_err(x, y) for x, y in zip(lv_kern, lv_plain))
+    del plain, p1, g_kern, g_plain
+    _free()
+    ms = statistics.mean(st["ms"] for st in steps[1:])
+    comb = statistics.mean(st["combine_ms"] for st in steps[1:])
+    run = {"arch": name, "layers": layers, "full_layers": full.n_layers,
+           "params_b": cfg.param_count() / 1e9, "optimizer": optimizer,
+           "span": span, "point": meta[1], "combine_path": meta[0],
+           "buckets": len(plan), "launches": launches, "steps": steps,
+           "step_ms_steady": ms, "combine_ms_steady": comb,
+           "combine_share": comb / ms, "peak_mem_gib": peak, "drops": drops,
+           "bitwise_repeat": bitwise, "plain_max_abs_err": err,
+           "combined_rel_err": comb_err, "stats_rel_err": stats_err}
+    print(f"[smoke] p11 train {name} {optimizer} span={span} point={meta[1]}"
+          f" path={meta[0]} buckets={len(plan)} launches="
+          f"{ {k: launches[k] for k in ('block_dots', 'block_combine')} } "
+          f"losses={[round(st['loss'], 4) for st in steps]} aux="
+          f"{[round(st['aux'], 4) for st in steps]} drop_fraction="
+          f"{drops['drop_fraction']:.4f} ({drops['dropped']}/{drops['pairs']}"
+          f" pairs)")
+    print(f"[smoke] p11 train {name}: step_ms="
+          f"{[round(st['ms'], 1) for st in steps]} steady_ms={ms:.1f} "
+          f"combine_ms={comb:.1f} combine_share={comb / ms:.3f} "
+          f"peak_mem_gib={peak:.1f}; step 1 again bitwise={bitwise}, kernel "
+          f"vs plain combine rel_err={comb_err:.3e} stats rel_err="
+          f"{stats_err:.3e} (tol {COMBINED_RTOL}) params max_abs_err="
+          f"{err:.3e} (tol {TRAIN_PARAM_TOL}) | {card}")
+    assert bitwise, f"{name}: step 1 is not bitwise repeatable"
+    assert comb_err <= COMBINED_RTOL and stats_err <= COMBINED_RTOL, run
+    assert err <= TRAIN_PARAM_TOL, run
+    assert peak <= P11_MEM_GIB, f"peak {peak:.1f} GiB"
+    del model
+    _free()
+    return run
+
+
+def families_phase(card: str) -> dict:
+    """Phase 11: the MLA and MoE decoders (ROADMAP item 6, first half)."""
+    t_phase = time.perf_counter()
+    part_s, rec = {}, {}
+    for part, fn in (("a", lambda: _p11_mixtral(card)),
+                     ("b", lambda: _p11_moonshot(card)),
+                     ("c", lambda: _p11_minicpm(card)),
+                     ("d", lambda: _p11_train(card, "moonshot-v1-16b-a3b",
+                                              P11_TRAIN_MOONSHOT,
+                                              "momentum")),
+                     ("e", lambda: _p11_train(card, "minicpm3-4b",
+                                              P11_TRAIN_MINICPM, "adam"))):
+        t0 = time.perf_counter()
+        rec[part] = fn()
+        part_s[part] = time.perf_counter() - t0
+        _free()
+    launches = {k: (rec["a"]["launches"][k]
+                    + sum(rec["b"][f"spec{s}"]["launches"][k]
+                          for s in (0, P11_SPEC_K)))
+                for k in ("flash_attention", "paged_decode_attention")}
+    launches.update({k: rec["d"]["launches"][k] + rec["e"]["launches"][k]
+                     for k in ("block_dots", "block_combine")})
+    rec["launches"] = launches
+    rec["part_s"] = part_s
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"[smoke] families launches={launches} parts "
+          f"{ {k: round(v, 1) for k, v in part_s.items()} } s, phase "
+          f"{rec['phase_s']:.1f}s | {card}")
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3603,6 +4226,9 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--subsystems-only", action="store_true",
                     help="build the kernels and run phase 10 alone; prints "
+                    "no result line")
+    ap.add_argument("--families-only", action="store_true",
+                    help="build the kernels and run phase 11 alone; prints "
                     "no result line")
     ap.add_argument("--combiners-only", action="store_true",
                     help="build the kernels and run phase 9 alone (with "
@@ -3656,6 +4282,9 @@ def main(argv=None) -> int:
         if args.subsystems_only:
             record["subsystems"] = subsystems_phase(card)
             return 0
+        if args.families_only:
+            record["families"] = families_phase(card)
+            return 0
         walls = record["phase_wall_s"] = {"2": secs}
         t_mark = [time.perf_counter()]
 
@@ -3690,9 +4319,12 @@ def main(argv=None) -> int:
         _free()
         mark("9")
         record["subsystems"] = subsystems_phase(card)
+        _free()
         mark("10")
+        record["families"] = families_phase(card)
+        mark("11")
         print(f"[smoke] phase wall s "
-              f"{ {k: round(v, 1) for k, v in walls.items()} }, phases 2-10 "
+              f"{ {k: round(v, 1) for k, v in walls.items()} }, phases 2-11 "
               f"{sum(walls.values()):.1f} s | {card}")
     except Exception:                   # any phase failing fails the run
         traceback.print_exc()
@@ -3727,6 +4359,7 @@ def main(argv=None) -> int:
     ext_launches = record["serve_ext"]["launches"]
     p9_launches = record["combiners"]["launches"]
     p10_launches = record["subsystems"]["launches"]
+    p11_launches = record["families"]["launches"]
     main_cases = {"serve_extend", "serve_tick", "embed_fp32"}
     sources = {
         "flash_attention": ("csrc/flash_attention.cu",
@@ -3754,7 +4387,8 @@ def main(argv=None) -> int:
             "device_ms": c.get("device_ms"),
             "library_device_ms": c.get("library_device_ms"),
             "phase7_launches": ck_launches[c["kernel"]],
-            "phase10_launches": p10_launches[c["kernel"]]})
+            "phase10_launches": p10_launches[c["kernel"]],
+            "phase11_launches": p11_launches[c["kernel"]]})
         if c["kernel"] in ("flash_attention", "paged_decode_attention"):
             rows[-1]["phase8_launches"] = ext_launches[c["kernel"]]
         if c["kernel"] in rvh_ms:

@@ -2,9 +2,11 @@
 `repro/configs/base.py`).
 
 The dataclass is field-for-field the JAX package's, so a config means
-the same model in both. The registry serves the dense presets this slice
-ports (`qwen3_32b`, `minitron_4b`, `gemma_7b`); asking for another
-architecture raises and names the ROADMAP item that brings its family.
+the same model in both. The registry serves the presets the port
+carries — the dense GQA decoders (`qwen3_32b`, `minitron_4b`,
+`gemma_7b`), MLA (`minicpm3_4b`) and MoE (`mixtral_8x22b`,
+`moonshot_v1_16b_a3b`); asking for another architecture raises and
+names the ROADMAP item that brings its family.
 """
 from __future__ import annotations
 
@@ -103,8 +105,10 @@ ARCH_IDS: Tuple[str, ...] = (
     "seamless_m4t_large_v2", "rwkv6_7b",
 )
 
-# the presets this slice carries (dense GQA decoders)
-PORTED_ARCH_IDS: Tuple[str, ...] = ("gemma_7b", "minitron_4b", "qwen3_32b")
+# the presets the port carries: dense GQA, MLA and MoE decoders
+PORTED_ARCH_IDS: Tuple[str, ...] = ("gemma_7b", "minitron_4b", "qwen3_32b",
+                                    "minicpm3_4b", "mixtral_8x22b",
+                                    "moonshot_v1_16b_a3b")
 
 # canonical external ids (with dashes) -> module names
 _ALIASES = {
@@ -130,7 +134,7 @@ def _module(arch: str):
     if name not in PORTED_ARCH_IDS:
         if name in ARCH_IDS:
             raise not_ported(f"architecture {arch!r}", ITEM_FAMILIES,
-                             f"slice 1 carries {PORTED_ARCH_IDS}")
+                             f"the port carries {PORTED_ARCH_IDS}")
         raise KeyError(f"unknown architecture {arch!r}; known: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{name}")
 

@@ -1,5 +1,6 @@
 """ServeEngine — request-level serving over EngineConfig (the port of
-`repro/engine/serving/engine.py` for the dense GQA family).
+`repro/engine/serving/engine.py` for the attention families: dense GQA,
+MLA and MoE decoders).
 
     engine = ServeEngine.from_config(
         EngineConfig(arch="qwen3-32b", reduced=True, max_slots=8,
@@ -70,6 +71,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.attention import paged_capacity
+from repro_torch.models.transformer import map_segments
 from repro_torch.runtime import DeviceLike, make_generator, resolve_device
 from ..build import (make_batched_decode_step, make_draft_propose,
                      make_sampling_decode_step, make_verify_step,
@@ -999,9 +1001,8 @@ class ServeEngine:
             slot_version[slot] = h.version
         nxt = np.zeros((self.max_slots, 1), np.int32)
         if not self.paged:
-            copies = {v: type(self.cache)({"attn": type(
-                self.cache.layers["attn"])(*(
-                    t.clone() for t in self.cache.layers["attn"]))})
+            copies = {v: map_segments(
+                lambda a: type(a)(*(t.clone() for t in a)), self.cache)
                 for v in versions[1:]}
             out, merged = decode(self._params[versions[0]], self.cache)
             mine = slot_version == versions[0]
@@ -1013,17 +1014,15 @@ class ServeEngine:
                 nxt[mine] = out.cpu().numpy()[mine]
             self.cache = merged
             return nxt
-        att = self.cache.layers["attn"]
         for v in versions:
             mine = slot_version == v
             keep = self._dev(mine)[None, :, None]
-            view = type(self.cache)({"attn": att._replace(
-                page_table=torch.where(keep, att.page_table,
-                                       PagePool.TRASH))})
+            view = map_segments(lambda a: a._replace(page_table=torch.where(
+                keep, a.page_table, PagePool.TRASH)), self.cache)
             out, after = decode(self._params[v], view)
             nxt[mine] = out.cpu().numpy()[mine]    # waits for the device
-        self.cache = type(self.cache)(
-            {"attn": att._replace(pos=after.layers["attn"].pos)})
+        self.cache = map_segments(lambda a, b: a._replace(pos=b.pos),
+                                  self.cache, after)
         return nxt
 
     def _commit(self, handle: RequestHandle, token: int):

@@ -1,5 +1,12 @@
 """Slotted-cache device ops, the page pool and the paged-cache device ops
-(the port's GQA subset of `repro/engine/serving/slots.py`).
+(the port of `repro/engine/serving/slots.py`).
+
+Every op covers the four attention caches — `KVCache` and `MLACache`
+(dense per-slot rows), `PagedKVCache` and `PagedMLACache` (page arenas)
+— in both segments of a `DecodeCache` (`layers`, and `dense_layers` of
+a MoE config with a dense prefix), as the reference's tree-generic ops
+do. Each cache's first two fields are its rows or arenas (k/v, or the
+latent c_kv and k_rope), the last its positions.
 
 A slotted cache keeps the slot axis at position 1 of every leaf (the
 layer axis is 0), per-slot positions included ([L, B]). `insert_rows`
@@ -13,7 +20,7 @@ free list, copy-on-write — copied from the reference. The device ops
 rewrite cache rows and page tables without changing a shape. Unlike the
 reference, which rebuilds every cache functionally (`.at[].set`), the
 row and page ops write IN PLACE (`index_put_` / `copy_`) and return the
-cache they were given: copying a `[L, num_pages, page_size, KV, Dh]`
+cache they were given: copying a `[L, num_pages, page_size, ...]`
 arena per admission or COW would swamp the card. Physical page 0 is the
 trash page: free slots and unallocated table entries point at it,
 making their garbage writes inert.
@@ -25,8 +32,12 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.models import attention as ATT
-from repro_torch.models.transformer import DecodeCache
+from repro_torch.models.transformer import (DecodeCache, cache_segments,
+                                            map_segments)
+
+
+def _nbytes(a: torch.Tensor) -> int:
+    return a.numel() * a.element_size()
 
 
 # ======================================================== slotted caches
@@ -34,9 +45,9 @@ def insert_rows(cache: DecodeCache, row: DecodeCache,
                 slot: int) -> DecodeCache:
     """Write a one-slot cache into `cache` at slot index `slot`, in
     place (every leaf of the slot: rows and position)."""
-    c, r = cache.layers["attn"], row.layers["attn"]
-    for dst, src in zip(c, r):
-        dst[:, slot:slot + 1] = src.to(dst.dtype)
+    for c, r in zip(cache_segments(cache), cache_segments(row)):
+        for dst, src in zip(c, r):
+            dst[:, slot:slot + 1] = src.to(dst.dtype)
     return cache
 
 
@@ -44,28 +55,31 @@ def insert_rows_at(cache: DecodeCache, rows: DecodeCache,
                    slots: torch.Tensor) -> DecodeCache:
     """Scatter an n-slot cache (a group's prefill rows) into `cache` at
     slot indices `slots` [n], in place — the dense layout's admission."""
-    c, r = cache.layers["attn"], rows.layers["attn"]
     idx = slots.long()
-    for dst, src in zip(c, r):
-        dst[:, idx] = src.to(dst.dtype)
+    for c, r in zip(cache_segments(cache), cache_segments(rows)):
+        for dst, src in zip(c, r):
+            dst[:, idx] = src.to(dst.dtype)
     return cache
+
+
+def _sel(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
+    """torch.where on axis 1 (slots or physical pages) of [L, n, ...]."""
+    m = mask.reshape((1, mask.shape[0]) + (1,) * (a.dim() - 2))
+    return torch.where(m, a, b)
 
 
 def select_rows(mask: torch.Tensor, new: DecodeCache,
                 old: DecodeCache) -> DecodeCache:
-    """Per-slot select: slots where mask[b] take `new`, the others keep
-    `old`. mask: bool [B] over the slot axis. Returns new tensors."""
-    n, o = new.layers["attn"], old.layers["attn"]
-
-    def sel(a, b):
-        m = mask.reshape((1, mask.shape[0]) + (1,) * (a.dim() - 2))
-        return torch.where(m, a, b)
-    return DecodeCache({"attn": type(n)(*(sel(a, b) for a, b in zip(n, o)))})
+    """Per-slot select over dense caches: slots where mask[b] take
+    `new`, the others keep `old`. mask: bool [B] over the slot axis.
+    Returns new tensors."""
+    return map_segments(lambda n, o: type(n)(
+        *(_sel(mask, a, b) for a, b in zip(n, o))), new, old)
 
 
 def slot_positions(cache: DecodeCache) -> torch.Tensor:
-    """The per-slot positions [B] (layer 0's; every layer holds the
-    same)."""
+    """The per-slot positions [B] (layer 0's; every layer of every
+    segment holds the same)."""
     pos = cache.layers["attn"].pos
     if pos.dim() != 2:
         raise ValueError("cache has no per-slot pos; was it built with "
@@ -74,22 +88,22 @@ def slot_positions(cache: DecodeCache) -> torch.Tensor:
 
 
 def set_positions(cache: DecodeCache, pos: torch.Tensor) -> DecodeCache:
-    """The cache with every layer's per-slot pos set to `pos` [B]. This
-    values-only rewrite IS speculative accept and rollback: advancing
-    pos to old_pos + accepted + 1 commits the accepted rows, and what the
-    verify wrote beyond it becomes masked garbage that the next writes
-    overwrite. Rows and arenas are shared with `cache`."""
-    att = cache.layers["attn"]
-    return DecodeCache({"attn": att._replace(
-        pos=pos.to(torch.int32).expand_as(att.pos).clone())})
+    """The cache with every layer's per-slot pos set to `pos` [B], in
+    both segments. This values-only rewrite IS speculative accept and
+    rollback: advancing pos to old_pos + accepted + 1 commits the
+    accepted rows, and what the verify wrote beyond it becomes masked
+    garbage that the next writes overwrite. Rows and arenas are shared
+    with `cache`."""
+    return map_segments(lambda att: att._replace(
+        pos=pos.to(torch.int32).expand_as(att.pos).clone()), cache)
 
 
 def dense_kv_bytes(cache: DecodeCache) -> int:
-    """Bytes of the dense K/V rows (positions excluded): the constant
-    footprint of kv_layout='dense', which the paged arena's
-    `kv_bytes_in_use` is compared against."""
-    c = cache.layers["attn"]
-    return sum(a.numel() * a.element_size() for a in (c.k, c.v))
+    """Bytes of the dense rows (K/V, or MLA's latent and rope key;
+    positions excluded) in every segment: the constant footprint of
+    kv_layout='dense', which the paged arena's `kv_bytes_in_use` is
+    compared against."""
+    return sum(_nbytes(a) for c in cache_segments(cache) for a in c[:2])
 
 
 # ============================================================== page pool
@@ -173,65 +187,62 @@ class PagePool:
 
 
 # ====================================================== paged device ops
-def _attn(cache: DecodeCache) -> ATT.PagedKVCache:
-    return cache.layers["attn"]
-
-
 def paged_insert_rows(cache: DecodeCache, rows: DecodeCache,
                       slots: torch.Tensor, write_tables: torch.Tensor,
                       new_tables: torch.Tensor) -> DecodeCache:
     """Admit n freshly-prefilled rows into the paged cache, in place.
 
-    `rows` is the dense per-slot cache the prefill emits (K/V
-    [L, n, cap, KV, Dh]); its rows are scattered into the arena through
-    `write_tables` [n, pages_per_slot] — the slots' new tables with
-    every non-owned entry (shared prefix pages, unallocated tail) at
-    trash page 0, so shared pages are never clobbered. The slots' page
-    tables are set to `new_tables` and their positions to the rows'."""
-    c, r = _attn(cache), rows.layers["attn"]
-    Lyr, n = r.k.shape[:2]
+    `rows` is the dense per-slot cache the prefill emits (rows
+    [L, n, cap, ...] in each segment); its rows are scattered into the
+    arenas through `write_tables` [n, pages_per_slot] — the slots' new
+    tables with every non-owned entry (shared prefix pages, unallocated
+    tail) at trash page 0, so shared pages are never clobbered. The
+    slots' page tables are set to `new_tables` and their positions to
+    the rows'."""
     P = write_tables.shape[1]
-    ps = c.k.shape[2]
     idx = write_tables.long()
-    for arena, dense in ((c.k, r.k), (c.v, r.v)):
-        arena[:, idx] = dense.reshape((Lyr, n, P, ps) + dense.shape[3:]) \
-            .to(arena.dtype)
     slots = slots.long()
-    c.page_table[:, slots] = new_tables.to(torch.int32)
-    c.pos[:, slots] = r.pos
+    for c, r in zip(cache_segments(cache), cache_segments(rows)):
+        for arena, dense in zip(c[:2], r[:2]):
+            Lyr, n = dense.shape[:2]
+            arena[:, idx] = dense.reshape(
+                (Lyr, n, P, arena.shape[2]) + dense.shape[3:]).to(arena.dtype)
+        c.page_table[:, slots] = new_tables.to(torch.int32)
+        c.pos[:, slots] = r.pos
     return cache
 
 
 def gather_prefix(cache: DecodeCache, pages: torch.Tensor) -> DecodeCache:
-    """Read a shared-prefix K/V context back out of the arena: `pages`
-    [n_pages] physical ids in logical order -> DecodeCache of the
-    per-layer pair [L, 1, n_pages * page_size, KV, Dh] (leading singleton
-    batch axis; the prefill broadcasts it across the admission group).
-    Feeds `prefill_cache(prefix_kv=...)`."""
-    c = _attn(cache)
-
+    """Read a shared-prefix context back out of the arenas: `pages`
+    [n_pages] physical ids in logical order -> DecodeCache of per-layer
+    pairs [L, 1, n_pages * page_size, ...] in each segment (K/V, or the
+    MLA latents; a leading singleton batch axis the prefill broadcasts
+    across the admission group). Feeds `prefill_cache(prefix_kv=...)`."""
     def g(arena):
-        sel = arena[:, pages.long()]                 # [L, n, ps, KV, Dh]
+        sel = arena[:, pages.long()]                 # [L, n, ps, ...]
         Lyr, n, psz = sel.shape[:3]
         return sel.reshape((Lyr, 1, n * psz) + sel.shape[3:])
-    return DecodeCache({"attn": (g(c.k), g(c.v))})
+    return map_segments(lambda c: (g(c[0]), g(c[1])), cache)
 
 
 def copy_pages(cache: DecodeCache, src: torch.Tensor,
                dst: torch.Tensor) -> DecodeCache:
-    """Copy arena pages src[i] -> dst[i] in every layer, in place (the
-    COW backing-store move). Page tables and positions untouched."""
-    c = _attn(cache)
-    for arena in (c.k, c.v):
-        arena[:, dst.long()] = arena[:, src.long()]
+    """Copy arena pages src[i] -> dst[i] in every layer of every
+    segment, in place (the COW backing-store move). Page tables and
+    positions untouched."""
+    for c in cache_segments(cache):
+        for arena in c[:2]:
+            arena[:, dst.long()] = arena[:, src.long()]
     return cache
 
 
 def set_page_tables(cache: DecodeCache, tables: torch.Tensor) -> DecodeCache:
     """Install the host-side page tables [B, pages_per_slot] into every
-    layer, in place (values only: no shape ever changes)."""
-    pt = _attn(cache).page_table
-    pt.copy_(tables.to(device=pt.device, dtype=torch.int32).expand_as(pt))
+    layer of every segment, in place (values only: no shape ever
+    changes)."""
+    for c in cache_segments(cache):
+        pt = c.page_table
+        pt.copy_(tables.to(device=pt.device, dtype=torch.int32).expand_as(pt))
     return cache
 
 
@@ -242,20 +253,14 @@ def select_rows_paged(slot_mask: torch.Tensor, page_mask: torch.Tensor,
     leaves (page tables, positions) by `slot_mask` [B]. Returns new
     tensors. The reference merges hot-reload transition ticks with it;
     in the port it serves callers that keep two cache versions."""
-    n, o = _attn(new), _attn(old)
-
-    def sel(mask, a, b):
-        m = mask.reshape((1, mask.shape[0]) + (1,) * (a.dim() - 2))
-        return torch.where(m, a, b)
-    return DecodeCache({"attn": ATT.PagedKVCache(
-        sel(page_mask, n.k, o.k), sel(page_mask, n.v, o.v),
-        sel(slot_mask, n.page_table, o.page_table),
-        sel(slot_mask, n.pos, o.pos))})
+    return map_segments(lambda n, o: type(n)(
+        _sel(page_mask, n[0], o[0]), _sel(page_mask, n[1], o[1]),
+        _sel(slot_mask, n.page_table, o.page_table),
+        _sel(slot_mask, n.pos, o.pos)), new, old)
 
 
 def paged_kv_page_bytes(cache: DecodeCache) -> int:
-    """Bytes one physical page occupies across all layers and both
-    arenas — the unit of `kv_bytes_in_use` accounting."""
-    c = _attn(cache)
-    return sum(a.shape[0] * int(np.prod(a.shape[2:])) * a.element_size()
-               for a in (c.k, c.v))
+    """Bytes one physical page occupies across all layers, both arenas
+    and both segments — the unit of `kv_bytes_in_use` accounting."""
+    return sum(_nbytes(a) // a.shape[1]
+               for c in cache_segments(cache) for a in c[:2])

@@ -1,4 +1,5 @@
-"""Model API for the dense family (the port's `repro/models/api.py`):
+"""Model API for the attention families — dense GQA, MLA and MoE
+decoders (the port's `repro/models/api.py`):
 
     model = build_model(cfg)
     params = model.init(generator)               # on cuda by default
@@ -40,11 +41,13 @@ class Model:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if (cfg.family != "dense" or cfg.attn_type != "gqa" or cfg.n_experts
+    if (cfg.family not in ("dense", "moe")
+            or cfg.attn_type not in ("gqa", "mla")
             or cfg.is_encoder_decoder or cfg.frontend != "none"):
         raise not_ported(f"{cfg.name} (family={cfg.family}, "
                          f"attn={cfg.attn_type})", ITEM_FAMILIES,
-                         "the port runs dense GQA decoders")
+                         "the port runs dense and MoE decoders with GQA "
+                         "or MLA attention")
     if cfg.orig_heads:
         raise not_ported("TP head padding (orig_heads)", ITEM_SHARDING)
 
@@ -52,13 +55,14 @@ def _check_family(cfg: ModelConfig) -> None:
 def build_model(cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
                 param_dtype=torch.float32, attn_impl: str = "kernel",
                 attn_chunk: int = 512, remat: bool = True) -> Model:
-    """attn_impl='kernel' routes serving attention through the kernel
+    """attn_impl='kernel' routes serving GQA attention through the kernel
     wrappers (CUDA kernel on a card, plain version on the CPU); 'plain'
     runs the plain versions everywhere — the on-card reference for the
-    kernels. `loss` (training) always takes the plain attention path,
-    `attn_chunk` query rows at a time (this bounds its attention memory;
-    the result does not depend on it); remat recomputes each block in
-    its backward pass."""
+    kernels. MLA attention and the MoE dispatch are plain torch ops on
+    every device. `loss` (training) always takes the plain attention
+    path, `attn_chunk` query rows at a time (this bounds its attention
+    memory; the result does not depend on it); remat recomputes each
+    block in its backward pass."""
     _check_family(cfg)
     if attn_impl not in ATT.ATTN_IMPLS:
         raise ValueError(f"attn_impl={attn_impl!r}; one of {ATT.ATTN_IMPLS}")
@@ -76,7 +80,7 @@ def build_model(cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
 
     def forward(params, tokens):
         return TF.forward(params, cfg, tokens, compute_dtype, attn_impl,
-                          attn_chunk=attn_chunk)
+                          attn_chunk=attn_chunk)[0]
 
     def init_cache(params, batch, max_len, per_slot=False, paged=None):
         # cache rows live in the compute dtype, as in the reference
@@ -106,7 +110,8 @@ def build_model(cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
                  loss, verify_step, attn_impl)
 
 
-def count_params(cfg: ModelConfig) -> int:
-    """Analytic parameter count from the params spec."""
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Analytic parameter count from the params spec; active_only counts
+    the routed experts a token uses (api.py:160)."""
     _check_family(cfg)
-    return TF.count_params(cfg)
+    return TF.count_params(cfg, active_only)

@@ -1,6 +1,16 @@
-"""GQA attention for the dense decoders: prefill forward, decode over a
-dense per-slot cache or a page arena, and the multi-token speculative
-verify over either (the port's GQA subset of `repro/models/attention.py`).
+"""Attention for the decoders (the port of `repro/models/attention.py`):
+GQA (with qk-norm and sliding windows) and MLA (multi-head latent
+attention, minicpm3), each with a prefill forward, decode over a dense
+per-slot cache or a page arena, and the multi-token speculative verify
+over either.
+
+MLA runs on plain torch ops everywhere, as the reference runs it on
+plain `jnp` (only its GQA paths call the Pallas kernels): the prefill
+materialises per-head k/v from the latent and takes the chunked exact
+attention; decode and verify attend in the latent space (the absorbed
+form), so the cache holds only the compressed latent `c_kv [.., kv_lora]`
+and the shared rope key `k_rope [.., qk_rope]`. MLA has no window: its
+layout is always linear.
 
 Routing of the attention core (`attn_impl`):
   * "kernel" (the default) — the wrappers in `repro_torch.kernels`: on a
@@ -341,4 +351,254 @@ def gqa_paged_verify_step(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
     vfull = cache.v[idx].reshape(B, cap, kvh, dh)
     out = _gqa_verify_attend(params, cfg, q, kfull, vfull,
                              _verify_valid(cfg, post, cap), compute_dtype)
+    return out, cache
+
+
+# ---------------------------------------------------------------- MLA path
+class MLACache(NamedTuple):
+    """Dense per-slot latent rows (attention.py:605). Inside a
+    DecodeCache every field gains a leading layer axis."""
+    c_kv: torch.Tensor    # [B, cap, kv_lora]
+    k_rope: torch.Tensor  # [B, cap, qk_rope] (RoPE'd at write)
+    pos: torch.Tensor     # int32 tokens seen: [B] per slot, or a scalar
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                   device: torch.device, per_slot: bool = False) -> MLACache:
+    return MLACache(
+        torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype,
+                    device=device),
+        torch.zeros((batch, max_len, cfg.qk_rope_head_dim), dtype=dtype,
+                    device=device),
+        torch.zeros((batch,) if per_slot else (), dtype=torch.int32,
+                    device=device))
+
+
+class PagedMLACache(NamedTuple):
+    """The MLA latent cache over a page arena (attention.py:305), with
+    the addressing of `PagedKVCache`."""
+    c_kv: torch.Tensor        # [num_pages, page_size, kv_lora]
+    k_rope: torch.Tensor      # [num_pages, page_size, qk_rope]
+    page_table: torch.Tensor  # int32 [B, pages_per_slot]; 0 = trash page
+    pos: torch.Tensor         # int32 [B]
+
+
+def init_paged_mla_cache(cfg: ModelConfig, batch: int, max_len: int,
+                         page_size: int, num_pages: int, dtype,
+                         device: torch.device) -> PagedMLACache:
+    if page_size <= 0 or max_len % page_size:
+        raise ValueError(f"capacity {max_len} is not a multiple of "
+                         f"page_size {page_size}")
+    return PagedMLACache(
+        torch.zeros((num_pages, page_size, cfg.kv_lora_rank), dtype=dtype,
+                    device=device),
+        torch.zeros((num_pages, page_size, cfg.qk_rope_head_dim),
+                    dtype=dtype, device=device),
+        torch.zeros((batch, max_len // page_size), dtype=torch.int32,
+                    device=device),
+        torch.zeros((batch,), dtype=torch.int32, device=device))
+
+
+def _mla_qkv(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
+             positions: torch.Tensor, compute_dtype):
+    """(q_nope [B,T,H,n], q_rope [B,T,H,r] RoPE'd, c_kv [B,T,kv_lora]
+    normed, k_rope [B,T,r] RoPE'd) of x [B,T,D] already in the compute
+    dtype; positions broadcastable to [B, T]."""
+    B, T, _ = x.shape
+    h = cfg.n_heads
+    qk_n, qk_r = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    cq = L.rmsnorm(params["q_norm"], x @ params["q_down"].to(compute_dtype),
+                   cfg.norm_eps)
+    q = (cq @ params["q_up"].to(compute_dtype)).reshape(B, T, h, qk_n + qk_r)
+    q_nope, q_rope = q[..., :qk_n], q[..., qk_n:]
+    q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
+    ckv_full = x @ params["kv_down"].to(compute_dtype)
+    c_kv = L.rmsnorm(params["kv_norm"], ckv_full[..., :cfg.kv_lora_rank],
+                     cfg.norm_eps)
+    k_rope = ckv_full[..., cfg.kv_lora_rank:][:, :, None, :]  # 1 shared head
+    k_rope = L.apply_rope(k_rope, positions, cfg.rope_theta)[:, :, 0]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_forward(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor, compute_dtype=torch.bfloat16,
+                return_kv: bool = False, prefix_kv=None,
+                attn_chunk: int = 512):
+    """Training / prefill MLA (attention.py:636): per-head k/v
+    materialised from the latent, then the chunked exact attention with
+    q/k head dim qk_nope + qk_rope and v head dim v_head.
+
+    return_kv: also return the latents (c_kv, k_rope) a decode cache
+    stores. prefix_kv: (c_kv, k_rope) [B|1, S0, ...] of a cached shared
+    prefix; `positions` then starts at S0 (the extend prefill computes
+    the tail only)."""
+    B, T, _ = x.shape
+    h = cfg.n_heads
+    qk_n, qk_r, vh = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                      cfg.v_head_dim)
+    x = x.to(compute_dtype)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, cfg, x,
+                                            positions[None, :], compute_dtype)
+    c_all, r_all, positions_k = c_kv, k_rope, positions
+    if prefix_kv is not None:
+        pc, pr = prefix_kv
+        S0 = pc.shape[1]
+        c_all = torch.cat([pc.to(c_kv.dtype).expand(B, -1, -1), c_kv], dim=1)
+        r_all = torch.cat([pr.to(k_rope.dtype).expand(B, -1, -1), k_rope],
+                          dim=1)
+        positions_k = torch.cat([torch.arange(S0, dtype=positions.dtype,
+                                              device=positions.device),
+                                 positions])
+    S = c_all.shape[1]
+    kv = (c_all @ params["kv_up"].to(compute_dtype)).reshape(B, S, h,
+                                                             qk_n + vh)
+    k_nope, v = kv[..., :qk_n], kv[..., qk_n:]
+    # the shared rope key joins every head's key by concatenation
+    k = torch.cat([k_nope, r_all[:, :, None, :].expand(B, S, h, qk_r)],
+                  dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    out = _chunked_attention(q, k, v, positions, positions_k, causal=True,
+                             window=0, chunk=attn_chunk)
+    out = out.reshape(B, T, h * vh) @ params["wo"].to(compute_dtype)
+    if return_kv:
+        return out, (c_kv, k_rope)
+    return out
+
+
+def _mla_attend(params: PyTree, cfg: ModelConfig, q_nope: torch.Tensor,
+                q_rope: torch.Tensor, cfull: torch.Tensor,
+                rfull: torch.Tensor, valid: torch.Tensor,
+                compute_dtype) -> torch.Tensor:
+    """Absorbed-latent attention (attention.py:533-556, :707-723): q
+    [B,T,H,·] against the latent rows [B,cap,·] under `valid`
+    [B|1,T,cap]. q_nope folds into the latent space through kv_up's key
+    half; scores in fp32, masked to NEG_INF, softmax, probabilities cast
+    to the cache dtype; the latent context maps back through kv_up's
+    value half, then `wo`."""
+    B, T = q_nope.shape[:2]
+    h = cfg.n_heads
+    qk_n, qk_r, vh, r = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                         cfg.v_head_dim, cfg.kv_lora_rank)
+    kv_up = params["kv_up"].to(compute_dtype).reshape(r, h, qk_n + vh)
+    w_k, w_v = kv_up[..., :qk_n], kv_up[..., qk_n:]
+    q_eff = torch.einsum("bthn,rhn->bthr", q_nope, w_k)
+    scores = (torch.einsum("bthr,bsr->bths", q_eff.float(), cfull.float())
+              + torch.einsum("bthr,bsr->bths", q_rope.float(),
+                             rfull.float()))
+    scores = scores / math.sqrt(qk_n + qk_r)
+    scores = torch.where(valid[:, :, None, :], scores, FA.NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    lat = torch.einsum("bths,bsr->bthr", probs.to(cfull.dtype), cfull)
+    out = torch.einsum("bthr,rhv->bthv", lat, w_v).reshape(B, T, h * vh)
+    return out.to(compute_dtype) @ params["wo"].to(compute_dtype)
+
+
+def mla_decode_step(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
+                    cache: MLACache, compute_dtype=torch.bfloat16
+                    ) -> Tuple[torch.Tensor, MLACache]:
+    """Absorbed-latent one-token decode over the dense latent cache
+    (attention.py:679). cache.pos [B]: per slot; scalar: one shared
+    position. Writes the new latent row in place; returns (out [B,1,D],
+    cache with pos + 1 and the same row tensors)."""
+    B = x.shape[0]
+    cap = cache.c_kv.shape[1]
+    pos = cache.pos
+    per_slot = pos.dim() == 1
+    posb = pos[:, None] if per_slot else pos.reshape(1, 1)       # [B|1, 1]
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(
+        params, cfg, x.to(compute_dtype), posb.float(), compute_dtype)
+    row = _write_row(pos, cap, cfg)
+    if per_slot:
+        rows_b = torch.arange(B, device=x.device)
+        cache.c_kv.index_put_((rows_b, row.long()),
+                              c_kv[:, 0].to(cache.c_kv.dtype))
+        cache.k_rope.index_put_((rows_b, row.long()),
+                                k_rope[:, 0].to(cache.k_rope.dtype))
+    else:
+        cache.c_kv.index_copy_(1, row.reshape(1).long(),
+                               c_kv.to(cache.c_kv.dtype))
+        cache.k_rope.index_copy_(1, row.reshape(1).long(),
+                                 k_rope.to(cache.k_rope.dtype))
+    valid = torch.arange(cap, device=x.device)[None, :] <= posb  # [B|1,cap]
+    out = _mla_attend(params, cfg, q_nope, q_rope, cache.c_kv, cache.k_rope,
+                      valid[:, None, :], compute_dtype)
+    return out, cache._replace(pos=pos + 1)
+
+
+def _paged_latents(cache: PagedMLACache):
+    """Each slot's latent rows gathered back into the dense layout:
+    ([B, cap, kv_lora], [B, cap, qk_rope])."""
+    idx = cache.page_table.long()
+    B, P = idx.shape
+    ps = cache.c_kv.shape[1]
+    return (cache.c_kv[idx].reshape(B, P * ps, -1),
+            cache.k_rope[idx].reshape(B, P * ps, -1))
+
+
+def mla_paged_decode_step(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
+                          cache: PagedMLACache, compute_dtype=torch.bfloat16
+                          ) -> Tuple[torch.Tensor, PagedMLACache]:
+    """Absorbed-latent decode over the paged latent arena
+    (attention.py:727): the math of the per-slot `mla_decode_step` on
+    the page-gathered latents. Writes in place; returns (out [B,1,D],
+    cache with pos + 1)."""
+    ps = cache.c_kv.shape[1]
+    cap = cache.page_table.shape[1] * ps
+    pos = cache.pos
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(
+        params, cfg, x.to(compute_dtype), pos[:, None].float(),
+        compute_dtype)
+    pg, off = _paged_slot(cache.page_table, _write_row(pos, cap, cfg), ps)
+    _paged_write(cache.c_kv, pg, off, c_kv[:, 0])
+    _paged_write(cache.k_rope, pg, off, k_rope[:, 0])
+    cfull, rfull = _paged_latents(cache)
+    valid = torch.arange(cap, device=x.device)[None, :] <= pos[:, None]
+    out = _mla_attend(params, cfg, q_nope, q_rope, cfull, rfull,
+                      valid[:, None, :], compute_dtype)
+    return out, cache._replace(pos=pos + 1)
+
+
+def _mla_verify_valid(post: torch.Tensor, cap: int) -> torch.Tensor:
+    """[B,T,cap]: query t sees rows 0..pos+t (the linear layout)."""
+    return torch.arange(cap, device=post.device)[None, None, :] \
+        <= post[:, :, None]
+
+
+def mla_verify_step(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
+                    cache: MLACache, compute_dtype=torch.bfloat16
+                    ) -> Tuple[torch.Tensor, MLACache]:
+    """T-token absorbed-latent verify over the dense slotted latent cache
+    (attention.py:559). Writes rows pos..pos+T-1 in place; returns (out
+    [B,T,D], cache, pos unchanged)."""
+    B, T, _ = x.shape
+    cap = cache.c_kv.shape[1]
+    post, row = _verify_rows(cfg, cache.pos, T, cap)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(
+        params, cfg, x.to(compute_dtype), post.float(), compute_dtype)
+    rows_b = torch.arange(B, device=x.device)[:, None].expand(B, T)
+    cache.c_kv.index_put_((rows_b, row), c_kv.to(cache.c_kv.dtype))
+    cache.k_rope.index_put_((rows_b, row), k_rope.to(cache.k_rope.dtype))
+    out = _mla_attend(params, cfg, q_nope, q_rope, cache.c_kv, cache.k_rope,
+                      _mla_verify_valid(post, cap), compute_dtype)
+    return out, cache
+
+
+def mla_paged_verify_step(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
+                          cache: PagedMLACache, compute_dtype=torch.bfloat16
+                          ) -> Tuple[torch.Tensor, PagedMLACache]:
+    """T-token absorbed-latent verify over the paged latent arena
+    (attention.py:579). Returns (out [B,T,D], cache, pos unchanged)."""
+    B, T, _ = x.shape
+    ps = cache.c_kv.shape[1]
+    cap = cache.page_table.shape[1] * ps
+    post, row = _verify_rows(cfg, cache.pos, T, cap)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(
+        params, cfg, x.to(compute_dtype), post.float(), compute_dtype)
+    pgs = torch.gather(cache.page_table.long(), 1, row // ps)
+    offs = row % ps
+    cache.c_kv.index_put_((pgs, offs), c_kv.to(cache.c_kv.dtype))
+    cache.k_rope.index_put_((pgs, offs), k_rope.to(cache.k_rope.dtype))
+    cfull, rfull = _paged_latents(cache)
+    out = _mla_attend(params, cfg, q_nope, q_rope, cfull, rfull,
+                      _mla_verify_valid(post, cap), compute_dtype)
     return out, cache

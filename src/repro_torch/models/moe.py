@@ -1,0 +1,121 @@
+"""Mixture-of-Experts layer (the port of `repro/models/moe.py`):
+mixtral-8x22b (8 experts, top-2) and moonshot-v1-16b-a3b (64 experts,
+top-6, plus shared experts).
+
+Capacity dispatch exactly as the reference's, in plain torch ops (the
+reference writes it in plain `jnp`, outside any Pallas kernel): a
+softmax router in fp32, the top-k experts of each token with the lower
+expert index first among equal probabilities (`jax.lax.top_k`'s order),
+the top-k gates renormalised, each (token, k) pair's slot in its
+expert's buffer from a cumsum over the one-hot choices in (token, k)
+order, pairs at or past the capacity C dropped, the expert SwiGLU on
+[S, E, C, D] buffers, and the gate-weighted sum over k in the expert
+output's dtype. Expert weights are stacked [E, ...].
+
+Capacity depends on the number of tokens in the call (N = B·T), so a
+full-sequence call and a one-token call can drop different pairs; and
+padding tokens are routed like real ones, taking expert slots.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from . import layers as L
+
+PyTree = Any
+
+
+def capacity(cfg: ModelConfig, n_tokens: int) -> int:
+    """Slots per expert for a call over `n_tokens`: ceil(N·K/E·cf),
+    rounded up to a multiple of 8, at least 8."""
+    c = math.ceil(n_tokens * cfg.n_experts_per_tok / cfg.n_experts
+                  * cfg.capacity_factor)
+    return max(8, ((c + 7) // 8) * 8)
+
+
+def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`jax.lax.top_k` on the last axis: the k largest values, and among
+    equal values the lower index first (a stable descending sort;
+    `torch.topk` promises no order for ties)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_apply(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
+              compute_dtype=torch.bfloat16, local_shards: int = 1
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B,T,D] -> (out [B,T,D] in x's dtype, aux load-balance loss, a
+    fp32 scalar).
+
+    local_shards > 1 (the reference's shard-local dispatch): the tokens
+    are viewed as [local_shards, N/local_shards] rows and each row
+    dispatches into its own capacity slice (capacity counted per row).
+    It falls back to one row when N does not divide."""
+    B, T, D = x.shape
+    E, K = cfg.n_experts, cfg.n_experts_per_tok
+    N = B * T
+    S = local_shards if N % local_shards == 0 else 1
+    NL = N // S                                              # tokens a row
+    C = capacity(cfg, NL)
+    xf = x.reshape(S, NL, D).to(compute_dtype)
+
+    logits = (xf @ params["router"].to(compute_dtype)).float()
+    probs = torch.softmax(logits, dim=-1)                    # [S, NL, E]
+    gate_vals, expert_idx = top_k(probs, K)                  # [S, NL, K]
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
+
+    # the slot of each (token, k) pair inside its row's expert buffer
+    flat_idx = expert_idx.reshape(S, NL * K)
+    onehot = F.one_hot(flat_idx, E).to(torch.int32)          # [S, NLK, E]
+    pos_all = torch.cumsum(onehot, dim=1, dtype=torch.int32) - 1
+    pos = torch.gather(pos_all, 2, flat_idx[..., None])[..., 0]
+    keep = pos < C                                           # overflow drop
+    slot = torch.where(keep, flat_idx * C + pos,
+                       torch.full_like(pos, E * C))          # E*C = dropped
+
+    # dispatch: each kept slot holds its token's id, the rest id NL (a
+    # zero row); then gather the tokens into [S, E, C, D]
+    token_of_pair = torch.arange(NL, device=x.device).repeat_interleave(
+        K)[None].expand(S, NL * K)
+    buf_tok = torch.full((S, E * C + 1), NL, dtype=torch.long,
+                         device=x.device)
+    buf_tok.scatter_(1, slot.long(), token_of_pair)
+    buf_tok = buf_tok[:, :E * C]
+    # row gathers by advanced indexing, not torch.gather: on a card the
+    # backward of indexing accumulates in a fixed order (gather's
+    # scatter_add does not), so a training step repeats bitwise
+    rows = torch.arange(S, device=x.device)[:, None]
+    xpad = torch.cat([xf, xf.new_zeros((S, 1, D))], dim=1)
+    de = xpad[rows, buf_tok].reshape(S, E, C, D)
+
+    # the expert SwiGLU, batched over (S, E)
+    wg = params["w_gate"].to(compute_dtype)
+    wu = params["w_up"].to(compute_dtype)
+    wd = params["w_down"].to(compute_dtype)
+    h = F.silu(torch.einsum("secd,edf->secf", de, wg)) \
+        * torch.einsum("secd,edf->secf", de, wu)
+    ye = torch.einsum("secf,efd->secd", h, wd).reshape(S, E * C, D)
+
+    # combine: each pair's slot output, weighted by its gate (cast to the
+    # expert output's dtype first, as the reference does), summed over K
+    ypad = torch.cat([ye, ye.new_zeros((S, 1, D))], dim=1)
+    y_pair = ypad[rows, slot.long()]                         # [S, NLK, D]
+    w_pair = torch.where(keep, gate_vals.reshape(S, NL * K),
+                         torch.zeros((), device=x.device))
+    out = (y_pair * w_pair[..., None].to(ye.dtype)).reshape(
+        S, NL, K, D).sum(2)
+
+    if cfg.n_shared_experts:
+        out = out + L.mlp_apply(params["shared"], xf, "swiglu",
+                                compute_dtype)
+
+    # Switch-style load-balance aux loss: E · Σ_e f_e · P_e / K
+    f = F.one_hot(expert_idx, E).float().sum(2).mean(dim=(0, 1))
+    pmean = probs.mean(dim=(0, 1))
+    aux = E * torch.sum(f * pmean) / K
+    return out.reshape(B, T, D).to(x.dtype), aux

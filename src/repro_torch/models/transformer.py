@@ -1,20 +1,30 @@
-"""Decoder-only LM assembly for the dense family (the port's subset of
-`repro/models/transformer.py`):
+"""Decoder-only LM assembly for the attention families (the port's
+subset of `repro/models/transformer.py`):
 
-    x += attn(norm(x));  x += mlp(norm(x))
+    dense / moe : x += attn(norm(x));  x += mlp|moe(norm(x))
+
+`attn` is GQA or MLA (`cfg.attn_type`), and a MoE config's blocks route
+through `moe.moe_apply`, which also returns the load-balance aux loss
+that `lm_loss` adds with weight `aux_weight`. A MoE config with
+`first_dense_layers > 0` keeps its first layers as a second stack,
+`params["dense_blocks"]` (dense MLP blocks), run before `blocks`.
 
 Block params are stacked `[L, ...]` as in the reference (one leaf per
 weight, layer on axis 0); a Python loop over layers takes the place of
 `lax.scan`, reading each layer as views `blocks[...][l]`. Decode caches
-stack the same way: `DecodeCache.layers = {"attn": PagedKVCache}` with
-arenas `[L, num_pages, page_size, KV, Dh]`, page tables `[L, B, P]` and
-positions `[L, B]`, or `{"attn": KVCache}` with dense rows
-`[L, B, cap, KV, Dh]` and positions `[L, B]` (per slot) or `[L]`.
+stack the same way, one segment per block stack:
+`DecodeCache.layers = {"attn": cache}` for `blocks` and
+`DecodeCache.dense_layers` (the same shape, or None) for
+`dense_blocks`. The attention cache is a `PagedKVCache` (arenas
+`[L, num_pages, page_size, KV, Dh]`, page tables `[L, B, P]`, positions
+`[L, B]`), a `KVCache` (dense rows `[L, B, cap, KV, Dh]`, positions
+`[L, B]` per slot or `[L]`), or their MLA counterparts `PagedMLACache` /
+`MLACache`, whose rows hold the latent `c_kv` and the rope key.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,18 +34,26 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from . import attention as ATT
 from . import layers as L
+from . import moe as MOE
 
 PyTree = Any
 
 
 # ------------------------------------------------------------------- params
-def param_spec(cfg: ModelConfig) -> Dict[str, Any]:
-    """The params tree as (shape, init, fan_in) leaves — init is 'dense'
-    (truncated normal, std 1/sqrt(fan_in)), 'embed' (std 0.02) or
-    'ones'. The layout is `transformer.init_params`' leaf for leaf."""
-    d, h, kv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
-    dh, f, Lyr, V = cfg.resolved_head_dim, cfg.d_ff, cfg.n_layers, \
-        cfg.vocab_size
+def _attn_spec(cfg: ModelConfig, Lyr: int) -> Dict[str, Any]:
+    d, h = cfg.d_model, cfg.n_heads
+    if cfg.attn_type == "mla":                       # attention.py:70
+        qk_n, qk_r, vh = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                          cfg.v_head_dim)
+        ql, kl = cfg.q_lora_rank, cfg.kv_lora_rank
+        return {"q_down": ((Lyr, d, ql), "dense", d),
+                "q_up": ((Lyr, ql, h * (qk_n + qk_r)), "dense", ql),
+                "kv_down": ((Lyr, d, kl + qk_r), "dense", d),
+                "kv_up": ((Lyr, kl, h * (qk_n + vh)), "dense", kl),
+                "wo": ((Lyr, h * vh, d), "dense", h * vh),
+                "q_norm": {"scale": ((Lyr, ql), "ones", 0)},
+                "kv_norm": {"scale": ((Lyr, kl), "ones", 0)}}
+    kv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
     attn = {"wq": ((Lyr, d, h * dh), "dense", d),
             "wk": ((Lyr, d, kv * dh), "dense", d),
             "wv": ((Lyr, d, kv * dh), "dense", d),
@@ -43,18 +61,52 @@ def param_spec(cfg: ModelConfig) -> Dict[str, Any]:
     if cfg.qk_norm:
         attn["q_norm"] = ((Lyr, dh), "ones", 0)
         attn["k_norm"] = ((Lyr, dh), "ones", 0)
-    spec = {
-        "embed": {"table": ((V, d), "embed", 0)},
-        "final_norm": {"scale": ((d,), "ones", 0)},
-        "blocks": {
-            "norm1": {"scale": ((Lyr, d), "ones", 0)},
-            "attn": attn,
-            "norm2": {"scale": ((Lyr, d), "ones", 0)},
-            "mlp": {"w_gate": ((Lyr, d, f), "dense", d),
-                    "w_up": ((Lyr, d, f), "dense", d),
-                    "w_down": ((Lyr, f, d), "dense", f)},
-        },
-    }
+    return attn
+
+
+def _mlp_spec(Lyr: int, d: int, f: int) -> Dict[str, Any]:
+    return {"w_gate": ((Lyr, d, f), "dense", d),
+            "w_up": ((Lyr, d, f), "dense", d),
+            "w_down": ((Lyr, f, d), "dense", f)}
+
+
+def _block_spec(cfg: ModelConfig, Lyr: int, moe_block: bool):
+    d = cfg.d_model
+    spec = {"norm1": {"scale": ((Lyr, d), "ones", 0)},
+            "attn": _attn_spec(cfg, Lyr),
+            "norm2": {"scale": ((Lyr, d), "ones", 0)}}
+    if not moe_block:
+        spec["mlp"] = _mlp_spec(Lyr, d, cfg.d_ff)
+        return spec
+    # moe.py:26: the router at std 0.02; the stacked expert weights
+    # [E, ...] take the reference's fan-in rule, the leading axis (E)
+    E, ff = cfg.n_experts, cfg.moe_d_ff or cfg.d_ff
+    moe = {"router": ((Lyr, d, E), "router", 0),
+           "w_gate": ((Lyr, E, d, ff), "dense", E),
+           "w_up": ((Lyr, E, d, ff), "dense", E),
+           "w_down": ((Lyr, E, ff, d), "dense", E)}
+    if cfg.n_shared_experts:
+        moe["shared"] = _mlp_spec(Lyr, d, ff * cfg.n_shared_experts)
+    spec["moe"] = moe
+    return spec
+
+
+def param_spec(cfg: ModelConfig) -> Dict[str, Any]:
+    """The params tree as (shape, init, fan_in) leaves — init is 'dense'
+    (truncated normal, std 1/sqrt(fan_in)), 'embed' or 'router'
+    (std 0.02) or 'ones'. The layout is `transformer.init_params`' leaf
+    for leaf: a MoE config's first `first_dense_layers` blocks are the
+    separate `dense_blocks` stack."""
+    d, V = cfg.d_model, cfg.vocab_size
+    spec = {"embed": {"table": ((V, d), "embed", 0)},
+            "final_norm": {"scale": ((d,), "ones", 0)}}
+    if cfg.n_experts:
+        n_dense = cfg.first_dense_layers
+        if n_dense:
+            spec["dense_blocks"] = _block_spec(cfg, n_dense, False)
+        spec["blocks"] = _block_spec(cfg, cfg.n_layers - n_dense, True)
+    else:
+        spec["blocks"] = _block_spec(cfg, cfg.n_layers, False)
     if not cfg.tie_embeddings:
         spec["lm_head"] = {"w": ((d, V), "dense", d)}
     return spec
@@ -63,7 +115,8 @@ def param_spec(cfg: ModelConfig) -> Dict[str, Any]:
 def _init_leaf(shape, kind, fan_in, dtype, generator, device):
     if kind == "ones":
         return torch.ones(shape, dtype=dtype, device=device)
-    std = 0.02 if kind == "embed" else 1.0 / math.sqrt(max(fan_in, 1))
+    std = 0.02 if kind in ("embed", "router") \
+        else 1.0 / math.sqrt(max(fan_in, 1))
     out = torch.empty(shape, dtype=dtype, device=device)
     # stacked leaves draw one layer at a time: the fp32 draw is one layer
     rows = [out] if kind == "embed" or len(shape) == 2 else list(out)
@@ -90,12 +143,27 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return build(param_spec(cfg))
 
 
-def count_params(cfg: ModelConfig) -> int:
-    def count(node):
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Parameters in the spec (api.py:160). active_only: the leaves under
+    `moe` named w_gate / w_up / w_down (the shared experts' included, as
+    the reference counts them) scaled by n_experts_per_tok / n_experts."""
+    total = expert = 0
+
+    def walk(node, path):
+        nonlocal total, expert
         if isinstance(node, dict):
-            return sum(count(v) for v in node.values())
-        return int(np.prod(node[0]))
-    return count(param_spec(cfg))
+            for k, v in node.items():
+                walk(v, path + (k,))
+            return
+        n = int(np.prod(node[0]))
+        total += n
+        if "moe" in path and path[-1] in ("w_gate", "w_up", "w_down"):
+            expert += n
+    walk(param_spec(cfg), ())
+    if active_only and cfg.n_experts:
+        frac = cfg.n_experts_per_tok / cfg.n_experts
+        total = total - expert + int(expert * frac)
+    return total
 
 
 def layer_params(blocks: PyTree, l: int) -> PyTree:
@@ -104,24 +172,56 @@ def layer_params(blocks: PyTree, l: int) -> PyTree:
             for k, v in blocks.items()}
 
 
+def _stack_layers(blocks: PyTree) -> int:
+    node = blocks
+    while isinstance(node, dict):
+        node = next(iter(node.values()))
+    return node.shape[0]
+
+
+def _segments(params: PyTree, cfg: ModelConfig):
+    """(cache segment, block stack, moe_block) in run order: a MoE
+    config's dense prefix first (`dense_blocks` -> `dense_layers`), then
+    `blocks` -> `layers`."""
+    segs = []
+    if "dense_blocks" in params:
+        segs.append(("dense_layers", params["dense_blocks"], False))
+    segs.append(("layers", params["blocks"], bool(cfg.n_experts)))
+    return segs
+
+
 # ------------------------------------------------------------------- blocks
 def block_apply(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
-                positions: torch.Tensor, compute_dtype=torch.bfloat16,
-                attn_impl: str = "kernel", return_kv: bool = False,
-                prefix_kv=None, attn_chunk: int = 512):
-    """One block on [B,T,D] -> [B,T,D] (plus this block's RoPE'd (k, v)
-    with return_kv). prefix_kv: this block's cached shared-prefix pair
-    for the extend prefill (`positions` then starts at its length)."""
+                positions: torch.Tensor, moe_block: bool = False,
+                compute_dtype=torch.bfloat16, attn_impl: str = "kernel",
+                return_kv: bool = False, prefix_kv=None,
+                attn_chunk: int = 512):
+    """One block on [B,T,D] -> ([B,T,D], aux loss[, kv]) (transformer.py
+    :56). kv (with return_kv) is this block's decode-cache contribution:
+    the RoPE'd (k, v) for GQA, the latents (c_kv, k_rope) for MLA.
+    prefix_kv: this block's cached shared-prefix pair for the extend
+    prefill (`positions` then starts at its length). MLA attention is
+    plain torch whatever `attn_impl` says (the reference has no MLA
+    kernel)."""
     h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
-    a = ATT.gqa_forward(params["attn"], cfg, h, positions, compute_dtype,
-                        attn_impl, return_kv=return_kv, prefix_kv=prefix_kv,
-                        attn_chunk=attn_chunk)
+    if cfg.attn_type == "mla":
+        a = ATT.mla_forward(params["attn"], cfg, h, positions, compute_dtype,
+                            return_kv=return_kv, prefix_kv=prefix_kv,
+                            attn_chunk=attn_chunk)
+    else:
+        a = ATT.gqa_forward(params["attn"], cfg, h, positions, compute_dtype,
+                            attn_impl, return_kv=return_kv,
+                            prefix_kv=prefix_kv, attn_chunk=attn_chunk)
     if return_kv:
         a, kv = a
     x = x + a
     h = L.rmsnorm(params["norm2"], x, cfg.norm_eps)
-    x = x + L.mlp_apply(params["mlp"], h, cfg.mlp_type, compute_dtype)
-    return (x, kv) if return_kv else x
+    if moe_block:
+        m, aux = MOE.moe_apply(params["moe"], cfg, h, compute_dtype)
+    else:
+        m = L.mlp_apply(params["mlp"], h, cfg.mlp_type, compute_dtype)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return (x + m, aux, kv) if return_kv else (x + m, aux)
 
 
 def _logits(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
@@ -133,53 +233,91 @@ def _logits(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
 
 def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
             compute_dtype=torch.bfloat16, attn_impl: str = "kernel",
-            remat: bool = False, attn_chunk: int = 512) -> torch.Tensor:
-    """tokens [B,T] -> logits [B,T,V] fp32 (the reference also returns
-    the MoE aux loss, which the dense family does not have). remat:
-    recompute each block in the backward pass instead of keeping its
-    activations (`jax.checkpoint` per block, transformer.py:175).
-    attn_chunk: query rows per chunk of the plain attention path."""
+            remat: bool = False, attn_chunk: int = 512
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens [B,T] -> (logits [B,T,V] fp32, aux loss summed over the
+    MoE blocks; 0 without experts). remat: recompute each block in the
+    backward pass instead of keeping its activations (`jax.checkpoint`
+    per block, transformer.py:175). attn_chunk: query rows per chunk of
+    the plain attention path."""
     x = L.embed(params["embed"], tokens, compute_dtype)
     positions = torch.arange(x.shape[1], dtype=torch.float32,
                              device=x.device)
-    for l in range(cfg.n_layers):
-        bp = layer_params(params["blocks"], l)
-        if remat:
-            x = checkpoint(block_apply, bp, cfg, x, positions, compute_dtype,
-                           attn_impl, attn_chunk=attn_chunk,
-                           use_reentrant=False)
-        else:
-            x = block_apply(bp, cfg, x, positions, compute_dtype, attn_impl,
-                            attn_chunk=attn_chunk)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for _, blocks, moe_block in _segments(params, cfg):
+        for l in range(_stack_layers(blocks)):
+            bp = layer_params(blocks, l)
+            if remat:
+                x, a = checkpoint(block_apply, bp, cfg, x, positions,
+                                  moe_block, compute_dtype, attn_impl,
+                                  attn_chunk=attn_chunk, use_reentrant=False)
+            else:
+                x, a = block_apply(bp, cfg, x, positions, moe_block,
+                                   compute_dtype, attn_impl,
+                                   attn_chunk=attn_chunk)
+            aux = aux + a
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return _logits(params, cfg, x, compute_dtype)
+    return _logits(params, cfg, x, compute_dtype), aux
 
 
 def lm_loss(params: PyTree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             compute_dtype=torch.bfloat16, attn_chunk: int = 512,
             aux_weight: float = 0.01, remat: bool = True
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token cross entropy (transformer.py:226-255). batch: tokens
-    [B,T], labels [B,T] (-100 = masked). Attention runs the plain
-    `_chunked_attention` on every device, as the reference's training
-    loss does: the flash kernel is forward-only. Returns (total, {'loss',
-    'aux'}); the dense family's aux loss is 0."""
-    logits = forward(params, cfg, batch["tokens"], compute_dtype, "plain",
-                     remat, attn_chunk)
+    """Next-token cross entropy plus `aux_weight` times the MoE aux loss
+    (transformer.py:226-255). batch: tokens [B,T], labels [B,T] (-100 =
+    masked). Attention runs the plain `_chunked_attention` on every
+    device, as the reference's training loss does: the flash kernel is
+    forward-only. Returns (total, {'loss', 'aux'})."""
+    logits, aux = forward(params, cfg, batch["tokens"], compute_dtype,
+                          "plain", remat, attn_chunk)
     labels = batch["labels"].long()
     mask = (labels >= 0).float()
     nll = F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
                           labels.clamp(min=0).reshape(-1), reduction="none")
     loss = (nll * mask.reshape(-1)).sum() / mask.sum().clamp(min=1.0)
-    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
     return loss + aux_weight * aux, {"loss": loss, "aux": aux}
 
 
 # ------------------------------------------------------------------- decode
 class DecodeCache(NamedTuple):
-    """Per-layer caches stacked on a leading L axis (the reference's
-    `dense_layers` segment belongs to MoE configs, a later slice)."""
+    """Per-layer caches stacked on a leading L axis, one segment per
+    block stack: `layers` for `blocks`, `dense_layers` for a MoE
+    config's `dense_blocks` (None without). Each segment is
+    {"attn": one of the four attention caches}."""
     layers: PyTree
+    dense_layers: Optional[PyTree] = None
+
+
+def cache_segments(cache: DecodeCache) -> List[Any]:
+    """The attention caches of every segment present, in run order."""
+    return [seg["attn"] for seg in (cache.dense_layers, cache.layers)
+            if seg is not None]
+
+
+def map_segments(fn: Callable, cache: DecodeCache,
+                 *rest: DecodeCache) -> DecodeCache:
+    """A DecodeCache whose every segment's attention cache is
+    fn(that cache, the same segment's of each of `rest`)."""
+    def one(name):
+        seg = getattr(cache, name)
+        if seg is None:
+            return None
+        return {"attn": fn(seg["attn"],
+                           *(getattr(r, name)["attn"] for r in rest))}
+    return DecodeCache(one("layers"), one("dense_layers"))
+
+
+def _one_layer_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                     device: torch.device, per_slot: bool, paged):
+    if paged is not None:
+        ps, num_pages = paged
+        init = (ATT.init_paged_mla_cache if cfg.attn_type == "mla"
+                else ATT.init_paged_kv_cache)
+        return init(cfg, batch, max_len, ps, num_pages, dtype, device)
+    init = ATT.init_mla_cache if cfg.attn_type == "mla" \
+        else ATT.init_kv_cache
+    return init(cfg, batch, max_len, dtype, device, per_slot)
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -187,20 +325,21 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                       paged: Optional[Tuple[int, int]] = None
                       ) -> DecodeCache:
     """All zero. paged=(page_size, num_pages): per-layer page arenas
-    `[L, num_pages, page_size, KV, Dh]`, int32 page tables
+    `[L, num_pages, page_size, ...]`, int32 page tables
     `[L, B, pages_per_slot]` (every entry at trash page 0) and positions
-    `[L, B]`. Otherwise dense rows `[L, B, cap, KV, Dh]` with positions
+    `[L, B]`. Otherwise dense rows `[L, B, cap, ...]` with positions
     `[L, B]` under per_slot (the serving layout: the slot axis is axis 1
-    of every leaf) or `[L]` (the legacy batch loop)."""
-    if paged is not None:
-        ps, num_pages = paged
-        one = ATT.init_paged_kv_cache(cfg, batch, max_len, ps, num_pages,
-                                      dtype, device)
-    else:
-        one = ATT.init_kv_cache(cfg, batch, max_len, dtype, device, per_slot)
-    Lyr = cfg.n_layers
-    return DecodeCache({"attn": type(one)(
-        *(t.unsqueeze(0).repeat((Lyr,) + (1,) * t.dim()) for t in one))})
+    of every leaf) or `[L]` (the legacy batch loop). A MoE config with a
+    dense prefix gets its `dense_layers` segment of the same kind."""
+    one = _one_layer_cache(cfg, batch, max_len, dtype, device, per_slot,
+                           paged)
+
+    def stack(n):
+        return {"attn": type(one)(
+            *(t.unsqueeze(0).repeat((n,) + (1,) * t.dim()) for t in one))}
+    n_dense = cfg.first_dense_layers if cfg.n_experts else 0
+    return DecodeCache(stack(cfg.n_layers - n_dense),
+                       stack(n_dense) if n_dense else None)
 
 
 def _cache_rows(t: torch.Tensor, lengths: torch.Tensor, cap: int,
@@ -247,20 +386,23 @@ def prefill_decode_cache(params: PyTree, cfg: ModelConfig,
                          cache_dtype=torch.bfloat16, prefix_kv=None,
                          prefix_len: int = 0
                          ) -> Tuple[torch.Tensor, DecodeCache]:
-    """Fused serving prefill: ONE full-sequence forward that computes the
-    last-prompt-position logits and every layer's K/V rows.
+    """Fused serving prefill (transformer.py:339): ONE full-sequence
+    forward that computes the last-prompt-position logits and every
+    layer's cache rows, in both segments.
 
     tokens: [B,P] prompts right-padded to a common bucket length (causal
-    attention makes the padding inert); lengths: [B] true prompt lengths.
-    Returns (logits [B,1,V] at position lengths-1, DecodeCache of dense
-    KVCache rows [L,B,cap,KV,Dh] with pos = prefix_len + lengths).
+    attention makes the padding inert — but MoE routes the pad tokens
+    too, and they take expert capacity, as in the reference); lengths:
+    [B] true prompt lengths. Returns (logits [B,1,V] at position
+    lengths-1, DecodeCache of dense rows — KVCache [L,B,cap,KV,Dh] or
+    MLACache [L,B,max_len,·] — with pos = prefix_len + lengths).
 
     Shared-prefix extend: with `prefix_kv` (a DecodeCache of per-layer
-    prefix pairs [L, 1|B, prefix_len, KV, Dh], as `gather_prefix`
-    returns, or the bare pair) the tokens are the UNSHARED TAIL only —
-    positions start at `prefix_len`, the forward attends to
-    prefix + tail, and the rows hold the tail at its absolute
-    positions."""
+    prefix pairs [L, 1|B, prefix_len, ...] in each segment, as
+    `gather_prefix` returns, or the bare pair of a one-segment model)
+    the tokens are the UNSHARED TAIL only — positions start at
+    `prefix_len`, the forward attends to prefix + tail, and the rows
+    hold the tail at its absolute positions."""
     if prefix_kv is not None and (prefix_len <= 0 or cfg.sliding_window):
         raise ValueError("prefix extend needs prefix_len > 0 and full "
                          "attention")
@@ -268,34 +410,51 @@ def prefill_decode_cache(params: PyTree, cfg: ModelConfig,
     x = L.embed(params["embed"], tokens, compute_dtype)
     positions = torch.arange(prefix_len, prefix_len + P, dtype=torch.float32,
                              device=x.device)
-    pfx = None
-    if prefix_kv is not None:
-        pfx = prefix_kv.layers if isinstance(prefix_kv, DecodeCache) \
-            else prefix_kv
-        pfx = pfx["attn"] if isinstance(pfx, dict) else pfx
-    ks, vs = [], []
-    for l in range(cfg.n_layers):
-        x, (k, v) = block_apply(
-            layer_params(params["blocks"], l), cfg, x, positions,
-            compute_dtype, attn_impl, return_kv=True,
-            prefix_kv=None if pfx is None else (pfx[0][l], pfx[1][l]))
-        ks.append(k)
-        vs.append(v)
+    # accept both the bare per-layer pair and the {"attn": pair} segments
+    # that gather_prefix produces
+    seg = lambda s: s["attn"] if isinstance(s, dict) else s
+    pfx: Dict[str, Any] = {}
+    if isinstance(prefix_kv, DecodeCache):
+        pfx = {name: seg(getattr(prefix_kv, name))
+               for name in ("layers", "dense_layers")
+               if getattr(prefix_kv, name) is not None}
+    elif prefix_kv is not None:
+        pfx = {"layers": seg(prefix_kv)}
+    kvs: Dict[str, list] = {}
+    for name, blocks, moe_block in _segments(params, cfg):
+        p_seg, pairs = pfx.get(name), []
+        for l in range(_stack_layers(blocks)):
+            x, _, kv = block_apply(
+                layer_params(blocks, l), cfg, x, positions, moe_block,
+                compute_dtype, attn_impl, return_kv=True,
+                prefix_kv=None if p_seg is None else (p_seg[0][l],
+                                                      p_seg[1][l]))
+            pairs.append(kv)
+        kvs[name] = pairs
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     rows = torch.arange(B, device=x.device)
     last = x[rows, lengths.long() - 1][:, None]
     logits = _logits(params, cfg, last, compute_dtype)
 
-    cap = ATT.paged_capacity(cfg, max_len)
-    rolling = bool(cfg.sliding_window)
-    pos = (prefix_len + lengths.to(torch.int32))[None, :].repeat(
-        cfg.n_layers, 1)
-    att = ATT.KVCache(
-        _cache_rows(torch.stack(ks), lengths, cap, rolling, cache_dtype,
-                    prefix_len),
-        _cache_rows(torch.stack(vs), lengths, cap, rolling, cache_dtype,
-                    prefix_len), pos)
-    return logits, DecodeCache({"attn": att})
+    def seg_cache(pairs):
+        a, b = (torch.stack([p[i] for p in pairs]) for i in (0, 1))
+        pos = (prefix_len + lengths.to(torch.int32))[None, :].repeat(
+            len(pairs), 1)
+        if cfg.attn_type == "mla":
+            return {"attn": ATT.MLACache(
+                _cache_rows(a, lengths, max_len, False, cache_dtype,
+                            prefix_len),
+                _cache_rows(b, lengths, max_len, False, cache_dtype,
+                            prefix_len), pos)}
+        cap = ATT.paged_capacity(cfg, max_len)
+        rolling = bool(cfg.sliding_window)
+        return {"attn": ATT.KVCache(
+            _cache_rows(a, lengths, cap, rolling, cache_dtype, prefix_len),
+            _cache_rows(b, lengths, cap, rolling, cache_dtype, prefix_len),
+            pos)}
+    dense = seg_cache(kvs["dense_layers"]) if "dense_layers" in kvs \
+        else None
+    return logits, DecodeCache(seg_cache(kvs["layers"]), dense)
 
 
 def _layer_cache(att, l: int):
@@ -304,20 +463,40 @@ def _layer_cache(att, l: int):
     return type(att)(*(t[l] for t in att))
 
 
-def _block_decode(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
-                  cache, compute_dtype, attn_impl: str) -> torch.Tensor:
-    """One token through one block. x: [B,1,D]; `cache` is this layer's
-    paged or dense cache (its rows are written in place)."""
-    h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
-    if isinstance(cache, ATT.PagedKVCache):
-        a, _ = ATT.gqa_paged_decode_step(params["attn"], cfg, h, cache,
-                                         compute_dtype, attn_impl)
-    else:
-        a, _ = ATT.gqa_decode_step(params["attn"], cfg, h, cache,
-                                   compute_dtype)
-    x = x + a
+_DECODE = {ATT.PagedKVCache: ATT.gqa_paged_decode_step,
+           ATT.KVCache: ATT.gqa_decode_step,
+           ATT.PagedMLACache: ATT.mla_paged_decode_step,
+           ATT.MLACache: ATT.mla_decode_step}
+_VERIFY = {ATT.PagedKVCache: ATT.gqa_paged_verify_step,
+           ATT.KVCache: ATT.gqa_verify_step,
+           ATT.PagedMLACache: ATT.mla_paged_verify_step,
+           ATT.MLACache: ATT.mla_verify_step}
+
+
+def _ffn(params: PyTree, cfg: ModelConfig, x: torch.Tensor, moe_block: bool,
+         compute_dtype) -> torch.Tensor:
+    """x + mlp|moe(norm2(x)) (the aux loss of a serving call is unused,
+    as in the reference's `_block_decode` / `_block_verify`)."""
     h = L.rmsnorm(params["norm2"], x, cfg.norm_eps)
+    if moe_block:
+        return x + MOE.moe_apply(params["moe"], cfg, h, compute_dtype)[0]
     return x + L.mlp_apply(params["mlp"], h, cfg.mlp_type, compute_dtype)
+
+
+def _block_decode(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
+                  cache, moe_block: bool, compute_dtype,
+                  attn_impl: str) -> torch.Tensor:
+    """One token through one block (transformer.py:420). x: [B,1,D];
+    `cache` is this layer's attention cache, of any of the four kinds
+    (its rows are written in place). Only the GQA paged step goes
+    through a kernel."""
+    h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
+    step = _DECODE[type(cache)]
+    if isinstance(cache, ATT.PagedKVCache):
+        a, _ = step(params["attn"], cfg, h, cache, compute_dtype, attn_impl)
+    else:
+        a, _ = step(params["attn"], cfg, h, cache, compute_dtype)
+    return _ffn(params, cfg, x + a, moe_block, compute_dtype)
 
 
 def decode_step(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
@@ -325,31 +504,28 @@ def decode_step(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
                 attn_impl: str = "kernel"
                 ) -> Tuple[torch.Tensor, DecodeCache]:
     """tokens [B,1] -> (logits [B,1,V] fp32, cache), over a paged or a
-    dense cache. The rows are written in place; the returned cache
-    shares them and carries pos + 1."""
-    att = cache.layers["attn"]
+    dense cache, through both segments. The rows are written in place;
+    the returned cache shares them and carries pos + 1."""
     x = L.embed(params["embed"], tokens, compute_dtype)
-    for l in range(cfg.n_layers):
-        x = _block_decode(layer_params(params["blocks"], l), cfg, x,
-                          _layer_cache(att, l), compute_dtype, attn_impl)
+    for name, blocks, moe_block in _segments(params, cfg):
+        att = getattr(cache, name)["attn"]
+        for l in range(_stack_layers(blocks)):
+            x = _block_decode(layer_params(blocks, l), cfg, x,
+                              _layer_cache(att, l), moe_block,
+                              compute_dtype, attn_impl)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return (_logits(params, cfg, x, compute_dtype),
-            DecodeCache({"attn": att._replace(pos=att.pos + 1)}))
+            map_segments(lambda a: a._replace(pos=a.pos + 1), cache))
 
 
 def _block_verify(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
-                  cache, compute_dtype) -> torch.Tensor:
-    """T speculative tokens through one block. x: [B,T,D]."""
+                  cache, moe_block: bool, compute_dtype) -> torch.Tensor:
+    """T speculative tokens through one block (transformer.py:489). x:
+    [B,T,D]."""
     h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
-    if isinstance(cache, ATT.PagedKVCache):
-        a, _ = ATT.gqa_paged_verify_step(params["attn"], cfg, h, cache,
-                                         compute_dtype)
-    else:
-        a, _ = ATT.gqa_verify_step(params["attn"], cfg, h, cache,
-                                   compute_dtype)
-    x = x + a
-    h = L.rmsnorm(params["norm2"], x, cfg.norm_eps)
-    return x + L.mlp_apply(params["mlp"], h, cfg.mlp_type, compute_dtype)
+    a, _ = _VERIFY[type(cache)](params["attn"], cfg, h, cache,
+                                compute_dtype)
+    return _ffn(params, cfg, x + a, moe_block, compute_dtype)
 
 
 def verify_step(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
@@ -358,13 +534,15 @@ def verify_step(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
     """Speculative verification (transformer.py:517): tokens [B,T] =
     [last committed token, draft_1..draft_{T-1}] -> (logits [B,T,V]
     fp32, cache). ONE forward scores all T positions and writes their
-    K/V rows in place; `pos` is UNCHANGED — the caller advances it by
-    accepted + 1 (`engine/build.make_verify_step`), which is both the
-    accept and the rollback."""
-    att = cache.layers["attn"]
+    rows in place, in both segments; `pos` is UNCHANGED — the caller
+    advances it by accepted + 1 (`engine/build.make_verify_step`), which
+    is both the accept and the rollback."""
     x = L.embed(params["embed"], tokens, compute_dtype)
-    for l in range(cfg.n_layers):
-        x = _block_verify(layer_params(params["blocks"], l), cfg, x,
-                          _layer_cache(att, l), compute_dtype)
+    for name, blocks, moe_block in _segments(params, cfg):
+        att = getattr(cache, name)["attn"]
+        for l in range(_stack_layers(blocks)):
+            x = _block_verify(layer_params(blocks, l), cfg, x,
+                              _layer_cache(att, l), moe_block,
+                              compute_dtype)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _logits(params, cfg, x, compute_dtype), cache

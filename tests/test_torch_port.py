@@ -108,7 +108,7 @@ def test_explicit_cpu_runs():
 # ---------------------------------------------------- later-slice options
 LATER_FLAGS = {
     "mesh": (["--model-mesh", "2"], "7"),
-    "family": (["--arch", "mixtral-8x22b"], "6"),
+    "family": (["--arch", "rwkv6-7b"], "6"),
 }
 
 

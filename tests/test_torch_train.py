@@ -508,7 +508,7 @@ def test_train_cli_exits_zero_on_cpu():
 
 @pytest.mark.parametrize("flags,item", [
     (["--data-mesh", "2"], "7"), (["--model-mesh", "2"], "7"),
-    (["--arch", "mixtral-8x22b"], "6")])
+    (["--arch", "rwkv6-7b"], "6")])
 def test_later_slice_flags_raise(flags, item):
     from repro_torch.launch.train import main
     argv = ["--device", "cpu", "--arch", "gemma-7b", "--reduced",
