@@ -4,9 +4,11 @@
     python3 chip_smoke.py                  # one H100, ~a few minutes
     python3 chip_smoke.py --profile        # + torch.profiler windows
     python3 chip_smoke.py --serve-ab DIR   # serve phase, DIR vs this tree
+    python3 chip_smoke.py --scan-ab DIR    # phase 8 (e)'s scan prefill, same
     python3 chip_smoke.py --combiners-only # phase 9 alone, no result line
     python3 chip_smoke.py --subsystems-only # phase 10 alone, no result line
     python3 chip_smoke.py --families-only  # phase 11 alone, no result line
+    python3 chip_smoke.py --recurrent-only # phase 12 alone, no result line
 
 --serve-ab compares two commits on one card within one call: DIR is
 another checkout of the repo (e.g. `git archive <parent> | tar -x -C
@@ -14,8 +16,11 @@ build/parent`, a gitignored directory). The serve phase below runs on
 DIR's package and on this one, in turns DIR, this, this, DIR, each in a
 process of its own (this script's code, the package and its kernels
 from the tree), and a `SERVE_AB` JSON line gives the four runs' metrics.
+--scan-ab does the same for phase 8 (e)'s scan prefill (`scan_phase`:
+plain attention, no kernel built), ending with a `SCAN_AB` line of
+each run's times in ms.
 
-Phases, in the order they run: 1, 2, 3, 4, 8, 5, 6, 7, 9, 10, 11 (any
+Phases, in the order they run: 1, 2, 3, 4, 8, 5, 6, 7, 9, 10, 11, 12 (any
 error fails the run with a non-zero exit and no result):
   1. card: print `nvidia-smi --query-gpu=name,power.limit` and require
      CUDA;
@@ -40,7 +45,10 @@ error fails the run with a non-zero exit and no result):
      and at the MoE presets' shapes of phase 11: mixtral's prefill of a
      4,600-token prompt in window mode (H 48, KV 8, window 4096), its
      rolling decode over 256 pages a slot, and moonshot's prefix extend
-     (H = KV = 16, q_offset 64);
+     (H = KV = 16, q_offset 64); and hymba-1.5b's decodes of phase 12 (H
+     25, KV 5: G = 5, Dh 64), every slot past its 1024-row window, and
+     at (b)'s serving shape (16 pages a slot, positions 48-95, rolling
+     mode before the window wraps);
      The Adasum block kernels (`block_dots`, `block_combine`) are held
      the same way at the shapes the train phase gives them: the gemma-7b
      embedding bucket (786,432,000 elements a lane, block 8192, read as
@@ -229,7 +237,7 @@ error fails the run with a non-zero exit and no result):
      step ms at each world, the rebuilds' seconds and the saves' and
      restores' timings. `--subsystems-only` builds the kernels and runs
      this phase alone.
- 11. families (ROADMAP item 6's first half; runs last): the MLA and MoE
+ 11. families (ROADMAP item 6's first half): the MLA and MoE
      presets at full width, random weights from SEED. (a) mixtral-8x22b,
      depth P11_MIXTRAL_LAYERS, bf16: `ServeEngine`, paged, 4 slots, a
      4,600-token prompt (flash in window mode, decode over the rolling
@@ -255,6 +263,52 @@ error fails the run with a non-zero exit and no result):
      combine_impl="plain" (as phase 5), step and combine ms, aux loss,
      drop fraction, peak memory at most P11_MEM_GIB.
      `--families-only` builds the kernels and runs this phase alone.
+ 12. recurrent (ROADMAP item 6's second half; runs last): the SSM,
+     hybrid, vision-frontend and encoder-decoder presets at full width,
+     random weights from SEED, bf16 for serving. (a) rwkv6-7b at its
+     full 32 layers: `ServeEngine` asked for the paged layout and
+     speculation k = P11_SPEC_K must fall back to dense and disable
+     speculation, each with its warning; 4 prompts of 24-48 tokens in
+     one admission (two scan-prefill groups of unequal lengths), P12_GEN
+     tokens each; the recurrent state a slot; the scan prefill's repair
+     (an ended slot's leaves bitwise equal to the prefill cut at its
+     length); one-token decode over 64 tokens against the chunked
+     forward, within P12_FP32_TOL in fp32 compute, and in bf16 each path
+     against the fp32 forward (the decode's error at most
+     P12_BF16_FACTOR x the forward's own + LOGIT_TOL / 5). (b)
+     hymba-1.5b at its full 32 layers, paged (its mamba state dense per
+     slot, warned and counted), one scan-prefill group of 4 prompts of
+     48-64 tokens: the paged-decode kernel must launch (G = 5); kernel
+     arm vs attn_impl="plain" arm tokens, with the margins at
+     divergences recorded as phase 8 records them (at this depth
+     random-weight bf16 rounding, carried through the recurrence, moves
+     logits by O(1) over many ticks, so they are recorded, not held);
+     then the prompts stepped through the kernel arm and one tick of
+     each arm from that same cache, all 32 layers: in bf16 every
+     paged-decode call held against its plain version on the same
+     inputs (KERNEL_TOL) and the tick's logits recorded (one ulp a layer
+     grows to O(1) through 32 random-weight layers), in fp32 compute the
+     tick's logits held within P12_FP32_TOL. (c) hymba at P12_ROLL_LAYERS
+     layers in fp32 compute (the paged kernel's fp32 path): one slot
+     stepped through a P12_ROLL_PROMPT-token prompt and P12_ROLL_GEN
+     tokens over its rolling 1024-row window on both arms, logits held
+     within P12_FP32_TOL at every step. (d) `ServeSession.generate`'s
+     stepped loop: llava-next-34b at P12_LLAVA_LAYERS layers with 576
+     patch embeddings (its tokens must equal those without them: the
+     reference drops them) and seamless-m4t-large-v2 at its full 24 +
+     24 layers from 64 frames; each one's stepped logits at the prompt's
+     last token against the teacher-forced forward within LOGIT_TOL.
+     (e)-(h) three `TrainSession` steps (batch 8, span 2) of rwkv6-7b (2
+     layers, adam), hymba (8 layers, momentum), llava (2 layers,
+     momentum; 576 patch positions + 512 tokens) and seamless (12 + 12
+     layers, momentum; 128 frames + 256 tokens) (`P12_TRAIN`), held as
+     phase 11 (d)/(e) holds its runs, with the combined gradient finite.
+     `phase12_launches` sums each kernel's counts over the main-path runs:
+     (a)'s and (b)'s kernel-arm serve, (d)'s stepped loops and (e)-(h)'s
+     train steps; (c) and the holds are comparisons and do not count.
+     flash_attention must launch in none of them (no parallel prefill on
+     these paths, training takes plain attention), as in the reference.
+     `--recurrent-only` builds the kernels and runs this phase alone.
 
 The line before the last is the kernels JSON (block_dots and
 block_combine rows also carry their phase-6 launches on rank 0,
@@ -262,7 +316,8 @@ block_combine rows also carry their phase-6 launches on rank 0,
 row its launches inside phase 7, `phase7_launches`; the attention rows
 their launches inside phase 8, `phase8_launches`; the Adasum rows theirs
 inside phase 9, `phase9_launches`; every row its launches inside phase
-10, `phase10_launches`, and phase 11, `phase11_launches`), the
+10, `phase10_launches`, phase 11, `phase11_launches`, and phase 12,
+`phase12_launches`), the
 last line {"ok": true, "device": {...}}. Longer records go to
 chiprun_out/chip_smoke.json. fp32 matmuls run in full fp32: TF32 is
 switched off for cuBLAS and cuDNN.
@@ -767,6 +822,15 @@ def kernel_phase():
         _flash_case("moonshot_ext", 2, 256, 320, q_offset=64, H=16, KV=16),
         _decode_case("mixtral_roll", 4, 256, [4615, 315, 532, 827],
                      rolling=True, H=48, KV=8),
+        # hymba-1.5b's decode in phase 12: G = 25 / 5 = 5 (padded to 8
+        # inside the kernel), Dh 64, rolling over its 1024-token window
+        # (64 pages of 16), every slot past the window
+        _decode_case("hymba_roll", 4, 64, [1100, 1300, 2047, 1500],
+                     rolling=True, H=25, KV=5, Dh=64),
+        # and phase 12 (b)'s serving shape: 16 pages a slot, rolling
+        # mode before the window wraps (prompts of 48-64, 32 new tokens)
+        _decode_case("hymba_serve", 4, 16, [48, 67, 81, 95], rolling=True,
+                     H=25, KV=5, Dh=64),
     ]
     embed = 256_000 * 3072                 # gemma-7b's tied embedding
     cases += _adasum_case("embed_fp32", embed, 8192)     # main path first
@@ -2497,10 +2561,54 @@ def ckpt_phase(card: str, ranks: dict):
     return rec
 
 
-def serve_ab(other: Path) -> int:
-    """The serve phase on `other`'s package and on this tree's, in turns
-    other, this, this, other, each run a process of this script with
-    --serve-only; prints each run's output and one SERVE_AB line."""
+SCAN_REPS = 5
+_AB = {"serve": ("--serve-only", "SERVE"), "scan": ("--scan-only", "SCAN")}
+
+
+def scan_phase(card: str) -> dict:
+    """Phase 8 (e)'s scan prefill alone, on the serve phase's model
+    (qwen3-32b at LAYERS layers, bf16 random weights from SEED, plain
+    attention): a group of prompts of 40 and 64 tokens at cap 2048, as
+    phase 8 (e) runs it, and a group of 16, 32, 48 and 64 at cap 4096;
+    each timed SCAN_REPS times after one warm-up. Returns {group: [ms]}."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.engine.serving.engine import _make_scan_prefill
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config("qwen3-32b"), n_layers=LAYERS)
+    plain = build_model(cfg, compute_dtype=torch.bfloat16,
+                        param_dtype=torch.bfloat16, attn_impl="plain")
+    params = plain.init(torch.Generator(device="cuda").manual_seed(SEED),
+                        device="cuda")
+    rng = np.random.RandomState(SEED)
+    out = {}
+    for lens, cap in (((40, 64), 2048), ((16, 32, 48, 64), 4096)):
+        toks = np.zeros((len(lens), max(lens)), np.int32)
+        for i, n in enumerate(lens):
+            toks[i, :n] = rng.randint(0, cfg.vocab_size, n)
+        tt = torch.from_numpy(toks).cuda()
+        lt = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        prefill = _make_scan_prefill(plain, cap)
+        times = []
+        for _ in range(SCAN_REPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prefill(params, tt, lt)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        out[f"{'/'.join(map(str, lens))}@{cap}"] = times[1:]
+    print(f"[smoke] scan prefill ms {out} | {card}")
+    return out
+
+
+def run_ab(other: Path, mode: str) -> int:
+    """The serve phase (mode 'serve') or the scan prefill (mode 'scan')
+    on `other`'s package and on this tree's, in turns other, this, this,
+    other, each run a process of this script with --serve-only or
+    --scan-only; prints each run's output and one SERVE_AB or SCAN_AB
+    line."""
+    flag, key = _AB[mode]
     trees = [("other", other.resolve() / "src"), ("this", ROOT / "src")]
     if not (trees[0][1] / "repro_torch").is_dir():
         print(f"chip_smoke: {other} holds no src/repro_torch",
@@ -2508,20 +2616,21 @@ def serve_ab(other: Path) -> int:
         return 2
     runs = []
     for tag, src in (trees[0], trees[1], trees[1], trees[0]):
-        print(f"=== serve on {tag}: {src}", flush=True)
+        print(f"=== {mode} on {tag}: {src}", flush=True)
         proc = subprocess.run(
-            [sys.executable, str(Path(__file__).resolve()), "--serve-only",
+            [sys.executable, str(Path(__file__).resolve()), flag,
              str(src)], capture_output=True, text=True, timeout=900)
         print(proc.stdout, end="")
         print(proc.stderr, end="", file=sys.stderr)
         lines = [ln for ln in proc.stdout.splitlines()
-                 if ln.startswith("SERVE ")]
+                 if ln.startswith(key + " ")]
         if proc.returncode or not lines:
-            print(f"chip_smoke: serve on {tag} failed "
+            print(f"chip_smoke: {mode} on {tag} failed "
                   f"(rc {proc.returncode})", file=sys.stderr)
             return 1
-        runs.append({"tree": tag, **json.loads(lines[-1][6:])})
-    print("SERVE_AB " + json.dumps(runs))
+        runs.append({"tree": tag,
+                     **json.loads(lines[-1][len(key) + 1:])})
+    print(f"{key}_AB " + json.dumps(runs))
     return 0
 
 
@@ -3718,12 +3827,14 @@ def _route_agreement(a, b) -> dict:
 def _p11_build(name: str, layers: int, param_dtype: str):
     """(full config, cut config, kernel model, plain model) for a preset
     at full width, depth cut to `layers` (a MoE config's dense prefix
-    kept)."""
+    kept; an encoder-decoder's both stacks)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     full = get_config(name)
     cfg = dataclasses.replace(full, n_layers=layers)
+    if full.is_encoder_decoder:
+        cfg = dataclasses.replace(cfg, n_encoder_layers=layers)
     dt = getattr(torch, param_dtype)
     model = build_model(cfg, compute_dtype=torch.bfloat16, param_dtype=dt)
     plain = build_model(cfg, compute_dtype=torch.bfloat16, param_dtype=dt,
@@ -3740,7 +3851,8 @@ def _p11_init(model):
     return params, time.perf_counter() - t0
 
 
-def _p11_serve_line(tag, eng, handles, launches, card) -> dict:
+def _p11_serve_line(tag, eng, handles, launches, card,
+                    phase: str = "p11") -> dict:
     import torch
     tp, kv = eng.throughput(), eng.kv_stats()
     res = {"completed": tp["completed"], "decode_steps": tp["decode_steps"],
@@ -3753,7 +3865,7 @@ def _p11_serve_line(tag, eng, handles, launches, card) -> dict:
            "launches": launches,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "tokens": [h.tokens for h in handles]}
-    print(f"[smoke] p11 {tag}: completed={tp['completed']} prefill_calls="
+    print(f"[smoke] {phase} {tag}: completed={tp['completed']} prefill_calls="
           f"{tp['prefill_calls']} decode_steps={tp['decode_steps']} "
           f"prefix_hits={kv['prefix_hits']} prefill_ms="
           f"{tp['prefill_ms_mean']:.1f} decode_tick_ms="
@@ -4081,10 +4193,12 @@ def _p11_minicpm(card: str) -> dict:
     return res
 
 
-def _p11_train(card: str, name: str, layers: int, optimizer: str) -> dict:
-    """(d)/(e): three TrainSession steps at full width, span 2, seq 512,
-    batch 8, then step 1 again on the kernel path (bitwise) and with
-    combine_impl='plain' (held as phase 5 holds it)."""
+def _p11_train(card: str, name: str, layers: int, optimizer: str,
+               tag: str = "p11", seq: int = 512) -> dict:
+    """Phase 11 (d)/(e) and phase 12 (e)-(h): three TrainSession steps at
+    full width, span 2, seq `seq`, batch 8, then step 1 again on the
+    kernel path (bitwise) and with combine_impl='plain' (held as phase 5
+    holds it); the combined gradient must be finite."""
     import math
     import torch
     from repro_torch import tree as T
@@ -4093,14 +4207,18 @@ def _p11_train(card: str, name: str, layers: int, optimizer: str) -> dict:
     full, cfg, model, _ = _p11_build(name, layers, "float32")
     span = 2
     fields = dict(arch=name, optimizer=optimizer, span=span,
-                  backend="gspmd_tree")
-    print(f"[smoke] p11 train {cfg.name}: full width d_model={cfg.d_model},"
+                  backend="gspmd_tree", seq_len=seq)
+    extra = (f", {cfg.frontend_tokens} patch positions" if cfg.frontend_tokens
+             else f", {seq // 2} frames ({cfg.n_encoder_layers} of "
+             f"{full.n_encoder_layers} encoder layers)"
+             if cfg.is_encoder_decoder else "")
+    print(f"[smoke] {tag} train {cfg.name}: full width d_model={cfg.d_model},"
           f" depth cut {full.n_layers} -> {layers}"
           + (f" ({cfg.first_dense_layers} dense + "
              f"{layers - cfg.first_dense_layers} MoE)" if cfg.n_experts
              else "")
           + f"; {cfg.param_count() / 1e9:.3f}B params in fp32, bf16 "
-          f"compute, seq 512, batch 8, {optimizer} span {span}")
+          f"compute, seq {seq}{extra}, batch 8, {optimizer} span {span}")
     timer = _CombineTimer()
     torch.cuda.reset_peak_memory_stats()
     s = _session(model, timer, **fields)
@@ -4134,12 +4252,15 @@ def _p11_train(card: str, name: str, layers: int, optimizer: str) -> dict:
     for k in ("block_dots", "block_combine"):
         assert launches[k] == 3 * per_step, (name, k, launches[k], per_step)
     p1 = [x.cuda() for x in p1]
-    again, (g_kern, lv_kern) = _step_once(model, optimizer, span, arch=name)
+    again, (g_kern, lv_kern) = _step_once(model, optimizer, span, arch=name,
+                                          seq_len=seq)
     bitwise = all(torch.equal(x, y) for x, y in zip(p1, again))
+    finite = all(bool(torch.isfinite(x).all()) for x in g_kern)
     del again
     _free()
     plain, (g_plain, lv_plain) = _step_once(model, optimizer, span,
-                                            combine_impl="plain", arch=name)
+                                            combine_impl="plain", arch=name,
+                                            seq_len=seq)
     err = max((x - y).abs().max().item() for x, y in zip(p1, plain))
     comb_err = max(_rel_err(x, y) for x, y in zip(g_kern, g_plain))
     stats_err = max(_rel_err(x, y) for x, y in zip(lv_kern, lv_plain))
@@ -4154,22 +4275,26 @@ def _p11_train(card: str, name: str, layers: int, optimizer: str) -> dict:
            "step_ms_steady": ms, "combine_ms_steady": comb,
            "combine_share": comb / ms, "peak_mem_gib": peak, "drops": drops,
            "bitwise_repeat": bitwise, "plain_max_abs_err": err,
-           "combined_rel_err": comb_err, "stats_rel_err": stats_err}
-    print(f"[smoke] p11 train {name} {optimizer} span={span} point={meta[1]}"
+           "combined_rel_err": comb_err, "stats_rel_err": stats_err,
+           "grads_finite": finite, "seq": seq}
+    print(f"[smoke] {tag} train {name} {optimizer} span={span} "
+          f"point={meta[1]}"
           f" path={meta[0]} buckets={len(plan)} launches="
           f"{ {k: launches[k] for k in ('block_dots', 'block_combine')} } "
           f"losses={[round(st['loss'], 4) for st in steps]} aux="
           f"{[round(st['aux'], 4) for st in steps]} drop_fraction="
           f"{drops['drop_fraction']:.4f} ({drops['dropped']}/{drops['pairs']}"
           f" pairs)")
-    print(f"[smoke] p11 train {name}: step_ms="
+    print(f"[smoke] {tag} train {name}: step_ms="
           f"{[round(st['ms'], 1) for st in steps]} steady_ms={ms:.1f} "
           f"combine_ms={comb:.1f} combine_share={comb / ms:.3f} "
-          f"peak_mem_gib={peak:.1f}; step 1 again bitwise={bitwise}, kernel "
+          f"peak_mem_gib={peak:.1f}; combined gradient finite={finite}; "
+          f"step 1 again bitwise={bitwise}, kernel "
           f"vs plain combine rel_err={comb_err:.3e} stats rel_err="
           f"{stats_err:.3e} (tol {COMBINED_RTOL}) params max_abs_err="
           f"{err:.3e} (tol {TRAIN_PARAM_TOL}) | {card}")
     assert bitwise, f"{name}: step 1 is not bitwise repeatable"
+    assert finite, f"{name}: non-finite combined gradient"
     assert comb_err <= COMBINED_RTOL and stats_err <= COMBINED_RTOL, run
     assert err <= TRAIN_PARAM_TOL, run
     assert peak <= P11_MEM_GIB, f"peak {peak:.1f} GiB"
@@ -4209,6 +4334,511 @@ def families_phase(card: str) -> dict:
     return rec
 
 
+# ------------------------- phase 12: the recurrent and frontend families
+P12_GEN = 32
+P12_SERVE_LEN = 128          # rwkv's slots (prompts of 24-48, 32 new)
+P12_HYMBA_LEN = 256          # hymba's slots: 16 pages of 16 a slot
+P12_ROLL_LAYERS = 2          # hymba at 2 of 32 layers for the roll past
+P12_ROLL_PROMPT = 1040       # its 1024-token window
+P12_ROLL_GEN = 8
+P12_LLAVA_LAYERS = 8         # of 60: 5.4 B params, 10.9 GB of bf16
+P12_STEP_GEN = 16
+# two paths of one function in fp32 compute differ by summation order
+# only (rwkv's decode vs its chunked forward; hymba's paged-decode kernel
+# vs its plain version); in bf16 a random-weight recurrent model carries
+# every rounding forward through its state and layers (hymba at 32
+# layers: the plain bf16 path ends ~4 from an fp32-compute run at logit
+# scale ~4), so a bf16 path is held to the fp32 run relative to the
+# plain bf16 path's own error there
+P12_FP32_TOL = 1e-2
+P12_BF16_FACTOR = 2.0
+# (part, preset, layers, optimizer, seq): llava's batch adds its 576
+# patch positions to the 512 tokens; seamless's seq 256 gives 128 frames
+# and its layers cut both stacks. Depths cut to the time limit: hymba's
+# 32 layers step in ~4.7 s, seamless's 24 + 24 in ~2.3 s (measured on
+# one H100)
+P12_TRAIN = (("e", "rwkv6-7b", 2, "adam", 512),
+             ("f", "hymba-1.5b", 8, "momentum", 512),
+             ("g", "llava-next-34b", 2, "momentum", 512),
+             ("h", "seamless-m4t-large-v2", 12, "momentum", 256))
+
+
+def _nodes_leaves(cache) -> list:
+    from repro_torch.models.transformer import cache_nodes
+    return [t for n in cache_nodes(cache) for t in n]
+
+
+def _p12_paged_slots(model, params, n, cap):
+    """An n-slot paged cache of capacity `cap` a slot, each slot on
+    pages of its own."""
+    import torch
+    from repro_torch.engine.serving.slots import set_page_tables
+    from repro_torch.models.attention import paged_capacity
+    pps = paged_capacity(model.cfg, cap) // 16
+    cache = model.init_cache(params, n, cap, paged=(16, n * pps + 1))
+    set_page_tables(cache, torch.arange(
+        1, n * pps + 1, dtype=torch.int32, device="cuda").reshape(n, pps))
+    return cache
+
+
+def _p12_step_slots(model, params, seqs, cap):
+    """`model` steps the token sequences `seqs` through one paged cache of
+    len(seqs) slots (a slot whose sequence has ended is fed its last
+    token again: slots are independent); returns each sequence's logits
+    [V] after its last token, and the cache."""
+    import numpy as np
+    import torch
+    n, T_ = len(seqs), max(len(x) for x in seqs)
+    toks = np.stack([np.concatenate([x, np.full(T_ - len(x), x[-1])])
+                     for x in seqs]).astype(np.int32)
+    toks = torch.tensor(toks, device="cuda")
+    cache = _p12_paged_slots(model, params, n, cap)
+    last = [None] * n
+    for t in range(T_):
+        lg, cache = model.decode_step(params, toks[:, t:t + 1], cache)
+        for i, x in enumerate(seqs):
+            if t == len(x) - 1:
+                last[i] = lg[i, -1].float()
+    return last, cache
+
+
+def _p12_margins(model, params, prompts, a, b, cap) -> list:
+    """`_divergence_margins` for a model without a parallel prefill: at
+    each pair of streams' first difference i, how much `model`'s logits
+    after prompt + a[:i] (all pairs in one batch, paged, step by step)
+    prefer a[i] over b[i]."""
+    import numpy as np
+    firsts = [(k, next((j for j, (x, y) in enumerate(zip(s, t)) if x != y),
+                       None)) for k, (s, t) in enumerate(zip(a, b))]
+    firsts = [(k, i) for k, i in firsts if i is not None]
+    if not firsts:
+        return []
+    seqs = [np.concatenate([prompts[k], np.asarray(a[k][:i], np.int64)])
+            for k, i in firsts]
+    last = _p12_step_slots(model, params, seqs, cap)[0]
+    return [lg[a[k][i]].item() - lg[b[k][i]].item()
+            for lg, (k, i) in zip(last, firsts)]
+
+
+class _HeldPaged:
+    """While active, every `paged_decode_attention` call is also computed
+    by its plain version on the same inputs; `errs` gets each call's
+    max_abs difference."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as FA
+        self._fa, self._orig, self.errs = FA, FA.paged_decode_attention, []
+
+        def held(q, kp, vp, table, pos, *, rolling=False):
+            out = self._orig(q, kp, vp, table, pos, rolling=rolling)
+            ref = FA.paged_decode_attention_ref(q, kp, vp, table, pos,
+                                                rolling=rolling)
+            self.errs.append((out.float() - ref.float()).abs().max().item())
+            return out
+        FA.paged_decode_attention = held
+        return self
+
+    def __exit__(self, *exc):
+        self._fa.paged_decode_attention = self._orig
+
+
+def _p12_one_tick(model, plain, params, seqs, cap) -> dict:
+    """`seqs` stepped through `model` on one paged cache, then one more
+    tick (each slot's greedy token) of `model` and of `plain` from copies
+    of that cache: the max_abs difference of the tick's logits, one
+    tick's rounding with no recurrence to carry earlier ticks' forward,
+    and their scale."""
+    import torch
+    from repro_torch.models.transformer import map_nodes
+    last, cache = _p12_step_slots(model, params, seqs, cap)
+    nxt = torch.stack([x.argmax() for x in last]).to(torch.int32)[:, None]
+    twin = map_nodes(lambda n: type(n)(*(t.clone() for t in n)), cache)
+    got = model.decode_step(params, nxt, cache)[0][:, -1].float()
+    want = plain.decode_step(params, nxt, twin)[0][:, -1].float()
+    torch.cuda.synchronize()
+    out = {"max_abs_err": (got - want).abs().max().item(),
+           "logit_scale": want.abs().max().item(),
+           "first_tokens_equal": bool(torch.equal(got.argmax(-1),
+                                                  want.argmax(-1)))}
+    del cache, twin
+    return out
+
+
+def _p12_rwkv(card: str) -> dict:
+    """(a) rwkv6-7b at its full 32 layers: serving (dense fallback,
+    speculation refused), the scan-prefill repair on the card, decode vs
+    the chunked forward."""
+    import warnings
+    import numpy as np
+    import torch
+    from repro_torch.engine import EngineConfig, ServeEngine
+    from repro_torch.engine.serving.engine import _make_scan_prefill
+    from repro_torch.kernels import build
+    full, cfg, model, _ = _p11_build("rwkv6-7b", 32, "bfloat16")
+    params, init_s = _p11_init(model)
+    print(f"[smoke] p12 (a) {cfg.name}: full width d_model={cfg.d_model} "
+          f"heads={cfg.d_model // cfg.rwkv_head_dim}x{cfg.rwkv_head_dim} "
+          f"d_ff={cfg.d_ff} vocab={cfg.vocab_size}, all {cfg.n_layers} "
+          f"layers; {cfg.param_count() / 1e9:.2f}B params in bf16, init "
+          f"{init_s:.1f}s, {_mem()}")
+    V = cfg.vocab_size
+    rng = np.random.RandomState(SEED + 12)
+    prompts = [rng.randint(0, V, n) for n in (24, 29, 41, 48)]
+    ecfg = EngineConfig(max_slots=4, max_len=P12_SERVE_LEN, page_size=16,
+                        speculation_k=P11_SPEC_K, param_dtype="bfloat16")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        eng = ServeEngine(ecfg, model, params)
+    msgs = [str(w.message) for w in caught]
+    fell_back = any("no attention K/V to page" in m for m in msgs)
+    spec_off = any("speculation disabled" in m for m in msgs)
+    kv = eng.kv_stats()
+    slot_bytes = kv["dense_fallback_bytes"] / ecfg.max_slots
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    build.reset_launches()
+    hs, wall = _timed(lambda: _greedy(eng, prompts, [4], P12_GEN))
+    launches = dict(build.LAUNCHES)
+    res = _p11_serve_line("(a) serve rwkv", eng, hs, launches, card, "p12")
+    print(f"[smoke] p12 (a) kv_layout asked paged -> {kv['kv_layout']} "
+          f"(warned {fell_back}), speculation_k={P11_SPEC_K} -> "
+          f"{eng.spec_k} (warned {spec_off}), spec_ticks="
+          f"{eng.stats['spec_ticks']}, prefill_mode={eng.prefill_mode}; "
+          f"recurrent state {kv['dense_fallback_leaves']} leaves, "
+          f"{slot_bytes / 1e6:.2f} MB a slot | {card}")
+    assert fell_back and spec_off and not eng.paged and eng.spec_k == 0
+    assert eng.stats["spec_ticks"] == 0 and eng.prefill_mode == "scan"
+    assert res["completed"] == 4 and all(len(h.tokens) == P12_GEN
+                                         for h in hs)
+    res.update(wall_s=wall, init_s=init_s, fallback_warned=fell_back,
+               spec_disabled=spec_off, state_bytes_per_slot=slot_bytes,
+               state_leaves=kv["dense_fallback_leaves"],
+               layers=cfg.n_layers, params_b=cfg.param_count() / 1e9)
+    del eng
+    _free()
+
+    # the repair: a group of unequal prompts (24 and 29, one bucket of
+    # 32); the ended slot's leaves after the whole prefill against the
+    # same prefill cut at its own length
+    prefill = _make_scan_prefill(model, ecfg.max_len)
+    toks = np.zeros((2, 32), np.int32)
+    for i in range(2):
+        toks[i, :len(prompts[i])] = prompts[i]
+    toks = torch.tensor(toks, device="cuda")
+    whole = prefill(params, toks, torch.tensor([24, 29], device="cuda"))[1]
+    cut = prefill(params, toks[:, :24], torch.tensor([24, 24],
+                                                     device="cuda"))[1]
+    kept = all(torch.equal(x[:, 0], y[:, 0]) for x, y in zip(
+        _nodes_leaves(whole), _nodes_leaves(cut)))
+    moved = sum(int(not torch.equal(x[:, 1], y[:, 1])) for x, y in zip(
+        _nodes_leaves(whole), _nodes_leaves(cut)))
+    del whole, cut
+
+    # decode over a 64-token prompt against the chunked forward (two
+    # 32-row chunks), every position: in fp32 compute (the same bf16
+    # weights) the two must agree to P12_FP32_TOL — the identity; in
+    # bf16 each rounds its own way, and the recurrence carries every
+    # earlier position's rounding forward, so each bf16 path is held to
+    # the fp32 forward instead: the decode's error there at most
+    # P12_BF16_FACTOR x the bf16 forward's own plus LOGIT_TOL / 5
+    from repro_torch.models import build_model
+    f32 = build_model(cfg, compute_dtype=torch.float32,
+                      param_dtype=torch.bfloat16)
+    p64 = torch.tensor(rng.randint(0, V, 64)[None].astype(np.int32),
+                       device="cuda")
+
+    def decode_all(m):
+        cache = m.init_cache(params, 1, 65, per_slot=True)
+        rows = []
+        for t in range(64):
+            lg, cache = m.decode_step(params, p64[:, t:t + 1], cache)
+            rows.append(lg[0, -1].float())
+        return torch.stack(rows)
+    fwd16 = model.forward(params, p64)[0].float()
+    fwd32 = f32.forward(params, p64)[0].float()
+    dec16, dec32 = decode_all(model), decode_all(f32)
+    err = lambda a, b: (a - b).abs().max().item()
+    dvf = {"fp32_decode_vs_forward": err(dec32, fwd32),
+           "bf16_decode_vs_forward": err(dec16, fwd16),
+           "bf16_forward_vs_fp32": err(fwd16, fwd32),
+           "bf16_decode_vs_fp32": err(dec16, fwd32),
+           "logit_scale": fwd32.abs().max().item()}
+    del fwd16, fwd32, dec16, dec32, f32
+    print(f"[smoke] p12 (a) scan prefill of lengths [24, 29] in one "
+          f"group: ended slot bitwise equal to the prefill cut at 24 = "
+          f"{kept} (the other slot moved in {moved} leaves); decode vs "
+          f"chunked forward over 64 tokens, max_abs_err: fp32 compute "
+          f"{dvf['fp32_decode_vs_forward']:.2e} (tol {P12_FP32_TOL}); "
+          f"bf16 {dvf['bf16_decode_vs_forward']:.4f}; against the fp32 "
+          f"forward (|logit| <= {dvf['logit_scale']:.2f}): bf16 forward "
+          f"{dvf['bf16_forward_vs_fp32']:.4f}, bf16 decode "
+          f"{dvf['bf16_decode_vs_fp32']:.4f} | {card}")
+    assert kept, "scan prefill: an ended slot's state moved"
+    assert moved > 0
+    assert dvf["fp32_decode_vs_forward"] <= P12_FP32_TOL, dvf
+    assert dvf["bf16_decode_vs_fp32"] <= (
+        P12_BF16_FACTOR * dvf["bf16_forward_vs_fp32"] + LOGIT_TOL / 5), dvf
+    res.update(repair_bitwise=kept, repair_other_moved=moved,
+               decode_vs_forward=dvf)
+    assert res["peak_mem_gib"] <= P11_MEM_GIB
+    del params, model
+    _free()
+    return res
+
+
+def _p12_hymba(card: str) -> dict:
+    """(b) hymba-1.5b at its full 32 layers, paged serving (kernel arm vs
+    plain arm: tokens; then the prompts stepped and one tick from a
+    shared cache, every paged-decode call held, the tick's logits held
+    in fp32 compute); (c) at
+    P12_ROLL_LAYERS layers, one prompt past the 1024-token window, kernel
+    vs plain in fp32 compute at every step."""
+    import warnings
+    import numpy as np
+    import torch
+    from repro_torch.engine import EngineConfig, ServeEngine
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model
+    full, cfg, model, plain = _p11_build("hymba-1.5b", 32, "bfloat16")
+    params, init_s = _p11_init(model)
+    G = cfg.n_heads // cfg.n_kv_heads
+    print(f"[smoke] p12 (b) {cfg.name}: full width d_model={cfg.d_model} "
+          f"heads={cfg.n_heads}/{cfg.n_kv_heads} (G={G}) head_dim="
+          f"{cfg.resolved_head_dim} window={cfg.sliding_window} mamba "
+          f"heads={cfg.ssm_heads} state={cfg.ssm_state}, all "
+          f"{cfg.n_layers} layers; {cfg.param_count() / 1e9:.2f}B params "
+          f"in bf16, init {init_s:.1f}s, {_mem()}")
+    V = cfg.vocab_size
+    rng = np.random.RandomState(SEED + 13)
+    # one scan-prefill group (bucket 64) of unequal prompts
+    prompts = [rng.randint(0, V, n) for n in (48, 53, 58, 64)]
+    ecfg = EngineConfig(max_slots=4, max_len=P12_HYMBA_LEN, page_size=16,
+                        param_dtype="bfloat16")
+    arms, walls = {}, {}
+    for tag, m in (("kernel", model), ("plain", plain)):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            eng = ServeEngine(ecfg, m, params)
+        warned = any("stay dense per-slot" in str(w.message)
+                     for w in caught)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        build.reset_launches()
+        hs, walls[tag] = _timed(lambda: _greedy(eng, prompts, [4], P12_GEN))
+        launches = dict(build.LAUNCHES)
+        if tag == "kernel":
+            res = _p11_serve_line("(b) serve hymba", eng, hs, launches,
+                                  card, "p12")
+            kv = eng.kv_stats()
+        arms[tag] = [h.tokens for h in hs]
+        del eng
+        _free()
+    agree = _agreement(arms["kernel"], arms["plain"])
+    margins = _p12_margins(model, params, prompts, arms["kernel"],
+                           arms["plain"], P12_HYMBA_LEN)
+    # the holds on the serve path: the prompts stepped through the kernel
+    # arm, then one tick of each arm from that same cache, all 32 layers.
+    # In bf16 every paged-decode call is held against its plain version
+    # on the same inputs; the tick's logits are recorded, not held: one
+    # ulp of difference in each layer's attention grows through the 32
+    # random-weight layers to O(1) logits. The logits are held in fp32
+    # compute, where the two arms are the same function.
+    with _HeldPaged() as held:
+        tick = _p12_one_tick(model, plain, params, prompts, P12_HYMBA_LEN)
+    tick32 = _p12_one_tick(
+        build_model(cfg, compute_dtype=torch.float32,
+                    param_dtype=torch.bfloat16),
+        build_model(cfg, compute_dtype=torch.float32,
+                    param_dtype=torch.bfloat16, attn_impl="plain"),
+        params, prompts, P12_HYMBA_LEN)
+    calls = {"n": len(held.errs), "max_abs_err": max(held.errs),
+             "tol": KERNEL_TOL["bfloat16"]}
+    print(f"[smoke] p12 (b) paged KV {kv['kv_page_bytes'] // 16} B a token "
+          f"({kv['kv_page_bytes']} B a page), mamba state "
+          f"{kv['dense_fallback_leaves']} leaves = "
+          f"{kv['dense_fallback_bytes'] / ecfg.max_slots / 1e6:.2f} MB a "
+          f"slot (warned {warned}); kernel arm vs plain arm tokens: equal "
+          f"share {agree['equal_share']:.3f}, first divergences "
+          f"{agree['first_divergence']}, margins there "
+          f"{[round(x, 4) for x in margins]}; the prompts then one tick "
+          f"from the same cache, all {cfg.n_layers} layers: each of "
+          f"{calls['n']} paged-decode calls vs its plain version "
+          f"max_abs_err={calls['max_abs_err']:.2e} (tol {calls['tol']}); "
+          f"the tick's logits kernel vs plain arm: fp32 compute "
+          f"{tick32['max_abs_err']:.2e} (tol {P12_FP32_TOL}), bf16 "
+          f"{tick['max_abs_err']:.4f} (|logit| <= "
+          f"{tick['logit_scale']:.2f}; tokens equal "
+          f"{tick['first_tokens_equal']}) | {card}")
+    assert warned and kv["dense_fallback_leaves"] == 3
+    assert res["completed"] == 4
+    assert res["launches"]["paged_decode_attention"] > 0, \
+        "paged decode never launched on hymba"
+    assert calls["max_abs_err"] <= calls["tol"], calls
+    assert tick32["max_abs_err"] <= P12_FP32_TOL, tick32
+    res.update(init_s=init_s, wall_s=walls, arms=arms, agreement=agree,
+               margins=margins, one_tick={"calls": calls, "fp32": tick32,
+                                          "bf16": tick}, G=G,
+               layers=cfg.n_layers, params_b=cfg.param_count() / 1e9,
+               kv_bytes_per_token=kv["kv_page_bytes"] // 16,
+               state_bytes_per_slot=(kv["dense_fallback_bytes"]
+                                     / ecfg.max_slots))
+    del params, model, plain
+    _free()
+
+    # (c) the rolling window, in fp32 compute (the paged kernel's fp32
+    # path): one slot stepped through a 1,100-token prompt and 8 greedy
+    # tokens (the kernel arm's) over a paged cache of 1024 rows, both
+    # arms' logits held at every step
+    full, cfg, _, _ = _p11_build("hymba-1.5b", P12_ROLL_LAYERS, "bfloat16")
+    k32 = build_model(cfg, compute_dtype=torch.float32,
+                      param_dtype=torch.bfloat16)
+    p32 = build_model(cfg, compute_dtype=torch.float32,
+                      param_dtype=torch.bfloat16, attn_impl="plain")
+    params, _ = _p11_init(k32)
+    prompt = rng.randint(0, V, P12_ROLL_PROMPT)
+    cap = cfg.sliding_window
+    caches = {"kernel": _p12_paged_slots(k32, params, 1, cap),
+              "plain": _p12_paged_slots(p32, params, 1, cap)}
+    build.reset_launches()
+    errs, toks, nxt = [], [], None
+    t0 = time.perf_counter()
+    for i in range(P12_ROLL_PROMPT + P12_ROLL_GEN):
+        tok = prompt[i] if i < P12_ROLL_PROMPT else nxt
+        if i >= P12_ROLL_PROMPT:
+            toks.append(int(tok))
+        lgs = {}
+        for tag, m in (("kernel", k32), ("plain", p32)):
+            lg, caches[tag] = m.decode_step(params, torch.tensor(
+                [[int(tok)]], dtype=torch.int32, device="cuda"), caches[tag])
+            lgs[tag] = lg[0, -1].float()
+        errs.append((lgs["kernel"] - lgs["plain"]).abs().max().item())
+        nxt = int(lgs["kernel"].argmax())
+    roll_s = time.perf_counter() - t0
+    roll_launches = dict(build.LAUNCHES)
+    past = errs[cap:]
+    print(f"[smoke] p12 (c) hymba at {P12_ROLL_LAYERS} layers, fp32 "
+          f"compute, one slot through a {P12_ROLL_PROMPT}-token prompt and "
+          f"{P12_ROLL_GEN} tokens over {cap} rolling rows: kernel vs plain "
+          f"logits max_abs_err={max(errs):.2e} over all {len(errs)} steps, "
+          f"{max(past):.2e} over the {len(past)} steps past the window "
+          f"(tol {P12_FP32_TOL}); paged decode launches "
+          f"{roll_launches['paged_decode_attention']}; {roll_s:.1f}s "
+          f"| {card}")
+    assert max(errs) <= P12_FP32_TOL, max(errs)
+    assert roll_launches["paged_decode_attention"] == \
+        P12_ROLL_LAYERS * len(errs)
+    res["roll"] = {"layers": P12_ROLL_LAYERS, "prompt": P12_ROLL_PROMPT,
+                   "gen_tokens": toks, "max_abs_err": max(errs),
+                   "max_abs_err_past_window": max(past),
+                   "tol": P12_FP32_TOL, "launches": roll_launches,
+                   "wall_s": roll_s}
+    del params, k32, p32, caches
+    _free()
+    return res
+
+
+def _p12_stepped(card: str) -> dict:
+    """(d) `ServeSession.generate`'s stepped loop: llava-next-34b at
+    P12_LLAVA_LAYERS layers with 576 patch embeddings (not fed to the
+    decode cache, as in the reference), seamless-m4t-large-v2 at its full
+    24 + 24 layers from 64 frames. Each: the stepped logits at the
+    prompt's last token against the teacher-forced forward's."""
+    import numpy as np
+    import torch
+    from repro_torch.engine import EngineConfig, ServeSession
+    from repro_torch.kernels import build
+    out = {}
+    for name, layers, frames, plen in (
+            ("llava-next-34b", P12_LLAVA_LAYERS, 576, 32),
+            ("seamless-m4t-large-v2", 24, 64, 16)):
+        full, cfg, model, plain = _p11_build(name, layers, "bfloat16")
+        params, init_s = _p11_init(model)
+        rng = np.random.RandomState(SEED + 14)
+        prompts = rng.randint(0, cfg.vocab_size, (2, plen)).astype(np.int32)
+        fe = (0.02 * rng.standard_normal((2, frames, cfg.frontend_dim))
+              ).astype(np.float32)
+        sess = ServeSession(EngineConfig(max_len=plen + P12_STEP_GEN + 1),
+                            model, params)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        build.reset_launches()
+        got, wall = _timed(lambda: sess.generate(prompts, P12_STEP_GEN,
+                                                 frontend_embeds=fe))
+        launches = dict(build.LAUNCHES)
+        got = got.cpu().numpy()
+        fe_t = torch.tensor(fe, device="cuda")
+        tk = torch.tensor(prompts, device="cuda")
+        # the stepped logits at the last prompt token
+        if cfg.is_encoder_decoder:
+            cache = model.init_cache(params, 2, plen + 1,
+                                     frontend_embeds=fe_t)
+            want = plain.forward(params, tk, fe_t)[:, -1].float()
+        else:
+            cache = model.init_cache(params, 2, plen + 1)
+            want = plain.forward(params, tk)[:, -1].float()
+        for t in range(plen):
+            lg, cache = model.decode_step(params, tk[:, t:t + 1], cache)
+        first = _first_tokens(lg[:, -1].float(), want)
+        rec = {"layers": cfg.n_layers, "full_layers": full.n_layers,
+               "params_b": cfg.param_count() / 1e9, "init_s": init_s,
+               "wall_s": wall, "tokens": got[:, plen:].tolist(),
+               "first_step": first, "launches": launches,
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        line = (f"[smoke] p12 (d) {cfg.name} stepped: {cfg.n_layers} of "
+                f"{full.n_layers} layers"
+                + (f" + {cfg.n_encoder_layers} encoder layers"
+                   if cfg.is_encoder_decoder else "")
+                + f", {cfg.param_count() / 1e9:.2f}B params bf16, 2 x "
+                f"{plen} tokens + {frames} frames -> {P12_STEP_GEN} new in "
+                f"{wall:.2f}s; last prompt position stepped vs forward "
+                f"max_abs_err={first['max_abs_logit_diff']:.4f} (tol "
+                f"{LOGIT_TOL}), first tokens equal={first['equal']}; "
+                f"launches={launches}")
+        if not cfg.is_encoder_decoder:
+            bare = sess.generate(prompts, P12_STEP_GEN).cpu().numpy()
+            rec["frames_dropped"] = bool((bare == got).all())
+            line += (f"; tokens without the patches equal="
+                     f"{rec['frames_dropped']} (the reference drops them)")
+            assert rec["frames_dropped"]
+        print(line + f" | {card}")
+        assert got.shape == (2, plen + P12_STEP_GEN)
+        assert (got[:, :plen] == prompts).all()
+        assert first["max_abs_logit_diff"] <= LOGIT_TOL, first
+        assert not first["unexplained"], first
+        out[name] = rec
+        del params, model, plain, sess, cache
+        _free()
+    return out
+
+
+def recurrent_phase(card: str) -> dict:
+    """Phase 12: the recurrent and frontend families (ROADMAP item 6,
+    second half)."""
+    t_phase = time.perf_counter()
+    part_s, rec = {}, {}
+    parts = [("a", lambda: _p12_rwkv(card)), ("bc", lambda: _p12_hymba(card)),
+             ("d", lambda: _p12_stepped(card))]
+    parts += [(p, (lambda n=n, l=l, o=o, q=q: _p11_train(
+        card, n, l, o, tag="p12", seq=q))) for p, n, l, o, q in P12_TRAIN]
+    for part, fn in parts:
+        t0 = time.perf_counter()
+        rec[part] = fn()
+        part_s[part] = time.perf_counter() - t0
+        _free()
+    runs = ([rec["a"]["launches"], rec["bc"]["launches"]]
+            + [r["launches"] for r in rec["d"].values()]
+            + [rec[p]["launches"] for p, *_ in P12_TRAIN])
+    launches = {k: sum(r[k] for r in runs) for k in runs[0]}
+    rec["launches"] = launches
+    assert launches["flash_attention"] == 0, launches
+    rec["part_s"] = part_s
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"[smoke] recurrent launches={launches} parts "
+          f"{ {k: round(v, 1) for k, v in part_s.items()} } s, phase "
+          f"{rec['phase_s']:.1f}s | {card}")
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -4218,7 +4848,12 @@ def main(argv=None) -> int:
     ap.add_argument("--serve-ab", metavar="DIR",
                     help="instead of the phases: the serve phase on DIR's "
                     "checkout and this one, in turns DIR, this, this, DIR")
+    ap.add_argument("--scan-ab", metavar="DIR",
+                    help="instead of the phases: phase 8 (e)'s scan "
+                    "prefill on DIR's checkout and this one, in turns DIR, "
+                    "this, this, DIR")
     ap.add_argument("--serve-only", metavar="SRC", help=argparse.SUPPRESS)
+    ap.add_argument("--scan-only", metavar="SRC", help=argparse.SUPPRESS)
     ap.add_argument("--rank-worker", metavar="SPEC", help=argparse.SUPPRESS)
     ap.add_argument("--combiners-worker", metavar="SPEC",
                     help=argparse.SUPPRESS)
@@ -4229,6 +4864,9 @@ def main(argv=None) -> int:
                     "no result line")
     ap.add_argument("--families-only", action="store_true",
                     help="build the kernels and run phase 11 alone; prints "
+                    "no result line")
+    ap.add_argument("--recurrent-only", action="store_true",
+                    help="build the kernels and run phase 12 alone; prints "
                     "no result line")
     ap.add_argument("--combiners-only", action="store_true",
                     help="build the kernels and run phase 9 alone (with "
@@ -4252,7 +4890,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    src = Path(args.serve_only) if args.serve_only else ROOT / "src"
+    one = args.serve_only or args.scan_only
+    src = Path(one) if one else ROOT / "src"
     sys.path.insert(0, str(src))
     try:
         from repro_torch.kernels import build
@@ -4260,16 +4899,20 @@ def main(argv=None) -> int:
         print(f"chip_smoke: run from a checkout of the repo ({e})",
               file=sys.stderr)
         return 2
-    if args.serve_ab:
-        return serve_ab(Path(args.serve_ab))
+    if args.serve_ab or args.scan_ab:
+        return run_ab(Path(args.serve_ab or args.scan_ab),
+                      "serve" if args.serve_ab else "scan")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"[smoke] torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} x"
           f"{torch.cuda.device_count()}")
-    if args.serve_only:                 # one run of serve_ab
+    if args.serve_only:                 # one run of --serve-ab
         print(f"[smoke] built kernels in {build.build_all():.1f}s")
         print("SERVE " + json.dumps(serve_phase(card)[0]["metrics"]))
+        return 0
+    if args.scan_only:                  # one run of --scan-ab
+        print("SCAN " + json.dumps(scan_phase(card)))
         return 0
     record = {"card": card}
     try:
@@ -4284,6 +4927,9 @@ def main(argv=None) -> int:
             return 0
         if args.families_only:
             record["families"] = families_phase(card)
+            return 0
+        if args.recurrent_only:
+            record["recurrent"] = recurrent_phase(card)
             return 0
         walls = record["phase_wall_s"] = {"2": secs}
         t_mark = [time.perf_counter()]
@@ -4322,9 +4968,12 @@ def main(argv=None) -> int:
         _free()
         mark("10")
         record["families"] = families_phase(card)
+        _free()
         mark("11")
+        record["recurrent"] = recurrent_phase(card)
+        mark("12")
         print(f"[smoke] phase wall s "
-              f"{ {k: round(v, 1) for k, v in walls.items()} }, phases 2-11 "
+              f"{ {k: round(v, 1) for k, v in walls.items()} }, phases 2-12 "
               f"{sum(walls.values()):.1f} s | {card}")
     except Exception:                   # any phase failing fails the run
         traceback.print_exc()
@@ -4360,6 +5009,7 @@ def main(argv=None) -> int:
     p9_launches = record["combiners"]["launches"]
     p10_launches = record["subsystems"]["launches"]
     p11_launches = record["families"]["launches"]
+    p12_launches = record["recurrent"]["launches"]
     main_cases = {"serve_extend", "serve_tick", "embed_fp32"}
     sources = {
         "flash_attention": ("csrc/flash_attention.cu",
@@ -4388,7 +5038,8 @@ def main(argv=None) -> int:
             "library_device_ms": c.get("library_device_ms"),
             "phase7_launches": ck_launches[c["kernel"]],
             "phase10_launches": p10_launches[c["kernel"]],
-            "phase11_launches": p11_launches[c["kernel"]]})
+            "phase11_launches": p11_launches[c["kernel"]],
+            "phase12_launches": p12_launches[c["kernel"]]})
         if c["kernel"] in ("flash_attention", "paged_decode_attention"):
             rows[-1]["phase8_launches"] = ext_launches[c["kernel"]]
         if c["kernel"] in rvh_ms:

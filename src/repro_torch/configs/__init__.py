@@ -1,3 +1,3 @@
-"""Architecture configs: the presets the port carries (+ registry)."""
-from .base import (ARCH_IDS, PORTED_ARCH_IDS, ModelConfig, canonical,
+"""Architecture configs: every preset of the JAX package (+ registry)."""
+from .base import (ARCH_IDS, ModelConfig, canonical,
                    get_config, get_reduced)

@@ -2,19 +2,18 @@
 `repro/configs/base.py`).
 
 The dataclass is field-for-field the JAX package's, so a config means
-the same model in both. The registry serves the presets the port
-carries — the dense GQA decoders (`qwen3_32b`, `minitron_4b`,
-`gemma_7b`), MLA (`minicpm3_4b`) and MoE (`mixtral_8x22b`,
-`moonshot_v1_16b_a3b`); asking for another architecture raises and
-names the ROADMAP item that brings its family.
+the same model in both. The registry serves every preset the JAX
+package has: the dense GQA decoders (`qwen3_32b`, `minitron_4b`,
+`gemma_7b`), MLA (`minicpm3_4b`), MoE (`mixtral_8x22b`,
+`moonshot_v1_16b_a3b`), the SSM (`rwkv6_7b`), the hybrid
+(`hymba_1p5b`), the vision frontend (`llava_next_34b`) and the
+encoder-decoder (`seamless_m4t_large_v2`).
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 from typing import Tuple
-
-from repro_torch.runtime import ITEM_FAMILIES, not_ported
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,11 +104,6 @@ ARCH_IDS: Tuple[str, ...] = (
     "seamless_m4t_large_v2", "rwkv6_7b",
 )
 
-# the presets the port carries: dense GQA, MLA and MoE decoders
-PORTED_ARCH_IDS: Tuple[str, ...] = ("gemma_7b", "minitron_4b", "qwen3_32b",
-                                    "minicpm3_4b", "mixtral_8x22b",
-                                    "moonshot_v1_16b_a3b")
-
 # canonical external ids (with dashes) -> module names
 _ALIASES = {
     "hymba-1.5b": "hymba_1p5b",
@@ -131,10 +125,7 @@ def canonical(arch: str) -> str:
 
 def _module(arch: str):
     name = canonical(arch)
-    if name not in PORTED_ARCH_IDS:
-        if name in ARCH_IDS:
-            raise not_ported(f"architecture {arch!r}", ITEM_FAMILIES,
-                             f"the port carries {PORTED_ARCH_IDS}")
+    if name not in ARCH_IDS:
         raise KeyError(f"unknown architecture {arch!r}; known: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{name}")
 

@@ -359,6 +359,13 @@ class EngineConfig:
             raise not_ported("tensor-parallel meshes (model_mesh > 1)",
                              ITEM_SHARDING)
 
+    def model_config(self):
+        """The ModelConfig of `arch` (its reduced preset under
+        `reduced`)."""
+        from repro_torch.configs.base import get_config, get_reduced
+        return (get_reduced(self.arch) if self.reduced
+                else get_config(self.arch))
+
     def serve_max_len(self) -> int:
         """The per-slot cache capacity the serve engine builds: `max_len`
         (0 => seq_len), rounded UP to a page multiple under

@@ -1,6 +1,9 @@
 """ServeEngine — request-level serving over EngineConfig (the port of
-`repro/engine/serving/engine.py` for the attention families: dense GQA,
-MLA and MoE decoders).
+`repro/engine/serving/engine.py`): the decoder-only text models — dense
+GQA, MLA and MoE decoders, the SSM (rwkv) and the hybrid (hymba).
+Frontend and encoder-decoder models are refused, as the reference
+refuses them; `ServeSession.generate` serves them through its stepped
+loop.
 
     engine = ServeEngine.from_config(
         EngineConfig(arch="qwen3-32b", reduced=True, max_slots=8,
@@ -16,9 +19,10 @@ What it does, as the reference's default path:
     are admitted the moment a slot frees and retired on EOS/budget;
   * **fused prefill** — each admission group's prompts run through one
     `model.prefill_cache` forward (the flash kernel on a card);
-  * **scan prefill** (`prefill_mode='scan'`) — the prompt fed through
-    decode steps on a dense per-slot cache (no host sync inside), then
-    inserted like a parallel prefill's rows;
+  * **scan prefill** (`prefill_mode='scan'`, and the only prefill of
+    the recurrent families) — the prompt fed through decode steps on a
+    dense per-slot cache, a slot whose prompt has ended keeping its
+    whole cache, then inserted like a parallel prefill's rows;
   * **paged KV** (the default) — a global page arena sized in
     `page_size`-token pages, addressed through int32 page tables; a
     host-side `PagePool` allocates on admission/growth, frees on
@@ -30,6 +34,9 @@ What it does, as the reference's default path:
     re-prefills prompt + generated tokens on re-admission);
   * **dense KV** (`kv_layout='dense'`) — per-slot rows at full capacity,
     admitted by a row scatter, decoded by the plain dense attention;
+    rwkv (no attention K/V) always serves it, and the hybrid's mamba
+    state stays dense per slot beside its paged attention — both with a
+    warning, and counted in `kv_stats()['dense_fallback_*']`;
   * **decode** — one batched step per tick (paged: through the
     paged-decode kernel), greedy by default, per-slot sampling when a
     request asks;
@@ -71,7 +78,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.attention import paged_capacity
-from repro_torch.models.transformer import map_segments
+from repro_torch.models.transformer import PAGED_CACHES, map_nodes
 from repro_torch.runtime import DeviceLike, make_generator, resolve_device
 from ..build import (make_batched_decode_step, make_draft_propose,
                      make_sampling_decode_step, make_verify_step,
@@ -79,10 +86,10 @@ from ..build import (make_batched_decode_step, make_draft_propose,
 from .reload import HotReloader
 from .scheduler import (ContinuousBatchingScheduler, GenerationRequest,
                         PrefixIndex, PressureLadder, RequestHandle)
-from .slots import (PagePool, copy_pages, dense_kv_bytes, gather_prefix,
-                    insert_rows_at, paged_insert_rows, paged_kv_page_bytes,
-                    select_rows, set_page_tables, set_positions,
-                    slot_positions)
+from .slots import (PagePool, copy_pages, dense_fallback_stats,
+                    dense_kv_bytes, gather_prefix, insert_rows_at,
+                    paged_insert_rows, paged_kv_page_bytes, select_rows,
+                    select_states, set_page_tables, state_copy)
 
 PyTree = Any
 
@@ -147,7 +154,6 @@ def resolve_serve_parts(config, *, model=None, params=None,
     (default: seed 0 on that device). Returns (model, params, checkpoint,
     loaded_step)."""
     from repro_torch.checkpoint import CheckpointManager
-    from repro_torch.configs.base import get_config, get_reduced
     from repro_torch.models import build_model
 
     config.validate()
@@ -155,9 +161,7 @@ def resolve_serve_parts(config, *, model=None, params=None,
         if not config.arch:
             raise ValueError("EngineConfig.arch is empty — pass a built "
                              "Model via from_config(model=...)")
-        mcfg = (get_reduced(config.arch) if config.reduced
-                else get_config(config.arch))
-        model = build_model(mcfg,
+        model = build_model(config.model_config(),
                             param_dtype=getattr(torch, config.param_dtype))
     if checkpoint is None and config.ckpt_dir:
         checkpoint = CheckpointManager(config.ckpt_dir)
@@ -225,22 +229,29 @@ def _make_parallel_prefill(model, cap: int):
 
 def _make_scan_prefill(model, cap: int):
     """Stepped prefill (engine.py:229): the prompts fed one position at
-    a time through decode steps on a fresh dense per-slot cache, with no
-    host sync inside — the math of sequential decode. A slot whose
-    prompt has ended keeps its pos (its step writes one garbage row at
-    pos, masked, which the next decode overwrites). Returns the logits
-    at each prompt's last position [n,V] fp32 and the rows."""
+    a time through decode steps on a fresh dense per-slot cache — the
+    math of sequential decode. A slot whose prompt has ended keeps its
+    old recurrent state and positions, as the reference's keeps its whole
+    old cache (`select_rows`): its step still runs, and an RWKV or mamba
+    state would otherwise absorb the pad token. Its attention rows are
+    not restored: the step's row at the kept pos is masked, and the
+    slot's next decode overwrites it. Returns the logits at each prompt's
+    last position [n,V] fp32 and the rows."""
     def prefill(params, tokens, lengths):
         B, P = tokens.shape
         cache = model.init_cache(params, B, cap, per_slot=True)
         last = torch.zeros((B, model.cfg.vocab_size), dtype=torch.float32,
                            device=tokens.device)
+        shortest = int(lengths.min())
         for t in range(P):
-            pos = slot_positions(cache)
+            # until the shortest prompt ends every slot takes the step;
+            # after, the ended slots' state is kept aside first (the
+            # step writes in place)
+            old = None if t < shortest else state_copy(cache)
             logits, cache = model.decode_step(params, tokens[:, t:t + 1],
                                               cache)
-            cache = set_positions(cache, torch.where(t < lengths, pos + 1,
-                                                     pos))
+            if old is not None:
+                cache = select_states(t < lengths, cache, old)
             last = torch.where((t == lengths - 1)[:, None],
                                logits[:, -1, :].float(), last)
         return last, cache
@@ -255,6 +266,12 @@ class ServeEngine:
                  draft_params: Optional[PyTree] = None):
         config.validate()
         cfg = model.cfg
+        if cfg.is_encoder_decoder or cfg.frontend != "none":
+            raise ValueError(
+                f"ServeEngine serves decoder-only text models; "
+                f"{cfg.name} (frontend={cfg.frontend}, "
+                f"enc-dec={cfg.is_encoder_decoder}) still goes through "
+                f"ServeSession.generate(stepped_prefill=True)")
         self.config = config
         self.model = model
         self.device = params["embed"]["table"].device
@@ -325,6 +342,24 @@ class ServeEngine:
                                           self.max_len, per_slot=True)
             self._page_bytes = 0
             self._kv_capacity_bytes = dense_kv_bytes(self.cache)
+        # paged-accounting honesty: per-slot state that stays dense though
+        # paging was asked for (the hybrid's mamba state; the whole cache
+        # under the ssm fallback), surfaced in kv_stats (engine.py:451)
+        self._dense_fallback_leaves = self._dense_fallback_bytes = 0
+        if config.kv_layout == "paged":
+            self._dense_fallback_leaves, self._dense_fallback_bytes = \
+                dense_fallback_stats(self.cache)
+            if self.paged and self._dense_fallback_leaves:
+                import warnings
+                from ..build import EngineWarning
+                warnings.warn(
+                    f"{cfg.name}: {self._dense_fallback_leaves} cache "
+                    f"leaves ({self._dense_fallback_bytes} bytes) stay "
+                    f"dense per-slot under kv_layout='paged' (recurrent "
+                    f"state has no K/V rows to page); paged byte "
+                    f"accounting excludes them — see "
+                    f"kv_stats()['dense_fallback_leaves']",
+                    EngineWarning, stacklevel=2)
         self._tokens = np.zeros((self.max_slots, 1), np.int32)
         # per-slot sampling policy rows; greedy slots (temperature 0)
         # take the argmax, an all-greedy tick skips sampling entirely
@@ -341,6 +376,14 @@ class ServeEngine:
         # ---- speculative decoding: draft propose -> one-forward verify
         self.spec_k = int(config.speculation_k or 0)
         self._draft_model = None
+        if self.spec_k and model.verify_step is None:
+            import warnings
+            from ..build import EngineWarning
+            warnings.warn(
+                f"{cfg.name} (family={cfg.family}): recurrent state has "
+                f"no pos-rewrite rollback — speculation disabled, every "
+                f"tick runs plain decode", EngineWarning, stacklevel=2)
+            self.spec_k = 0
         if self.spec_k:
             from repro_torch.models import build_model
             dcfg = derive_draft_config(cfg, config.draft_config)
@@ -990,20 +1033,21 @@ class ServeEngine:
 
     def _transition_decode(self, decode, active, versions) -> np.ndarray:
         """A tick with slots of several param versions: one pass per
-        version, each slot keeping its own version's token and K/V.
-        Paged: in each pass every slot of another version has its
-        page-table rows pointed at the trash page, so the pass writes K/V
-        only into its own slots' pages. Dense: every pass after the first
-        decodes a copy of the rows, merged per slot (`select_rows`).
-        Positions advance once."""
+        version, each slot keeping its own version's token, K/V and
+        recurrent state. Paged: in each pass every slot of another
+        version has its page-table rows pointed at the trash page, so the
+        pass writes K/V only into its own slots' pages; the recurrent
+        states (dense per slot) of every pass after the first start from
+        a copy of the tick's starting states and merge per slot. Dense:
+        every pass after the first decodes a copy of the whole cache,
+        merged per slot (`select_rows`). Positions advance once."""
         slot_version = np.full((self.max_slots,), -1)
         for slot, h in active.items():
             slot_version[slot] = h.version
         nxt = np.zeros((self.max_slots, 1), np.int32)
+        clone = lambda n: type(n)(*(t.clone() for t in n))
         if not self.paged:
-            copies = {v: map_segments(
-                lambda a: type(a)(*(t.clone() for t in a)), self.cache)
-                for v in versions[1:]}
+            copies = {v: map_nodes(clone, self.cache) for v in versions[1:]}
             out, merged = decode(self._params[versions[0]], self.cache)
             mine = slot_version == versions[0]
             nxt[mine] = out.cpu().numpy()[mine]
@@ -1014,15 +1058,23 @@ class ServeEngine:
                 nxt[mine] = out.cpu().numpy()[mine]
             self.cache = merged
             return nxt
-        for v in versions:
+        paged = lambda n: isinstance(n, PAGED_CACHES)
+        start = map_nodes(lambda n: n if paged(n) else clone(n), self.cache)
+        merged = None
+        for i, v in enumerate(versions):
             mine = slot_version == v
             keep = self._dev(mine)[None, :, None]
-            view = map_segments(lambda a: a._replace(page_table=torch.where(
-                keep, a.page_table, PagePool.TRASH)), self.cache)
+            view = map_nodes(
+                lambda n, s0: n._replace(page_table=torch.where(
+                    keep, n.page_table, PagePool.TRASH)) if paged(n)
+                else (n if i == 0 else clone(s0)), self.cache, start)
             out, after = decode(self._params[v], view)
             nxt[mine] = out.cpu().numpy()[mine]    # waits for the device
-        self.cache = map_segments(lambda a, b: a._replace(pos=b.pos),
-                                  self.cache, after)
+            merged = after if merged is None else select_states(
+                self._dev(mine), after, merged)
+        self.cache = map_nodes(
+            lambda n, a, m: n._replace(pos=a.pos) if paged(n) else m,
+            self.cache, after, merged)
         return nxt
 
     def _commit(self, handle: RequestHandle, token: int):
@@ -1056,6 +1108,8 @@ class ServeEngine:
         layout reports its constant full-capacity footprint."""
         proposed = self.stats["spec_tokens_proposed"]
         return {"kv_layout": "paged" if self.paged else "dense",
+                "dense_fallback_leaves": self._dense_fallback_leaves,
+                "dense_fallback_bytes": self._dense_fallback_bytes,
                 "kv_bytes_in_use": self.stats["kv_bytes_in_use"],
                 "peak_kv_bytes_in_use": self.stats["peak_kv_bytes_in_use"],
                 "kv_capacity_bytes": self._kv_capacity_bytes,

@@ -1,19 +1,23 @@
 """Slotted-cache device ops, the page pool and the paged-cache device ops
 (the port of `repro/engine/serving/slots.py`).
 
-Every op covers the four attention caches — `KVCache` and `MLACache`
-(dense per-slot rows), `PagedKVCache` and `PagedMLACache` (page arenas)
-— in both segments of a `DecodeCache` (`layers`, and `dense_layers` of
-a MoE config with a dense prefix), as the reference's tree-generic ops
-do. Each cache's first two fields are its rows or arenas (k/v, or the
-latent c_kv and k_rope), the last its positions.
+Every op covers every node of both segments of a `DecodeCache`
+(`layers`, and `dense_layers` of a MoE config with a dense prefix), as
+the reference's tree-generic ops do: the four attention caches —
+`KVCache` and `MLACache` (dense per-slot rows), `PagedKVCache` and
+`PagedMLACache` (page arenas) — and the recurrent states (`RWKVState`,
+the hybrid's `MambaState`), which stay dense per slot under every
+layout. Each attention cache's first two fields are its rows or arenas
+(k/v, or the latent c_kv and k_rope), the last its positions.
 
 A slotted cache keeps the slot axis at position 1 of every leaf (the
-layer axis is 0), per-slot positions included ([L, B]). `insert_rows`
-/ `insert_rows_at` admit freshly prefilled rows into a dense cache,
-`select_rows` merges two cache versions per slot, and
-`slot_positions` / `set_positions` read and rewrite the per-slot
-positions — the rewrite is speculation's accept and rollback.
+layer axis is 0), per-slot positions and recurrent state included.
+`insert_rows` / `insert_rows_at` admit freshly prefilled rows (and
+states) into a dense cache, `select_rows` merges two cache versions
+per slot, and `slot_positions` / `set_positions` read and rewrite the
+per-slot positions — the rewrite is speculation's accept and rollback,
+and touches attention caches only (recurrent state has no pos rewrite;
+the engine never speculates on those families).
 
 `PagePool` is the host-side allocator — refcounted physical pages, a
 free list, copy-on-write — copied from the reference. The device ops
@@ -32,7 +36,10 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.models.transformer import (DecodeCache, cache_segments,
+from repro_torch.models.attention import KVCache, MLACache
+from repro_torch.models.transformer import (ATTN_CACHES, PAGED_CACHES,
+                                            DecodeCache, cache_nodes,
+                                            cache_segments, map_nodes,
                                             map_segments)
 
 
@@ -44,8 +51,8 @@ def _nbytes(a: torch.Tensor) -> int:
 def insert_rows(cache: DecodeCache, row: DecodeCache,
                 slot: int) -> DecodeCache:
     """Write a one-slot cache into `cache` at slot index `slot`, in
-    place (every leaf of the slot: rows and position)."""
-    for c, r in zip(cache_segments(cache), cache_segments(row)):
+    place (every leaf of the slot: rows, states and positions)."""
+    for c, r in zip(cache_nodes(cache), cache_nodes(row)):
         for dst, src in zip(c, r):
             dst[:, slot:slot + 1] = src.to(dst.dtype)
     return cache
@@ -56,7 +63,7 @@ def insert_rows_at(cache: DecodeCache, rows: DecodeCache,
     """Scatter an n-slot cache (a group's prefill rows) into `cache` at
     slot indices `slots` [n], in place — the dense layout's admission."""
     idx = slots.long()
-    for c, r in zip(cache_segments(cache), cache_segments(rows)):
+    for c, r in zip(cache_nodes(cache), cache_nodes(rows)):
         for dst, src in zip(c, r):
             dst[:, idx] = src.to(dst.dtype)
     return cache
@@ -70,17 +77,39 @@ def _sel(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
 
 def select_rows(mask: torch.Tensor, new: DecodeCache,
                 old: DecodeCache) -> DecodeCache:
-    """Per-slot select over dense caches: slots where mask[b] take
-    `new`, the others keep `old`. mask: bool [B] over the slot axis.
-    Returns new tensors."""
-    return map_segments(lambda n, o: type(n)(
+    """Per-slot select over dense caches, every leaf of every node: slots
+    where mask[b] take `new`, the others keep `old`. mask: bool [B] over
+    the slot axis. Returns new tensors."""
+    return map_nodes(lambda n, o: type(n)(
         *(_sel(mask, a, b) for a, b in zip(n, o))), new, old)
 
 
+def select_states(mask: torch.Tensor, new: DecodeCache,
+                  old: DecodeCache) -> DecodeCache:
+    """`select_rows` over the recurrent states and the attention caches'
+    positions: slots where mask[b] take `new`'s, the others keep `old`'s.
+    The attention rows and arenas are `new`'s (a paged arena has no slot
+    axis to select on; a dense row a step wrote at a kept slot's pos is
+    masked, and that slot's next decode overwrites it)."""
+    return map_nodes(lambda n, o: n._replace(pos=_sel(mask, n.pos, o.pos))
+                     if isinstance(n, ATTN_CACHES)
+                     else type(n)(*(_sel(mask, a, b) for a, b in zip(n, o))),
+                     new, old)
+
+
+def state_copy(cache: DecodeCache) -> DecodeCache:
+    """What `select_states` reads from `old`: a copy of every recurrent
+    state and of every attention cache's positions; the rows and arenas
+    are shared with `cache`."""
+    return map_nodes(lambda n: n._replace(pos=n.pos.clone())
+                     if isinstance(n, ATTN_CACHES)
+                     else type(n)(*(t.clone() for t in n)), cache)
+
+
 def slot_positions(cache: DecodeCache) -> torch.Tensor:
-    """The per-slot positions [B] (layer 0's; every layer of every
-    segment holds the same)."""
-    pos = cache.layers["attn"].pos
+    """The per-slot positions [B] (layer 0's of the first node; every
+    layer of every node holds the same)."""
+    pos = cache_nodes(cache)[0].pos
     if pos.dim() != 2:
         raise ValueError("cache has no per-slot pos; was it built with "
                          "per_slot=True?")
@@ -99,11 +128,22 @@ def set_positions(cache: DecodeCache, pos: torch.Tensor) -> DecodeCache:
 
 
 def dense_kv_bytes(cache: DecodeCache) -> int:
-    """Bytes of the dense rows (K/V, or MLA's latent and rope key;
-    positions excluded) in every segment: the constant footprint of
-    kv_layout='dense', which the paged arena's `kv_bytes_in_use` is
-    compared against."""
-    return sum(_nbytes(a) for c in cache_segments(cache) for a in c[:2])
+    """Bytes of the dense attention rows (K/V, or MLA's latent and rope
+    key; positions and recurrent state excluded) in every segment: the
+    constant footprint of kv_layout='dense', which the paged arena's
+    `kv_bytes_in_use` is compared against."""
+    return sum(_nbytes(a) for c in cache_nodes(cache)
+               if isinstance(c, (KVCache, MLACache)) for a in c[:2])
+
+
+def dense_fallback_stats(cache: DecodeCache) -> tuple:
+    """(leaves, bytes) of the per-slot state living outside page arenas
+    in a cache built for kv_layout='paged' (slots.py:334): the mamba or
+    rwkv recurrent state, positions included. An all-dense cache (the
+    ssm fallback) counts every leaf."""
+    leaves = [t for c in cache_nodes(cache)
+              if not isinstance(c, PAGED_CACHES) for t in c]
+    return len(leaves), sum(_nbytes(t) for t in leaves)
 
 
 # ============================================================== page pool
@@ -198,11 +238,15 @@ def paged_insert_rows(cache: DecodeCache, rows: DecodeCache,
     tables with every non-owned entry (shared prefix pages, unallocated
     tail) at trash page 0, so shared pages are never clobbered. The
     slots' page tables are set to `new_tables` and their positions to
-    the rows'."""
+    the rows'. Recurrent states take the plain per-slot scatter."""
     P = write_tables.shape[1]
     idx = write_tables.long()
     slots = slots.long()
-    for c, r in zip(cache_segments(cache), cache_segments(rows)):
+    for c, r in zip(cache_nodes(cache), cache_nodes(rows)):
+        if not isinstance(c, PAGED_CACHES):
+            for dst, src in zip(c, r):
+                dst[:, slots] = src.to(dst.dtype)
+            continue
         for arena, dense in zip(c[:2], r[:2]):
             Lyr, n = dense.shape[:2]
             arena[:, idx] = dense.reshape(
@@ -250,13 +294,18 @@ def select_rows_paged(slot_mask: torch.Tensor, page_mask: torch.Tensor,
                       new: DecodeCache, old: DecodeCache) -> DecodeCache:
     """Merge two versions of a paged cache: arena leaves per PHYSICAL
     page (`page_mask` [num_pages] marks pages taken from `new`), per-slot
-    leaves (page tables, positions) by `slot_mask` [B]. Returns new
-    tensors. The reference merges hot-reload transition ticks with it;
-    in the port it serves callers that keep two cache versions."""
-    return map_segments(lambda n, o: type(n)(
-        _sel(page_mask, n[0], o[0]), _sel(page_mask, n[1], o[1]),
-        _sel(slot_mask, n.page_table, o.page_table),
-        _sel(slot_mask, n.pos, o.pos)), new, old)
+    leaves (page tables, positions, recurrent state) by `slot_mask` [B].
+    Returns new tensors. The reference merges hot-reload transition
+    ticks with it; in the port it serves callers that keep two cache
+    versions."""
+    def sel(n, o):
+        if not isinstance(n, PAGED_CACHES):
+            return type(n)(*(_sel(slot_mask, a, b) for a, b in zip(n, o)))
+        return type(n)(_sel(page_mask, n[0], o[0]),
+                       _sel(page_mask, n[1], o[1]),
+                       _sel(slot_mask, n.page_table, o.page_table),
+                       _sel(slot_mask, n.pos, o.pos))
+    return map_nodes(sel, new, old)
 
 
 def paged_kv_page_bytes(cache: DecodeCache) -> int:

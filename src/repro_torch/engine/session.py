@@ -61,7 +61,6 @@ import torch
 from repro_torch import tree as T
 from repro_torch.checkpoint import AsyncCheckpointManager, CheckpointManager
 from repro_torch.checkpoint.manager import HostLeaf, host_leaf
-from repro_torch.configs.base import get_config, get_reduced
 from repro_torch.control.noise import STAT_KEYS
 from repro_torch.control.telemetry import run_fingerprint
 from repro_torch.data import make_source
@@ -207,10 +206,8 @@ class TrainSession:
             if not config.arch:
                 raise ValueError("EngineConfig.arch is empty — pass a "
                                  "built Model via from_config(model=...)")
-            mcfg = (get_reduced(config.arch) if config.reduced
-                    else get_config(config.arch))
             model = build_model(
-                mcfg, param_dtype=getattr(torch, config.param_dtype),
+                config.model_config(), param_dtype=getattr(torch, config.param_dtype),
                 attn_chunk=min(config.attn_chunk, config.seq_len))
         owns = comm is None and world > 1
         if owns:
@@ -488,7 +485,9 @@ class ServeSession:
     row and drains the engine. `stepped_prefill=True` runs the old loop
     instead — the prompt fed one token at a time through the greedy
     serve step on a dense cache with one shared position, then greedy
-    decode: the stepped reference the engine's paths are held to."""
+    decode: the stepped reference the engine's paths are held to.
+    Frontend and encoder-decoder models (per-batch encoder state, not
+    per-slot) always take the stepped loop."""
 
     def __init__(self, config: EngineConfig, model: Model, params: PyTree,
                  checkpoint=None, loaded_step: Optional[int] = None):
@@ -532,16 +531,25 @@ class ServeSession:
         return self._engine
 
     def generate(self, prompts, gen_len: int, max_len: Optional[int] = None,
+                 frontend_embeds=None,
                  stepped_prefill: bool = False) -> torch.Tensor:
         """prompts: [B, T] int token ids (array or tensor). Returns
         [B, T+gen_len] int32 on the params' device: the prompts and the
-        greedy continuations."""
-        prompts = torch.as_tensor(np.asarray(prompts, np.int32)).to(
-            self.params["embed"]["table"].device)
+        greedy continuations. Frontend and encoder-decoder models (and
+        any call with `frontend_embeds`) take the stepped loop, as in the
+        reference (session.py:401-418)."""
+        dev = self.params["embed"]["table"].device
+        prompts = torch.as_tensor(np.asarray(prompts, np.int32)).to(dev)
         B, T_ = prompts.shape
         max_len = max_len or (T_ + gen_len + 1)
-        if stepped_prefill:
-            return self._generate_stepped(prompts, gen_len, max_len)
+        cfg = self.model.cfg
+        if (stepped_prefill or frontend_embeds is not None
+                or cfg.is_encoder_decoder or cfg.frontend != "none"):
+            if frontend_embeds is not None:
+                frontend_embeds = torch.as_tensor(
+                    np.asarray(frontend_embeds, np.float32)).to(dev)
+            return self._generate_stepped(prompts, gen_len, max_len,
+                                          frontend_embeds)
         from .serving import GenerationRequest
         eng = self.engine(max_len)
         handles = [eng.submit(GenerationRequest(
@@ -552,12 +560,21 @@ class ServeSession:
             prompts.device)
 
     def _generate_stepped(self, prompts: torch.Tensor, gen_len: int,
-                          max_len: int) -> torch.Tensor:
+                          max_len: int, frontend_embeds=None
+                          ) -> torch.Tensor:
         """The pre-engine loop: T serve steps over the prompt, then
         gen_len greedy steps, on a dense cache with one shared position
-        (no host sync until the caller reads the result)."""
+        (no host sync until the caller reads the result). An
+        encoder-decoder's cache is built from the frames. A vision
+        model's prompt is stepped WITHOUT its projected patches: the
+        reference's loop passes them to `init_cache` only for an
+        encoder-decoder (session.py:430-434), and the port mirrors it."""
         B, T_ = prompts.shape
-        cache = self.model.init_cache(self.params, B, max_len)
+        if self.model.cfg.is_encoder_decoder:
+            cache = self.model.init_cache(self.params, B, max_len,
+                                          frontend_embeds=frontend_embeds)
+        else:
+            cache = self.model.init_cache(self.params, B, max_len)
         nxt = prompts[:, :1]
         for t in range(T_):
             nxt, cache = self._step(self.params, prompts[:, t:t + 1], cache)

@@ -23,8 +23,12 @@ target at quarter depth; random draft weights, so acceptance is ~0 and
 the tokens are plain decode's), `--deadline-s`, `--max-retries` and
 `--pressure-ladder` (a `[serve] resilience ...` line counts kills,
 retries, drains and the ladder's levels), and `--legacy`, the old
-`ServeSession.generate` stepped loop on the same prompts. Meshes above
-one device raise NotImplementedError naming their ROADMAP item.
+`ServeSession.generate` stepped loop on the same prompts. Frontend and
+encoder-decoder presets (llava-next-34b, seamless-m4t-large-v2) always
+take that stepped loop, with zeros as the stub's embeddings, as in the
+reference; rwkv6-7b serves the dense layout and both recurrent presets
+the scan prefill. Meshes above one device raise NotImplementedError
+naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -137,13 +141,25 @@ def main(argv=None):
     device = resolve_device(args.device)
     generator = make_generator(device, args.seed)
 
-    if args.legacy:
+    mcfg = cfg.model_config()
+    stepped_only = mcfg.is_encoder_decoder or mcfg.frontend != "none"
+    if args.legacy or stepped_only:
+        if stepped_only and not args.legacy:
+            print(f"[serve] {mcfg.name}: frontend/enc-dec archs serve "
+                  f"through the stepped batch path")
         session = ServeSession.from_config(cfg, device=device,
                                            generator=generator)
-        V = session.model.cfg.vocab_size
+        V = mcfg.vocab_size
         prompts = rng.randint(0, V, (args.requests, args.prompt_len))
+        fe = None
+        if mcfg.frontend != "none":
+            # the stub's embeddings: zeros, as the reference's CLI feeds
+            ft = mcfg.frontend_tokens or args.prompt_len
+            fe = np.zeros((args.requests, ft, mcfg.frontend_dim),
+                          np.float32)
         t0 = time.perf_counter()
         out = session.generate(prompts, args.gen, max_len=max_len,
+                               frontend_embeds=fe,
                                stepped_prefill=True).cpu().numpy()
         wall = time.perf_counter() - t0
         toks = args.requests * args.gen

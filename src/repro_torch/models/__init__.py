@@ -1,2 +1,3 @@
-"""Dense GQA decoder (slice 1 of the port of `repro.models`)."""
+"""The decoders, the SSM mixers and the encoder-decoder (the port of
+`repro.models`)."""
 from .api import Model, build_model, count_params

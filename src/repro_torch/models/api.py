@@ -1,5 +1,7 @@
-"""Model API for the attention families — dense GQA, MLA and MoE
-decoders (the port's `repro/models/api.py`):
+"""Model API over every family the JAX package has — dense GQA, MLA and
+MoE decoders, the SSM (rwkv), the hybrid (hymba), the vision frontend
+(llava) and the encoder-decoder (seamless) (the port's
+`repro/models/api.py`):
 
     model = build_model(cfg)
     params = model.init(generator)               # on cuda by default
@@ -7,6 +9,12 @@ decoders (the port's `repro/models/api.py`):
     logits, cache = model.prefill_cache(params, tokens, lengths, max_len)
     logits, cache = model.decode_step(params, tokens, cache)
     logits, cache = model.verify_step(params, tokens_k1, cache)
+
+`prefill_cache` and `verify_step` are None where the reference's are:
+for ssm and hybrid (recurrent state is neither captured from the
+parallel forward nor rolled back by a pos rewrite) and for the
+encoder-decoder. An encoder-decoder's `init_cache` takes the frames
+(`frontend_embeds=`) or the encoder output (`enc_out=`).
 """
 from __future__ import annotations
 
@@ -16,9 +24,10 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.runtime import (ITEM_FAMILIES, ITEM_SHARDING, DeviceLike,
-                                 make_generator, not_ported, resolve_device)
+from repro_torch.runtime import (ITEM_SHARDING, DeviceLike, make_generator,
+                                 not_ported, resolve_device)
 from . import attention as ATT
+from . import encdec as ED
 from . import transformer as TF
 
 
@@ -26,8 +35,10 @@ from . import transformer as TF
 class Model:
     cfg: ModelConfig
     init: Callable          # (generator=None, device=None) -> params
-    forward: Callable       # (params, tokens) -> logits [B,T,V]
-    # (params, batch, max_len, per_slot=False, paged=None) -> cache
+    forward: Callable       # (params, tokens[, frontend_embeds]) -> logits
+    # (params, batch, max_len, per_slot=False, paged=None) -> cache; an
+    # encoder-decoder's: (params, batch, max_len, enc_out=None,
+    # frontend_embeds=None)
     init_cache: Callable
     decode_step: Callable   # (params, tokens, cache) -> (logits, cache)
     # fused serving prefill: (params, tokens [B,P], lengths [B], max_len
@@ -40,35 +51,12 @@ class Model:
     attn_impl: str = "kernel"         # what serving attention runs through
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if (cfg.family not in ("dense", "moe")
-            or cfg.attn_type not in ("gqa", "mla")
-            or cfg.is_encoder_decoder or cfg.frontend != "none"):
-        raise not_ported(f"{cfg.name} (family={cfg.family}, "
-                         f"attn={cfg.attn_type})", ITEM_FAMILIES,
-                         "the port runs dense and MoE decoders with GQA "
-                         "or MLA attention")
+def _check_ported(cfg: ModelConfig) -> None:
     if cfg.orig_heads:
         raise not_ported("TP head padding (orig_heads)", ITEM_SHARDING)
 
 
-def build_model(cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
-                param_dtype=torch.float32, attn_impl: str = "kernel",
-                attn_chunk: int = 512, remat: bool = True) -> Model:
-    """attn_impl='kernel' routes serving GQA attention through the kernel
-    wrappers (CUDA kernel on a card, plain version on the CPU); 'plain'
-    runs the plain versions everywhere — the on-card reference for the
-    kernels. MLA attention and the MoE dispatch are plain torch ops on
-    every device. `loss` (training) always takes the plain attention
-    path, `attn_chunk` query rows at a time (this bounds its attention
-    memory; the result does not depend on it); remat recomputes each
-    block in its backward pass."""
-    _check_family(cfg)
-    if attn_impl not in ATT.ATTN_IMPLS:
-        raise ValueError(f"attn_impl={attn_impl!r}; one of {ATT.ATTN_IMPLS}")
-    if attn_chunk < 1:
-        raise ValueError(f"attn_chunk={attn_chunk} must be positive")
-
+def _init_fn(cfg: ModelConfig, param_dtype):
     def init(generator: Optional[torch.Generator] = None,
              device: DeviceLike = None):
         dev = resolve_device(device if device is not None or generator is None
@@ -77,13 +65,70 @@ def build_model(cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
         if gen.device.type != dev.type:
             raise ValueError(f"generator on {gen.device}, init on {dev}")
         return TF.init_params(cfg, gen, param_dtype, dev)
+    return init
 
-    def forward(params, tokens):
+
+def _build_encdec(cfg: ModelConfig, compute_dtype, param_dtype,
+                  attn_impl: str, attn_chunk: int, remat: bool) -> Model:
+    """The encoder-decoder branch (api.py:58-90): plain torch throughout,
+    as the reference's is plain `jnp`."""
+    def forward(params, tokens, frontend_embeds=None):
+        enc = ED.encode(params, cfg, frontend_embeds, compute_dtype,
+                        attn_chunk)
+        return ED.decode_train(params, cfg, enc, tokens, compute_dtype,
+                               attn_chunk)
+
+    def init_cache(params, batch, max_len, enc_out=None,
+                   frontend_embeds=None):
+        if enc_out is None:
+            if frontend_embeds is None:
+                raise ValueError(f"{cfg.name}: an encoder-decoder cache "
+                                 f"needs frontend_embeds or enc_out")
+            enc_out = ED.encode(params, cfg, frontend_embeds, compute_dtype,
+                                attn_chunk)
+        return ED.init_cache(params, cfg, enc_out, max_len)
+
+    def decode_step(params, tokens, cache):
+        return ED.decode_step(params, cfg, tokens, cache, compute_dtype)
+
+    def loss(params, batch):
+        return ED.encdec_loss(params, cfg, batch, compute_dtype, attn_chunk,
+                              remat)
+
+    return Model(cfg, _init_fn(cfg, param_dtype), forward, init_cache,
+                 decode_step, None, loss, None, attn_impl)
+
+
+def build_model(cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
+                param_dtype=torch.float32, attn_impl: str = "kernel",
+                attn_chunk: int = 512, remat: bool = True) -> Model:
+    """attn_impl='kernel' routes serving GQA attention through the kernel
+    wrappers (CUDA kernel on a card, plain version on the CPU); 'plain'
+    runs the plain versions everywhere — the on-card reference for the
+    kernels. MLA attention, the MoE dispatch, the SSM mixers and the
+    encoder-decoder are plain torch ops on every device. `loss`
+    (training) always takes the plain attention path, `attn_chunk` query
+    rows at a time (this bounds its attention memory; the result does not
+    depend on it); remat recomputes each block in its backward pass."""
+    _check_ported(cfg)
+    if attn_impl not in ATT.ATTN_IMPLS:
+        raise ValueError(f"attn_impl={attn_impl!r}; one of {ATT.ATTN_IMPLS}")
+    if attn_chunk < 1:
+        raise ValueError(f"attn_chunk={attn_chunk} must be positive")
+    if cfg.is_encoder_decoder:
+        return _build_encdec(cfg, compute_dtype, param_dtype, attn_impl,
+                             attn_chunk, remat)
+
+    def forward(params, tokens, frontend_embeds=None):
         return TF.forward(params, cfg, tokens, compute_dtype, attn_impl,
-                          attn_chunk=attn_chunk)[0]
+                          attn_chunk=attn_chunk,
+                          frontend_embeds=frontend_embeds)[0]
 
-    def init_cache(params, batch, max_len, per_slot=False, paged=None):
-        # cache rows live in the compute dtype, as in the reference
+    def init_cache(params, batch, max_len, per_slot=False, paged=None,
+                   **_):
+        # cache rows live in the compute dtype, as in the reference;
+        # frontend embeddings are not fed to the decode cache, as the
+        # reference's do not (session.py:420-440)
         return TF.init_decode_cache(cfg, batch, max_len, compute_dtype,
                                     params["embed"]["table"].device,
                                     per_slot, paged)
@@ -106,12 +151,14 @@ def build_model(cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
     def verify_step(params, tokens, cache):
         return TF.verify_step(params, cfg, tokens, cache, compute_dtype)
 
-    return Model(cfg, init, forward, init_cache, decode_step, prefill_cache,
-                 loss, verify_step, attn_impl)
+    if cfg.family in ("ssm", "hybrid"):         # api.py:134
+        prefill_cache = verify_step = None
+    return Model(cfg, _init_fn(cfg, param_dtype), forward, init_cache,
+                 decode_step, prefill_cache, loss, verify_step, attn_impl)
 
 
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
     """Analytic parameter count from the params spec; active_only counts
     the routed experts a token uses (api.py:160)."""
-    _check_family(cfg)
+    _check_ported(cfg)
     return TF.count_params(cfg, active_only)

@@ -1,25 +1,35 @@
-"""Decoder-only LM assembly for the attention families (the port's
-subset of `repro/models/transformer.py`):
+"""Decoder-only LM assembly for every decoder family (the port of
+`repro/models/transformer.py`):
 
     dense / moe : x += attn(norm(x));  x += mlp|moe(norm(x))
+    hybrid      : x += (attn(norm(x)) + mamba(norm(x))) / 2   (hymba)
+                  x += mlp(norm(x))
+    ssm (rwkv)  : x += time_mix(norm(x));  x += channel_mix(norm(x))
 
 `attn` is GQA or MLA (`cfg.attn_type`), and a MoE config's blocks route
 through `moe.moe_apply`, which also returns the load-balance aux loss
 that `lm_loss` adds with weight `aux_weight`. A MoE config with
 `first_dense_layers > 0` keeps its first layers as a second stack,
-`params["dense_blocks"]` (dense MLP blocks), run before `blocks`.
+`params["dense_blocks"]` (dense MLP blocks), run before `blocks`. A
+frontend config (llava's vision stub) carries a `projector` that maps
+precomputed patch embeddings into model space; `forward` / `lm_loss`
+prepend them to the token embeddings.
 
 Block params are stacked `[L, ...]` as in the reference (one leaf per
 weight, layer on axis 0); a Python loop over layers takes the place of
 `lax.scan`, reading each layer as views `blocks[...][l]`. Decode caches
-stack the same way, one segment per block stack:
-`DecodeCache.layers = {"attn": cache}` for `blocks` and
-`DecodeCache.dense_layers` (the same shape, or None) for
-`dense_blocks`. The attention cache is a `PagedKVCache` (arenas
-`[L, num_pages, page_size, KV, Dh]`, page tables `[L, B, P]`, positions
-`[L, B]`), a `KVCache` (dense rows `[L, B, cap, KV, Dh]`, positions
-`[L, B]` per slot or `[L]`), or their MLA counterparts `PagedMLACache` /
-`MLACache`, whose rows hold the latent `c_kv` and the rope key.
+stack the same way, one segment per block stack: `DecodeCache.layers`
+for `blocks` and `DecodeCache.dense_layers` (the same shape, or None)
+for `dense_blocks`. A segment is `{"attn": cache}` for the attention
+families, `{"attn": cache, "mamba": MambaState}` for the hybrid and a
+bare `RWKVState` for rwkv — the reference's layout. The attention cache
+is a `PagedKVCache` (arenas `[L, num_pages, page_size, KV, Dh]`, page
+tables `[L, B, P]`, positions `[L, B]`), a `KVCache` (dense rows
+`[L, B, cap, KV, Dh]`, positions `[L, B]` per slot or `[L]`), or their
+MLA counterparts `PagedMLACache` / `MLACache`, whose rows hold the
+latent `c_kv` and the rope key. Recurrent state is dense per slot under
+every layout (it is O(1) a slot), with the slot axis at 1 like every
+other per-slot leaf.
 """
 from __future__ import annotations
 
@@ -35,6 +45,7 @@ from repro_torch.configs.base import ModelConfig
 from . import attention as ATT
 from . import layers as L
 from . import moe as MOE
+from . import ssm as SSM
 
 PyTree = Any
 
@@ -72,9 +83,13 @@ def _mlp_spec(Lyr: int, d: int, f: int) -> Dict[str, Any]:
 
 def _block_spec(cfg: ModelConfig, Lyr: int, moe_block: bool):
     d = cfg.d_model
-    spec = {"norm1": {"scale": ((Lyr, d), "ones", 0)},
-            "attn": _attn_spec(cfg, Lyr),
-            "norm2": {"scale": ((Lyr, d), "ones", 0)}}
+    norm = lambda: {"scale": ((Lyr, d), "ones", 0)}
+    if cfg.family == "ssm":                          # transformer.py:35
+        return {"norm1": norm(), "time": SSM.rwkv_time_spec(cfg, Lyr),
+                "norm2": norm(), "chan": SSM.rwkv_chan_spec(cfg, Lyr)}
+    spec = {"norm1": norm(), "attn": _attn_spec(cfg, Lyr), "norm2": norm()}
+    if cfg.family == "hybrid":
+        spec["mamba"] = SSM.mamba_spec(cfg, Lyr)
     if not moe_block:
         spec["mlp"] = _mlp_spec(Lyr, d, cfg.d_ff)
         return spec
@@ -94,9 +109,14 @@ def _block_spec(cfg: ModelConfig, Lyr: int, moe_block: bool):
 def param_spec(cfg: ModelConfig) -> Dict[str, Any]:
     """The params tree as (shape, init, fan_in) leaves — init is 'dense'
     (truncated normal, std 1/sqrt(fan_in)), 'embed' or 'router'
-    (std 0.02) or 'ones'. The layout is `transformer.init_params`' leaf
-    for leaf: a MoE config's first `first_dense_layers` blocks are the
-    separate `dense_blocks` stack."""
+    (std 0.02), 'lora' (std 0.01), 'ones', or a number every element
+    takes. The layout is `transformer.init_params`' (or, for an
+    encoder-decoder, `encdec.init_params`') leaf for leaf: a MoE
+    config's first `first_dense_layers` blocks are the separate
+    `dense_blocks` stack."""
+    if cfg.is_encoder_decoder:
+        from . import encdec as ED
+        return ED.param_spec(cfg)
     d, V = cfg.d_model, cfg.vocab_size
     spec = {"embed": {"table": ((V, d), "embed", 0)},
             "final_norm": {"scale": ((d,), "ones", 0)}}
@@ -109,14 +129,25 @@ def param_spec(cfg: ModelConfig) -> Dict[str, Any]:
         spec["blocks"] = _block_spec(cfg, cfg.n_layers, False)
     if not cfg.tie_embeddings:
         spec["lm_head"] = {"w": ((d, V), "dense", d)}
+    fd = cfg.frontend_dim
+    if cfg.frontend == "vision":                     # transformer.py:138
+        spec["projector"] = {"w1": ((fd, d), "dense", fd),
+                             "w2": ((d, d), "dense", d)}
+    elif cfg.frontend == "audio":
+        spec["projector"] = {"w1": ((fd, d), "dense", fd)}
     return spec
 
 
 def _init_leaf(shape, kind, fan_in, dtype, generator, device):
     if kind == "ones":
         return torch.ones(shape, dtype=dtype, device=device)
-    std = 0.02 if kind in ("embed", "router") \
-        else 1.0 / math.sqrt(max(fan_in, 1))
+    if not isinstance(kind, str):
+        # a constant; through fp32, as the reference builds e.g. its
+        # conv taps (1/K in fp32, then the param dtype)
+        return torch.full(shape, float(kind), dtype=torch.float32,
+                          device=device).to(dtype)
+    std = {"embed": 0.02, "router": 0.02, "lora": 0.01}.get(kind) \
+        or 1.0 / math.sqrt(max(fan_in, 1))
     out = torch.empty(shape, dtype=dtype, device=device)
     # stacked leaves draw one layer at a time: the fp32 draw is one layer
     rows = [out] if kind == "embed" or len(shape) == 2 else list(out)
@@ -197,12 +228,23 @@ def block_apply(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
                 return_kv: bool = False, prefix_kv=None,
                 attn_chunk: int = 512):
     """One block on [B,T,D] -> ([B,T,D], aux loss[, kv]) (transformer.py
-    :56). kv (with return_kv) is this block's decode-cache contribution:
-    the RoPE'd (k, v) for GQA, the latents (c_kv, k_rope) for MLA.
-    prefix_kv: this block's cached shared-prefix pair for the extend
-    prefill (`positions` then starts at its length). MLA attention is
-    plain torch whatever `attn_impl` says (the reference has no MLA
-    kernel)."""
+    :56). kv (with return_kv; attention families only) is this block's
+    decode-cache contribution: the RoPE'd (k, v) for GQA, the latents
+    (c_kv, k_rope) for MLA. prefix_kv: this block's cached shared-prefix
+    pair for the extend prefill (`positions` then starts at its length).
+    MLA attention and the SSM mixers are plain torch whatever `attn_impl`
+    says (the reference has no kernel for them)."""
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    if return_kv and cfg.family in ("ssm", "hybrid"):
+        raise ValueError("fused kv capture needs an attention family")
+    if cfg.family == "ssm":
+        h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
+        x = x + SSM.rwkv_time_forward(params["time"], cfg, h, compute_dtype)
+        h = L.rmsnorm(params["norm2"], x, cfg.norm_eps)
+        prev = torch.zeros((x.shape[0], 1, x.shape[-1]), dtype=h.dtype,
+                           device=x.device)
+        return x + SSM.rwkv_chan_forward(params["chan"], cfg, h, prev,
+                                         compute_dtype), zero
     h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
     if cfg.attn_type == "mla":
         a = ATT.mla_forward(params["attn"], cfg, h, positions, compute_dtype,
@@ -214,13 +256,16 @@ def block_apply(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
                             prefix_kv=prefix_kv, attn_chunk=attn_chunk)
     if return_kv:
         a, kv = a
+    if cfg.family == "hybrid":
+        a = (a + SSM.mamba_forward(params["mamba"], cfg, h,
+                                   compute_dtype)) * 0.5
     x = x + a
     h = L.rmsnorm(params["norm2"], x, cfg.norm_eps)
     if moe_block:
         m, aux = MOE.moe_apply(params["moe"], cfg, h, compute_dtype)
     else:
         m = L.mlp_apply(params["mlp"], h, cfg.mlp_type, compute_dtype)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = zero
     return (x + m, aux, kv) if return_kv else (x + m, aux)
 
 
@@ -231,16 +276,32 @@ def _logits(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
     return L.lm_head(params["lm_head"], x, compute_dtype)
 
 
+def project_frontend(params: PyTree, cfg: ModelConfig, embeds: torch.Tensor,
+                     compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Modality stub -> model space (transformer.py:152). embeds:
+    [B, S, frontend_dim]; vision: w2 · gelu(w1 · e), audio: w1 · e."""
+    proj = params["projector"]
+    x = embeds.to(compute_dtype) @ proj["w1"].to(compute_dtype)
+    if "w2" in proj:
+        x = F.gelu(x, approximate="tanh") @ proj["w2"].to(compute_dtype)
+    return x
+
+
 def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
             compute_dtype=torch.bfloat16, attn_impl: str = "kernel",
-            remat: bool = False, attn_chunk: int = 512
+            remat: bool = False, attn_chunk: int = 512,
+            frontend_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens [B,T] -> (logits [B,T,V] fp32, aux loss summed over the
-    MoE blocks; 0 without experts). remat: recompute each block in the
+    """tokens [B,T] (+ frontend_embeds [B,S,frontend_dim] projected and
+    prepended) -> (logits [B,S+T,V] fp32, aux loss summed over the MoE
+    blocks; 0 without experts). remat: recompute each block in the
     backward pass instead of keeping its activations (`jax.checkpoint`
     per block, transformer.py:175). attn_chunk: query rows per chunk of
     the plain attention path."""
     x = L.embed(params["embed"], tokens, compute_dtype)
+    if frontend_embeds is not None:
+        x = torch.cat([project_frontend(params, cfg, frontend_embeds,
+                                        compute_dtype), x], dim=1)
     positions = torch.arange(x.shape[1], dtype=torch.float32,
                              device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -260,22 +321,36 @@ def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
     return _logits(params, cfg, x, compute_dtype), aux
 
 
+def masked_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy over the labels >= 0 (-100 =
+    masked), in fp32."""
+    labels = labels.long()
+    mask = (labels >= 0).float()
+    nll = F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
+                          labels.clamp(min=0).reshape(-1), reduction="none")
+    return (nll * mask.reshape(-1)).sum() / mask.sum().clamp(min=1.0)
+
+
 def lm_loss(params: PyTree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             compute_dtype=torch.bfloat16, attn_chunk: int = 512,
             aux_weight: float = 0.01, remat: bool = True
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross entropy plus `aux_weight` times the MoE aux loss
     (transformer.py:226-255). batch: tokens [B,T], labels [B,T] (-100 =
-    masked). Attention runs the plain `_chunked_attention` on every
-    device, as the reference's training loss does: the flash kernel is
+    masked), optional frontend_embeds (their positions take label -100).
+    Attention runs the plain `_chunked_attention` on every device, as
+    the reference's training loss does: the flash kernel is
     forward-only. Returns (total, {'loss', 'aux'})."""
     logits, aux = forward(params, cfg, batch["tokens"], compute_dtype,
-                          "plain", remat, attn_chunk)
-    labels = batch["labels"].long()
-    mask = (labels >= 0).float()
-    nll = F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
-                          labels.clamp(min=0).reshape(-1), reduction="none")
-    loss = (nll * mask.reshape(-1)).sum() / mask.sum().clamp(min=1.0)
+                          "plain", remat, attn_chunk,
+                          frontend_embeds=batch.get("frontend_embeds"))
+    labels = batch["labels"]
+    pad = logits.shape[1] - labels.shape[1]
+    if pad:                               # frontend positions prepended
+        labels = torch.cat([torch.full((labels.shape[0], pad), -100,
+                                       dtype=labels.dtype,
+                                       device=labels.device), labels], 1)
+    loss = masked_nll(logits, labels)
     return loss + aux_weight * aux, {"loss": loss, "aux": aux}
 
 
@@ -283,41 +358,80 @@ def lm_loss(params: PyTree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 class DecodeCache(NamedTuple):
     """Per-layer caches stacked on a leading L axis, one segment per
     block stack: `layers` for `blocks`, `dense_layers` for a MoE
-    config's `dense_blocks` (None without). Each segment is
-    {"attn": one of the four attention caches}."""
+    config's `dense_blocks` (None without). A segment is a dict of
+    cache nodes ({"attn": ...}, plus "mamba" for the hybrid) or one
+    bare node (rwkv's RWKVState)."""
     layers: PyTree
     dense_layers: Optional[PyTree] = None
 
 
-def cache_segments(cache: DecodeCache) -> List[Any]:
-    """The attention caches of every segment present, in run order."""
-    return [seg["attn"] for seg in (cache.dense_layers, cache.layers)
-            if seg is not None]
+ATTN_CACHES = (ATT.KVCache, ATT.PagedKVCache, ATT.MLACache,
+               ATT.PagedMLACache)
+PAGED_CACHES = (ATT.PagedKVCache, ATT.PagedMLACache)
 
 
-def map_segments(fn: Callable, cache: DecodeCache,
-                 *rest: DecodeCache) -> DecodeCache:
-    """A DecodeCache whose every segment's attention cache is
-    fn(that cache, the same segment's of each of `rest`)."""
+def _map_seg(fn: Callable, seg, *rest):
+    if isinstance(seg, dict):
+        return {k: fn(v, *(r[k] for r in rest)) for k, v in seg.items()}
+    return fn(seg, *rest)
+
+
+def map_nodes(fn: Callable, cache: DecodeCache,
+              *rest: DecodeCache) -> DecodeCache:
+    """A DecodeCache whose every node (attention cache or recurrent
+    state) of every segment is fn(that node, the same node of each of
+    `rest`)."""
     def one(name):
         seg = getattr(cache, name)
         if seg is None:
             return None
-        return {"attn": fn(seg["attn"],
-                           *(getattr(r, name)["attn"] for r in rest))}
+        return _map_seg(fn, seg, *(getattr(r, name) for r in rest))
     return DecodeCache(one("layers"), one("dense_layers"))
+
+
+def map_segments(fn: Callable, cache: DecodeCache,
+                 *rest: DecodeCache) -> DecodeCache:
+    """`map_nodes` over the attention caches only; the recurrent nodes
+    are `cache`'s own."""
+    return map_nodes(lambda n, *r: fn(n, *r)
+                     if isinstance(n, ATTN_CACHES) else n, cache, *rest)
+
+
+def cache_nodes(cache: DecodeCache) -> List[Any]:
+    """Every node of every segment present, in run order."""
+    out = []
+    for seg in (cache.dense_layers, cache.layers):
+        if seg is not None:
+            out += list(seg.values()) if isinstance(seg, dict) else [seg]
+    return out
+
+
+def cache_segments(cache: DecodeCache) -> List[Any]:
+    """The attention caches of every segment present, in run order."""
+    return [n for n in cache_nodes(cache) if isinstance(n, ATTN_CACHES)]
 
 
 def _one_layer_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                      device: torch.device, per_slot: bool, paged):
+    """transformer.py:258: rwkv's state; else the attention cache, with
+    the hybrid's mamba state beside it (per-slot positions whenever the
+    attention is paged)."""
+    if cfg.family == "ssm":
+        return SSM.rwkv_init_state(cfg, batch, dtype, device, per_slot)
     if paged is not None:
         ps, num_pages = paged
         init = (ATT.init_paged_mla_cache if cfg.attn_type == "mla"
                 else ATT.init_paged_kv_cache)
-        return init(cfg, batch, max_len, ps, num_pages, dtype, device)
-    init = ATT.init_mla_cache if cfg.attn_type == "mla" \
-        else ATT.init_kv_cache
-    return init(cfg, batch, max_len, dtype, device, per_slot)
+        att = init(cfg, batch, max_len, ps, num_pages, dtype, device)
+    else:
+        init = ATT.init_mla_cache if cfg.attn_type == "mla" \
+            else ATT.init_kv_cache
+        att = init(cfg, batch, max_len, dtype, device, per_slot)
+    seg = {"attn": att}
+    if cfg.family == "hybrid":
+        seg["mamba"] = SSM.mamba_init_state(cfg, batch, dtype, device,
+                                            per_slot or paged is not None)
+    return seg
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -329,14 +443,17 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
     `[L, B, pages_per_slot]` (every entry at trash page 0) and positions
     `[L, B]`. Otherwise dense rows `[L, B, cap, ...]` with positions
     `[L, B]` under per_slot (the serving layout: the slot axis is axis 1
-    of every leaf) or `[L]` (the legacy batch loop). A MoE config with a
-    dense prefix gets its `dense_layers` segment of the same kind."""
+    of every leaf) or `[L]` (the legacy batch loop). Recurrent state
+    (rwkv, the hybrid's mamba heads) is `[L, B, ...]` under every
+    layout. A MoE config with a dense prefix gets its `dense_layers`
+    segment of the same kind."""
     one = _one_layer_cache(cfg, batch, max_len, dtype, device, per_slot,
                            paged)
 
     def stack(n):
-        return {"attn": type(one)(
-            *(t.unsqueeze(0).repeat((n,) + (1,) * t.dim()) for t in one))}
+        return _map_seg(lambda node: type(node)(
+            *(t.unsqueeze(0).repeat((n,) + (1,) * t.dim()) for t in node)),
+            one)
     n_dense = cfg.first_dense_layers if cfg.n_experts else 0
     return DecodeCache(stack(cfg.n_layers - n_dense),
                        stack(n_dense) if n_dense else None)
@@ -457,10 +574,17 @@ def prefill_decode_cache(params: PyTree, cfg: ModelConfig,
     return logits, DecodeCache(seg_cache(kvs["layers"]), dense)
 
 
-def _layer_cache(att, l: int):
-    """Layer l's cache as views of the stacked leaves (in-place writes
+def _layer_cache(seg, l: int):
+    """Layer l's segment as views of the stacked leaves (in-place writes
     land in the stack)."""
-    return type(att)(*(t[l] for t in att))
+    return _map_seg(lambda node: type(node)(*(t[l] for t in node)), seg)
+
+
+def _write_state(dst, src) -> None:
+    """Copy a new recurrent state into the cache's views, in place
+    (every field but pos, which `decode_step` advances)."""
+    for d, s in zip(dst[:-1], src[:-1]):
+        d.copy_(s)
 
 
 _DECODE = {ATT.PagedKVCache: ATT.gqa_paged_decode_step,
@@ -487,15 +611,31 @@ def _block_decode(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
                   cache, moe_block: bool, compute_dtype,
                   attn_impl: str) -> torch.Tensor:
     """One token through one block (transformer.py:420). x: [B,1,D];
-    `cache` is this layer's attention cache, of any of the four kinds
-    (its rows are written in place). Only the GQA paged step goes
-    through a kernel."""
+    `cache` is this layer's segment: rwkv's state, or {"attn": any of
+    the four attention caches[, "mamba": state]}. Rows and states are
+    written in place. Only the GQA paged step goes through a kernel."""
+    if cfg.family == "ssm":
+        h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
+        t_out, st = SSM.rwkv_decode_step(params["time"], cfg, h, cache,
+                                         compute_dtype)
+        x = x + t_out
+        h = L.rmsnorm(params["norm2"], x, cfg.norm_eps)
+        c_out = SSM.rwkv_chan_forward(params["chan"], cfg, h,
+                                      cache.x_chan[:, None], compute_dtype)
+        _write_state(cache, st._replace(x_chan=h[:, 0]))
+        return x + c_out
     h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
-    step = _DECODE[type(cache)]
-    if isinstance(cache, ATT.PagedKVCache):
-        a, _ = step(params["attn"], cfg, h, cache, compute_dtype, attn_impl)
+    att = cache["attn"]
+    step = _DECODE[type(att)]
+    if isinstance(att, ATT.PagedKVCache):
+        a, _ = step(params["attn"], cfg, h, att, compute_dtype, attn_impl)
     else:
-        a, _ = step(params["attn"], cfg, h, cache, compute_dtype)
+        a, _ = step(params["attn"], cfg, h, att, compute_dtype)
+    if cfg.family == "hybrid":
+        m, ms = SSM.mamba_decode_step(params["mamba"], cfg, h,
+                                      cache["mamba"], compute_dtype)
+        a = (a + m) * 0.5
+        _write_state(cache["mamba"], ms)
     return _ffn(params, cfg, x + a, moe_block, compute_dtype)
 
 
@@ -504,18 +644,19 @@ def decode_step(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
                 attn_impl: str = "kernel"
                 ) -> Tuple[torch.Tensor, DecodeCache]:
     """tokens [B,1] -> (logits [B,1,V] fp32, cache), over a paged or a
-    dense cache, through both segments. The rows are written in place;
-    the returned cache shares them and carries pos + 1."""
+    dense cache, through both segments. Rows and recurrent states are
+    written in place; the returned cache shares them and carries every
+    node's pos + 1."""
     x = L.embed(params["embed"], tokens, compute_dtype)
     for name, blocks, moe_block in _segments(params, cfg):
-        att = getattr(cache, name)["attn"]
+        seg = getattr(cache, name)
         for l in range(_stack_layers(blocks)):
             x = _block_decode(layer_params(blocks, l), cfg, x,
-                              _layer_cache(att, l), moe_block,
+                              _layer_cache(seg, l), moe_block,
                               compute_dtype, attn_impl)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return (_logits(params, cfg, x, compute_dtype),
-            map_segments(lambda a: a._replace(pos=a.pos + 1), cache))
+            map_nodes(lambda a: a._replace(pos=a.pos + 1), cache))
 
 
 def _block_verify(params: PyTree, cfg: ModelConfig, x: torch.Tensor,

@@ -27,8 +27,7 @@ from .prefetch import Prefetcher
 
 DeviceLike = Union[str, torch.device, None]
 
-# ROADMAP.md queue 1 items that bring what the port still refuses
-ITEM_FAMILIES = "6"         # MoE, MLA, ssm, hybrid, enc-dec, frontends
+# ROADMAP.md queue 1 item that brings what the port still refuses
 ITEM_SHARDING = "7"         # data/model meshes above one device
 
 

@@ -108,7 +108,6 @@ def test_explicit_cpu_runs():
 # ---------------------------------------------------- later-slice options
 LATER_FLAGS = {
     "mesh": (["--model-mesh", "2"], "7"),
-    "family": (["--arch", "rwkv6-7b"], "6"),
 }
 
 
@@ -122,6 +121,19 @@ def test_later_slice_flags_raise(name):
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP.md queue 1, item {item}\b"):
         serve.main(argv)
+
+
+def test_recurrent_family_serves_on_cpu(capsys):
+    """`--arch rwkv6-7b`, refused until ROADMAP item 6 was done, now
+    serves (the dense fallback of the ssm family, scan prefill)."""
+    import warnings
+    from repro_torch.launch import serve
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        serve.main(["--arch", "rwkv6-7b", "--reduced", "--device", "cpu",
+                    "--requests", "1", "--gen", "2", "--prompt-len", "8"])
+    out = capsys.readouterr().out
+    assert "completed=1" in out and "kv layout=dense" in out
 
 
 # the serve flags ROADMAP item 5 brought: each runs on the CPU, and the

@@ -507,8 +507,7 @@ def test_train_cli_exits_zero_on_cpu():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--data-mesh", "2"], "7"), (["--model-mesh", "2"], "7"),
-    (["--arch", "rwkv6-7b"], "6")])
+    (["--data-mesh", "2"], "7"), (["--model-mesh", "2"], "7")])
 def test_later_slice_flags_raise(flags, item):
     from repro_torch.launch.train import main
     argv = ["--device", "cpu", "--arch", "gemma-7b", "--reduced",
@@ -516,6 +515,19 @@ def test_later_slice_flags_raise(flags, item):
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP.md queue 1, item {item}\)"):
         main(argv)
+
+
+def test_recurrent_family_trains_on_cpu(capsys):
+    """`--arch rwkv6-7b`, refused until ROADMAP item 6 was done, now
+    trains (its preset: backend rvh, which falls back to gspmd_tree on
+    one process)."""
+    import warnings
+    from repro_torch.launch.train import main
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        main(["--device", "cpu", "--arch", "rwkv6-7b", "--reduced",
+              "--steps", "1", "--seq", "16", "--batch", "8"])
+    assert "[train] done: final loss" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("flags,match", [
