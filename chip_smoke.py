@@ -9,6 +9,9 @@
     python3 chip_smoke.py --subsystems-only # phase 10 alone, no result line
     python3 chip_smoke.py --families-only  # phase 11 alone, no result line
     python3 chip_smoke.py --recurrent-only # phase 12 alone, no result line
+    python3 chip_smoke.py --ranks-only     # phase 6 alone, no result line
+    python3 chip_smoke.py --ranks-only --witness  # and (A) against one
+                                                  # process in fp32
 
 --serve-ab compares two commits on one card within one call: DIR is
 another checkout of the repo (e.g. `git archive <parent> | tar -x -C
@@ -20,7 +23,7 @@ from the tree), and a `SERVE_AB` JSON line gives the four runs' metrics.
 plain attention, no kernel built), ending with a `SCAN_AB` line of
 each run's times in ms.
 
-Phases, in the order they run: 1, 2, 3, 4, 8, 5, 6, 7, 9, 10, 11, 12 (any
+Phases, in the order they run: 1, 2, 6, 3, 4, 8, 5, 7, 9, 10, 11, 12 (any
 error fails the run with a non-zero exit and no result):
   1. card: print `nvidia-smi --query-gpu=name,power.limit` and require
      CUDA;
@@ -134,27 +137,45 @@ error fails the run with a non-zero exit and no result):
      its cached card memory and prints what it still holds. gemma-7b at
      full width, depth cut to RANK_LAYERS (1 of 28), fp32 params, bf16
      compute, seq 512, global batch RANK_BATCH, 64 MB buckets, RANK_STEPS
-     steps:
-     (a) world 4 with sgd (the `pre` point; two RVH rounds), (b) world 2
-     with adam (`post` point, per-rank state) and int8 wire compression.
-     Each rank checks: one `block_dots` and one `block_combine` per
-     bucket per round per step (counters zeroed just before the run);
-     params bitwise equal across ranks after every step (per-leaf
-     checksums gathered); step 1 from fresh state again bitwise equal;
-     step 1 with combine_impl="plain" on the card, the combined tree and
+     steps (one in a sharded run, whose repeat of step 1 is then timed
+     as its steady step), the runs of RANK_RUNS: (a) world 4, momentum
+     (the `pre` point; two RVH rounds), fsdp (item 7a's run B: params
+     and state 1/4 a rank, RVH keeping each rank's piece), (b) world 2
+     with adam (`post` point, per-rank whole state) and int8 wire
+     compression, (A) world 4, adam, span 2, fsdp + scatter_grads,
+     accum_steps 2 (item 7a's run A: ZeRO-2 lane gradients, post-point
+     ZeRO-1 in each lane group, FSDP params). Each rank checks: one
+     `block_dots` and one `block_combine` per bucket (of the plan's, on
+     its lane-group parts) per round per step (counters zeroed just
+     before the run); the params every rank holds whole bitwise equal
+     across ranks after every step (per-leaf checksums gathered); step 1
+     from fresh state again bitwise equal; in RANK_PLAIN's runs step 1
+     with combine_impl="plain" on the card, the combined tree and
      CombineStats within COMBINED_RTOL and params within TRAIN_PARAM_TOL
      (under int8, at most INT8_FLIP_FRACTION of the elements one
-     quantization step apart); and random lanes of ~7 M elements in ten
-     leaves through RVH against the single-process fused tree on rank 0;
-     `Comm.gather_to_host` (a checkpoint's lane rows at the post point)
-     of a CUDA tensor from every other rank (every rank at world 2):
+     quantization step apart); in the sharded runs step 1 with the
+     params whole (fsdp off), each rank's pieces of it against its own
+     (TRAIN_PARAM_TOL but for SHARD_FLIP_FRACTION of the elements, none
+     past SHARD_MAX_ABS), and the run's peak below that step's; with
+     --witness, in RANK_WITNESS's runs step 1 in fp32 compute against the
+     same step in this process before the ranks start (lanes stacked,
+     nothing sharded): adam's m within WITNESS_M_RTOL, params within
+     TRAIN_PARAM_TOL where every lane's |m| passes WITNESS_M_FLOOR, else
+     SHARD_MAX_ABS; in RANK_SYNTHETIC's runs,
+     random lanes of ~7 M elements in ten leaves through RVH against the
+     single-process fused tree on rank 0, and `Comm.gather_to_host` (a
+     checkpoint's lane rows) of a CUDA tensor from every other rank:
      rank 0's host rows are each sender's, and the bytes counted staged
-     are one copy a sender. Prints step ms, the combine's ms and within it the exchange (and
-     staging), dot-sum and dots+combine kernel ms (CUDA events), staged
-     bytes, and each rank's peak allocation and their sum (at most
-     RANK_MEM_GIB). Run (a) also saves the state before its last step
-     (rank 0 writes, all ranks wait), restores it in place on every rank
-     and redoes the step: params bitwise equal to the first time;
+     are one copy a sender. Prints step ms, the combine's ms and within
+     it the exchange (and staging), the reduce-scatter, all-gather and
+     all-reduce, dot-sum and dots+combine kernel ms (CUDA events), staged
+     bytes, each rank's GiB of params and state, and each rank's peak
+     allocation and their sum (at most RANK_MEM_GIB); (A)'s peaks beside
+     (b)'s, which they must stay below (SHARD_BELOW). Run (a) also saves
+     the state before its last step (rank 0 gathers the full leaves and
+     writes, all ranks wait), restores it in place on every rank (each
+     its pieces) and redoes the step: params bitwise equal to the first
+     time. `--ranks-only` builds the kernels and runs this phase alone;
   7. checkpoints: `TrainSession` on gemma-7b at full width, depth cut to
      CKPT_LAYERS (1 of 28), fp32 params, bf16 compute, seq 512, global
      batch 8, 64 MB buckets, momentum at span 2 on the `post` point (the
@@ -200,8 +221,10 @@ error fails the run with a non-zero exit and no result):
      5's); the combine ms of each. (c) phase 6's model in rank processes
      on cuda:0 over gloo, one launch a world size, each run's steps as
      P9_RANK_RUNS gives them: world 4 sum and adascale (sgd),
-     accumulation 2 and local steps 2 at span 2 (sgd); world 2 mean and
-     adasum-linear (sgd) and momentum with combine_delay=1; params
+     accumulation 2 at span 2 (momentum: its state ZeRO-1, the lane
+     gradient all-reduced in its lane group and cut to the rank's part)
+     and local steps 2 at span 2 (sgd); world 2 mean and adasum-linear
+     (sgd) and momentum with combine_delay=1; params
      bitwise equal across ranks after every step; step, combine,
      exchange, all-reduce and staging ms, staged bytes and each rank's
      peak (their sum at most RANK_MEM_GIB). `block_dots` and
@@ -252,8 +275,8 @@ error fails the run with a non-zero exit and no result):
      a shared 64-token prefix (prefix extend through flash with
      q_offset), both cache segments written, then speculation k =
      P11_SPEC_K with the derived draft: tokens against plain decode,
-     acceptance, pairs dropped in verify forwards. (c) minicpm3-4b at its
-     full 62 layers: paged with and without prefix sharing and dense
+     acceptance, pairs dropped in verify forwards. (c) minicpm3-4b at
+     P11_MINICPM_LAYERS of its 62 layers: paged with and without prefix sharing and dense
      (dense == paged tokens, margins at divergences as phase 8's), the
      latent cache's bytes a token against a GQA cache of the same heads.
      (d) moonshot at P11_TRAIN_MOONSHOT layers, momentum span 2, and (e)
@@ -265,9 +288,10 @@ error fails the run with a non-zero exit and no result):
      `--families-only` builds the kernels and runs this phase alone.
  12. recurrent (ROADMAP item 6's second half; runs last): the SSM,
      hybrid, vision-frontend and encoder-decoder presets at full width,
-     random weights from SEED, bf16 for serving. (a) rwkv6-7b at its
-     full 32 layers: `ServeEngine` asked for the paged layout and
-     speculation k = P11_SPEC_K must fall back to dense and disable
+     random weights from SEED, bf16 for serving. (a) rwkv6-7b at
+     P12_SERVE_LAYERS of its 32 layers: `ServeEngine` asked for the
+     paged layout and speculation k = P11_SPEC_K must fall back to
+     dense and disable
      speculation, each with its warning; 4 prompts of 24-48 tokens in
      one admission (two scan-prefill groups of unequal lengths), P12_GEN
      tokens each; the recurrent state a slot; the scan prefill's repair
@@ -276,18 +300,15 @@ error fails the run with a non-zero exit and no result):
      forward, within P12_FP32_TOL in fp32 compute, and in bf16 each path
      against the fp32 forward (the decode's error at most
      P12_BF16_FACTOR x the forward's own + LOGIT_TOL / 5). (b)
-     hymba-1.5b at its full 32 layers, paged (its mamba state dense per
-     slot, warned and counted), one scan-prefill group of 4 prompts of
-     48-64 tokens: the paged-decode kernel must launch (G = 5); kernel
-     arm vs attn_impl="plain" arm tokens, with the margins at
-     divergences recorded as phase 8 records them (at this depth
-     random-weight bf16 rounding, carried through the recurrence, moves
-     logits by O(1) over many ticks, so they are recorded, not held);
-     then the prompts stepped through the kernel arm and one tick of
-     each arm from that same cache, all 32 layers: in bf16 every
+     hymba-1.5b at P12_SERVE_LAYERS of its 32 layers, paged (its mamba
+     state dense per slot, warned and counted), one scan-prefill group
+     of 4 prompts of
+     48-64 tokens: the paged-decode kernel must launch (G = 5); then
+     the prompts stepped through the kernel arm and one tick of
+     each arm from that same cache, every layer: in bf16 every
      paged-decode call held against its plain version on the same
      inputs (KERNEL_TOL) and the tick's logits recorded (one ulp a layer
-     grows to O(1) through 32 random-weight layers), in fp32 compute the
+     grows to O(1) through random-weight layers), in fp32 compute the
      tick's logits held within P12_FP32_TOL. (c) hymba at P12_ROLL_LAYERS
      layers in fp32 compute (the paged kernel's fp32 path): one slot
      stepped through a P12_ROLL_PROMPT-token prompt and P12_ROLL_GEN
@@ -304,15 +325,15 @@ error fails the run with a non-zero exit and no result):
      layers, momentum; 128 frames + 256 tokens) (`P12_TRAIN`), held as
      phase 11 (d)/(e) holds its runs, with the combined gradient finite.
      `phase12_launches` sums each kernel's counts over the main-path runs:
-     (a)'s and (b)'s kernel-arm serve, (d)'s stepped loops and (e)-(h)'s
+     (a)'s and (b)'s serve, (d)'s stepped loops and (e)-(h)'s
      train steps; (c) and the holds are comparisons and do not count.
      flash_attention must launch in none of them (no parallel prefill on
      these paths, training takes plain attention), as in the reference.
      `--recurrent-only` builds the kernels and runs this phase alone.
 
 The line before the last is the kernels JSON (block_dots and
-block_combine rows also carry their phase-6 launches on rank 0,
-`rvh_launches`, and their ms on the round-0 half, `rvh_half_ms`; every
+block_combine rows also carry their phase-6 launches on rank 0 of each
+run, `rvh_launches`, and their ms on the round-0 half, `rvh_half_ms`; every
 row its launches inside phase 7, `phase7_launches`; the attention rows
 their launches inside phase 8, `phase8_launches`; the Adasum rows theirs
 inside phase 9, `phase9_launches`; every row its launches inside phase
@@ -1844,13 +1865,61 @@ def train_phase(card: str, profile: bool = False):
 
 # ------------------------------------------------------------- ranks phase
 RANK_LAYERS = 1    # of gemma-7b's 28: 1.063 B params, 4.25 GB of fp32
-RANK_RUNS = (("sgd", 4, "none"), ("adam", 2, "int8"))  # optimizer, world,
-                                                       # wire compression
+# (tag, optimizer, world, wire compression, EngineConfig fields). (a): RVH
+# at span == dp on four ranks (two rounds), momentum (pre-point ZeRO-1,
+# RVH without its allgather) with fsdp — item 7a's run B; it also saves,
+# restores and redoes its last step (phase 7 (d)). (b): adam at the post
+# point, per-rank whole state, int8. (A): item 7a's run A: ZeRO-2 lane
+# gradients, post-point ZeRO-1 in each lane group and FSDP params, with
+# accumulation
+RANK_RUNS = (
+    ("a", "momentum", 4, "none", dict(span=0, backend="rvh", fsdp=True)),
+    ("b", "adam", 2, "int8", {}),
+    ("A", "adam", 4, "none", dict(span=2, backend="gspmd_tree", fsdp=True,
+                                  scatter_grads=True, accum_steps=2)),
+)
+RANK_CKPT = "a"            # the run that checkpoints (phase 7 (d))
+RANK_SYNTHETIC = ("a", "b")  # the runs that check RVH of random lanes and
+                             # the checkpoint gather too
+RANK_PLAIN = ("a", "b", "A")  # the runs that take step 1 on the plain arm
+# the runs whose step 1 in fp32 compute is held against one process under
+# --witness: (A), whose lane gradients (ZeRO-2), state (ZeRO-1) and params
+# are all sharded, so that its step with whole params still shards the
+# rest. Not in the whole run: it costs ~1 min of the time limit
+RANK_WITNESS = ("A",)
+# besides its own step with the params whole, the sharded run whose peak
+# must stay below another's (its tag): (A) below (b), adam at world 2
+# with whole params, whole lane gradients and per-rank whole state
+SHARD_BELOW = {"A": "b"}
 RANK_BATCH = 8     # global batch: 2 rows a rank at world 4, 4 at world 2
-RANK_STEPS = 2     # the main path's steps a run (the last one is the one
-                   # phase 7 (d) saves before and redoes)
+RANK_STEPS = 2     # the main path's steps an unsharded run; a sharded
+                   # one takes one (its repeat, with warm buffers, is timed
+                   # as its steady step). The checkpointing run saves
+                   # before its last and redoes it (phase 7 (d))
 RANK_MEM_GIB = 72  # the ranks' summed peak allocation may not pass this
 RANK_TIMEOUT_S = 420
+# a sharded run's step-1 params against (1) the same step on the same
+# ranks with the params whole (fsdp off; ZeRO-1 stays, and in run A
+# scatter_grads: with whole lane gradients and state too, four of its
+# ranks do not fit on one 80 GB H100), and (2) in RANK_WITNESS's runs,
+# the step in fp32 compute against one process with the lanes stacked
+# and nothing sharded. (2) is in fp32 because a rank computes its 1/g of
+# a microbatch's rows, and bf16 matmuls round differently over other row
+# counts, which moves adam's step-1 update of the many elements whose
+# gradient is near eps well past 1e-6. Both: within TRAIN_PARAM_TOL but
+# for at most this fraction of the elements, none beyond two steps of
+# the learning rate (1e-3)
+SHARD_FLIP_FRACTION = 1e-3
+SHARD_MAX_ABS = 2e-3
+# (2) holds adam's first moment m (0.1 x the lane gradient at step 1)
+# within WITNESS_M_RTOL of its leaf's largest |m| (the CPU tests' rule
+# for state: the same fp32 sums in another order), and each param within
+# TRAIN_PARAM_TOL except where a lane's |m| is at most WITNESS_M_FLOOR
+# (|gradient| <= 100 x adam's eps of 1e-8): there the step-1 update
+# lr·g/(|g| + eps) moves by up to lr for a change of g of order eps, so
+# those may differ by up to SHARD_MAX_ABS
+WITNESS_M_RTOL = 1e-4
+WITNESS_M_FLOOR = 1e-7
 # int8 kernel arm vs plain arm: both quantize the same raw lane halves in
 # round 0; after it the two arms' combine outputs differ in the last bits,
 # which can send an element within an ulp of a rounding boundary one
@@ -1967,43 +2036,66 @@ def rank_worker(spec: dict) -> int:
     world, optimizer, compress = spec["world"], spec["optimizer"], \
         spec["compress"]
     ckpt_dir = spec.get("ckpt_dir")
+    shard = spec.get("shard") or {}     # runs A and B: fsdp, scatter_grads
     rank = int(os.environ["RANK"])
     lead = rank == 0
     cfg = dataclasses.replace(get_config("gemma-7b"), n_layers=RANK_LAYERS)
     model = build_model(cfg, compute_dtype=torch.bfloat16,
                         param_dtype=torch.float32)
     rec = {"rank": rank, "world": world, "optimizer": optimizer,
-           "compress": compress}
+           "compress": compress, "shard": shard}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     timer = _CombineTimer(keep=lead)
     # under torchrun's environment the session starts the process group
     s = _session(model, timer, device="cuda:0", dist_backend="gloo",
                  optimizer=optimizer, compress=compress,
-                 global_batch=RANK_BATCH, ckpt_dir=ckpt_dir or "")
+                 global_batch=RANK_BATCH, ckpt_dir=ckpt_dir or "", **shard)
     comm = s.comm
+    rt = s.runtime
+    zplan = rt.plan
     rec["init_s"] = time.perf_counter() - t0
     gib = lambda b: f"{b / 2 ** 30:.2f}"
     mem = lambda: (f"{gib(torch.cuda.memory_allocated())} GiB allocated, "
                    f"peak {gib(torch.cuda.max_memory_allocated())}")
     print(f"[rank {rank}] session up in {rec['init_s']:.1f}s: {mem()}",
           flush=True)
-    leaves = T.leaves(s.state["params"])
-    plan = rvh.rvh_plan(leaves, world, rank,
-                        bucket_bytes=s.runtime.dopt.cfg.fusion_bytes)
-    rounds = int(math.log2(world))
+    # the init draws the whole params on every rank before it shards them:
+    # the run's peak is the steps'
+    rec["init_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    # the RVH buckets of a step: over the span ranks of a member position,
+    # on the lane gradient's layout (the plan's shards where it has one)
+    if zplan is None:
+        leaves, dims = T.leaves(s.state["params"]), None
+    else:
+        leaves = [torch.empty(sh, device="meta")
+                  for sh in zplan.local_shapes("grads")]
+        dims = zplan.dims
+    g = world // rt.span
+    plan = rvh.rvh_plan(leaves, rt.span, rank // g,
+                        bucket_bytes=rt.dopt.cfg.fusion_bytes,
+                        shard_dims=dims)
+    rounds = int(math.log2(rt.span))
+    # what the plan shards (whole leaves are held alike on every rank)
+    whole = [zplan is None or not zplan.fsdp or d is None
+             for d in (zplan.dims if zplan else leaves)]
+    shared = lambda sums: [c for c, w in zip(sums, whole) if w]
     rec.update(buckets=len(plan), rounds=rounds,
-               combine_path=s.runtime.combine_path,
-               point=s.runtime.dopt.point,
-               dist_backend=s.run_metadata()["dist_backend"])
+               combine_path=rt.combine_path, point=rt.dopt.point,
+               span=rt.span, dist_backend=s.run_metadata()["dist_backend"],
+               sharded_leaves=0 if zplan is None else
+               sum(d is not None for d in zplan.dims),
+               held_gib={"params": _gib_of(s.state["params"]),
+                         "state": _gib_of(s.state["opt"]["inner"])})
     comm.timing = True
     comm.take_ms()
     torch.cuda.synchronize()
     build.reset_launches()
     steps = []
     ck = {}
-    last = RANK_STEPS - 1
-    for step in range(RANK_STEPS):
+    last = spec["steps"] - 1
+    for step in range(spec["steps"]):
         if ckpt_dir and step == last:  # phase 7 (d): save the last step's
             t0 = time.perf_counter()   # input state, all ranks
             s.save_sync(last)
@@ -2020,7 +2112,7 @@ def rank_worker(spec: dict) -> int:
                       "staged_bytes": comm.total_staged_bytes() - staged0,
                       "mem_gib": torch.cuda.memory_allocated() / 2 ** 30,
                       "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-                      "bitwise_across_ranks": _all_equal(sums)})
+                      "bitwise_across_ranks": _all_equal(shared(sums))})
         print(f"[rank {rank}] step {step} {ms:.0f} ms: {mem()}", flush=True)
         if step == 0:
             sums1 = sums
@@ -2050,44 +2142,169 @@ def rank_worker(spec: dict) -> int:
     # without a second session and broadcast
     def fresh_step(rt):
         params = model.init(torch.Generator(device="cuda:0").manual_seed(SEED))
+        if rt.plan is not None:
+            params = rt.plan.shard_params(params)
         state = {"params": params, "opt": rt.dopt.init(params), "step": 0}
         return rt.train_step(state, batch0)[0]
 
     batch0 = s.batch(0)
+    comm.timing = True
+    comm.take_ms()
+    staged0 = comm.total_staged_bytes()
+    t0 = time.perf_counter()
     again = fresh_step(s.runtime)
+    torch.cuda.synchronize()
+    # the repeat is a step with warm buffers: a one-step run's steady one
+    rec["repeat_step"] = {"ms": 1e3 * (time.perf_counter() - t0),
+                          "combine_ms": timer.take_ms(),
+                          "comm": comm.take_ms(),
+                          "staged_bytes": comm.total_staged_bytes() - staged0}
+    comm.timing = False
     rec["repeat_bitwise"] = _checksums(again["params"]) == sums1
+    sharded = zplan is not None and zplan.fsdp
+    if sharded:    # this rank's step-1 params, for the run with whole ones
+        mine1 = [x.to("cpu", copy=True) for x in T.leaves(again["params"])]
     del again
     _free()
-    ptimer = _CombineTimer(keep=lead)
-    with _timing_combiners(ptimer):
-        prt = build_runtime(model, s.config.run_policy(), lr=s.config.lr,
-                            comm=comm, combine_impl="plain")
-    plain = fresh_step(prt)
-    if lead:   # the combine's output and stats of step 1, then params
-        rec["stats_rel_err"] = _rel_err(kept[1], ptimer.kept[1])
-        cerr = [_int8_close(x, y, COMBINED_RTOL)
-                for x, y in zip(ptimer.kept[0], kept[0])]
-        rec["combined_rel_err"] = max(e[0] for e in cerr)
-        rec["combined_flip_fraction"] = max(e[1] for e in cerr)
-        rec["combined_steps"] = max(e[2] for e in cerr)
+    if lead:
         rec["update_max_abs"] = max(x.abs().max().item() for x in kept[0])
-        perr = [(x.cpu() - y).abs()
-                for x, y in zip(T.leaves(plain["params"]), p1)]
-        rec["params_max_abs_err"] = max(e.max().item() for e in perr)
-        rec["params_flip_fraction"] = max(
-            (e > TRAIN_PARAM_TOL).double().mean().item() for e in perr)
-        del perr
-    del plain, prt, ptimer, kept, p1
+    if spec.get("plain"):
+        ptimer = _CombineTimer(keep=lead)
+        with _timing_combiners(ptimer):
+            prt = build_runtime(model, s.config.run_policy(),
+                                lr=s.config.lr, comm=comm,
+                                combine_impl="plain")
+        plain = fresh_step(prt)
+        if lead:   # the combine's output and stats of step 1, then params
+            rec["stats_rel_err"] = _rel_err(kept[1], ptimer.kept[1])
+            cerr = [_int8_close(x, y, COMBINED_RTOL)
+                    for x, y in zip(ptimer.kept[0], kept[0])]
+            rec["combined_rel_err"] = max(e[0] for e in cerr)
+            rec["combined_flip_fraction"] = max(e[1] for e in cerr)
+            rec["combined_steps"] = max(e[2] for e in cerr)
+            perr = [(x.cpu() - y).abs()
+                    for x, y in zip(T.leaves(plain["params"]), p1)]
+            rec["params_max_abs_err"] = max(e.max().item() for e in perr)
+            rec["params_flip_fraction"] = max(
+                (e > TRAIN_PARAM_TOL).double().mean().item() for e in perr)
+            del perr
+        del plain, prt, ptimer
+    del kept, p1
     _free()
-    rec["synthetic"] = [_synthetic_rvh(comm, world, "none")]
-    if compress != "none":
-        rec["synthetic"].append(_synthetic_rvh(comm, world, compress))
-    rec["gather_ok"] = _gather_check(comm, world)
+    def held(got, want) -> tuple:
+        """Every rank's params `got` (its pieces) against the same pieces
+        of the whole leaves `want`: the largest |difference| and the
+        largest share of a leaf's elements past TRAIN_PARAM_TOL, over
+        every rank."""
+        errs = []
+        for i, (x, y) in enumerate(zip(got, want)):
+            if zplan.fsdp and zplan.dims[i] is not None:
+                y = zplan.piece(i, y)
+            e = (x.cpu() - y.cpu()).abs()
+            errs.append((e.max().item(),
+                         (e > TRAIN_PARAM_TOL).double().mean().item()))
+            del e
+        import torch.distributed as dist
+        seen = [None] * world
+        dist.all_gather_object(seen, (max(a for a, _ in errs),
+                                      max(b for _, b in errs)))
+        return max(a for a, _ in seen), max(b for _, b in seen)
+
+    if sharded:    # the same step 1 with the params whole (fsdp off)
+        rec["peak_gib_all"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        urt = build_runtime(model, dataclasses.replace(
+            s.config.run_policy(), fsdp=False), lr=s.config.lr, comm=comm)
+        whole1 = fresh_step(urt)
+        rec["whole_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        rec["whole_max_abs_err"], rec["whole_flip_fraction"] = held(
+            mine1, T.leaves(whole1["params"]))
+        del whole1, urt, mine1
+        _free()
+    if spec.get("witness"):
+        # step 1 in fp32 compute against the same step in one process with
+        # the lanes stacked (nothing sharded; its params saved by the
+        # parent before the ranks started)
+        model32 = build_model(cfg, compute_dtype=torch.float32,
+                              param_dtype=torch.float32)
+        wrt = build_runtime(model32, s.config.run_policy(), lr=s.config.lr,
+                            comm=comm)
+        got = fresh_step(wrt)
+        want = torch.load(spec["witness"], mmap=True)
+        mine = _witness_errs(zplan, got, want, rank // g)
+        del got, wrt, model32, want
+        _free()
+        import torch.distributed as dist
+        seen = [None] * world
+        dist.all_gather_object(seen, mine)
+        rec["witness"] = {
+            "m_rel_err": max(x["m_rel_err"] for x in seen),
+            "params_max_abs_err": max(x["max_abs"] for x in seen),
+            "params_max_abs_err_held": max(x["max_abs_held"] for x in seen),
+            "elements": sum(x["elements"] for x in seen),
+            "exempt": sum(x["exempt"] for x in seen),
+            "exempt_past_tol": sum(x["exempt_past_tol"] for x in seen),
+            "worst_leaf": max((x["worst"] for x in seen),
+                              key=lambda w: w[1])}
+    if spec.get("synthetic"):
+        rec["synthetic"] = [_synthetic_rvh(comm, world, "none")]
+        if compress != "none":
+            rec["synthetic"].append(_synthetic_rvh(comm, world, compress))
+        rec["gather_ok"] = _gather_check(comm, world)
     rec["staged_bytes_total"] = comm.total_staged_bytes()
-    rec["peak_gib_all"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    rec.setdefault("peak_gib_all",
+                   torch.cuda.max_memory_allocated() / 2 ** 30)
     s.close()
     Path(spec["out"]).write_text(json.dumps(rec, default=str))
     return 0
+
+
+def _witness_errs(plan, got, want, lane: int) -> dict:
+    """This rank's step-1 state `got` (fp32 compute, sharded by `plan`)
+    against `want`, the same step in one process (`_witness_step`): the
+    largest |m - m_one| over its leaf's largest |m_one|; the params'
+    largest |difference| overall and where every lane's |m| passes
+    WITNESS_M_FLOOR (held to TRAIN_PARAM_TOL); how many elements are
+    exempt and how many of those pass TRAIN_PARAM_TOL; and the leaf with
+    the most elements past it (index, count, size)."""
+    import torch
+    from repro_torch import tree as T
+    out = {"m_rel_err": 0.0, "max_abs": 0.0, "max_abs_held": 0.0,
+           "elements": 0, "exempt": 0, "exempt_past_tol": 0,
+           "worst": (None, 0, 0)}
+    mm = T.leaves(got["opt"]["inner"]["m"])
+    for i, x in enumerate(T.leaves(got["params"])):
+        lanes = want["m"][i]                       # [span, ...] whole
+        ref = plan.take(i, lanes[lane], "state")
+        err = (mm[i].cpu() - ref).abs().max().item()
+        out["m_rel_err"] = max(out["m_rel_err"],
+                               err / max(want["m_max"][i], 1e-30))
+        e = (x.cpu() - plan.take(i, want["params"][i], "params")).abs()
+        small = plan.take(i, lanes[0], "params").abs()
+        for l in range(1, lanes.shape[0]):
+            torch.minimum(small, plan.take(i, lanes[l], "params").abs(),
+                          out=small)
+        exempt = small <= WITNESS_M_FLOOR
+        past = e > TRAIN_PARAM_TOL
+        out["max_abs"] = max(out["max_abs"], e.max().item())
+        held = e[~exempt]
+        if held.numel():
+            out["max_abs_held"] = max(out["max_abs_held"],
+                                      held.max().item())
+        out["elements"] += e.numel()
+        out["exempt"] += int(exempt.sum())
+        out["exempt_past_tol"] += int((past & exempt).sum())
+        n = int(past.sum())
+        if n > out["worst"][1]:
+            out["worst"] = (i, n, e.numel())
+        del e, small, exempt, past
+    return out
+
+
+def _gib_of(tree) -> float:
+    """GiB of a tree's tensors."""
+    from repro_torch import tree as T
+    return sum(x.numel() * x.element_size() for x in T.leaves(tree)) / 2**30
 
 
 def _free_port() -> int:
@@ -2095,14 +2312,6 @@ def _free_port() -> int:
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         return sock.getsockname()[1]
-
-
-def _launch_ranks(world: int, optimizer: str, compress: str,
-                  ckpt_dir: str = "") -> list:
-    """Phase 6's `world` rank processes (see `_spawn_ranks`)."""
-    return _spawn_ranks(world, f"{optimizer}_w{world}", {
-        "world": world, "optimizer": optimizer, "compress": compress,
-        "ckpt_dir": ckpt_dir})
 
 
 def _spawn_ranks(world: int, tag: str, spec: dict,
@@ -2159,10 +2368,12 @@ def _spawn_ranks(world: int, tag: str, spec: dict,
     return recs if beside is None else (recs, got)
 
 
-def ranks_phase(card: str):
+def ranks_phase(card: str, witness: bool = False):
     """Phase 6: multi-rank Adasum (RVH across ranks) through
     `TrainSession` in rank processes that share this machine's one
-    card over gloo."""
+    card over gloo, the data axis sharded in runs (a) and (A); with
+    `witness`, RANK_WITNESS's runs also hold their step 1 in fp32 compute
+    against one process."""
     import torch
     _free()
     print(f"[smoke] ranks: before launching, this process holds "
@@ -2174,120 +2385,251 @@ def ranks_phase(card: str):
           f"exchange times are host loopback times | {card}")
     import shutil
     runs = {}
-    for i, (optimizer, world, compress) in enumerate(RANK_RUNS):
-        # the first run also saves, restores and redoes its last step
-        # (phase 7 (d)); its checkpoint goes under build/, gitignored
-        ckpt = ROOT / "build" / "ckpt_ranks" if i == 0 else None
+    for tag, optimizer, world, compress, fields in RANK_RUNS:
+        # the checkpointing run's directory and the witness's params go
+        # under build/, gitignored
+        ckpt = ROOT / "build" / "ckpt_ranks" if tag == RANK_CKPT else None
+        wpath = ROOT / "build" / "ranks" / f"witness_{tag}.pt" \
+            if witness and tag in RANK_WITNESS else None
         t0 = time.perf_counter()
         try:
-            recs = _launch_ranks(world, optimizer, compress,
-                                 str(ckpt) if ckpt else "")
+            if wpath:
+                _witness_step(optimizer, world, fields, wpath, card)
+            recs = _spawn_ranks(world, f"{optimizer}_w{world}", {
+                "world": world, "optimizer": optimizer,
+                "compress": compress, "shard": fields,
+                "steps": 1 if fields.get("fsdp") else RANK_STEPS,
+                "ckpt_dir": str(ckpt) if ckpt else "",
+                "synthetic": tag in RANK_SYNTHETIC,
+                "plain": tag in RANK_PLAIN,
+                "witness": str(wpath) if wpath else ""})
         finally:
             if ckpt:
                 shutil.rmtree(ckpt, ignore_errors=True)
-        wall = time.perf_counter() - t0
-        lead = recs[0]
-        per_step = lead["buckets"] * lead["rounds"]
-        tag = f"{optimizer} world={world} compress={compress}"
-        for rec in recs:
-            for k in ("block_dots", "block_combine"):
-                assert rec["launches"][k] == RANK_STEPS * per_step, (
-                    f"{tag} rank {rec['rank']}: {k} launched "
-                    f"{rec['launches'][k]} times, expected "
-                    f"{RANK_STEPS * per_step} ({lead['buckets']} buckets x "
-                    f"{lead['rounds']} rounds x {RANK_STEPS} steps)")
-        steady = [r["steps"][1:] for r in recs]
-        mean = lambda f: statistics.mean(f(st) for rs in steady for st in rs)
-        part = lambda name: mean(lambda st: st["comm"].get(name, 0.0))
-        peaks = [r["peak_gib"] for r in recs]
-        peaks_all = [r["peak_gib_all"] for r in recs]
-        bitwise = all(st["bitwise_across_ranks"] for r in recs
-                      for st in r["steps"])
-        repeat = all(r["repeat_bitwise"] for r in recs)
-        syn = lead["synthetic"]
-        run = {"world": world, "optimizer": optimizer, "compress": compress,
-               "point": lead["point"], "combine_path": lead["combine_path"],
-               "buckets": lead["buckets"], "rounds": lead["rounds"],
-               "launches": [r["launches"] for r in recs],
-               "losses": [st["loss"] for st in lead["steps"]],
-               "step_ms": [[st["ms"] for st in r["steps"]] for r in recs],
-               "step_ms_steady": mean(lambda st: st["ms"]),
-               "combine_ms_steady": mean(lambda st: st["combine_ms"]),
-               "exchange_ms_steady": part("exchange"),
-               "staging_ms_steady": part("stage"),
-               "dots_sum_ms_steady": part("dots_sum"),
-               "kernels_ms_steady": part("kernels"),
-               "staged_gb_per_step": mean(lambda st: st["staged_bytes"])
-               / 1e9,
-               "peak_gib": peaks, "peak_gib_sum": sum(peaks),
-               "peak_gib_all_checks": peaks_all,
-               "bitwise_across_ranks": bitwise, "repeat_bitwise": repeat,
-               "wall_s": wall, "init_s": [r["init_s"] for r in recs],
-               **{k: lead[k] for k in lead if k.endswith(("_err", "_abs",
-                                                          "_fraction",
-                                                          "_steps"))},
-               "synthetic": syn,
-               "gather_ok": [r["gather_ok"] for r in recs]}
-        if ckpt:
-            run["ckpt"] = {
-                "redo_bitwise": [r["ckpt"]["redo_bitwise"] for r in recs],
-                "save_s": lead["ckpt"]["save_s"],
-                "snapshot_s": lead["ckpt"].get("snapshot_s"),
-                "write_s": lead["ckpt"].get("write_s"),
-                "write_bytes": lead["ckpt"].get("write_bytes"),
-                "restore_s": [r["ckpt"]["restore_s"] for r in recs],
-                "crc_s": [r["ckpt"]["crc_s"] for r in recs]}
-        runs[f"{optimizer}_w{world}"] = run
-        per_rank = [{k: n[k] for k in ("block_dots", "block_combine")}
-                    for n in run["launches"]]
-        print(f"[smoke] ranks {tag} point={run['point']} "
-              f"path={run['combine_path']} buckets={run['buckets']} "
-              f"rounds={run['rounds']} launches per rank={per_rank} "
-              f"losses={[round(x, 4) for x in run['losses']]} | {card}")
-        print(f"[smoke] ranks {tag}: step_ms={run['step_ms_steady']:.1f} "
-              f"combine_ms={run['combine_ms_steady']:.1f} of which "
-              f"exchange_ms={run['exchange_ms_steady']:.1f} (staging_ms="
-              f"{run['staging_ms_steady']:.1f}; gloo over host loopback, "
-              f"not NCCL) dots_sum_ms={run['dots_sum_ms_steady']:.1f} "
-              f"dots+combine kernels_ms={run['kernels_ms_steady']:.1f}; "
-              f"staged {run['staged_gb_per_step']:.2f} GB a step per rank; "
-              f"peak_gib per rank={[round(x, 2) for x in peaks]} sum="
-              f"{sum(peaks):.2f} (limit {RANK_MEM_GIB}; with the checks "
-              f"after the run {sum(peaks_all):.2f}); phase wall "
-              f"{wall:.1f}s | {card}")
-        print(f"[smoke] ranks {tag}: params bitwise equal across ranks after "
-              f"every step={bitwise}; step 1 repeated bitwise={repeat}; "
-              f"kernel vs plain: combined rel_err="
-              f"{lead['combined_rel_err']:.3e} (flip fraction "
-              f"{lead['combined_flip_fraction']:.2e}, largest "
-              f"{lead['combined_steps']:.3f} steps) stats rel_err="
-              f"{lead['stats_rel_err']:.3e} (tol {COMBINED_RTOL}); params "
-              f"max_abs_err={lead['params_max_abs_err']:.3e} (tol "
-              f"{TRAIN_PARAM_TOL}, flip fraction "
-              f"{lead['params_flip_fraction']:.2e}) against a step-1 "
-              f"update of max {lead['update_max_abs']:.3e}; synthetic RVH vs"
-              f" fused tree (compress, rel_err, steps): "
-              f"{[(x['compress'], x['rel_err'], x['steps']) for x in syn]};"
-              f" gather_to_host ok={run['gather_ok']} | {card}")
-        assert bitwise, f"{tag}: params differ across ranks"
-        assert repeat, f"{tag}: step 1 is not bitwise repeatable"
-        assert all(x["ok"] and x["bitwise_across_ranks"] for x in syn), syn
-        assert all(r["gather_ok"] for r in recs), (
-            f"{tag}: Comm.gather_to_host rows or staged bytes wrong: "
-            f"{[r['gather_ok'] for r in recs]}")
-        assert lead["stats_rel_err"] <= COMBINED_RTOL, tag
-        if compress == "none":
-            assert lead["combined_rel_err"] <= COMBINED_RTOL, tag
-            assert lead["params_max_abs_err"] <= TRAIN_PARAM_TOL, tag
-        else:
-            assert lead["combined_flip_fraction"] <= INT8_FLIP_FRACTION, tag
-            assert lead["combined_steps"] <= 2, tag
-            assert lead["params_flip_fraction"] <= INT8_FLIP_FRACTION, tag
-            assert lead["params_max_abs_err"] <= (
-                2 * lead["update_max_abs"] / 127 + TRAIN_PARAM_TOL), tag
-        assert sum(peaks) <= RANK_MEM_GIB, (
-            f"{tag}: summed peak {sum(peaks):.1f} GiB > {RANK_MEM_GIB}")
+            if wpath:
+                wpath.unlink(missing_ok=True)
+        runs[f"{optimizer}_w{world}"] = _rank_run(
+            card, tag, recs, time.perf_counter() - t0)
+    key = lambda t: "{}_w{}".format(*_rank_run_of(t)[1:3])
+    for tag, near in SHARD_BELOW.items():
+        got, want = runs[key(tag)], runs[key(near)]
+        print(f"[smoke] ranks peaks: ({tag}) sharded "
+              f"{[round(x, 2) for x in got['peak_gib']]} GiB a rank, "
+              f"holding params {got['held_gib'][0]['params']:.3f} and state "
+              f"{got['held_gib'][0]['state']:.3f} GiB, beside the unsharded "
+              f"({near})'s {[round(x, 2) for x in want['peak_gib']]}, "
+              f"holding {want['held_gib'][0]['params']:.3f} and "
+              f"{want['held_gib'][0]['state']:.3f} | {card}")
+        assert max(got["peak_gib"]) < min(want["peak_gib"]), (
+            f"({tag}): a rank's peak {max(got['peak_gib']):.2f} GiB is not "
+            f"below ({near})'s {min(want['peak_gib']):.2f}")
     return {"layers": RANK_LAYERS, "runs": runs}
+
+
+def _witness_step(optimizer: str, world: int, fields: dict, path: Path,
+                  card: str) -> None:
+    """Step 1 of a phase-6 run in this process, in fp32 compute, with its
+    `world` ranks' lanes stacked and nothing sharded (fsdp and
+    scatter_grads change nothing on one device), saved to `path` for the
+    ranks to hold theirs against: its params and adam's first moment m
+    ([span, ...], one row a lane), whole, and each m leaf's largest
+    |m|."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config("gemma-7b"), n_layers=RANK_LAYERS)
+    model = build_model(cfg, compute_dtype=torch.float32,
+                        param_dtype=torch.float32)
+    rest = {k: v for k, v in fields.items() if k not in ("span", "backend")}
+    span = fields.get("span") or world
+    t0 = time.perf_counter()
+    s = _session(model, optimizer=optimizer, span=span, backend="gspmd_tree",
+                 global_batch=RANK_BATCH, **rest)
+    s.step(s.batch(0))
+    m = T.leaves(s.state["opt"]["inner"]["m"])
+    torch.save({"params": [x.cpu() for x in T.leaves(s.state["params"])],
+                "m": [x.cpu() for x in m],
+                "m_max": [x.abs().max().item() for x in m]}, path)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del s, m
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"[smoke] ranks: one process, lanes stacked, fp32 compute, "
+          f"{optimizer} span {span}: step 1 params and m saved in "
+          f"{time.perf_counter() - t0:.1f} s (peak {peak:.2f} GiB) | {card}")
+
+
+def _rank_run_of(tag: str) -> tuple:
+    """The RANK_RUNS entry of `tag`."""
+    return next(r for r in RANK_RUNS if r[0] == tag)
+
+
+def _rank_run(card: str, tag: str, recs: list, wall: float) -> dict:
+    """One run of phase 6 from its ranks' records: printed and checked
+    (see the module docstring)."""
+    lead = recs[0]
+    world, optimizer, compress = lead["world"], lead["optimizer"], \
+        lead["compress"]
+    shard = lead["shard"]
+    sharded = "whole_max_abs_err" in lead
+    name = f"({tag}) {optimizer} world={world} compress={compress}" + "".join(
+        f" {k}={v}" for k, v in shard.items() if k != "backend")
+    per_step = lead["buckets"] * lead["rounds"]
+    nsteps = len(lead["steps"])
+    for rec in recs:
+        for k in ("block_dots", "block_combine"):
+            assert rec["launches"][k] == nsteps * per_step > 0, (
+                f"{name} rank {rec['rank']}: {k} launched "
+                f"{rec['launches'][k]} times, expected "
+                f"{nsteps * per_step} ({lead['buckets']} buckets x "
+                f"{lead['rounds']} rounds x {nsteps} steps)")
+    # the steps after the first, else the repeat of step 1 (warm buffers)
+    steady = [r["steps"][1:] or [r["repeat_step"]] for r in recs]
+    mean = lambda f: statistics.mean(f(st) for rs in steady for st in rs)
+    part = lambda n: mean(lambda st: st["comm"].get(n, 0.0))
+    peaks = [r["peak_gib"] for r in recs]
+    peaks_all = [r["peak_gib_all"] for r in recs]
+    bitwise = all(st["bitwise_across_ranks"] for r in recs
+                  for st in r["steps"])
+    repeat = all(r["repeat_bitwise"] for r in recs)
+    run = {"tag": tag, "world": world, "optimizer": optimizer,
+           "compress": compress, "fields": shard, "point": lead["point"],
+           "span": lead["span"], "combine_path": lead["combine_path"],
+           "buckets": lead["buckets"], "rounds": lead["rounds"],
+           "sharded_leaves": lead["sharded_leaves"],
+           "launches": [r["launches"] for r in recs],
+           "losses": [st["loss"] for st in lead["steps"]],
+           "step_ms": [[st["ms"] for st in r["steps"]] for r in recs],
+           "step_ms_steady": mean(lambda st: st["ms"]),
+           "combine_ms_steady": mean(lambda st: st["combine_ms"]),
+           **{f"{n}_ms_steady": part(n) for n in (
+               "exchange", "reduce_scatter", "all_gather", "allreduce",
+               "stage", "dots_sum", "kernels")},
+           "staged_gb_per_step": mean(lambda st: st["staged_bytes"]) / 1e9,
+           "held_gib": [r["held_gib"] for r in recs],
+           "peak_gib": peaks, "peak_gib_sum": sum(peaks),
+           "peak_gib_all_checks": peaks_all,
+           "init_peak_gib": [r["init_peak_gib"] for r in recs],
+           "bitwise_across_ranks": bitwise, "repeat_bitwise": repeat,
+           "wall_s": wall, "init_s": [r["init_s"] for r in recs],
+           **{k: lead[k] for k in lead if k.endswith(
+               ("_err", "_abs", "_fraction", "_steps"))}}
+    for k in ("synthetic", "gather_ok"):
+        if k in lead:
+            run[k] = lead[k] if k == "synthetic" else \
+                [r[k] for r in recs]
+    if sharded:
+        run["whole_peak_gib"] = [r["whole_peak_gib"] for r in recs]
+    witness = lead.get("witness")
+    if witness:
+        run["witness"] = witness
+    if "ckpt" in lead:
+        run["ckpt"] = {
+            "redo_bitwise": [r["ckpt"]["redo_bitwise"] for r in recs],
+            "save_s": lead["ckpt"]["save_s"],
+            "snapshot_s": lead["ckpt"].get("snapshot_s"),
+            "write_s": lead["ckpt"].get("write_s"),
+            "write_bytes": lead["ckpt"].get("write_bytes"),
+            "restore_s": [r["ckpt"]["restore_s"] for r in recs],
+            "crc_s": [r["ckpt"]["crc_s"] for r in recs]}
+    r0 = [{k: n[k] for k in ("block_dots", "block_combine")}
+          for n in run["launches"]]
+    print(f"[smoke] ranks {name} point={run['point']} "
+          f"path={run['combine_path']} span={run['span']} sharded leaves="
+          f"{run['sharded_leaves']} buckets={run['buckets']} rounds="
+          f"{run['rounds']} launches per rank={r0} losses="
+          f"{[round(x, 4) for x in run['losses']]} | {card}")
+    print(f"[smoke] ranks {name}: step_ms={run['step_ms_steady']:.1f} "
+          f"combine_ms={run['combine_ms_steady']:.1f} of which exchange_ms="
+          f"{run['exchange_ms_steady']:.1f}; reduce_scatter_ms="
+          f"{run['reduce_scatter_ms_steady']:.1f} all_gather_ms="
+          f"{run['all_gather_ms_steady']:.1f} allreduce_ms="
+          f"{run['allreduce_ms_steady']:.1f} (staging_ms="
+          f"{run['stage_ms_steady']:.1f}; gloo over host loopback, not "
+          f"NCCL) dots_sum_ms={run['dots_sum_ms_steady']:.1f} dots+combine "
+          f"kernels_ms={run['kernels_ms_steady']:.1f}; staged "
+          f"{run['staged_gb_per_step']:.2f} GB a step per rank; phase wall "
+          f"{wall:.1f}s | {card}")
+    print(f"[smoke] ranks {name}: held GiB per rank (params, state)="
+          f"{[(round(h['params'], 3), round(h['state'], 3)) for h in run['held_gib']]}"
+          f" peak_gib per rank={[round(x, 2) for x in peaks]} sum="
+          f"{sum(peaks):.2f} (limit {RANK_MEM_GIB}; init peak "
+          f"{max(run['init_peak_gib']):.2f}; with the checks after the run "
+          f"{sum(peaks_all):.2f}) | {card}")
+    whole = (f"; vs step 1 with the params whole (fsdp off; peak "
+             f"{[round(x, 2) for x in run['whole_peak_gib']]} GiB): "
+             f"max_abs_err={lead['whole_max_abs_err']:.3e} flip fraction "
+             f"{lead['whole_flip_fraction']:.2e} (tol {TRAIN_PARAM_TOL} but "
+             f"{SHARD_FLIP_FRACTION}, none past {SHARD_MAX_ABS})"
+             if sharded else "")
+    if witness:
+        w = witness
+        whole += (f"; fp32 compute vs one process, lanes stacked, nothing "
+                  f"sharded: adam m rel_err={w['m_rel_err']:.3e} (tol "
+                  f"{WITNESS_M_RTOL}); params max_abs_err="
+                  f"{w['params_max_abs_err_held']:.3e} where every lane's "
+                  f"|m| > {WITNESS_M_FLOOR} (tol {TRAIN_PARAM_TOL}), "
+                  f"{w['params_max_abs_err']:.3e} overall (tol "
+                  f"{SHARD_MAX_ABS}); {w['exempt']} of {w['elements']} "
+                  f"elements at or below the floor, {w['exempt_past_tol']} "
+                  f"of them past {TRAIN_PARAM_TOL}; most past it in leaf "
+                  f"{w['worst_leaf'][0]}: {w['worst_leaf'][1]} of "
+                  f"{w['worst_leaf'][2]}")
+    syn = run.get("synthetic")
+    extra = (f"; synthetic RVH vs fused tree (compress, rel_err, steps): "
+             f"{[(x['compress'], x['rel_err'], x['steps']) for x in syn]}; "
+             f"gather_to_host ok={run['gather_ok']}" if syn else "")
+    plain = "stats_rel_err" in lead
+    held = (f"kernel vs plain: combined rel_err="
+            f"{lead['combined_rel_err']:.3e} (flip fraction "
+            f"{lead['combined_flip_fraction']:.2e}, largest "
+            f"{lead['combined_steps']:.3f} steps) stats rel_err="
+            f"{lead['stats_rel_err']:.3e} (tol {COMBINED_RTOL}); params "
+            f"max_abs_err={lead['params_max_abs_err']:.3e} (tol "
+            f"{TRAIN_PARAM_TOL}, flip fraction "
+            f"{lead['params_flip_fraction']:.2e})" if plain else
+            "no plain arm (RANK_PLAIN)")
+    print(f"[smoke] ranks {name}: {'whole ' if sharded else ''}params "
+          f"bitwise equal across ranks after every step={bitwise}; step 1 "
+          f"repeated bitwise={repeat}; {held} against a step-1 update of "
+          f"max {lead['update_max_abs']:.3e}{whole}{extra} | {card}")
+    assert bitwise, f"{name}: params differ across ranks"
+    assert repeat, f"{name}: step 1 is not bitwise repeatable"
+    if syn:
+        assert all(x["ok"] and x["bitwise_across_ranks"] for x in syn), syn
+        assert all(run["gather_ok"]), (
+            f"{name}: Comm.gather_to_host rows or staged bytes wrong: "
+            f"{run['gather_ok']}")
+    if not plain:
+        pass
+    elif compress == "none":
+        assert lead["stats_rel_err"] <= COMBINED_RTOL, name
+        assert lead["combined_rel_err"] <= COMBINED_RTOL, name
+        assert lead["params_max_abs_err"] <= TRAIN_PARAM_TOL, name
+    else:
+        assert lead["stats_rel_err"] <= COMBINED_RTOL, name
+        assert lead["combined_flip_fraction"] <= INT8_FLIP_FRACTION, name
+        assert lead["combined_steps"] <= 2, name
+        assert lead["params_flip_fraction"] <= INT8_FLIP_FRACTION, name
+        assert lead["params_max_abs_err"] <= (
+            2 * lead["update_max_abs"] / 127 + TRAIN_PARAM_TOL), name
+    if sharded:
+        assert run["sharded_leaves"] > 0, name
+        assert lead["whole_flip_fraction"] <= SHARD_FLIP_FRACTION, name
+        assert lead["whole_max_abs_err"] <= SHARD_MAX_ABS, name
+        assert max(peaks) < min(run["whole_peak_gib"]), (
+            f"{name}: a rank's peak {max(peaks):.2f} GiB is not below its "
+            f"step with the params whole, {min(run['whole_peak_gib']):.2f}")
+    if witness:
+        assert witness["m_rel_err"] <= WITNESS_M_RTOL, (name, witness)
+        assert witness["params_max_abs_err_held"] <= TRAIN_PARAM_TOL, (
+            name, witness)
+        assert witness["params_max_abs_err"] <= SHARD_MAX_ABS, (
+            name, witness)
+    assert sum(peaks) <= RANK_MEM_GIB, (
+        f"{name}: summed peak {sum(peaks):.1f} GiB > {RANK_MEM_GIB}")
+    return run
 
 
 # -------------------------------------------------------- checkpoint phase
@@ -2551,11 +2893,12 @@ def ckpt_phase(card: str, ranks: dict):
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    # (d) ranks: phase 6's first run saved its last step, restored it in
-    # place on every rank and redid the step
-    first = ranks["runs"]["{}_w{}".format(*RANK_RUNS[0][:2])]
+    # (d) ranks: phase 6's checkpointing run saved its last step, restored
+    # it in place on every rank and redid the step
+    _, opt, world, _, _ = _rank_run_of(RANK_CKPT)
+    first = ranks["runs"][f"{opt}_w{world}"]
     rec["ranks"] = first["ckpt"]
-    print(f"[smoke] ckpt ranks ({RANK_RUNS[0][0]} world={RANK_RUNS[0][1]}):"
+    print(f"[smoke] ckpt ranks ({RANK_CKPT}: {opt} world={world}):"
           f" {first['ckpt']} | {card}")
     assert all(first["ckpt"]["redo_bitwise"]), first["ckpt"]
     return rec
@@ -2651,13 +2994,14 @@ P9_OVERLAP_ROUNDS = 5
 # new_group is collective over every process, so two ranks of a
 # four-rank launch cannot build their runtime's groups alone). Each run:
 # (name, EngineConfig fields, steps); one step runs every leg of a
-# stateless (sgd) path, the delayed run's second step is its first with
-# a nonzero carry
+# synchronous path, the delayed run's second step is its first with a
+# nonzero carry
 P9_RANK_RUNS = {
     4: (("sum_sgd", dict(combine="sum", optimizer="sgd"), 1),
         ("adascale_sgd", dict(combine="adascale", optimizer="sgd"), 1),
-        ("span2_accum2_sgd", dict(span=2, backend="gspmd_tree",
-                                  optimizer="sgd", accum_steps=2), 1),
+        ("span2_accum2_momentum", dict(span=2, backend="gspmd_tree",
+                                       optimizer="momentum", accum_steps=2),
+         1),
         ("span2_local2_sgd", dict(span=2, backend="gspmd_tree",
                                   optimizer="sgd", local_steps=2), 1)),
     2: (("mean_sgd", dict(combine="mean", optimizer="sgd"), 1),
@@ -3741,6 +4085,8 @@ P11_MIXTRAL_LAYERS = 2      # of 56: 5.41 B params, 10.8 GB of bf16 weights
 P11_MOONSHOT_LAYERS = 4     # of 48 (1 dense + 3 MoE): 2.46 B, 4.9 GB bf16
 P11_TRAIN_MOONSHOT = 2      # 1 dense + 1 MoE: 1.28 B params in fp32
 P11_TRAIN_MINICPM = 8       # of 62: 0.69 B params in fp32
+P11_MINICPM_LAYERS = 16     # of 62, served (bf16): depth cut for the
+                            # script's time limit
 P11_MEM_GIB = 70
 P11_GEN = 32
 P11_SPEC_K = 4
@@ -4117,15 +4463,16 @@ def _p11_moonshot(card: str) -> dict:
 
 
 def _p11_minicpm(card: str) -> dict:
-    """(c) minicpm3-4b serving at full depth: the latent cache, paged and
-    dense."""
+    """(c) minicpm3-4b serving at P11_MINICPM_LAYERS layers: the latent
+    cache, paged and dense."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.engine import EngineConfig, ServeEngine
     from repro_torch.kernels import build
     from repro_torch.models import build_model
-    cfg = get_config("minicpm3-4b")
+    cfg = dataclasses.replace(get_config("minicpm3-4b"),
+                              n_layers=P11_MINICPM_LAYERS)
     model = build_model(cfg, compute_dtype=torch.bfloat16,
                         param_dtype=torch.bfloat16)
     params, init_s = _p11_init(model)
@@ -4133,7 +4480,7 @@ def _p11_minicpm(card: str) -> dict:
           f"heads={cfg.n_heads} q_lora={cfg.q_lora_rank} kv_lora="
           f"{cfg.kv_lora_rank} qk={cfg.qk_nope_head_dim}+"
           f"{cfg.qk_rope_head_dim} v={cfg.v_head_dim} vocab="
-          f"{cfg.vocab_size}; full depth {cfg.n_layers}; "
+          f"{cfg.vocab_size}; depth cut 62 -> {cfg.n_layers}; "
           f"{cfg.param_count() / 1e9:.2f}B params in bf16, init "
           f"{init_s:.1f}s, {_mem()}")
     V = cfg.vocab_size
@@ -4338,6 +4685,8 @@ def families_phase(card: str) -> dict:
 P12_GEN = 32
 P12_SERVE_LEN = 128          # rwkv's slots (prompts of 24-48, 32 new)
 P12_HYMBA_LEN = 256          # hymba's slots: 16 pages of 16 a slot
+P12_SERVE_LAYERS = 16        # rwkv6-7b's and hymba's served layers, of
+                             # 32 each: depth cut for the time limit
 P12_ROLL_LAYERS = 2          # hymba at 2 of 32 layers for the roll past
 P12_ROLL_PROMPT = 1040       # its 1024-token window
 P12_ROLL_GEN = 8
@@ -4402,24 +4751,6 @@ def _p12_step_slots(model, params, seqs, cap):
     return last, cache
 
 
-def _p12_margins(model, params, prompts, a, b, cap) -> list:
-    """`_divergence_margins` for a model without a parallel prefill: at
-    each pair of streams' first difference i, how much `model`'s logits
-    after prompt + a[:i] (all pairs in one batch, paged, step by step)
-    prefer a[i] over b[i]."""
-    import numpy as np
-    firsts = [(k, next((j for j, (x, y) in enumerate(zip(s, t)) if x != y),
-                       None)) for k, (s, t) in enumerate(zip(a, b))]
-    firsts = [(k, i) for k, i in firsts if i is not None]
-    if not firsts:
-        return []
-    seqs = [np.concatenate([prompts[k], np.asarray(a[k][:i], np.int64)])
-            for k, i in firsts]
-    last = _p12_step_slots(model, params, seqs, cap)[0]
-    return [lg[a[k][i]].item() - lg[b[k][i]].item()
-            for lg, (k, i) in zip(last, firsts)]
-
-
 class _HeldPaged:
     """While active, every `paged_decode_attention` call is also computed
     by its plain version on the same inputs; `errs` gets each call's
@@ -4465,21 +4796,23 @@ def _p12_one_tick(model, plain, params, seqs, cap) -> dict:
 
 
 def _p12_rwkv(card: str) -> dict:
-    """(a) rwkv6-7b at its full 32 layers: serving (dense fallback,
-    speculation refused), the scan-prefill repair on the card, decode vs
-    the chunked forward."""
+    """(a) rwkv6-7b at P12_SERVE_LAYERS of its 32 layers: serving (dense
+    fallback, speculation refused), the scan-prefill repair on the card,
+    decode vs the chunked forward."""
     import warnings
     import numpy as np
     import torch
     from repro_torch.engine import EngineConfig, ServeEngine
     from repro_torch.engine.serving.engine import _make_scan_prefill
     from repro_torch.kernels import build
-    full, cfg, model, _ = _p11_build("rwkv6-7b", 32, "bfloat16")
+    full, cfg, model, _ = _p11_build("rwkv6-7b", P12_SERVE_LAYERS,
+                                     "bfloat16")
     params, init_s = _p11_init(model)
     print(f"[smoke] p12 (a) {cfg.name}: full width d_model={cfg.d_model} "
           f"heads={cfg.d_model // cfg.rwkv_head_dim}x{cfg.rwkv_head_dim} "
-          f"d_ff={cfg.d_ff} vocab={cfg.vocab_size}, all {cfg.n_layers} "
-          f"layers; {cfg.param_count() / 1e9:.2f}B params in bf16, init "
+          f"d_ff={cfg.d_ff} vocab={cfg.vocab_size}, {cfg.n_layers} of "
+          f"{full.n_layers} layers; {cfg.param_count() / 1e9:.2f}B params "
+          f"in bf16, init "
           f"{init_s:.1f}s, {_mem()}")
     V = cfg.vocab_size
     rng = np.random.RandomState(SEED + 12)
@@ -4587,10 +4920,11 @@ def _p12_rwkv(card: str) -> dict:
 
 
 def _p12_hymba(card: str) -> dict:
-    """(b) hymba-1.5b at its full 32 layers, paged serving (kernel arm vs
-    plain arm: tokens; then the prompts stepped and one tick from a
+    """(b) hymba-1.5b at P12_SERVE_LAYERS of its 32 layers, paged
+    serving; then the prompts stepped and one tick of the kernel and
+    plain arms from a
     shared cache, every paged-decode call held, the tick's logits held
-    in fp32 compute); (c) at
+    in fp32 compute; (c) at
     P12_ROLL_LAYERS layers, one prompt past the 1024-token window, kernel
     vs plain in fp32 compute at every step."""
     import warnings
@@ -4599,14 +4933,16 @@ def _p12_hymba(card: str) -> dict:
     from repro_torch.engine import EngineConfig, ServeEngine
     from repro_torch.kernels import build
     from repro_torch.models import build_model
-    full, cfg, model, plain = _p11_build("hymba-1.5b", 32, "bfloat16")
+    full, cfg, model, plain = _p11_build("hymba-1.5b", P12_SERVE_LAYERS,
+                                         "bfloat16")
     params, init_s = _p11_init(model)
     G = cfg.n_heads // cfg.n_kv_heads
     print(f"[smoke] p12 (b) {cfg.name}: full width d_model={cfg.d_model} "
           f"heads={cfg.n_heads}/{cfg.n_kv_heads} (G={G}) head_dim="
           f"{cfg.resolved_head_dim} window={cfg.sliding_window} mamba "
-          f"heads={cfg.ssm_heads} state={cfg.ssm_state}, all "
-          f"{cfg.n_layers} layers; {cfg.param_count() / 1e9:.2f}B params "
+          f"heads={cfg.ssm_heads} state={cfg.ssm_state}, "
+          f"{cfg.n_layers} of {full.n_layers} layers; "
+          f"{cfg.param_count() / 1e9:.2f}B params "
           f"in bf16, init {init_s:.1f}s, {_mem()}")
     V = cfg.vocab_size
     rng = np.random.RandomState(SEED + 13)
@@ -4614,34 +4950,26 @@ def _p12_hymba(card: str) -> dict:
     prompts = [rng.randint(0, V, n) for n in (48, 53, 58, 64)]
     ecfg = EngineConfig(max_slots=4, max_len=P12_HYMBA_LEN, page_size=16,
                         param_dtype="bfloat16")
-    arms, walls = {}, {}
-    for tag, m in (("kernel", model), ("plain", plain)):
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            eng = ServeEngine(ecfg, m, params)
-        warned = any("stay dense per-slot" in str(w.message)
-                     for w in caught)
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        build.reset_launches()
-        hs, walls[tag] = _timed(lambda: _greedy(eng, prompts, [4], P12_GEN))
-        launches = dict(build.LAUNCHES)
-        if tag == "kernel":
-            res = _p11_serve_line("(b) serve hymba", eng, hs, launches,
-                                  card, "p12")
-            kv = eng.kv_stats()
-        arms[tag] = [h.tokens for h in hs]
-        del eng
-        _free()
-    agree = _agreement(arms["kernel"], arms["plain"])
-    margins = _p12_margins(model, params, prompts, arms["kernel"],
-                           arms["plain"], P12_HYMBA_LEN)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        eng = ServeEngine(ecfg, model, params)
+    warned = any("stay dense per-slot" in str(w.message) for w in caught)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    build.reset_launches()
+    hs, wall = _timed(lambda: _greedy(eng, prompts, [4], P12_GEN))
+    launches = dict(build.LAUNCHES)
+    res = _p11_serve_line("(b) serve hymba", eng, hs, launches, card, "p12")
+    kv = eng.kv_stats()
+    tokens = [h.tokens for h in hs]
+    del eng
+    _free()
     # the holds on the serve path: the prompts stepped through the kernel
-    # arm, then one tick of each arm from that same cache, all 32 layers.
+    # arm, then one tick of each arm from that same cache, every layer.
     # In bf16 every paged-decode call is held against its plain version
     # on the same inputs; the tick's logits are recorded, not held: one
-    # ulp of difference in each layer's attention grows through the 32
-    # random-weight layers to O(1) logits. The logits are held in fp32
+    # ulp of difference in each layer's attention grows through the
+    # random-weight layers to O(1) logits (1.84 at all 32). The logits are held in fp32
     # compute, where the two arms are the same function.
     with _HeldPaged() as held:
         tick = _p12_one_tick(model, plain, params, prompts, P12_HYMBA_LEN)
@@ -4657,10 +4985,7 @@ def _p12_hymba(card: str) -> dict:
           f"({kv['kv_page_bytes']} B a page), mamba state "
           f"{kv['dense_fallback_leaves']} leaves = "
           f"{kv['dense_fallback_bytes'] / ecfg.max_slots / 1e6:.2f} MB a "
-          f"slot (warned {warned}); kernel arm vs plain arm tokens: equal "
-          f"share {agree['equal_share']:.3f}, first divergences "
-          f"{agree['first_divergence']}, margins there "
-          f"{[round(x, 4) for x in margins]}; the prompts then one tick "
+          f"slot (warned {warned}); the prompts then one tick "
           f"from the same cache, all {cfg.n_layers} layers: each of "
           f"{calls['n']} paged-decode calls vs its plain version "
           f"max_abs_err={calls['max_abs_err']:.2e} (tol {calls['tol']}); "
@@ -4675,9 +5000,8 @@ def _p12_hymba(card: str) -> dict:
         "paged decode never launched on hymba"
     assert calls["max_abs_err"] <= calls["tol"], calls
     assert tick32["max_abs_err"] <= P12_FP32_TOL, tick32
-    res.update(init_s=init_s, wall_s=walls, arms=arms, agreement=agree,
-               margins=margins, one_tick={"calls": calls, "fp32": tick32,
-                                          "bf16": tick}, G=G,
+    res.update(init_s=init_s, wall_s=wall, tokens=tokens,
+               one_tick={"calls": calls, "fp32": tick32, "bf16": tick}, G=G,
                layers=cfg.n_layers, params_b=cfg.param_count() / 1e9,
                kv_bytes_per_token=kv["kv_page_bytes"] // 16,
                state_bytes_per_slot=(kv["dense_fallback_bytes"]
@@ -4868,6 +5192,12 @@ def main(argv=None) -> int:
     ap.add_argument("--recurrent-only", action="store_true",
                     help="build the kernels and run phase 12 alone; prints "
                     "no result line")
+    ap.add_argument("--ranks-only", action="store_true",
+                    help="build the kernels and run phase 6 alone; prints "
+                    "no result line")
+    ap.add_argument("--witness", action="store_true",
+                    help="phase 6 also holds (A)'s step 1 in fp32 compute "
+                    "against one process (~1 min more)")
     ap.add_argument("--combiners-only", action="store_true",
                     help="build the kernels and run phase 9 alone (with "
                     "--profile: and trace one overlapped and one serial "
@@ -4922,6 +5252,12 @@ def main(argv=None) -> int:
         if args.combiners_only:
             record["combiners"] = combiners_phase(card, args.profile)
             return 0
+        if args.ranks_only:
+            t0 = time.perf_counter()
+            record["ranks"] = ranks_phase(card, args.witness)
+            print(f"[smoke] phase 6 wall {time.perf_counter() - t0:.1f} s "
+                  f"| {card}")
+            return 0
         if args.subsystems_only:
             record["subsystems"] = subsystems_phase(card)
             return 0
@@ -4939,6 +5275,10 @@ def main(argv=None) -> int:
             walls[phase] = now - t_mark[0]
             t_mark[0] = now
 
+        # the ranks first: their four processes share the card, and need
+        # the memory the later phases would leave beside them
+        record["ranks"] = ranks_phase(card, args.witness)
+        mark("6")
         cases = record["kernel_cases"] = kernel_phase()
         mark("3")
         record["serve"], parts = serve_phase(card, args.profile)
@@ -4949,9 +5289,6 @@ def main(argv=None) -> int:
         mark("8")
         record["train"] = train_phase(card, args.profile)
         mark("5")
-        record["ranks"] = ranks_phase(card)
-        _free()
-        mark("6")
         record["ckpt"] = ckpt_phase(card, record["ranks"])
         # phase 7's last session stays reachable from the SIGTERM handler
         # its checkpoint manager installed (as the reference's does): 12
@@ -4991,10 +5328,10 @@ def main(argv=None) -> int:
     first = record["train"]["runs"][
         "{}_span{}".format(*TRAIN_RUNS[0])]["launches"]
     launches.update({k: first[k] for k in ("block_dots", "block_combine")})
-    # and beside them, their launches on rank 0 of phase 6's first run and
-    # their times on RVH's 1-D round-0 half
-    rvh_launches = record["ranks"]["runs"]["{}_w{}".format(
-        *RANK_RUNS[0][:2])]["launches"][0]
+    # and beside them, their launches on rank 0 of each of phase 6's runs
+    # and their times on RVH's 1-D round-0 half
+    rvh_launches = {t: record["ranks"]["runs"][f"{o}_w{w}"]["launches"][0]
+                    for t, o, w, _, _ in RANK_RUNS}
     rvh_ms = {c["kernel"]: c["ms"] for c in cases
               if c["case"] == "rvh_half_w4"}
     # and their launches inside phase 7: the resumed step (prefetch on) and
@@ -5043,9 +5380,10 @@ def main(argv=None) -> int:
         if c["kernel"] in ("flash_attention", "paged_decode_attention"):
             rows[-1]["phase8_launches"] = ext_launches[c["kernel"]]
         if c["kernel"] in rvh_ms:
-            rows[-1].update(rvh_launches=rvh_launches[c["kernel"]],
-                            rvh_half_ms=rvh_ms[c["kernel"]],
-                            phase9_launches=p9_launches[c["kernel"]])
+            rows[-1].update(rvh_launches={
+                t: n[c["kernel"]] for t, n in rvh_launches.items()},
+                rvh_half_ms=rvh_ms[c["kernel"]],
+                phase9_launches=p9_launches[c["kernel"]])
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -354,9 +354,11 @@ class CheckpointManager:
         [span, ...] optimizer state or pending carry): the stored [old
         span, ...] leaf is resharded to [span, ...] first, then the
         process takes row `lane` — so a span change folds or repeats the
-        lanes as the full leaf does. Every leaf is validated first; with
-        step=None a corrupt newest step is quarantined and the previous
-        one restored."""
+        lanes as the full leaf does. A callable instead takes the stored
+        array and its manifest dtype to the array this process holds (a
+        rank's shard of the full leaf). Every leaf is validated first;
+        with step=None a corrupt newest step is quarantined and the
+        previous one restored."""
         step, meta, arrays = self._resolve_verified(step)
         leaves, treedef = T.flatten(like)
         files = _leaf_files(len(leaves))
@@ -379,8 +381,9 @@ class CheckpointManager:
             arr = arrays.pop(fname)
             want = tuple(np.shape(leaf))
             if lpath in rows:
-                lane, span = rows[lpath]
-                arr = _reshard(arr, (span,) + want, dtypes[fname])[lane]
+                how = rows[lpath]
+                arr = how(arr, dtypes[fname]) if callable(how) else \
+                    lane_row(arr, *how, want, dtypes[fname])
             elif tuple(arr.shape) != want:
                 arr = _reshard(arr, want, dtypes[fname])
             out.append(_into(leaf, arr, dtypes[fname]))
@@ -539,6 +542,13 @@ def _reshard(arr: np.ndarray, want: tuple, dtype: str) -> np.ndarray:
     vals = to_tensor(arr, BF16).float().numpy()
     out = torch.from_numpy(np.ascontiguousarray(reshard_lanes(vals, want)))
     return host_leaf(out.to(torch.bfloat16)).arr
+
+
+def lane_row(arr: np.ndarray, lane: int, span: int, want: tuple,
+             dtype: str) -> np.ndarray:
+    """Row `lane` of a stored [old span, *want] lane leaf resharded to
+    `span` lanes."""
+    return _reshard(arr, (span,) + tuple(want), dtype)[lane]
 
 
 def reshard_lanes(arr: np.ndarray, want: tuple) -> np.ndarray:

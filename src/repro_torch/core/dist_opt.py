@@ -42,6 +42,10 @@ class DistributedOptimizer:
     span: int = 1
     stacked: bool = True        # lanes stacked on one device; False: one
                                 # lane per rank, no lane axis
+    # across ranks with the state sharded (ZeRO-1): params -> a tree of
+    # stand-ins of this rank's state shapes (only their shape and device
+    # are read), which `init` builds the state from
+    state_like: Optional[Callable[[PyTree], PyTree]] = None
 
     @property
     def point(self) -> str:
@@ -52,7 +56,8 @@ class DistributedOptimizer:
         return self.cfg.point
 
     def init(self, params: PyTree) -> Dict[str, Any]:
-        state = self.opt.init(params)
+        state = self.opt.init(self.state_like(params) if self.state_like
+                              else params)
         if self.point == "post" and self.span > 1 and self.stacked:
             # one optimizer state per lane (Horovod: per-node state)
             state = T.map(lambda x: x.expand((self.span,) + tuple(x.shape))

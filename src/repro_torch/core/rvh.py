@@ -35,8 +35,19 @@ too) dequantizes every chunk the same way: the result is replicated
 bitwise. That is the value every rank but the owner holds in the
 reference.
 
-ZeRO-1 (`allgather_result=False`) and tensor-parallel leaf specs are
-ROADMAP.md queue 1 item 7.
+ZeRO-1 (`allgather_result=False`): the allgather phase is skipped and
+each rank keeps the chunk it owns (rvh.py:183-184), bitwise that chunk
+of the full result. For that chunk to be the rank's own piece of every
+leaf, `adasum_rvh_pytree` takes lane-group shards (`shard_dims`) in
+buckets laid out chunk-major (`ShardLayout`): chunk c holds, leaf after
+leaf, the 1/world sub-piece of each shard that the rank owning chunk c
+keeps. Adasum per layer does not depend on where a layer's elements sit
+in the buffer, only on the dots, so the layout moves summation order,
+not the function. When the shards are 1/g of a leaf (the hierarchical
+regime, g ranks a lane group), each round's per-layer dot triples are
+also summed over the lane group (`shard_comm`), in rank order: without
+that sum the Adasum scalars would be those of a fragment of the layer.
+Tensor-parallel leaf specs are ROADMAP.md queue 1 item 7.
 """
 from __future__ import annotations
 
@@ -158,28 +169,40 @@ def _round_metas(block_seg: np.ndarray, num_segments: int, block: int,
     return metas
 
 
+def owned_chunk(rank: int, world: int) -> int:
+    """The 1/world chunk of a bucket that `rank` holds after the reduce
+    phase (the halves it keeps, round after round)."""
+    lo, n = 0, world
+    for d in round_distances(world):
+        n //= 2
+        if (rank // d) % 2:
+            lo += n
+    return lo
+
+
 def adasum_rvh_local(buf: torch.Tensor, metas: Sequence[RoundMeta], comm, *,
                      acc_dtype=torch.float32, fp32_math: bool = False,
                      compress: str = "none", impl: str = "kernel",
                      allgather_result: bool = True,
                      probe: Optional[list] = None,
+                     shard_comm=None,
                      seg_scale: Optional[torch.Tensor] = None,
                      model_axes: Sequence[str] = ()) -> torch.Tensor:
     """Algorithm 1 on this rank's fused bucket `buf` [padded_len]
     (padding zeroed, padded_len a multiple of world x block), with
     `metas` from `_round_metas` for this rank. Returns the combined
-    bucket, the same on every rank. `probe`, when given, receives round
-    0's local per-segment triples (before the pair sum).
+    bucket, the same on every rank; with allgather_result=False only
+    the chunk this rank owns (`owned_chunk`), bitwise that chunk of the
+    full result. `shard_comm`, when given, holds the other shards of the
+    bucket's layers: each round's dot triples are summed over it first.
+    `probe`, when given, receives round 0's per-segment triples before
+    the pair sum.
 
     Memory: each round's input dies once its output is written, so a
     caller that hands `buf` over without keeping a reference (e.g.
     `adasum_rvh_local(bufs.pop(), ...)`) holds at most the bucket plus
     one half at a time. The reference's tensor-parallel `seg_scale` /
-    `model_axes` and ZeRO-1 (`allgather_result=False`) raise, naming
-    ROADMAP.md queue 1 item 7."""
-    if not allgather_result:
-        raise not_ported("RVH without its allgather phase (ZeRO-1, "
-                         "allgather_result=False)", ITEM_SHARDING)
+    `model_axes` raise, naming ROADMAP.md queue 1 item 7."""
     if seg_scale is not None or model_axes:
         raise not_ported("tensor-parallel dots in RVH (seg_scale, "
                          "model_axes)", ITEM_SHARDING)
@@ -203,6 +226,8 @@ def adasum_rvh_local(buf: torch.Tensor, metas: Sequence[RoundMeta], comm, *,
         a, b = (keep, recv) if is_left else (recv, keep)
         with comm.timed("kernels"):
             v = segment_dots(a, b, meta, acc_dtype, impl)
+        if shard_comm is not None:
+            v = shard_comm.group_sum(v, shard_comm.world)
         if probe is not None and r == 0:
             probe.append(v)
         v = comm.group_sum(v, 2 * d)             # finish the dots (line 17)
@@ -212,6 +237,8 @@ def adasum_rvh_local(buf: torch.Tensor, metas: Sequence[RoundMeta], comm, *,
         buf = new
         off, length = (off, mid) if is_left else (off + mid, mid)
         trace.append((d, is_left))
+    if not allgather_result:
+        return buf
     # ---- allgather phase (lines 22-24): every rank's chunk into one [n]
     # buffer, the rounds in reverse, each exchanging the span it holds for
     # its partner's, received in place. Compressed, the int8 payloads
@@ -245,42 +272,161 @@ def adasum_rvh_local(buf: torch.Tensor, metas: Sequence[RoundMeta], comm, *,
 
 # ------------------------------------------------------------------ pytree
 @dataclasses.dataclass(frozen=True)
+class ShardLayout:
+    """A bucket of shards laid out chunk-major: the buffer is `world`
+    chunks of `chunk_len`, and chunk c holds, leaf after leaf (each on a
+    block boundary), sub-piece `owners[c]` of every shard along its
+    sharded dim — the piece the rank owning chunk c keeps."""
+    shapes: Tuple[Tuple[int, ...], ...]   # the shards' shapes
+    dims: Tuple[int, ...]                 # each shard's sharded dim
+    offsets: Tuple[int, ...]              # within a chunk
+    sizes: Tuple[int, ...]                # a sub-piece's elements
+    chunk_len: int
+    owners: Tuple[int, ...]               # chunk c -> the rank owning it
+    dtypes: Tuple[torch.dtype, ...]       # each shard's dtype
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The buffer's dtype."""
+        return fusion._result_type(self.dtypes)
+
+    @property
+    def padded_len(self) -> int:
+        return len(self.owners) * self.chunk_len
+
+    def piece_shape(self, i: int) -> Tuple[int, ...]:
+        shape = list(self.shapes[i])
+        shape[self.dims[i]] //= len(self.owners)
+        return tuple(shape)
+
+    def block_segments(self, block: int) -> np.ndarray:
+        seg = np.full((self.padded_len // block,), len(self.shapes),
+                      dtype=np.int64)
+        for c in range(len(self.owners)):
+            for i, (off, sz) in enumerate(zip(self.offsets, self.sizes)):
+                lo = c * self.chunk_len + off
+                seg[lo // block:(lo + sz + block - 1) // block] = i
+        return seg
+
+
+def shard_layout(leaves: Sequence[Any], dims: Sequence[int], world: int,
+                 block: int) -> ShardLayout:
+    sizes = [int(np.prod(x.shape)) // world for x in leaves]
+    offsets, off = [], 0
+    for n in sizes:
+        offsets.append(off)
+        off += -(-n // block) * block
+    owners = [0] * world
+    for r in range(world):
+        owners[owned_chunk(r, world)] = r
+    return ShardLayout(tuple(tuple(x.shape) for x in leaves), tuple(dims),
+                       tuple(offsets), tuple(sizes), max(off, block),
+                       tuple(owners), tuple(x.dtype for x in leaves))
+
+
+def _sub(x: torch.Tensor, dim: int, j: int, world: int) -> torch.Tensor:
+    n = x.shape[dim] // world
+    return x.narrow(dim, j * n, n)
+
+
+def pack_shards(leaves: Sequence[torch.Tensor], lay: ShardLayout
+                ) -> torch.Tensor:
+    buf = torch.zeros(lay.padded_len, dtype=lay.dtype,
+                      device=leaves[0].device)
+    view = buf.view(len(lay.owners), lay.chunk_len)
+    for c, j in enumerate(lay.owners):
+        for i, x in enumerate(leaves):
+            sub = _sub(x, lay.dims[i], j, len(lay.owners))
+            view[c, lay.offsets[i]:lay.offsets[i] + lay.sizes[i]].view(
+                sub.shape).copy_(sub)
+    return buf
+
+
+def unpack_pieces(chunk: torch.Tensor, lay: ShardLayout
+                  ) -> List[torch.Tensor]:
+    """The owned chunk -> this rank's piece of each shard (views)."""
+    return [chunk[o:o + n].view(lay.piece_shape(i)).to(lay.dtypes[i])
+            for i, (o, n) in enumerate(zip(lay.offsets, lay.sizes))]
+
+
+def unpack_shards(buf: torch.Tensor, lay: ShardLayout) -> List[torch.Tensor]:
+    """The whole combined bucket -> each shard, its sub-pieces in place."""
+    view = buf.view(len(lay.owners), lay.chunk_len)
+    out = []
+    for i, shape in enumerate(lay.shapes):
+        x = torch.empty(shape, dtype=lay.dtypes[i], device=buf.device)
+        for c, j in enumerate(lay.owners):
+            sub = _sub(x, lay.dims[i], j, len(lay.owners))
+            sub.copy_(view[c, lay.offsets[i]:lay.offsets[i]
+                           + lay.sizes[i]].view(sub.shape))
+        out.append(x)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
 class _Bucket:
-    """One bucket's static pieces on this rank."""
-    lo: int                       # leaf range [lo, hi) in flatten order
-    hi: int
-    layout: fusion.FusionLayout
+    """One bucket's static pieces on this rank: its leaves (indices in
+    flatten order), its layout — a `fusion.FusionLayout` of whole
+    leaves, or a `ShardLayout` of shards — and its rounds."""
+    idxs: Tuple[int, ...]
+    layout: Any
     metas: Tuple[RoundMeta, ...]
+
+    @property
+    def sharded(self) -> bool:
+        return isinstance(self.layout, ShardLayout)
 
 
 def rvh_plan(leaves: Sequence[Any], world: int, rank: int, *,
              per_layer: bool = True, bucket_bytes: Optional[int] = None,
-             block: int = K.BLOCK_ELEMS, device=None) -> List[_Bucket]:
+             block: int = K.BLOCK_ELEMS, device=None,
+             shard_dims: Optional[Sequence[Optional[int]]] = None
+             ) -> List[_Bucket]:
     """The buckets of `adasum_rvh_pytree` (rvh.py:276-315): per-bucket
     chains at `bucket_bytes` when per_layer and there is more than one
     leaf, else one bucket; per_layer=False collapses every leaf into one
-    segment (the padding tail is segment 1)."""
-    if per_layer and bucket_bytes and len(leaves) > 1:
-        nbytes = [(int(np.prod(x.shape)) if len(x.shape) else 1)
-                  * x.dtype.itemsize for x in leaves]
-        ranges = fusion.bucketize_sizes(nbytes, bucket_bytes)
-    else:
-        ranges = [(0, len(leaves))]
+    segment (the padding tail is segment 1). With `shard_dims`, the
+    leaves with a dim (shards) and those without (whole leaves) are
+    bucketed apart, the shards chunk-major (`ShardLayout`)."""
+    dims = list(shard_dims) if shard_dims is not None else \
+        [None] * len(leaves)
+    if not per_layer and any(d is not None for d in dims):
+        raise not_ported("whole-model Adasum (per_layer=False) on shards",
+                         ITEM_SHARDING)
     plan = []
-    for lo, hi in ranges:
-        specs = tuple(fusion.Spec(tuple(x.shape), x.dtype)
-                      for x in leaves[lo:hi])
-        layout = fusion.make_layout(specs, align=world, leaf_align=block)
-        if per_layer:
-            seg = _block_segments(layout, block)
-            nseg = layout.num_segments
+    for sharded in (False, True):
+        idxs = [i for i, d in enumerate(dims) if (d is not None) == sharded]
+        if not idxs:
+            continue
+        sub = [leaves[i] for i in idxs]
+        if per_layer and bucket_bytes and len(sub) > 1:
+            nbytes = [(int(np.prod(x.shape)) if len(x.shape) else 1)
+                      * x.dtype.itemsize for x in sub]
+            ranges = fusion.bucketize_sizes(nbytes, bucket_bytes)
         else:
-            seg = np.zeros((layout.padded_len // block,), np.int64)
-            end = max(o + s for o, s in zip(layout.offsets, layout.sizes))
-            seg[-(-end // block):] = 1
-            nseg = 1
-        plan.append(_Bucket(lo, hi, layout, tuple(_round_metas(
-            seg, nseg + 1, block, rank, world, device))))
+            ranges = [(0, len(sub))]
+        for lo, hi in ranges:
+            part = idxs[lo:hi]
+            if sharded:
+                layout = shard_layout([leaves[i] for i in part],
+                                      [dims[i] for i in part], world, block)
+                seg, nseg = layout.block_segments(block), len(part)
+            else:
+                specs = tuple(fusion.Spec(tuple(leaves[i].shape),
+                                          leaves[i].dtype) for i in part)
+                layout = fusion.make_layout(specs, align=world,
+                                            leaf_align=block)
+                if per_layer:
+                    seg = _block_segments(layout, block)
+                    nseg = layout.num_segments
+                else:
+                    seg = np.zeros((layout.padded_len // block,), np.int64)
+                    end = max(o + s for o, s in zip(layout.offsets,
+                                                    layout.sizes))
+                    seg[-(-end // block):] = 1
+                    nseg = 1
+            plan.append(_Bucket(tuple(part), layout, tuple(_round_metas(
+                seg, nseg + 1, block, rank, world, device))))
     return plan
 
 
@@ -292,10 +438,20 @@ def adasum_rvh_pytree(tree: PyTree, comm, *, per_layer: bool = True,
                       collect: Optional[list] = None,
                       cache: Optional[dict] = None,
                       leaf_specs: Optional[PyTree] = None,
+                      shard_dims: Optional[Sequence[Optional[int]]] = None,
+                      shard_comm=None,
                       allgather_result: bool = True) -> PyTree:
     """ADASUMRVH of this rank's lane `tree` (leaves [*shape], no lane
     axis) with every other rank's: the combined tree, the same bits on
     every rank (rvh.py:219-326).
+
+    `shard_dims` (one entry per leaf in flatten order) marks the leaves
+    given as shards: their dim `d` splits into `comm.world` sub-pieces,
+    sub-piece j being rank j's to keep, and `shard_comm` (if any) holds
+    the other shards of the same leaves, over which the dots are summed.
+    With allgather_result=False a shard comes back as this rank's
+    sub-piece of the combined shard (ZeRO-1; whole leaves still come
+    back whole), else as the combined shard.
 
     `use_pallas` selects the combine's fp32 rule on the plain arm, as in
     the reference. `collect`, when given, receives one [3] triple:
@@ -313,28 +469,40 @@ def adasum_rvh_pytree(tree: PyTree, comm, *, per_layer: bool = True,
     leaves, treedef = T.flatten(tree)
     if not leaves:
         return tree
-    key = tuple((tuple(x.shape), x.dtype) for x in leaves)
+    key = (tuple((tuple(x.shape), x.dtype) for x in leaves),
+           None if shard_dims is None else tuple(shard_dims))
     plan = cache.get(key) if cache is not None else None
     if plan is None:
         plan = rvh_plan(leaves, comm.world, comm.rank, per_layer=per_layer,
-                        bucket_bytes=bucket_bytes, device=leaves[0].device)
+                        bucket_bytes=bucket_bytes, device=leaves[0].device,
+                        shard_dims=shard_dims)
         if cache is not None:
             cache[key] = plan
     out: List[Any] = [None] * len(leaves)
     probe: Optional[list] = [] if collect is not None else None
     for bucket in plan:
-        sub = leaves[bucket.lo:bucket.hi]
-        packed = [fusion.pack(sub, bucket.layout)]
+        sub = [leaves[i] for i in bucket.idxs]
+        lay = bucket.layout
+        packed = [pack_shards(sub, lay) if bucket.sharded
+                  else fusion.pack(sub, lay)]
         if donate:
             for x in sub:
                 _release(x)
         del sub
+        gather = allgather_result or not bucket.sharded
         buf = adasum_rvh_local(      # handed over: each round frees its input
             packed.pop(), bucket.metas, comm, acc_dtype=acc_dtype,
             fp32_math=use_pallas, compress=compress, impl=impl,
-            allgather_result=allgather_result, probe=probe)
-        out[bucket.lo:bucket.hi] = T.leaves(fusion.unpack(buf,
-                                                          bucket.layout))
+            allgather_result=gather, probe=probe,
+            shard_comm=shard_comm if bucket.sharded else None)
+        if not bucket.sharded:
+            got = T.leaves(fusion.unpack(buf, lay))
+        elif gather:
+            got = unpack_shards(buf, lay)
+        else:
+            got = unpack_pieces(buf, lay)
+        for i, x in zip(bucket.idxs, got):
+            out[i] = x
     del leaves
     if collect is not None and comm.world > 1:
         local = sum(v.sum(dim=0) for v in probe)
@@ -343,10 +511,13 @@ def adasum_rvh_pytree(tree: PyTree, comm, *, per_layer: bool = True,
 
 
 def build_rvh_combiner(cfg: CombineConfig, comm, *, with_stats: bool = False,
-                       impl: str = "kernel", donate: bool = False):
+                       impl: str = "kernel", donate: bool = False,
+                       shard_dims: Optional[Sequence[Optional[int]]] = None,
+                       shard_comm=None, allgather_result: bool = True):
     """The `adasum-rvh` combiner over `comm`: this rank's lane tree ->
     the combined tree (and, with_stats, its CombineStats: {'levels':
-    [1, 3]} from round 0, [0, 3] at world 1)."""
+    [1, 3]} from round 0, [0, 3] at world 1). `shard_dims`, `shard_comm`
+    and `allgather_result` as in `adasum_rvh_pytree`."""
     cache: dict = {}
 
     def run(tree: PyTree):
@@ -355,7 +526,8 @@ def build_rvh_combiner(cfg: CombineConfig, comm, *, with_stats: bool = False,
             tree, comm, per_layer=cfg.per_layer, acc_dtype=cfg.acc,
             use_pallas=cfg.use_pallas, compress=cfg.compress,
             bucket_bytes=cfg.fusion_bytes, impl=impl, donate=donate,
-            collect=collect, cache=cache)
+            collect=collect, cache=cache, shard_dims=shard_dims,
+            shard_comm=shard_comm, allgather_result=allgather_result)
         return (out, stack_stats(collect)) if with_stats else out
 
     run.combine_path = "rvh"

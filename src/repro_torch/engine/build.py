@@ -37,18 +37,22 @@ global batch and takes its own rows.
   * span < W (the reference's hierarchical gspmd_tree regime): a lane is
     g = W/span contiguous ranks, rank r holding the (r mod g)-th 1/g of
     every microbatch of lane r // g's rows (one microbatch, the whole
-    lane, unless accum_steps or local_steps split it). `lm_loss` is a
-    masked token mean, so a microbatch's gradient is the group's rank
-    gradients weighted by their share of its labelled tokens, summed by
-    an all-reduce in the lane group; the combiner then reduces the lanes
-    across the `span` ranks of equal position (r mod g). The g position
-    groups compute the same result.
+    lane, unless accum_steps or local_steps split it). Each rank's loss
+    is its exact share of the microbatch's (`parallel.zero.TokenGroup`:
+    the label count, and a MoE layer's capacity, slot order and
+    load-balance statistics, are the whole microbatch's), so the lane
+    group's gradients sum to the microbatch's; the combiner then reduces
+    the lanes across the `span` ranks of equal position (r mod g).
 The combiner is RVH for the Adasum tree (op 'adasum' with backend '',
 'rvh', 'gspmd_tree' or 'fused'), else the registry's entry across ranks
 (sum, mean, adasum-linear, adascale, or one registered). The optimizer
-steps at the pre point on replicated state, or at the post point on each
-rank's own lane state; every rank ends the step with the same
-parameters. Metrics are the lane means, the same on every rank. With
+steps at the pre point, or at the post point on each rank's own lane
+state; every rank ends the step with the same parameters. The data axis
+is sharded as the reference's GSPMD shards it (`parallel.zero`): the
+optimizer state ZeRO-1 (at the pre point, and at the post point below
+span == dp for the Adasum tree), the lane gradients ZeRO-2 under
+`scatter_grads` below span == dp, the params under `fsdp`. Metrics are
+the lane means, the same on every rank. With
 combine_delay the pending carry is this rank's lane delta, its lane mean
 the cross-rank mean, and the correction runs on an exchange comm of its
 own (a second process group over the same ranks).
@@ -70,6 +74,8 @@ from repro_torch.core.dist_opt import DistributedOptimizer
 from repro_torch.models.api import Model
 from repro_torch.optim.optimizers import Optimizer, get_optimizer
 from repro_torch.parallel.policy import RunPolicy
+from repro_torch.parallel.zero import RankPlan, TokenGroup
+from repro_torch.runtime import ITEM_SHARDING, not_ported
 from .registry import make_combiner, registry_key
 
 PyTree = Any
@@ -93,6 +99,10 @@ class Runtime:
     combine_stats: bool = False # per-step CombineStats metrics emitted
     dp_total: int = 1
     comm: Any = None            # the ranks' Comm (None: one device)
+    # across ranks with the data axis sharded: this rank's layouts
+    # (`parallel.zero.RankPlan`; None: every leaf whole on every rank —
+    # the synchronous step then runs on a plan that shards nothing)
+    plan: Any = None
     # the delayed combine's pieces (combine_delay = 1 only): train_step
     # == fold(local_fn, correction_fn(pending)); DelayedCombineStream
     # runs correction_fn beside local_fn
@@ -164,16 +174,32 @@ def _resolve_ranked(rpol, span, dp_total, explicit, strict):
     return ccfg
 
 
-def _value_and_grad(model: Model):
-    """(params, batch) -> ((loss, metrics), grads), all detached."""
-    def grad_fn(params, batch):
+def _value_and_flat_grad(model: Model):
+    """(params, batch, **loss kwargs) -> ((loss, metrics), [grad per leaf
+    in flatten order]), all detached; a leaf whose gradient autograd does
+    not get (an FSDP piece: its gradient goes to the step's store) has
+    None."""
+    def grad_fn(params, batch, **kw):
         leaves, td = T.flatten(params)
         req = [p.detach().requires_grad_(True) for p in leaves]
         with torch.enable_grad():
-            total, mets = model.loss(T.unflatten(td, req), batch)
-            grads = torch.autograd.grad(total, req)
+            total, mets = model.loss(T.unflatten(td, req), batch, **kw)
+            grads = torch.autograd.grad(total, req, allow_unused=True)
         return ((total.detach(), {k: v.detach() for k, v in mets.items()}),
-                T.unflatten(td, list(grads)))
+                list(grads))
+    return grad_fn
+
+
+def _value_and_grad(model: Model):
+    """(params, batch, **loss kwargs) -> ((loss, metrics), grads), all
+    detached."""
+    flat = _value_and_flat_grad(model)
+
+    def grad_fn(params, batch, **kw):
+        out, grads = flat(params, batch, **kw)
+        if any(x is None for x in grads):
+            raise ValueError("a param leaf takes no part in the loss")
+        return out, T.unflatten(T.flatten(params)[1], grads)
     return grad_fn
 
 
@@ -376,10 +402,10 @@ def build_runtime(model: Model, rpol: RunPolicy, *, lr=1e-3,
                    combine_stats=scombiner is not None)
 
 
-def _accumulate(out: torch.Tensor, x: torch.Tensor, w: float = 1.0):
-    """out <- out + w·x in fp32, cast to out's dtype (x is consumed; for
-    fp32 out and x all in place, with no lane-sized temporary)."""
-    return out.copy_(out.float().add_(x.float().mul_(w)))
+def _accumulate(out: torch.Tensor, x: torch.Tensor):
+    """out <- out + x in fp32, cast to out's dtype (for fp32 out and x
+    all in place, with no lane-sized temporary)."""
+    return out.copy_(out.float().add_(x.float()))
 
 
 def _check_delay(rpol: RunPolicy) -> bool:
@@ -431,6 +457,55 @@ def _make_opt(rpol: RunPolicy, lr, optimizer: Optional[Optimizer]):
     return optimizer or get_optimizer(rpol.optimizer, lr, **opt_kwargs)
 
 
+def _param_shapes(cfg) -> PyTree:
+    """The params tree as meta tensors (shapes only, nothing allocated)."""
+    from repro_torch.models import transformer as TF
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(v) for k, v in node.items()}
+        return torch.empty(node[0], device="meta")
+    return build(TF.param_spec(cfg))
+
+
+_RVH_KEYS = ("adasum-rvh", "adasum-gspmd", "adasum-fused")
+
+
+def _plan_sharding(model: Model, rpol: RunPolicy, key: str, point: str,
+                   span: int, W: int, delayed: bool,
+                   stateful: bool) -> bool:
+    """Whether the ranked runtime shards the data axis (else its plan
+    holds every leaf whole), and a refusal of the combinations this
+    slice does not reach (ROADMAP item 7). ZeRO-1 applies by itself on
+    the synchronous step of an optimizer with state (`stateful`; sgd has
+    none, so the reference's state plan shards nothing there) — at the
+    pre point for every combiner, at the post point below span == dp for
+    the Adasum tree (build.py:261-284); `fsdp` and, at span < dp,
+    `scatter_grads` ask for more."""
+    g = W // span
+    rvh = key in _RVH_KEYS
+    sync = not delayed and rpol.local_steps <= 1 and rpol.per_layer
+    asked = rpol.fsdp or (rpol.scatter_grads and g > 1)
+    if asked:
+        why = None
+        if not rvh:
+            why = f"the {key} combiner"
+        elif delayed:
+            why = "the delayed combine (combine_delay=1)"
+        elif rpol.local_steps > 1:
+            why = "local_steps > 1"
+        elif not rpol.per_layer:
+            why = "whole-model Adasum (per_layer=False)"
+        elif rpol.fsdp and model.cfg.is_encoder_decoder:
+            why = "the encoder-decoder's own training loop"
+        if why:
+            raise not_ported(f"fsdp / scatter_grads with {why}",
+                             ITEM_SHARDING)
+        return True
+    return sync and stateful and (point == "pre" or (rvh and g > 1))
+
+
+
 def _build_ranked(model: Model, rpol: RunPolicy, comm, *, lr, combine,
                   optimizer, strict, combine_impl) -> Runtime:
     """One process per rank; see the module docstring."""
@@ -443,7 +518,8 @@ def _build_ranked(model: Model, rpol: RunPolicy, comm, *, lr, combine,
     delayed = _check_delay(rpol)
     key = registry_key(ccfg.op, ccfg.backend)
     g = W // span                      # ranks in a lane group
-    if key in ("adasum-rvh", "adasum-gspmd", "adasum-fused"):
+    rvh = key in _RVH_KEYS
+    if rvh:
         if ccfg.backend != "rvh" and g == 1 and span > 1:
             warnings.warn(
                 f"backend={ccfg.backend!r} with one lane per rank (span == "
@@ -453,6 +529,13 @@ def _build_ranked(model: Model, rpol: RunPolicy, comm, *, lr, combine,
         path = "rvh" if g == 1 else "hier-rvh"
     else:
         run_cfg, path = ccfg, key
+    opt = _make_opt(rpol, lr, optimizer)
+    point = DistributedOptimizer(opt, ccfg, None, span).point
+    post = point == "post"
+    shapes = _param_shapes(model.cfg)
+    sharded = _plan_sharding(model, rpol, key, point, span, W, delayed,
+                             stateful=bool(T.leaves(opt.init(shapes))))
+    sync = not delayed and rpol.local_steps <= 1
     # the splits on every rank, in this order (dist.new_group is
     # collective over all ranks): the lane groups, the ranks of equal
     # position that the combiner reduces across, and for the delayed
@@ -461,25 +544,53 @@ def _build_ranked(model: Model, rpol: RunPolicy, comm, *, lr, combine,
     lane_comm = (comm.split([list(range(l * g, (l + 1) * g))
                              for l in range(span)]) if g > 1 else None)
     rvh_comm = comm.split(position) if g > 1 else comm
+    # the synchronous step runs on a plan (every leaf whole where the
+    # regime shards nothing); local steps and the delayed combine hold
+    # every leaf whole and take none
+    plan = None
+    if sync:
+        plan = RankPlan(model.cfg, shapes, comm, span,
+                        fsdp=rpol.fsdp, scatter_grads=rpol.scatter_grads,
+                        post=post, shard_grads=rvh, lane_comm=lane_comm,
+                        rvh_comm=rvh_comm, shard=sharded)
+    want_stats = rpol.combine_stats and span > 1 and not delayed
+    shard, out_layout = None, "whole"
+    if sharded and rvh:
+        # the sharded leaves come back as this rank's piece where a piece
+        # is what comes next (ZeRO-1's optimizer, an FSDP param), else
+        # as the lane group's part; int8 keeps RVH's own (compressed)
+        # allgather and cuts the piece from it, as the reference's
+        # combine returns the dequantized gather
+        keep_piece = (not post or rpol.fsdp) and ccfg.compress != "int8"
+        out_layout = "piece" if keep_piece else "gshard"
+        shard = dict(shard_dims=plan.dims, shard_comm=lane_comm,
+                     allgather_result=not keep_piece)
     combiner = make_combiner(run_cfg, impl=combine_impl, donate=True,
-                             comm=rvh_comm)
+                             comm=rvh_comm, shard=shard)
     scombiner = None
-    if rpol.combine_stats and span > 1 and not delayed:
+    if want_stats:
         scombiner = make_combiner(run_cfg, with_stats=True,
                                   impl=combine_impl, donate=True,
-                                  comm=rvh_comm)
-    dopt = DistributedOptimizer(_make_opt(rpol, lr, optimizer), ccfg,
-                                combiner, span, stacked=False)
+                                  comm=rvh_comm, shard=shard)
+    dopt = DistributedOptimizer(opt, ccfg, combiner, span, stacked=False,
+                                state_like=plan.state_like if sharded
+                                else None)
     grad_fn = _value_and_grad(model)
+    flat_grad_fn = _value_and_flat_grad(model)
     r = comm.rank
-    post = dopt.point == "post"
+    # at span < W each rank's loss is its share of its microbatch's, so
+    # the lane group's gradients sum to the microbatch's
+    grp = TokenGroup(lane_comm) if lane_comm is not None else None
 
     def init_state(generator: torch.Generator) -> Dict[str, Any]:
         """Every rank draws from its generator; rank 0's params are then
-        broadcast (Horovod's broadcast_parameters)."""
+        broadcast (Horovod's broadcast_parameters), and under fsdp each
+        rank keeps its piece."""
         params = model.init(generator)
         for x in T.leaves(params):
             comm.broadcast(x, 0)
+        if sharded:
+            params = plan.shard_params(params)
         state = {"params": params, "opt": dopt.init(params), "step": 0}
         if delayed:
             state["pending"] = _zero_carry(params)
@@ -488,9 +599,8 @@ def _build_ranked(model: Model, rpol: RunPolicy, comm, *, lr, combine,
     def rank_micro(batch, A: int):
         """This rank's rows of each of its lane's A microbatches (the
         lane's rows [l·B/span, (l+1)·B/span) in A contiguous pieces,
-        build.py:309-336), with each one's weight: its share of the
-        microbatch's labelled tokens (lm_loss is a token mean over labels
-        >= 0), 1 at span == W. At A = 1 rank r takes rows [r·B/W,
+        build.py:309-336); the g ranks of a lane group take contiguous
+        1/g of each, in rank order. At A = 1 rank r takes rows [r·B/W,
         (r+1)·B/W)."""
         B = T.leaves(batch)[0].shape[0]
         if B % W:
@@ -503,55 +613,73 @@ def _build_ranked(model: Model, rpol: RunPolicy, comm, *, lr, combine,
                 f"lane group)")
         mb = lane_rows // A
         per = mb // g
-        count = lambda x: float((x >= 0).sum())
         out = []
         for j in range(A):
-            lo = (r // g) * lane_rows + j * mb
-            s = lo + (r % g) * per
-            mine = T.map(lambda x: x[s:s + per], batch)
-            w = 1.0 if g == 1 else count(mine["labels"]) / max(
-                count(batch["labels"][lo:lo + mb]), 1.0)
-            out.append((mine, w))
+            s = (r // g) * lane_rows + j * mb + (r % g) * per
+            out.append(T.map(lambda x: x[s:s + per], batch))
         return out
 
-    def group_grad(gr, w=None):
-        """The lane gradient from this rank's part: weighted by `w` (None:
-        weighted already), then summed over the lane group, the same
-        bits on its ranks. In place; nothing to do at span == W."""
+    def group_grad(gr):
+        """The lane gradient from this rank's part, summed over the lane
+        group: the same bits on its ranks. In place; nothing to do at
+        span == W."""
         if lane_comm is not None:
             with torch.no_grad():
                 for x in T.leaves(gr):
-                    lane_comm.allreduce(x if w is None else x.mul_(w))
+                    lane_comm.allreduce(x)
         return gr
 
-    def weighted(m, w):
-        return {k: v.float() * w for k, v in m.items()}
+    def metric_share(m):
+        return {k: v.float() for k, v in m.items()}
 
     def rank_grads(params, batch):
-        """This rank's lane gradient: the sum over accum_steps
-        microbatches (accum_dtype, build.py:325-336) of each one's lane
-        gradient; and the rank's share of the lane metrics."""
+        """This rank's lane gradient in the plan's grad layout: the sum
+        over accum_steps microbatches (accum_dtype, build.py:325-336) of
+        each one's lane gradient, each sharded leaf the lane group's sum
+        reduce-scattered to this rank's part — under fsdp by the
+        gather's backward, layer by layer, into `store`; under
+        scatter_grads after each microbatch (ZeRO-2: the accumulator
+        holds the part); else all-reduced once and cut — and each whole
+        leaf all-reduced; and the rank's share of the lane metrics."""
         A = rpol.accum_steps
-        G, mets = None, []
-        for mb, w in rank_micro(batch, A):
-            (_, m), gr = grad_fn(params, mb)
-            mets.append(weighted(m, w))
-            if A <= 1:
-                return group_grad(gr, w), _mean(mets)
-            if G is None:
-                acc_dt = getattr(torch, rpol.accum_dtype)
-                G = T.map(lambda x: torch.zeros(x.shape, dtype=acc_dt,
-                                                device=x.device), gr)
-            T.map(lambda out, x: _accumulate(out, x, w), G, gr)
-            del gr
-        return group_grad(G), _mean(mets)
+        acc_dt = getattr(torch, rpol.accum_dtype) if A > 1 else None
+        leaves, td = T.flatten(params)
+        fsdp = plan.fsdp
+        early = [plan.scatter and plan.shard_grads and lane_comm is not None
+                 and d is not None for d in plan.dims]
+        store = [None] * len(leaves)
+        acc, mets = None, []
+        for mb in rank_micro(batch, A):
+            fs = plan.fsdp_step(store, acc_dt or leaves[0].dtype) \
+                if fsdp else None
+            (_, m), gl = flat_grad_fn(params, mb, fsdp=fs, token_group=grp)
+            mets.append(metric_share(m))
+            with torch.no_grad():
+                gl = [plan.lane_reduce(i, x) if x is not None and early[i]
+                      else x for i, x in enumerate(gl)]
+                if A <= 1:
+                    acc = gl
+                    continue
+                if acc is None:
+                    acc = [None if x is None else torch.zeros(
+                        x.shape, dtype=acc_dt, device=x.device) for x in gl]
+                for out, x in zip(acc, gl):
+                    if x is not None:
+                        _accumulate(out, x)
+            del gl
+        if any(x is None and s is None for x, s in zip(acc, store)):
+            raise ValueError("a param leaf takes no part in the loss")
+        with torch.no_grad():
+            G = [store[i] if store[i] is not None else acc[i] if early[i]
+                 else plan.lane_reduce(i, acc[i]) for i in range(len(acc))]
+        return T.unflatten(td, G), _mean(mets)
 
     def _mean(mets):
         return {k: torch.stack([m[k] for m in mets]).mean() for k in mets[0]}
 
     def lane_metrics(mets):
         """Mean over lanes of the lane metrics, the same bits on every
-        rank: the ranks' weighted shares, summed in rank order."""
+        rank: the ranks' shares, summed in rank order."""
         keys = sorted(mets)
         tot = comm.group_sum(torch.stack([mets[k] for k in keys]), W) / span
         out = {k: tot[i] for i, k in enumerate(keys)}
@@ -563,22 +691,92 @@ def _build_ranked(model: Model, rpol: RunPolicy, comm, *, lr, combine,
         return summarize_stats(stats, span, rows // span)
 
     def sync_step(state, batch):
+        """The synchronous step on the plan's layouts (module docstring
+        of `parallel.zero`): the combine of the lane gradients (pre) or of
+        the lanes' optimizer deltas (post), the optimizer on this rank's
+        part of each leaf and its state, and the update applied to the
+        rank's params — its pieces under fsdp, else every leaf whole
+        again by an all-gather of the pieces."""
         params = state["params"]
         G, mets = rank_grads(params, batch)
+        step, inner = state["opt"]["step"], state["opt"]["inner"]
+        comb = scombiner if scombiner is not None else combiner
+        stats = None
         with torch.no_grad():
-            if scombiner is not None:
-                delta, opt_state, stats = dopt.update_stats(
-                    G, state["opt"], params, scombiner)
+            if not post:
+                out = comb(G)
+                if scombiner is not None:
+                    out, stats = out
+                del G
+                got = _convert(out, out_layout, "piece")
+                del out
+                delta, inner = opt.update(
+                    got, inner, _params_as(params, "piece", got), step,
+                    norm_sum=plan.norm_sums("piece"))
+                layout = "piece"
             else:
-                delta, opt_state = dopt.update(G, state["opt"], params)
-                stats = None
-            del G
-            dopt.apply(params, delta)
+                d, inner = opt.update(
+                    G, inner, _params_as(params, "gshard", G), step,
+                    norm_sum=plan.norm_sums("gshard"))
+                del G
+                delta = comb(d)
+                if scombiner is not None:
+                    delta, stats = delta
+                del d
+                layout = out_layout
+            _apply(params, delta, layout)
+            del delta
         metrics = lane_metrics(mets)
         if stats is not None:
             metrics.update(stat_metrics(stats, batch))
-        return {"params": params, "opt": opt_state,
+        return {"params": params, "opt": {"inner": inner, "step": step + 1},
                 "step": state["step"] + 1}, metrics
+
+    def _convert(tree, have: str, want: str):
+        """Sharded leaves from layout `have` to `want` ('piece' or
+        'gshard' from 'whole', 'gshard' or 'piece')."""
+        leaves, td = T.flatten(tree)
+        out = []
+        for i, x in enumerate(leaves):
+            if plan.dims[i] is not None and have != want:
+                if want == "piece":
+                    x = plan.sub(i, x) if have == "gshard" else \
+                        plan.piece(i, x)
+                else:
+                    x = plan.gshard(i, x)
+            out.append(x)
+        return T.unflatten(td, out)
+
+    def _params_as(params, want: str, like):
+        """The params in layout `want`, when the optimizer reads them
+        (else `like`, a tree it ignores)."""
+        if not opt.reads_params:
+            return like
+        if not plan.fsdp:
+            return _convert(params, "whole", want)
+        if want == "piece":
+            return params
+        leaves, td = T.flatten(params)
+        return T.unflatten(td, [x if plan.dims[i] is None
+                                else plan.gshard_from_pieces(i, x)
+                                for i, x in enumerate(leaves)])
+
+    def _apply(params, delta, layout: str) -> None:
+        """params += delta, leaf by leaf: under fsdp onto this rank's
+        pieces; else each sharded leaf's delta made whole first."""
+        pl, dl = T.leaves(params), T.leaves(delta)
+        for i, (p, d) in enumerate(zip(pl, dl)):
+            if plan.dims[i] is not None:
+                if plan.fsdp:
+                    if layout != "piece":
+                        d = plan.sub(i, d) if layout == "gshard" else \
+                            plan.piece(i, d)
+                elif layout == "piece":
+                    d = plan.whole_from_pieces(i, d)
+                elif layout == "gshard":
+                    d = plan.whole_from_gshard(i, d)
+            p.copy_(p.float().add_(d))
+            del d
 
     def local_delta(params, opt_state, batch, k: int):
         """Paper §5.2 on this rank's lane: k optimizer steps from the
@@ -593,11 +791,11 @@ def _build_ranked(model: Model, rpol: RunPolicy, comm, *, lr, combine,
             oi = T.map(lambda x: x.clone(), oi)
         p = T.map(lambda x: x.clone(), params)
         mets = []
-        for j, (mb, w) in enumerate(rank_micro(batch, k)):
-            (_, m), gr = grad_fn(p, mb)
-            mets.append(weighted(m, w))
+        for j, mb in enumerate(rank_micro(batch, k)):
+            (_, m), gr = grad_fn(p, mb, token_group=grp)
+            mets.append(metric_share(m))
             with torch.no_grad():
-                d, oi = dopt.opt.update(group_grad(gr, w), oi, p,
+                d, oi = dopt.opt.update(group_grad(gr), oi, p,
                                         opt_state["step"] + j)
                 del gr
                 dopt.apply(p, d)
@@ -631,12 +829,12 @@ def _build_ranked(model: Model, rpol: RunPolicy, comm, *, lr, combine,
 
     rt = Runtime(model, rpol, span, dopt, None, init_state,
                  combine_path=path, combine_stats=scombiner is not None,
-                 dp_total=W, comm=comm)
+                 dp_total=W, comm=comm, plan=plan if sharded else None)
     if delayed:
         # the exchange leg's own process groups (trap: two threads on one
         # gloo group may issue its collectives in another order on
         # another rank)
-        xcomm = comm.split(position)
+        xcomm = comm.split(position, share_staging=False)
 
         def local_only_step(state, batch):
             """A delayed round's compute half on this rank's lane: its
@@ -655,7 +853,7 @@ def _build_ranked(model: Model, rpol: RunPolicy, comm, *, lr, combine,
         correction = build_delayed_correction(run_cfg, impl=combine_impl,
                                               comm=xcomm)
         return _delayed_runtime(rt, correction, local_only_step)
-    rt.train_step = local_sgd_step if rpol.local_steps > 1 else sync_step
+    rt.train_step = sync_step if sync else local_sgd_step
     return rt
 
 

@@ -60,11 +60,14 @@ class EngineConfig:
                                 # gspmd_tree backend
     fusion_threshold_mb: int = 64   # Horovod-style packing bucket budget
 
-    # ---- parallelism (the sharding knobs change nothing yet) ----
+    # ---- parallelism (fsdp / scatter_grads act across ranks, on the
+    # data axis; on one device they change nothing, as in the
+    # reference; pad_heads is the model axis's, item 7) ----
     data_mesh: int = 0          # 0 or the number of ranks
     model_mesh: int = 1
-    fsdp: bool = False
-    scatter_grads: bool = False
+    fsdp: bool = False          # ZeRO-3: params sharded over the ranks
+    scatter_grads: bool = False # ZeRO-2: lane grads reduce-scattered in
+                                # each lane group (span < ranks)
     pad_heads: bool = False
     attn_chunk: int = 512
 
@@ -562,8 +565,9 @@ class EngineConfig:
 
 # Per-arch presets — the reference's table (config.py:580-600), derived
 # there from a TPU memory budget; kept as is so a preset means the same
-# run in both packages. fsdp/scatter_grads/pad_heads change nothing yet;
-# on one device backend='rvh' with span > 1 falls back to gspmd_tree.
+# run in both packages. Across ranks fsdp and scatter_grads shard the data
+# axis (`parallel.zero`); on one device they, and pad_heads, change
+# nothing; there backend='rvh' with span > 1 falls back to gspmd_tree.
 _PRESETS: Dict[str, Dict[str, Any]] = {
     "hymba_1p5b":            dict(backend="rvh", pad_heads=True),
     "moonshot_v1_16b_a3b":   dict(span=4, fsdp=True, scatter_grads=True,

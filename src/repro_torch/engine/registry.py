@@ -38,7 +38,7 @@ combiner with
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -97,17 +97,25 @@ def _ranked(comm) -> bool:
 
 def make_combiner(cfg: CombineConfig, *, with_stats: bool = False,
                   impl: str = "kernel", donate: bool = False,
-                  comm=None) -> Combiner:
+                  comm=None, shard: Optional[dict] = None) -> Combiner:
     """The registry-dispatched combiner. Every returned combiner carries
     a `combine_path` naming the implementation that actually runs
     ('gspmd-fused' vs 'gspmd-reference', 'rvh'). with_stats=True returns
     a combiner yielding (combined, CombineStats) — see `stats_combiner`.
-    `comm` is the group of ranks `adasum-rvh` combines across."""
+    `comm` is the group of ranks `adasum-rvh` combines across; `shard`
+    (`adasum-rvh` only) its lane-group shards: `shard_dims`,
+    `shard_comm` and `allgather_result` of `core.rvh.adasum_rvh_pytree`."""
+    if shard is not None and registry_key(cfg.op, cfg.backend) != \
+            "adasum-rvh":
+        raise ValueError(f"shard= is RVH's; the combiner is "
+                         f"{registry_key(cfg.op, cfg.backend)!r}")
     if with_stats:
-        return stats_combiner(cfg, impl=impl, donate=donate, comm=comm)
+        return stats_combiner(cfg, impl=impl, donate=donate, comm=comm,
+                              shard=shard)
     key = registry_key(cfg.op, cfg.backend)
     factory = get_combiner_factory(key)
-    combiner = factory(cfg, impl=impl, donate=donate, comm=comm)
+    combiner = factory(cfg, impl=impl, donate=donate, comm=comm,
+                       **({"shard": shard} if shard else {}))
     if not hasattr(combiner, "combine_path"):
         try:
             combiner.combine_path = key
@@ -155,7 +163,8 @@ def probe_stats_ranks(tree: PyTree, comm, acc_dtype) -> dict:
 
 
 def stats_combiner(cfg: CombineConfig, *, impl: str = "kernel",
-                   donate: bool = False, comm=None) -> Combiner:
+                   donate: bool = False, comm=None,
+                   shard: Optional[dict] = None) -> Combiner:
     """A combiner returning (combined, CombineStats). The adasum gspmd /
     fused paths surface their own per-level triples, and `adasum-rvh`
     the reference's level-0 probe from its round-0 dots (registry.py:
@@ -169,7 +178,7 @@ def stats_combiner(cfg: CombineConfig, *, impl: str = "kernel",
         key = "adasum-rvh"
     if key == "adasum-rvh":
         return _adasum_rvh(cfg, impl=impl, donate=donate, comm=comm,
-                           with_stats=True)
+                           with_stats=True, shard=shard)
     if key in ("adasum-gspmd", "adasum-fused"):
         _stacked_only(key, comm)
         if cfg.fused:
@@ -263,15 +272,16 @@ def _adasum_fused(cfg, *, impl="kernel", donate=False, comm=None, **_):
 
 @register_combiner("adasum-rvh")
 def _adasum_rvh(cfg, *, impl="kernel", donate=False, comm=None,
-                with_stats=False, **_):
-    """ADASUMRVH across the ranks of `comm`, one lane per rank."""
+                with_stats=False, shard=None, **_):
+    """ADASUMRVH across the ranks of `comm`, one lane per rank (`shard`:
+    on lane-group shards, see `make_combiner`)."""
     if comm is None:
         raise ValueError(
             "adasum-rvh combines across ranks: pass comm= (a repro_torch."
             "parallel.comm.Comm, one lane per rank); lanes stacked on one "
             "device take backend='gspmd_tree'")
     return build_rvh_combiner(cfg, comm, with_stats=with_stats, impl=impl,
-                              donate=donate)
+                              donate=donate, **(shard or {}))
 
 
 @register_combiner("adasum-linear")

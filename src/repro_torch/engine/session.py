@@ -60,7 +60,7 @@ import torch
 
 from repro_torch import tree as T
 from repro_torch.checkpoint import AsyncCheckpointManager, CheckpointManager
-from repro_torch.checkpoint.manager import HostLeaf, host_leaf
+from repro_torch.checkpoint.manager import HostLeaf, host_leaf, lane_row
 from repro_torch.control.noise import STAT_KEYS
 from repro_torch.control.telemetry import run_fingerprint
 from repro_torch.data import make_source
@@ -330,9 +330,11 @@ class TrainSession:
         return self.comm is not None and self.comm.world > 1
 
     def _lane_state(self) -> bool:
-        """Whether each rank holds only its own lane's optimizer state."""
+        """Whether each rank holds only its own lane's optimizer state
+        (whole: a sharded plan says how it is held instead)."""
         rt = self.runtime
-        return self._ranked() and rt.dopt.point == "post" and rt.span > 1
+        return (self._ranked() and rt.plan is None
+                and rt.dopt.point == "post" and rt.span > 1)
 
     def _from_rank0(self, value: int) -> int:
         """Rank 0's int on every rank (a barrier too: every rank waits for
@@ -359,15 +361,20 @@ class TrainSession:
 
     def _save_tree(self) -> Optional[PyTree]:
         """The tree the checkpoint holds (rank 0), None on other ranks;
-        collective at the post point across ranks."""
+        collective when a rank holds a lane or a shard."""
         if not self._ranked():
             return self.state
+        plan = self.runtime.plan
         parts = self._lane_trees()
-        if not parts:
+        if not parts and plan is None:
             return self.state if self.rank == 0 else None
         st = self.state
         tree = dict(st, opt=dict(st["opt"]))
-        if "inner" in parts:
+        if plan is not None:
+            tree["params"] = plan.gather_tree(st["params"], "params")
+            tree["opt"]["inner"] = _param_trees(
+                st["opt"]["inner"], lambda t: plan.gather_tree(t, "state"))
+        elif "inner" in parts:
             tree["opt"]["inner"] = T.map(self._gather_lanes,
                                          st["opt"]["inner"])
         if "pending" in parts:
@@ -420,7 +427,7 @@ class TrainSession:
         self._manager()
         if step is None and self.latest_step() is None:
             return 0
-        rows = None
+        rows = {}
         parts = self._lane_trees()
         if parts:
             span = self.runtime.span
@@ -431,6 +438,8 @@ class TrainSession:
             rows = {prefix + T.keystr(p): (lane, span) for part in parts
                     for prefix, tree in [where[part]]
                     for p, _ in T.flatten_with_path(tree)[0]}
+        if self._ranked() and self.runtime.plan is not None:
+            rows.update(self._shard_rows())
         if self._ranked():
             # rank 0 validates (and quarantines) first; the others then
             # read the step it settled on, and take its counters
@@ -450,6 +459,31 @@ class TrainSession:
             print(f"[train] resumed from step {start}")
         return start
 
+    def _shard_rows(self) -> Dict[str, Any]:
+        """Per manifest path of the params and the optimizer state, how
+        this rank takes its part of the stored full leaf under the plan
+        (the lane state's row first, resharded to this run's span)."""
+        plan, span = self.runtime.plan, self.runtime.span
+        lane = self.rank // plan.g
+        out: Dict[str, Any] = {}
+
+        def add(prefix, tree, which):
+            for i, (p, _) in enumerate(T.flatten_with_path(tree)[0]):
+                if plan.lanes(which):
+                    shape = plan.shapes[i]
+                    how = lambda a, dt, i=i, shape=shape: plan.take(
+                        i, lane_row(a, lane, span, shape, dt), which)
+                else:
+                    how = lambda a, dt, i=i: plan.take(i, a, which)
+                out[prefix + T.keystr(p)] = how
+
+        add("['params']", self.state["params"], "params")
+        inner = self.state["opt"]["inner"]
+        if isinstance(inner, dict):
+            for k, sub in inner.items():
+                add(f"['opt']['inner'][{k!r}]", sub, "state")
+        return out
+
     def close(self) -> None:
         """Release background resources (the async checkpoint writer,
         after its pending write) and destroy the process group the
@@ -465,6 +499,14 @@ class TrainSession:
             if self._owns_comm:
                 self.comm.close()
                 self._owns_comm = False
+
+
+def _param_trees(inner: PyTree, fn) -> PyTree:
+    """`fn` over each params-shaped tree of an optimizer state ({'m': ...,
+    'v': ...}; sgd's is empty)."""
+    if isinstance(inner, dict):
+        return {k: fn(v) for k, v in inner.items()}
+    return inner
 
 
 def session_device(device: DeviceLike, generator: Optional[torch.Generator],

@@ -269,23 +269,26 @@ def block_combine(a: torch.Tensor, b: torch.Tensor, s1b: torch.Tensor,
 
 # ------------------------------------------------ segment-level wrappers
 class SegmentSum:
-    """An order-fixed segment sum over the block axis for nondecreasing
-    host segment ids (the reference's `jax.ops.segment_sum` over block
-    partials). Each block lands in its own slot of a dense [num,
-    width] grid (unique indices, no accumulation), and the grid is summed
-    over its width: no atomics, so two runs give bitwise-equal sums on
-    the card (`index_add_` on CUDA would not). The sum runs in the
-    partials' dtype: fp64 partials (the plain arm's, or the kernel's
-    fp32 ones cast) give an fp64 sum."""
+    """An order-fixed segment sum over the block axis for host segment
+    ids (the reference's `jax.ops.segment_sum` over block partials).
+    Each block lands in its own slot of a dense [num, width] grid, in
+    block order within its segment (unique indices, no accumulation),
+    and the grid is summed over its width: no atomics, so two runs give
+    bitwise-equal sums on the card (`index_add_` on CUDA would not). The
+    ids may repeat out of order (a chunk-major RVH bucket holds every
+    layer once a chunk). The sum runs in the partials' dtype: fp64
+    partials (the plain arm's, or the kernel's fp32 ones cast) give an
+    fp64 sum."""
 
     def __init__(self, seg, num_segments: int, device):
         seg = np.asarray(seg, dtype=np.int64)
-        if len(seg) > 1 and np.any(np.diff(seg) < 0):
-            raise ValueError("segment ids must be nondecreasing")
         counts = np.bincount(seg, minlength=num_segments)
         self.num = num_segments
         self.width = max(int(counts.max(initial=0)), 1)
-        pos = np.arange(len(seg)) - (np.cumsum(counts) - counts)[seg]
+        order = np.argsort(seg, kind="stable")
+        pos = np.empty(len(seg), dtype=np.int64)
+        pos[order] = np.arange(len(seg)) - (np.cumsum(counts)
+                                            - counts)[seg[order]]
         self.seg = torch.as_tensor(seg, device=device)
         self.pos = torch.as_tensor(pos, device=device)
 

@@ -6,6 +6,8 @@ MoE decoders, the SSM (rwkv), the hybrid (hymba), the vision frontend
     model = build_model(cfg)
     params = model.init(generator)               # on cuda by default
     loss, metrics = model.loss(params, batch)    # training (plain attention)
+    # across ranks the step adds fsdp= (its layer gather) and
+    # token_group= (the ranks splitting the rows), `parallel.zero`
     logits, cache = model.prefill_cache(params, tokens, lengths, max_len)
     logits, cache = model.decode_step(params, tokens, cache)
     logits, cache = model.verify_step(params, tokens_k1, cache)
@@ -91,9 +93,12 @@ def _build_encdec(cfg: ModelConfig, compute_dtype, param_dtype,
     def decode_step(params, tokens, cache):
         return ED.decode_step(params, cfg, tokens, cache, compute_dtype)
 
-    def loss(params, batch):
+    def loss(params, batch, *, fsdp=None, token_group=None):
+        if fsdp is not None:
+            raise not_ported("fsdp with the encoder-decoder's own training "
+                             "loop", ITEM_SHARDING)
         return ED.encdec_loss(params, cfg, batch, compute_dtype, attn_chunk,
-                              remat)
+                              remat, token_group=token_group)
 
     return Model(cfg, _init_fn(cfg, param_dtype), forward, init_cache,
                  decode_step, None, loss, None, attn_impl)
@@ -144,9 +149,9 @@ def build_model(cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
             cache_dtype=compute_dtype, prefix_kv=prefix_kv,
             prefix_len=prefix_len)
 
-    def loss(params, batch):
+    def loss(params, batch, *, fsdp=None, token_group=None):
         return TF.lm_loss(params, cfg, batch, compute_dtype, attn_chunk,
-                          remat=remat)
+                          remat=remat, fsdp=fsdp, token_group=token_group)
 
     def verify_step(params, tokens, cache):
         return TF.verify_step(params, cfg, tokens, cache, compute_dtype)

@@ -163,15 +163,16 @@ def decode_train(params: PyTree, cfg: ModelConfig, enc_out: torch.Tensor,
 
 def encdec_loss(params: PyTree, cfg: ModelConfig,
                 batch: Dict[str, torch.Tensor], compute_dtype=torch.bfloat16,
-                attn_chunk: int = 512, remat: bool = True):
+                attn_chunk: int = 512, remat: bool = True, token_group=None):
     """Cross entropy of the decoder over `batch` (frontend_embeds [B,S,F],
-    tokens, labels with -100 masked): (loss, {'loss', 'aux' = 0})."""
+    tokens, labels with -100 masked): (loss, {'loss', 'aux' = 0});
+    token_group: `transformer.masked_nll`'s."""
     from .transformer import masked_nll
     enc = encode(params, cfg, batch["frontend_embeds"], compute_dtype,
                  attn_chunk, remat)
     logits = decode_train(params, cfg, enc, batch["tokens"], compute_dtype,
                           attn_chunk, remat)
-    loss = masked_nll(logits, batch["labels"])
+    loss = masked_nll(logits, batch["labels"], token_group)
     return loss, {"loss": loss,
                   "aux": torch.zeros((), dtype=torch.float32,
                                      device=loss.device)}

@@ -47,21 +47,29 @@ def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def moe_apply(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
-              compute_dtype=torch.bfloat16, local_shards: int = 1
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+              compute_dtype=torch.bfloat16, local_shards: int = 1,
+              token_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B,T,D] -> (out [B,T,D] in x's dtype, aux load-balance loss, a
     fp32 scalar).
 
     local_shards > 1 (the reference's shard-local dispatch): the tokens
     are viewed as [local_shards, N/local_shards] rows and each row
     dispatches into its own capacity slice (capacity counted per row).
-    It falls back to one row when N does not divide."""
+    It falls back to one row when N does not divide.
+
+    token_group (a `parallel.zero.TokenGroup`): x is one member's rows of
+    a call the group's ranks split in member order. Capacity counts the
+    whole call's tokens, a pair's slot counts the pairs of the members
+    before it, and the aux loss is this member's share of the whole
+    call's (its router probabilities against the call's fractions): the
+    call the reference makes, in parts."""
     B, T, D = x.shape
     E, K = cfg.n_experts, cfg.n_experts_per_tok
     N = B * T
-    S = local_shards if N % local_shards == 0 else 1
+    grp = token_group
+    S = local_shards if N % local_shards == 0 and grp is None else 1
     NL = N // S                                              # tokens a row
-    C = capacity(cfg, NL)
+    C = capacity(cfg, NL * (grp.size if grp is not None else 1))
     xf = x.reshape(S, NL, D).to(compute_dtype)
 
     logits = (xf @ params["router"].to(compute_dtype)).float()
@@ -74,7 +82,11 @@ def moe_apply(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
     onehot = F.one_hot(flat_idx, E).to(torch.int32)          # [S, NLK, E]
     pos_all = torch.cumsum(onehot, dim=1, dtype=torch.int32) - 1
     pos = torch.gather(pos_all, 2, flat_idx[..., None])[..., 0]
-    keep = pos < C                                           # overflow drop
+    if grp is None:
+        keep = pos < C                                       # overflow drop
+    else:           # the slot in the whole call's buffer decides the drop
+        ahead = grp.before(onehot.sum(1))                    # [S, E]
+        keep = pos + torch.gather(ahead, 1, flat_idx) < C
     slot = torch.where(keep, flat_idx * C + pos,
                        torch.full_like(pos, E * C))          # E*C = dropped
 
@@ -115,7 +127,12 @@ def moe_apply(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
                                 compute_dtype)
 
     # Switch-style load-balance aux loss: E · Σ_e f_e · P_e / K
-    f = F.one_hot(expert_idx, E).float().sum(2).mean(dim=(0, 1))
-    pmean = probs.mean(dim=(0, 1))
-    aux = E * torch.sum(f * pmean) / K
+    if grp is None:
+        f = F.one_hot(expert_idx, E).float().sum(2).mean(dim=(0, 1))
+        pmean = probs.mean(dim=(0, 1))
+        aux = E * torch.sum(f * pmean) / K
+    else:
+        n = N * grp.size
+        f = grp.sum(F.one_hot(expert_idx, E).float().sum(dim=(0, 1, 2))) / n
+        aux = E * torch.sum(f * probs.sum(dim=(0, 1)) / n) / K
     return out.reshape(B, T, D).to(x.dtype), aux

@@ -226,14 +226,16 @@ def block_apply(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, moe_block: bool = False,
                 compute_dtype=torch.bfloat16, attn_impl: str = "kernel",
                 return_kv: bool = False, prefix_kv=None,
-                attn_chunk: int = 512):
+                attn_chunk: int = 512, token_group=None):
     """One block on [B,T,D] -> ([B,T,D], aux loss[, kv]) (transformer.py
     :56). kv (with return_kv; attention families only) is this block's
     decode-cache contribution: the RoPE'd (k, v) for GQA, the latents
     (c_kv, k_rope) for MLA. prefix_kv: this block's cached shared-prefix
     pair for the extend prefill (`positions` then starts at its length).
     MLA attention and the SSM mixers are plain torch whatever `attn_impl`
-    says (the reference has no kernel for them)."""
+    says (the reference has no kernel for them). token_group: the ranks
+    splitting this call's rows (`parallel.zero.TokenGroup`), for the MoE
+    dispatch's whole-microbatch capacity and statistics."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_kv and cfg.family in ("ssm", "hybrid"):
         raise ValueError("fused kv capture needs an attention family")
@@ -262,7 +264,8 @@ def block_apply(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
     x = x + a
     h = L.rmsnorm(params["norm2"], x, cfg.norm_eps)
     if moe_block:
-        m, aux = MOE.moe_apply(params["moe"], cfg, h, compute_dtype)
+        m, aux = MOE.moe_apply(params["moe"], cfg, h, compute_dtype,
+                               token_group=token_group)
     else:
         m = L.mlp_apply(params["mlp"], h, cfg.mlp_type, compute_dtype)
         aux = zero
@@ -287,70 +290,103 @@ def project_frontend(params: PyTree, cfg: ModelConfig, embeds: torch.Tensor,
     return x
 
 
+def _gathered_block(fs, blocks: PyTree, key: str, l: int, *args, **kw):
+    """`block_apply` on layer l of a sharded stack, gathered here (inside
+    the layer's checkpoint, so its recompute gathers again)."""
+    return block_apply(fs.layer(blocks, key, l), *args, **kw)
+
+
 def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
             compute_dtype=torch.bfloat16, attn_impl: str = "kernel",
             remat: bool = False, attn_chunk: int = 512,
-            frontend_embeds: Optional[torch.Tensor] = None
+            frontend_embeds: Optional[torch.Tensor] = None, *,
+            fsdp=None, token_group=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [B,T] (+ frontend_embeds [B,S,frontend_dim] projected and
     prepended) -> (logits [B,S+T,V] fp32, aux loss summed over the MoE
     blocks; 0 without experts). remat: recompute each block in the
     backward pass instead of keeping its activations (`jax.checkpoint`
     per block, transformer.py:175). attn_chunk: query rows per chunk of
-    the plain attention path."""
-    x = L.embed(params["embed"], tokens, compute_dtype)
+    the plain attention path.
+
+    fsdp (an FSDP step across ranks, `parallel.zero.RankPlan.fsdp_step`):
+    the params hold this rank's pieces, and `fsdp.tree(node, path)` /
+    `fsdp.layer(blocks, key, l)` gather them: the embedding, lm_head and
+    projector at their use, each block's layer just before it runs,
+    inside its checkpoint. token_group: the ranks splitting this call's
+    rows (`block_apply`)."""
+    fs, grp = fsdp, token_group
+    whole = (lambda name: params[name]) if fs is None else \
+        (lambda name: fs.tree(params[name], (name,)))
+    emb = whole("embed")       # gathered once for a tied head's two uses
+    x = L.embed(emb, tokens, compute_dtype)
     if frontend_embeds is not None:
-        x = torch.cat([project_frontend(params, cfg, frontend_embeds,
-                                        compute_dtype), x], dim=1)
+        x = torch.cat([project_frontend({"projector": whole("projector")},
+                                        cfg, frontend_embeds, compute_dtype),
+                       x], dim=1)
     positions = torch.arange(x.shape[1], dtype=torch.float32,
                              device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for _, blocks, moe_block in _segments(params, cfg):
+    for seg, blocks, moe_block in _segments(params, cfg):
+        key = "dense_blocks" if seg == "dense_layers" else "blocks"
         for l in range(_stack_layers(blocks)):
-            bp = layer_params(blocks, l)
-            if remat:
-                x, a = checkpoint(block_apply, bp, cfg, x, positions,
-                                  moe_block, compute_dtype, attn_impl,
-                                  attn_chunk=attn_chunk, use_reentrant=False)
+            if fs is None:
+                fn, head = block_apply, (layer_params(blocks, l),)
             else:
-                x, a = block_apply(bp, cfg, x, positions, moe_block,
-                                   compute_dtype, attn_impl,
-                                   attn_chunk=attn_chunk)
+                fn, head = _gathered_block, (fs, blocks, key, l)
+            args = head + (cfg, x, positions, moe_block, compute_dtype,
+                           attn_impl)
+            if remat:
+                x, a = checkpoint(fn, *args, attn_chunk=attn_chunk,
+                                  token_group=grp, use_reentrant=False)
+            else:
+                x, a = fn(*args, attn_chunk=attn_chunk, token_group=grp)
             aux = aux + a
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return _logits(params, cfg, x, compute_dtype), aux
+    head = {"embed": emb} if cfg.tie_embeddings else \
+        {"lm_head": whole("lm_head")}
+    return _logits(head, cfg, x, compute_dtype), aux
 
 
-def masked_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def masked_nll(logits: torch.Tensor, labels: torch.Tensor,
+               token_group=None) -> torch.Tensor:
     """Mean next-token cross entropy over the labels >= 0 (-100 =
-    masked), in fp32."""
+    masked), in fp32. With a `token_group` (`parallel.zero.TokenGroup`)
+    the mean is over the labels of the whole microbatch the group's
+    ranks split (this rank's share of it)."""
     labels = labels.long()
     mask = (labels >= 0).float()
     nll = F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
                           labels.clamp(min=0).reshape(-1), reduction="none")
-    return (nll * mask.reshape(-1)).sum() / mask.sum().clamp(min=1.0)
+    count = mask.sum()
+    if token_group is not None:
+        count = token_group.sum(count)
+    return (nll * mask.reshape(-1)).sum() / count.clamp(min=1.0)
 
 
 def lm_loss(params: PyTree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             compute_dtype=torch.bfloat16, attn_chunk: int = 512,
-            aux_weight: float = 0.01, remat: bool = True
+            aux_weight: float = 0.01, remat: bool = True, *,
+            fsdp=None, token_group=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross entropy plus `aux_weight` times the MoE aux loss
     (transformer.py:226-255). batch: tokens [B,T], labels [B,T] (-100 =
     masked), optional frontend_embeds (their positions take label -100).
     Attention runs the plain `_chunked_attention` on every device, as
     the reference's training loss does: the flash kernel is
-    forward-only. Returns (total, {'loss', 'aux'})."""
+    forward-only. fsdp, token_group: a step across ranks (`forward`,
+    `masked_nll`). Returns (total, {'loss', 'aux'})."""
     logits, aux = forward(params, cfg, batch["tokens"], compute_dtype,
                           "plain", remat, attn_chunk,
-                          frontend_embeds=batch.get("frontend_embeds"))
+                          frontend_embeds=batch.get("frontend_embeds"),
+                          fsdp=fsdp, token_group=token_group)
     labels = batch["labels"]
     pad = logits.shape[1] - labels.shape[1]
     if pad:                               # frontend positions prepended
         labels = torch.cat([torch.full((labels.shape[0], pad), -100,
                                        dtype=labels.dtype,
                                        device=labels.device), labels], 1)
-    loss = masked_nll(logits, labels)
+    loss = masked_nll(logits, labels, token_group)
     return loss + aux_weight * aux, {"loss": loss, "aux": aux}
 
 

@@ -10,6 +10,12 @@ the state tensors it is given and returns them: at full width a second
 copy of the optimizer state would not fit beside the lane gradients (the
 reference's session donates its state the same way). A caller that
 needs the old state clones it first.
+
+On a shard of each leaf (ZeRO-1 across ranks) the elementwise updates
+need nothing more. LAMB's trust ratio takes the norms of the whole leaf
+(optimizers.py:148-151 of the reference): `update(..., norm_sum=)` gives
+a tree of callables, one a leaf, that sum the shard's squared norms over
+the ranks holding the leaf's other shards.
 """
 from __future__ import annotations
 
@@ -33,6 +39,9 @@ class Optimizer:
     # Paper §4.1: stateless/linear optimizers combine gradients BEFORE the
     # optimizer ("pre"); adaptive ones combine deltas AFTER ("post").
     default_combine_point: str = "pre"
+    reads_params: bool = True   # the update reads `params` (weight decay,
+                                # trust ratio); else any tree of the
+                                # grads' structure will do
 
 
 def _as_schedule(lr) -> Callable[[int], float]:
@@ -49,11 +58,11 @@ def sgd(lr) -> Optimizer:
     def init(params):
         return ()
 
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, norm_sum=None):
         a = sched(step)
         return T.map(lambda g: -a * g.float(), grads), state
 
-    return Optimizer(init, update, "sgd", "pre")
+    return Optimizer(init, update, "sgd", "pre", reads_params=False)
 
 
 def momentum(lr, beta: float = 0.9, nesterov: bool = False,
@@ -63,7 +72,7 @@ def momentum(lr, beta: float = 0.9, nesterov: bool = False,
     def init(params):
         return {"m": T.map(_zeros(torch.float32), params)}
 
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, norm_sum=None):
         a = sched(step)
 
         def upd(g, m, p):
@@ -76,7 +85,8 @@ def momentum(lr, beta: float = 0.9, nesterov: bool = False,
 
         return T.map(upd, grads, state["m"], params), state
 
-    return Optimizer(init, update, "momentum", "pre")
+    return Optimizer(init, update, "momentum", "pre",
+                     reads_params=bool(weight_decay))
 
 
 def _adam_core(g, m, v, step: int, b1: float, b2: float, eps: float):
@@ -103,29 +113,37 @@ def _adam_like(lr, b1, b2, eps, weight_decay, state_dtype, trust: bool,
         z = _zeros(state_dtype)
         return {"m": T.map(z, params), "v": T.map(z, params)}
 
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, norm_sum=None):
         a = sched(step)
 
-        def upd(g, m, v, p):
+        def upd(g, m, v, p, total=None):
             u, m_new, v_new = _adam_core(g, m.float(), v.float(), step, b1,
                                          b2, eps)
             m.copy_(m_new)
             v.copy_(v_new)
             del m_new, v_new
-            p32 = p.float()
             if weight_decay:
-                u = u + weight_decay * p32
+                u = u + weight_decay * p.float()
             if not trust:
                 return u.mul_(-a)
-            pn = torch.linalg.vector_norm(p32.reshape(-1))
-            un = torch.linalg.vector_norm(u.reshape(-1))
+            p32 = p.float().reshape(-1)
+            if total is None:
+                pn = torch.linalg.vector_norm(p32)
+                un = torch.linalg.vector_norm(u.reshape(-1))
+            else:   # a shard: the leaf's squared norms, summed over shards
+                sq = total(torch.stack([p32.dot(p32),
+                                        u.reshape(-1).dot(u.reshape(-1))]))
+                pn, un = sq[0].sqrt(), sq[1].sqrt()
             ratio = torch.where((pn > 0) & (un > 0),
                                 torch.clamp(pn / (un + 1e-12), min_trust,
                                             max_trust),
                                 torch.ones((), device=u.device))
             return -a * ratio * u
 
-        return T.map(upd, grads, state["m"], state["v"], params), state
+        trees = [grads, state["m"], state["v"], params]
+        if norm_sum is not None:
+            trees.append(norm_sum)
+        return T.map(upd, *trees), state
 
     return init, update
 
@@ -136,7 +154,8 @@ def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
     runs in fp32 — only storage is compressed."""
     init, update = _adam_like(lr, b1, b2, eps, weight_decay, state_dtype,
                               trust=False)
-    return Optimizer(init, update, "adam", "post")
+    return Optimizer(init, update, "adam", "post",
+                     reads_params=bool(weight_decay))
 
 
 def lamb(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6,

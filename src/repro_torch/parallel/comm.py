@@ -26,6 +26,10 @@ inside `shard_map` (repro/core/rvh.py:99-105, :172-177):
   all_to_all(sends, recvs)  tensors to and from every other rank in one
                             batch of isends and irecvs (the rank-owned
                             chunks of `adasum_linear_ranks`);
+  reduce_scatter(chunks)    chunk q of every rank summed on rank q, in
+                            rank order (a lane group's gradient shards);
+  all_gather(x)             every rank's tensor on every rank (sharded
+                            params, the ZeRO-1 delta pieces);
   broadcast(x, src)         rank `src`'s tensor to every rank, in place;
   broadcast_object(o, src)  rank `src`'s picklable host object to every
                             rank (the elastic drivers' messages);
@@ -87,7 +91,8 @@ class Comm:
 
     def __init__(self, ranks: Sequence[int], group, blocks: Dict[int, object],
                  device: torch.device, owner: bool = False,
-                 flags: Optional[dict] = None):
+                 flags: Optional[dict] = None,
+                 host: Optional[Dict[str, torch.Tensor]] = None):
         self.ranks = tuple(ranks)           # global ranks, by local rank
         self.group = group
         self._blocks = blocks               # block size -> this rank's group
@@ -99,7 +104,9 @@ class Comm:
         self._flags = flags if flags is not None else {"timing": False}
         self._owner = owner                 # destroys the process group
         self._times: Dict[str, list] = {}
-        self._host: Dict[str, torch.Tensor] = {}
+        # pinned staging buffers, by name; shared with the comm's
+        # sub-communicators unless one runs on a thread of its own
+        self._host: Dict[str, torch.Tensor] = {} if host is None else host
         self._children: List["Comm"] = []
 
     # ------------------------------------------------------------- creation
@@ -155,10 +162,15 @@ class Comm:
                     mine[block] = g
         return me in ranks, mine
 
-    def split(self, groups: Sequence[Sequence[int]]) -> "Comm":
+    def split(self, groups: Sequence[Sequence[int]],
+              share_staging: bool = True) -> "Comm":
         """Sub-communicators, one per list of local ranks in `groups` (a
         partition of this comm, each list ascending). Collective over
-        this comm; returns the one holding this rank."""
+        this comm; returns the one holding this rank. It stages through
+        this comm's pinned buffers (one set for every comm a rank calls
+        in turn: pinned blocks are rounded up to a power of two and kept
+        by the host allocator) unless `share_staging` is off, as it must
+        be for a comm used on another thread beside this one."""
         mine = None
         for members in groups:
             ranks = [self.ranks[i] for i in members]
@@ -166,7 +178,8 @@ class Comm:
             inside, blocks = self._block_groups(ranks)
             if inside:
                 mine = Comm(ranks, g, blocks, self.device,
-                            flags=self._flags)
+                            flags=self._flags,
+                            host=self._host if share_staging else None)
         if mine is None:
             raise ValueError(f"rank {self.rank} is in none of {groups}")
         self._children.append(mine)
@@ -235,10 +248,10 @@ class Comm:
 
     def free_buffers(self) -> None:
         """Drop the pinned host staging buffers this comm and its
-        sub-communicators keep for reuse (each keeps its own, sized to
-        the largest message it staged)."""
+        sub-communicators keep for reuse (sized to the largest message
+        staged through them)."""
         for c in [self] + self._children:
-            c._host = {}
+            c._host.clear()
 
     def total_staged_bytes(self) -> int:
         return self.staged_bytes + sum(c.staged_bytes for c in self._children)
@@ -332,6 +345,10 @@ class Comm:
         (the byte sizes q sends), in place. This rank's own entries are
         copied. One batch of isends and irecvs, staged through pinned
         host buffers on gloo."""
+        with self.timed("exchange"):
+            self._all_to_all(sends, recvs)
+
+    def _all_to_all(self, sends, recvs) -> None:
         me = self.rank
         for s, r in zip(sends[me], recvs[me]):
             r.copy_(s)
@@ -341,25 +358,101 @@ class Comm:
         flat = lambda ts: [t.contiguous().reshape(-1).view(torch.uint8)
                            for t in ts]
         nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
-        with self.timed("exchange"):
-            probe = next((t for q in peers for t in sends[q]), None)
-            if probe is not None and self._staged(probe):
-                outs = [t for q in peers for t in sends[q]]
-                hsend, _ = self._to_host(outs, "send")
-                hrecv = self._host_buffer(
-                    "recv", sum(nbytes(recvs[q]) for q in peers))
-                items, so, ro = [], 0, 0
-                for q in peers:
-                    ns, nr = nbytes(sends[q]), nbytes(recvs[q])
-                    items.append((hsend[so:so + ns], hrecv[ro:ro + nr],
-                                  self.ranks[q]))
-                    so, ro = so + ns, ro + nr
-                self._p2p_many(items)
-                self._from_host(hrecv, [t for q in peers for t in recvs[q]])
-            else:
-                self._p2p_many([
-                    (s, r, self.ranks[q]) for q in peers
-                    for s, r in zip(flat(sends[q]), flat(recvs[q]))])
+        probe = next((t for q in peers for t in sends[q]), None)
+        if probe is not None and self._staged(probe):
+            # one tensor sent to every peer (an all-gather) is staged once
+            same = all(len(sends[q]) == 1 and sends[q][0] is probe
+                       for q in peers)
+            outs = [probe] if same else [t for q in peers for t in sends[q]]
+            hsend, _ = self._to_host(outs, "send")
+            hrecv = self._host_buffer(
+                "recv", sum(nbytes(recvs[q]) for q in peers))
+            items, so, ro = [], 0, 0
+            for q in peers:
+                ns, nr = nbytes(sends[q]), nbytes(recvs[q])
+                items.append((hsend[so:so + ns], hrecv[ro:ro + nr],
+                              self.ranks[q]))
+                so, ro = (so if same else so + ns), ro + nr
+            self._p2p_many(items)
+            self._from_host(hrecv, [t for q in peers for t in recvs[q]])
+        else:
+            self._p2p_many([
+                (s, r, self.ranks[q]) for q in peers
+                for s, r in zip(flat(sends[q]), flat(recvs[q]))])
+
+    def _native(self, ts: Sequence[torch.Tensor]) -> bool:
+        """Whether NCCL's own collective takes these per-rank tensors:
+        on nccl, when every rank's is the same size."""
+        return (self.backend == "nccl"
+                and len({(tuple(t.shape), t.dtype) for t in ts}) == 1)
+
+    def reduce_scatter(self, chunks: Sequence[torch.Tensor]) -> torch.Tensor:
+        """chunks[q]: this rank's part of local rank q's sum (the same
+        shapes on every rank; a chunk may be empty). Returns this rank's
+        chunk summed over the ranks; consumes chunks[rank], which may hold
+        the sum. On gloo (which has no reduce-scatter) each chunk travels
+        to its owner in one batch of staged isends and irecvs, and the
+        owner sums the ranks' parts in rank order, so a repeat gives the
+        same bits; on nccl, with chunks of one size,
+        `reduce_scatter_tensor` (nccl's order, as fixed)."""
+        me, W = self.rank, self.world
+        if W == 1:
+            return chunks[0]
+        with self.timed("reduce_scatter"):
+            if self._native(chunks):
+                out = torch.empty_like(chunks[me])
+                dist.reduce_scatter_tensor(
+                    out, torch.cat([c.reshape(-1) for c in chunks]).view(
+                        (W,) + tuple(out.shape)), group=self.group)
+                return out
+            mine = chunks[me]
+            recvs = [[] if q == me else [torch.empty(
+                mine.shape, dtype=mine.dtype, device=mine.device)]
+                for q in range(W)]
+            sends = [[] if q == me else [c] for q, c in enumerate(chunks)]
+            self._all_to_all(sends, recvs)
+            parts = [mine if q == me else recvs[q][0] for q in range(W)]
+            # rank order, c0 + c1 first (addition commutes, so this rank's
+            # own chunk can hold the sum when it is one of the two)
+            out = parts[me] if me < 2 else parts[0]
+            out += parts[1 - me] if me < 2 else parts[1]
+            for q in range(2, W):
+                out += parts[q]
+        return out
+
+    def all_gather(self, x: torch.Tensor,
+                   shapes: Optional[Sequence[Sequence[int]]] = None,
+                   outs: Optional[Sequence[torch.Tensor]] = None
+                   ) -> List[torch.Tensor]:
+        """Every local rank's `x`, by rank (this rank's own is `x`).
+        `shapes` gives each rank's shape when they differ (an empty one
+        sends nothing); by default all are x's. `outs` (contiguous, e.g.
+        slices of the whole tensor) receive in place, this rank's a copy
+        of x. Staged isends and irecvs in one batch on gloo;
+        `all_gather_into_tensor` on nccl when the shapes agree."""
+        if self.world == 1:
+            if outs is not None:
+                outs[0].copy_(x)
+            return [x] if outs is None else list(outs)
+        shapes = [tuple(x.shape)] * self.world if shapes is None else \
+            [tuple(s) for s in shapes]
+        with self.timed("all_gather"):
+            if outs is not None:
+                x = x.contiguous()
+                self._all_to_all([[x]] * self.world, [[t] for t in outs])
+                return list(outs)
+            outs = [x if q == self.rank else
+                    torch.empty(shapes[q], dtype=x.dtype, device=x.device)
+                    for q in range(self.world)]
+            if self._native(outs):
+                flat = torch.empty((self.world,) + tuple(x.shape),
+                                   dtype=x.dtype, device=x.device)
+                dist.all_gather_into_tensor(flat, x.contiguous(),
+                                            group=self.group)
+                return list(flat.unbind(0))
+            x = x.contiguous()
+            self._all_to_all([[x]] * self.world, [[t] for t in outs])
+        return outs
 
     def _group(self, block: int):
         if block == self.world:

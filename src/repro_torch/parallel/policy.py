@@ -8,8 +8,11 @@ RVH backend). For the huge archs the paper's hierarchical mode (§4.2.2 +
 §4.3) applies: plain sum-reduce inside a lane group (GSPMD reduce-scatter,
 overlapped with backward) and Adasum across `span` lane groups, with
 optimizer state ZeRO-partitioned. Field names and defaults are the
-reference's, so a policy means the same in both packages; on one device
-the sharding fields (fsdp, scatter_grads, pad_heads) change nothing.
+reference's, so a policy means the same in both packages. Across ranks
+`fsdp` shards the params and `scatter_grads` the lane gradients over the
+data ranks, and the optimizer state is ZeRO-1 sharded by itself
+(`repro_torch.parallel.zero`); on one device the sharding fields (fsdp,
+scatter_grads, pad_heads) change nothing, as in the reference.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ import dataclasses
 class RunPolicy:
     span: int = 0               # 0 => one lane per DP rank
     fsdp: bool = False          # ZeRO-3 params over `data`
-    scatter_grads: bool = False # ZeRO-2: constrain lane grads over `data`
+    scatter_grads: bool = False # ZeRO-2: lane grads over `data` (span < dp)
     backend: str = "rvh"        # combine backend when span==dp
     optimizer: str = "adam"
     param_dtype: str = "float32"

@@ -393,15 +393,18 @@ def test_segment_wrappers_match_reference_ops():
 
 
 def test_segment_sum_is_index_add():
+    """Sorted ids, reversed ones and a chunk-major bucket's (every layer
+    once a chunk, as core/rvh.py's ShardLayout lays them) all sum as
+    index_add does."""
     rng = np.random.default_rng(0)
     seg = np.sort(rng.integers(0, 6, 40))
     x = torch.from_numpy(rng.standard_normal((2, 40, 3)).astype(np.float32))
-    got = K.SegmentSum(seg, 7, "cpu")(x)
-    for r in range(2):
-        want = torch.zeros(7, 3).index_add_(0, torch.from_numpy(seg), x[r])
-        close(got[r], want, rtol=1e-6, atol=1e-6)
-    with pytest.raises(ValueError, match="nondecreasing"):
-        K.SegmentSum(seg[::-1], 7, "cpu")
+    for ids in (seg, seg[::-1].copy(), np.tile(np.arange(5), 8)):
+        got = K.SegmentSum(ids, 7, "cpu")(x)
+        for r in range(2):
+            want = torch.zeros(7, 3).index_add_(0, torch.from_numpy(ids),
+                                                x[r])
+            close(got[r], want, rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("bad", ["not_multiple", "granule", "dtype_mix",

@@ -244,8 +244,7 @@ def test_controller_cli_flags_parse_as_reference():
             "--lr-rescale", "linear", "--noise-ema", "0.7"]
     got, want = EngineConfig.from_cli(argv), JEngineConfig.from_cli(argv)
     for f in dataclasses.fields(EngineConfig):
-        if hasattr(want, f.name) and f.name not in ("fsdp",
-                                                    "scatter_grads"):
+        if hasattr(want, f.name):
             assert getattr(got, f.name) == getattr(want, f.name), f.name
 
 

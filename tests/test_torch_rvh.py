@@ -4,7 +4,9 @@ shard_map on 4 fake devices (world 2, world 4 and a (pod, data) 2x2
 mesh; per-layer and whole-model; several buckets and one; int8 and not;
 `use_pallas` off and on, the Pallas kernels in interpret mode) and
 against the port's single-process `adasum_tree_reduce` on the same lanes;
-plus the comm's collectives and the refusals.
+plus RVH without its allgather phase (ZeRO-1) against the reference's
+`adasum_rvh_local(..., allgather_result=False)`, the comm's collectives
+and the refusals.
 
 The ranks run in one launch per world (`torch_dist_workers.launch`) and
 the reference in one JAX subprocess, started first so the two overlap.
@@ -152,6 +154,18 @@ for name, (world, mesh_kind, per_layer, bucket, compress, pallas) in cases.items
             all(np.array_equal(v, views[k][0]) for v in views[k]))
     res[f"{name}/probe"] = np.asarray(probe_stats(
         {k: jnp.asarray(v) for k, v in tree.items()}, jnp.float32)["levels"])
+# ZeRO-1: one bucket through adasum_rvh_local without its allgather;
+# each device's owned chunk, by lane
+for world in (2, 4):
+    data = np.load(lanes_path.format(world))
+    buf, seg = data["local_buf"], data["local_seg"]
+    mesh = jax.sharding.Mesh(np.asarray(jax.devices()[:world]), ("data",))
+    fn = rvh._shard_map_compat(
+        lambda b: rvh.adasum_rvh_local(
+            b[0], jnp.asarray(seg), [("data", world)], int(seg.max()),
+            allgather_result=False)[None],
+        mesh, (P("data"),), P("data"))
+    res[f"local{world}"] = np.asarray(jax.jit(fn)(buf))
 np.savez(out_path, **res)
 print("OK")
 """
@@ -168,7 +182,7 @@ def _lanes(world):
 def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("rvh")
     for w in (2, 4):
-        np.savez(tmp / f"lanes{w}.npz", **_lanes(w))
+        np.savez(tmp / f"lanes{w}.npz", **_lanes(w), **_local_bucket(w))
     env = dict(os.environ, PYTHONPATH=str(SRC), JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
     ref = subprocess.Popen(
@@ -181,11 +195,13 @@ def runs(tmp_path_factory):
             cases = _port_cases(w)
             ranks = launch(w, "rvh", {
                 "lanes": str(tmp / f"lanes{w}.npz"), "keys": KEYS,
+                "local": True,
                 "cases": [dict(per_layer=p, bucket_bytes=b, compress=c,
                                use_pallas=u) for p, b, c, u in cases]},
                 tmp, timeout=300)
             for i, case in enumerate(cases):
                 port[(w,) + case] = [r[i] for r in ranks]
+            port[(w, "local")] = [r[-1] for r in ranks]
         log, _ = ref.communicate(timeout=300)
     finally:
         if ref.poll() is None:
@@ -193,6 +209,18 @@ def runs(tmp_path_factory):
             ref.wait()
     assert ref.returncode == 0, log
     return port, np.load(tmp / "ref.npz")
+
+
+def _local_bucket(world):
+    """One bucket for `adasum_rvh_local`: [world, n] lanes with three
+    block-aligned layers and a zero padding block (segment 3)."""
+    rng = np.random.default_rng(200 + world)
+    blocks = [0] * 5 + [1] * 3 + [2] * (8 * world - 9) + [3]
+    seg = np.repeat(np.asarray(blocks, np.int32), 8192)
+    buf = (rng.standard_normal((world, seg.size))
+           + 0.5 * rng.standard_normal(seg.size)).astype(np.float32)
+    buf[:, seg == 3] = 0.0
+    return {"local_buf": buf, "local_seg": seg}
 
 
 def _tree_reduce(world, per_layer):
@@ -315,10 +343,21 @@ def _fake_comm(world, rank=0):
     return types.SimpleNamespace(world=world, rank=rank, timed=None)
 
 
-def test_allgather_false_is_zero_1_and_refused():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        R.adasum_rvh_local(torch.zeros(16384), [], _fake_comm(2),
-                           allgather_result=False)
+@pytest.mark.parametrize("world", [2, 4])
+def test_allgather_false_is_zero_1_and_refused(runs, world):
+    """ZeRO-1 (the name is from when it was refused): without its
+    allgather phase RVH returns on each rank the chunk it owns — the
+    chunk the reference's `adasum_rvh_local(..., allgather_result=False)`
+    leaves on that device under shard_map (TOL), and bitwise the same
+    chunk of the full result."""
+    port, ref = runs
+    want = ref[f"local{world}"].reshape(world, -1)
+    for rank, got in enumerate(port[(world, "local")]):
+        chunk = got["full"].size // world
+        off = R.owned_chunk(rank, world) * chunk
+        assert got["owned"].shape == (chunk,)
+        np.testing.assert_allclose(got["owned"], want[rank], **TOL)
+        assert np.array_equal(got["owned"], got["full"][off:off + chunk])
 
 
 @pytest.mark.parametrize("tp", [dict(model_axes=("model",)),

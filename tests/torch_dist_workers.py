@@ -112,6 +112,16 @@ def job_rvh(comm, spec):
                     "levels": stack_stats(collect)["levels"].numpy(),
                     "bitwise": _same_on_all_ranks(comm, got),
                     "staged": comm.staged_bytes})
+    if spec.get("local"):       # one bucket, with and without allgather
+        seg = lanes["local_seg"]
+        metas = rvh._round_metas(seg[::8192].astype(np.int64),
+                                 int(seg.max()) + 1, 8192, comm.rank,
+                                 comm.world, "cpu")
+        run = lambda full: rvh.adasum_rvh_local(
+            torch.from_numpy(lanes["local_buf"][comm.rank]).clone(), metas,
+            comm, allgather_result=full).numpy()
+        out.append({"full": run(True), "owned": run(False),
+                    "staged": comm.staged_bytes})
     return out
 
 
@@ -557,10 +567,173 @@ def job_adaptive(comm, spec):
     return out
 
 
+def job_shard(comm, spec):
+    """The sharded ranked step (ZeRO-1 state, ZeRO-2 lane gradients, FSDP
+    params) for every case of spec, from the same params and batches;
+    per case the losses, whether the whole leaves agreed bitwise across
+    the ranks after every step, each rank's bytes of params and state
+    against the plan's `local_shape`, and (rank 0) the params and state
+    gathered to full leaves — beside the same steps with the lanes
+    stacked on one process (rank 0)."""
+    import numpy as np
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.engine import build_runtime
+    from repro_torch.parallel.policy import RunPolicy
+    data = np.load(spec["inputs"])
+    out = []
+    for case in spec["cases"]:
+        model = _case_model(case)
+        init = _init_tree(data, case["name"])
+        rt = build_runtime(model, RunPolicy(**case["policy"]),
+                           lr=case["lr"], comm=comm)
+        plan = rt.plan
+        params = plan.shard_params(params_from_numpy(init, device="cpu"))
+        state = {"params": params, "opt": rt.dopt.init(params), "step": 0}
+        batches = [{k: torch.from_numpy(data[f"{case['name']}/batch{s}/{k}"])
+                    for k in ("tokens", "labels", "frontend_embeds")
+                    if f"{case['name']}/batch{s}/{k}" in data.files}
+                   for s in range(case["steps"])]
+        losses, bitwise = [], []
+        for b in batches:
+            state, m = rt.train_step(state, b)
+            losses.append(float(m["loss"]))
+            whole = [x for i, x in enumerate(T.leaves(state["params"]))
+                     if plan.dims[i] is None or not plan.fsdp]
+            bitwise.append(_same_on_all_ranks(comm, whole))
+        nbytes = lambda tree: [x.numel() * x.element_size()
+                               for x in T.leaves(tree)]
+        want = lambda which, tree: [
+            int(np.prod(s)) * x.element_size()
+            for s, x in zip(plan.local_shapes(which), T.leaves(tree))]
+        inner = state["opt"]["inner"]
+        subs = list(inner.values()) if isinstance(inner, dict) else []
+        res = {"losses": losses, "bitwise": bitwise, "path": rt.combine_path,
+               "sharded_leaves": sum(d is not None for d in plan.dims),
+               "params_bytes": (nbytes(state["params"]),
+                                want("params", state["params"])),
+               "state_bytes": ([nbytes(t) for t in subs],
+                               [want("state", t) for t in subs])}
+        full_p = plan.gather_tree(state["params"], "params")
+        full_s = {k: plan.gather_tree(t, "state") for k, t in
+                  (inner.items() if isinstance(inner, dict) else ())}
+        if comm.rank == 0:
+            res["params"] = _np_tree(full_p)
+            res["state"] = {k: _np_tree(t) for k, t in full_s.items()}
+            pol = dict(case["policy"], backend="gspmd_tree",
+                       span=case["policy"].get("span") or comm.world)
+            one = build_runtime(model, RunPolicy(**pol), lr=case["lr"])
+            p1 = params_from_numpy(init, device="cpu")
+            s1 = {"params": p1, "opt": one.dopt.init(p1), "step": 0}
+            for b in batches:
+                s1, _ = one.train_step(s1, b)
+            res["single_params"] = _np_tree(s1["params"])
+            i1 = s1["opt"]["inner"]
+            res["single_state"] = {k: _np_tree(t) for k, t in (
+                i1.items() if isinstance(i1, dict) else ())}
+        out.append(res)
+    if spec.get("ckpt"):
+        out.append(_shard_ckpt(comm, spec["ckpt"]))
+    return out
+
+
+def _case_model(case):
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_reduced(case["arch"]),
+                              **case.get("cfg", {}))
+    return build_model(cfg, compute_dtype=torch.float32,
+                       attn_chunk=case["attn_chunk"])
+
+
+def _init_tree(data, prefix):
+    init = {}
+    for key in data.files:
+        if key.startswith(prefix + "/init/"):
+            node = init
+            *path, leaf = key[len(prefix) + 6:].split("/")
+            for p in path:
+                node = node.setdefault(p, {})
+            node[leaf] = data[key]
+    return init
+
+
+def _shard_ckpt(comm, spec):
+    """A sharded TrainSession on every rank: step 1 saved, then step 2 (the
+    uninterrupted run). Ranks 0 and 1 then restore step 1 into a sharded
+    world-2 session and take step 2; rank 0 also restores it into one
+    process, unsharded, and takes step 2. Returns (rank 0) the gathered
+    states and the manifest's leaf shapes."""
+    import dataclasses
+    import json
+    from pathlib import Path
+    import torch
+    import torch.distributed as dist
+    from repro_torch import tree as T
+    from repro_torch.engine import EngineConfig, TrainSession
+    model = _case_model(spec)
+    cfg = EngineConfig(**spec["config"], ckpt_dir=spec["dir"])
+    gen = lambda: torch.Generator().manual_seed(spec["seed"])
+
+    def full(s):        # a copy: whole leaves are the live tensors
+        plan = s.runtime.plan
+        inner = s.state["opt"]["inner"]
+        return _np_tree((plan.gather_tree(s.state["params"], "params"),
+                         {k: plan.gather_tree(v, "state")
+                          for k, v in inner.items()}))
+
+    s = TrainSession.from_config(cfg, model=model, device="cpu", comm=comm,
+                                 callbacks=[], generator=gen())
+    out = {"world4_sharded": sum(d is not None for d in s.runtime.plan.dims)}
+    s.fit(1)
+    s.save_sync(1)
+    saved = full(s)
+    s.fit(2)
+    after = full(s)
+    halves = comm.split([[0, 1], [2, 3]])
+    solo = comm.split([[r] for r in range(comm.world)])
+    if comm.rank < 2:
+        s2 = TrainSession.from_config(cfg, model=model, device="cpu",
+                                      comm=halves, callbacks=[],
+                                      generator=gen())
+        s2.restore(1)
+        got = full(s2)
+        out["world2_plan"] = (s2.runtime.plan.g, s2.runtime.plan.span)
+        s2.step()
+        nxt = full(s2)
+        if comm.rank == 0:
+            out["w2_restored"] = got
+            out["w2_next"] = nxt
+    dist.barrier()
+    if comm.rank == 0:
+        one_cfg = dataclasses.replace(cfg, span=cfg.span or comm.world,
+                                      backend="gspmd_tree")
+        s1 = TrainSession.from_config(one_cfg, model=model, device="cpu",
+                                      comm=solo, callbacks=[],
+                                      generator=gen())
+        s1.restore(1)
+        inner = s1.state["opt"]["inner"]
+        out["one_restored"] = _np_tree((s1.state["params"], dict(inner)))
+        s1.step()
+        inner = s1.state["opt"]["inner"]
+        out["one_next"] = _np_tree((s1.state["params"], dict(inner)))
+        out["saved"] = saved
+        out["after"] = after
+        man = json.loads((Path(spec["dir"]) / "step_00000001" /
+                          "manifest.json").read_text())
+        out["manifest"] = {e["path"]: e["shape"] for e in man["leaves"]}
+        s1.close()
+    dist.barrier()
+    return out
+
+
 JOBS = {"rvh": job_rvh, "train": job_train, "ckpt": job_ckpt,
         "gather": job_gather, "delayed": job_delayed,
         "elastic": job_elastic, "compose": job_compose, "lanes": job_lanes,
-        "adaptive": job_adaptive}
+        "adaptive": job_adaptive, "shard": job_shard}
 
 
 def main():
