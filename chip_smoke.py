@@ -12,6 +12,8 @@
     python3 chip_smoke.py --ranks-only     # phase 6 alone, no result line
     python3 chip_smoke.py --ranks-only --witness  # and (A) against one
                                                   # process in fp32
+    python3 chip_smoke.py --model-axis-only  # phase 13 alone, no result
+                                             # line (--witness: + fp32)
 
 --serve-ab compares two commits on one card within one call: DIR is
 another checkout of the repo (e.g. `git archive <parent> | tar -x -C
@@ -23,8 +25,8 @@ from the tree), and a `SERVE_AB` JSON line gives the four runs' metrics.
 plain attention, no kernel built), ending with a `SCAN_AB` line of
 each run's times in ms.
 
-Phases, in the order they run: 1, 2, 6, 3, 4, 8, 5, 7, 9, 10, 11, 12 (any
-error fails the run with a non-zero exit and no result):
+Phases, in the order they run: 1, 2, 6, 3, 4, 8, 5, 13, 7, 9, 10, 11, 12
+(any error fails the run with a non-zero exit and no result):
   1. card: print `nvidia-smi --query-gpu=name,power.limit` and require
      CUDA;
   2. build: compile every kernel under src/repro_torch/kernels/csrc with
@@ -218,7 +220,8 @@ error fails the run with a non-zero exit and no result):
      TRAIN_PARAM_TOL, the per-level dot triples summed in float64; the
      CombineStats levels are fp32, as the reference's), and in fp32 with
      combine_delay=0 named (no delayed piece built; step 1 bitwise phase
-     5's); the combine ms of each. (c) phase 6's model in rank processes
+     5's); the combine ms of each. (c) P9_RANK_ARCH (minicpm3-4b) at
+     full width, one layer, in rank processes
      on cuda:0 over gloo, one launch a world size, each run's steps as
      P9_RANK_RUNS gives them: world 4 sum and adascale (sgd),
      accumulation 2 at span 2 (momentum: its state ZeRO-1, the lane
@@ -250,7 +253,7 @@ error fails the run with a non-zero exit and no result):
      every request terminal, the reload falling back to the step before,
      no page leaked after the drain and the prefix flush, both attention
      kernels launched. (b) `fit_elastic` in 4 rank processes on cuda:0
-     over gloo with phase 6's model (sgd): a node loss at P10_LOSS_STEP
+     over gloo with phase 9 (c)'s model (sgd): a node loss at P10_LOSS_STEP
      whose boundary save is bit-flipped (4 -> 2 ranks, restored from the
      periodic save before it and the step replayed), then capacity back
      after one step (2 -> 4, the gain-rescaled LR): the steps seen, the
@@ -330,6 +333,46 @@ error fails the run with a non-zero exit and no result):
      flash_attention must launch in none of them (no parallel prefill on
      these paths, training takes plain attention), as in the reference.
      `--recurrent-only` builds the kernels and runs this phase alone.
+  13. model axis (runs right after phase 5, before phase 7 leaves a
+     session on the card):
+     (a) tensor-parallel training of qwen3-32b (hf Qwen/Qwen3-32B) at
+     full width, TP_LAYERS of its 64 layers, on a (data 2, model 2) grid
+     of four rank processes sharing the card over gloo (`TrainSession`
+     with data_mesh 2, model_mesh 2: Megatron-style collectives in each
+     model group, RVH across each data group on the rank's shards, its
+     dots corrected for the unsharded leaves and summed over the model
+     group), momentum, bf16 compute, seq TP_SEQ, batch TP_BATCH,
+     TP_STEPS steps. Before the ranks, this process runs the twin: step 1
+     with the two data lanes stacked on the card (span 2, nothing
+     sharded) in bf16 and fp32 compute. Printed: step ms, the model
+     group's all-reduce and all-gather ms and bytes (activations and the
+     vocab-parallel cross entropy), RVH's exchange, the data and model
+     groups' dot sums, staging and kernel ms, staged GB, held GiB and
+     peaks a rank, rank 0's `block_dots` / `block_combine` launches.
+     Held: every leaf bitwise across each data group after every step,
+     the unsharded leaves across each model group, step 1 bitwise on
+     repeat; rank 0's combined tree and stats on the kernel arm against
+     the plain arm (COMBINED_RTOL) and every rank's params
+     (TRAIN_PARAM_TOL); step 1 against the twin leaf by leaf within
+     TP_TWIN_FACTOR x the twin's own bf16-vs-fp32 difference (+
+     TP_TWIN_FLOOR); with `--witness`, step 1 in fp32 compute against
+     the fp32 twin within TP_WITNESS_RTOL of each leaf's largest update.
+     (b) head padding in serving: minitron-4b (arXiv:2407.14679) at full
+     width, PAD_LAYERS of 32, padded by `pad_heads_for_tp` for the
+     production mesh's model axis (16): 24 / 8 heads -> 32 / 16; the
+     engine's own path (`resolve_serve_parts` with that mesh) pads alike;
+     weights converted from the unpadded model (`convert_gqa_params`);
+     both engines serve 4 prompts of PAD_PROMPTS tokens, PAD_GEN new
+     each (tick and prefill ms printed); tokens held by phase 8's rule
+     (equal, or each first divergence within LOGIT_TOL by the unpadded
+     model's margin), logits in fp32 compute within PAD_FP32_TOL, and
+     every flash and paged-decode call of a padded run against its
+     plain version (bf16 3e-2). Then the kernels at the padded shapes
+     (prefill B 4 x 128, a tick over 8 pages a slot, H 32, KV 16) and
+     RVH's round-0 half of the TP shard of qwen3-32b's embedding, as in
+     phase 3. `phase13_launches` counts (a)'s rank 0 and (b)'s padded
+     run. `--model-axis-only` builds the kernels and runs this phase
+     alone.
 
 The line before the last is the kernels JSON (block_dots and
 block_combine rows also carry their phase-6 launches on rank 0 of each
@@ -337,8 +380,9 @@ run, `rvh_launches`, and their ms on the round-0 half, `rvh_half_ms`; every
 row its launches inside phase 7, `phase7_launches`; the attention rows
 their launches inside phase 8, `phase8_launches`; the Adasum rows theirs
 inside phase 9, `phase9_launches`; every row its launches inside phase
-10, `phase10_launches`, phase 11, `phase11_launches`, and phase 12,
-`phase12_launches`), the
+10, `phase10_launches`, phase 11, `phase11_launches`, phase 12,
+`phase12_launches`, and phase 13, `phase13_launches`, with its case at
+phase 13's shapes, `phase13_case`), the
 last line {"ok": true, "device": {...}}. Longer records go to
 chiprun_out/chip_smoke.json. fp32 matmuls run in full fp32: TF32 is
 switched off for cuBLAS and cuDNN.
@@ -2989,13 +3033,20 @@ P9_MEM_GIB = 70
 # fraction
 P9_OVERLAP_ROUNDS = 5
 # (c) the other combiners, accumulation, local steps and the delayed
-# combine across ranks: phase 6's model, all ranks on cuda:0 over gloo,
+# combine across ranks, and phase 10 (b)'s elastic drill: P9_RANK_ARCH
+# at full width, P9_RANK_LAYERS layer (minicpm3-4b, hf
+# openbmb/MiniCPM3-4B: 250.7 M params, 1.00 GB fp32, against gemma-7b's
+# 1.063 B and 4.25 GB at one layer, whose gloo traffic would make these
+# two phases a third of the script; the paths they drive do not depend
+# on the model), all ranks on cuda:0 over gloo,
 # one launch a world size (a world of 2 is its own process group: torch's
 # new_group is collective over every process, so two ranks of a
 # four-rank launch cannot build their runtime's groups alone). Each run:
 # (name, EngineConfig fields, steps); one step runs every leg of a
 # synchronous path, the delayed run's second step is its first with a
 # nonzero carry
+P9_RANK_ARCH = "minicpm3-4b"
+P9_RANK_LAYERS = 1
 P9_RANK_RUNS = {
     4: (("sum_sgd", dict(combine="sum", optimizer="sgd"), 1),
         ("adascale_sgd", dict(combine="adascale", optimizer="sgd"), 1),
@@ -3394,7 +3445,8 @@ def combiners_worker(spec: dict) -> int:
     from repro_torch.models import build_model
     from repro_torch.parallel.comm import Comm
     world, rank = spec["world"], int(os.environ["RANK"])
-    cfg = dataclasses.replace(get_config("gemma-7b"), n_layers=RANK_LAYERS)
+    cfg = dataclasses.replace(get_config(P9_RANK_ARCH),
+                              n_layers=P9_RANK_LAYERS)
     model = build_model(cfg, compute_dtype=torch.bfloat16,
                         param_dtype=torch.float32)
     comm = Comm.init("gloo", torch.device("cuda:0"))
@@ -3405,7 +3457,7 @@ def combiners_worker(spec: dict) -> int:
         timer = _CombineTimer()
         t0 = time.perf_counter()
         s = _session(model, timer, device="cuda:0", comm=comm,
-                     global_batch=RANK_BATCH, **fields)
+                     global_batch=RANK_BATCH, arch=P9_RANK_ARCH, **fields)
         run = {"name": name, "init_s": time.perf_counter() - t0,
                "path": s.runtime.combine_path,
                "point": s.runtime.dopt.point, "steps": []}
@@ -3545,13 +3597,13 @@ P10_COOLDOWN = 1
 P10_STEPS = 8
 P10_GROW_THRESHOLD = 1e-3
 P10_MEM_GIB = 70
-# (b) elastic ranks: phase 6's model at world 4, sgd, span one lane a
-# rank, one save of step P10_SAVE_STEP (no final save), a node loss at
+# (b) elastic ranks: phase 9 (c)'s model at world 4, sgd, span one lane
+# a rank, one save of step P10_SAVE_STEP (no final save), a node loss at
 # P10_LOSS_STEP whose boundary save is bit-flipped, capacity back after
 # one step at world 2; P10_RANK_STEPS in all
-P10_SAVE_STEP = 2
-P10_LOSS_STEP = 3
-P10_RANK_STEPS = 4
+P10_SAVE_STEP = 1
+P10_LOSS_STEP = 2
+P10_RANK_STEPS = 3
 # (c) comm_spike: the delayed combine (phase 9 (a)'s run), an unspiked
 # warm-up round, then P10_SPIKE_ROUNDS rounds: a spike of P10_SPIKE_S
 # after each of them but the last in one run, none in the other
@@ -3906,11 +3958,13 @@ def elastic_worker(spec: dict) -> int:
     from repro_torch.models import build_model
     from repro_torch.parallel.comm import Comm
     rank = int(os.environ["RANK"])
-    cfg = dataclasses.replace(get_config("gemma-7b"), n_layers=RANK_LAYERS)
+    cfg = dataclasses.replace(get_config(P9_RANK_ARCH),
+                              n_layers=P9_RANK_LAYERS)
     model = build_model(cfg, compute_dtype=torch.bfloat16,
                         param_dtype=torch.float32)
     comm = Comm.init("gloo", torch.device("cuda:0"))
-    ecfg = EngineConfig(arch="gemma-7b", seq_len=512, global_batch=RANK_BATCH,
+    ecfg = EngineConfig(arch=P9_RANK_ARCH, seq_len=512,
+                        global_batch=RANK_BATCH,
                         fusion_threshold_mb=64, optimizer="sgd",
                         ckpt_every=0, log_every=1, elastic=True,
                         ckpt_dir=spec["dir"])
@@ -5163,6 +5217,546 @@ def recurrent_phase(card: str) -> dict:
     return rec
 
 
+# ------------------------------------------------------ phase 13: model axis
+# (a) tensor-parallel training: qwen3-32b (hf Qwen/Qwen3-32B, the
+# reference's own model-axis example, src/repro/launch/train.py:3-4) at
+# full width, TP_LAYERS of its 64 layers (2.04 B params, 7.61 GiB fp32),
+# on a (data, model) grid of TP_GRID gloo ranks sharing the card:
+# momentum, Adasum RVH, bf16 compute, seq TP_SEQ, global batch TP_BATCH,
+# TP_STEPS steps, random weights from SEED
+TP_LAYERS = 1
+TP_GRID = (2, 2)
+TP_SEQ = 256
+TP_BATCH = 8
+TP_STEPS = 2
+# step 1 against the twin (one process, the two lanes stacked on the card,
+# the same init and batch), leaf by leaf, within TP_TWIN_FACTOR times the
+# twin's own bf16-vs-fp32 difference of that leaf, plus TP_TWIN_FLOOR (an
+# fp32 ulp at a 1-scale param). The twin rounds each bf16 product once
+# where the fp32 twin rounds none; a rank rounds each row-parallel
+# layer's bf16 partial product, then the fp32 all-reduce's sum back to
+# bf16: up to ~3 roundings where the twin has one
+TP_TWIN_FACTOR = 4.0
+TP_TWIN_FLOOR = 1.2e-7
+# --witness: step 1 in fp32 compute against the fp32 twin, within
+# TP_WITNESS_RTOL of each leaf's largest update (the same fp32 sums in
+# another order)
+TP_WITNESS_RTOL = 1e-4
+# (b) head padding in serving: minitron-4b (arXiv:2407.14679; its preset
+# sets pad_heads) at full width, PAD_LAYERS of its 32 layers, padded for
+# the production mesh's model axis (16): 24 q / 8 kv heads -> 32 / 16, G
+# 3 -> 2; weights converted from the unpadded model (exact); 4 prompts of
+# PAD_PROMPTS tokens, PAD_GEN new each
+PAD_LAYERS = 8
+PAD_PROMPTS = (48, 64, 80, 96)
+PAD_GEN = 32
+# the padded engine's logits against the unpadded one's in fp32 compute:
+# the same sums with zero heads added, in another order
+PAD_FP32_TOL = 1e-2
+
+
+def _tp_config(**fields):
+    """Phase 13 (a)'s EngineConfig; `fields` set the rest."""
+    from repro_torch.engine import EngineConfig
+    return EngineConfig(**{**dict(
+        arch="qwen3-32b", seq_len=TP_SEQ, global_batch=TP_BATCH,
+        optimizer="momentum", fusion_threshold_mb=64, steps=TP_STEPS,
+        log_every=1), **fields})
+
+
+def _tp_model(dtype):
+    """qwen3-32b at TP_LAYERS layers, fp32 params, `dtype` compute."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    import torch
+    cfg = dataclasses.replace(get_config("qwen3-32b"), n_layers=TP_LAYERS)
+    return build_model(cfg, compute_dtype=dtype, param_dtype=torch.float32,
+                       attn_chunk=TP_SEQ)
+
+
+def _tp_twin(card: str, path: Path, witness: bool) -> dict:
+    """Phase 13 (a)'s twin, in this process before the ranks start: step
+    1 with the grid's two data lanes stacked on the card (span 2, the
+    fused combine, nothing sharded), in bf16 and in fp32 compute. Saves
+    the bf16 step's params (and with `witness` the fp32 step's), each
+    leaf's |bf16 - fp32| maximum and its fp32 update's largest |p1 - p0|
+    to `path` for the ranks."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.engine import TrainSession
+    got, out = {}, {}
+    t0 = time.perf_counter()
+    for name, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        torch.cuda.reset_peak_memory_stats()
+        s = TrainSession.from_config(
+            _tp_config(span=TP_GRID[0], backend="gspmd_tree"),
+            model=_tp_model(dt), device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(SEED),
+            callbacks=[])
+        p0 = [x.clone() for x in T.leaves(s.state["params"])] \
+            if name == "fp32" else None
+        m, dt_s = _timed_s(lambda: s.step(s.batch(0)))
+        p1 = T.leaves(s.state["params"])
+        if p0 is not None:      # on the card, a leaf at a time
+            out["upd"] = [(a - b).abs().max().item() for a, b in zip(p1, p0)]
+            del p0
+            out["diff"] = [(a - b.to(a.device)).abs().max().item()
+                           for a, b in zip(p1, got["bf16"])]
+        if name == "bf16" or witness:
+            got[name] = [x.to("cpu", copy=True) for x in p1]
+        out[f"{name}_ms"] = 1e3 * dt_s
+        out[f"{name}_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out[f"{name}_loss"] = m["loss"]
+        del s, p1
+        _free()
+    t1 = time.perf_counter()
+    torch.save({"bf16": got["bf16"], "fp32": got.get("fp32"), **out}, path)
+    del got
+    out["save_s"] = time.perf_counter() - t1
+    out["twin_s"] = time.perf_counter() - t0
+    print(f"[smoke] p13 (a) twin: one process, {TP_GRID[0]} lanes stacked: "
+          f"step 1 bf16 {out['bf16_ms']:.1f} ms (peak "
+          f"{out['bf16_peak_gib']:.2f} GiB), fp32 {out['fp32_ms']:.1f} ms "
+          f"(peak {out['fp32_peak_gib']:.2f}); bf16 vs fp32 params max "
+          f"{max(out['diff']):.3e} | {card}")
+    torch.cuda.reset_peak_memory_stats()
+    return out
+
+
+def _tp_vs_twin(plan, params, twin, key: str, tol) -> dict:
+    """This rank's params against the same shard of the twin's step 1
+    (`twin[key]`), leaf by leaf: the worst ratio of |difference| to the
+    leaf's tolerance `tol(i)`, over the ranks."""
+    import torch.distributed as dist
+    from repro_torch import tree as T
+    worst = (0.0, None, 0.0, 0.0)
+    for i, x in enumerate(T.leaves(params)):     # on the card
+        want = plan.mshard(i, twin[key][i]).to(x.device)
+        err = (x.detach() - want).abs().max().item()
+        del want
+        ratio = err / tol(i)
+        if ratio >= worst[0]:
+            worst = (ratio, i, err, tol(i))
+    seen = [None] * dist.get_world_size()
+    dist.all_gather_object(seen, worst)
+    ratio, i, err, t = max(seen, key=lambda w: w[0])
+    return {"worst_ratio": ratio, "leaf": i, "max_abs_err": err, "tol": t}
+
+
+def tp_worker(spec: dict) -> int:
+    """One rank of phase 13 (a) (its own process, all on cuda:0 over
+    gloo): TP_STEPS steps of the grid through `TrainSession`, then step
+    1 again from fresh state (the kernel arm, bitwise) and on the plain
+    arm; step 1 held against the twin; writes a JSON record."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch import tree as T
+    from repro_torch.engine import TrainSession, build_runtime
+    from repro_torch.kernels import build
+    from repro_torch.parallel.comm import Comm
+    rank = int(os.environ["RANK"])
+    lead = rank == 0
+    comm = Comm.init("gloo", torch.device("cuda:0"))
+    model = _tp_model(torch.bfloat16)
+    timer = _CombineTimer(keep=lead)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _timing_combiners(timer):
+        s = TrainSession.from_config(
+            _tp_config(data_mesh=TP_GRID[0], model_mesh=TP_GRID[1],
+                       backend="rvh"),
+            model=model, device="cuda:0",
+            generator=torch.Generator(device="cuda:0").manual_seed(SEED),
+            callbacks=[], comm=comm)
+    rt, plan = s.runtime, s.runtime.plan
+    mc, dc, tp = rt.model_comm, plan.comm, rt.tp
+    rec = {"rank": rank, "init_s": time.perf_counter() - t0,
+           "init_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "mesh": [rt.dp_total, rt.model_size], "path": rt.combine_path,
+           "sharded_leaves": sum(d is not None for d in plan.mdims),
+           "leaves": len(plan.mdims),
+           "held_gib": {"params": _gib_of(s.state["params"]),
+                        "state": _gib_of(s.state["opt"]["inner"])}}
+    print(f"[rank {rank}] session up in {rec['init_s']:.1f}s", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    whole = [d is None for d in plan.mdims]
+    twin = torch.load(spec["twin"], mmap=True)
+    comm.timing = True
+    dc.take_ms()
+    mc.take_ms()
+    build.reset_launches()
+    steps = []
+    for step in range(TP_STEPS):
+        tp.bytes.clear()
+        staged0 = comm.total_staged_bytes()
+        m, dt = _timed_s(lambda: s.step(s.batch(step)))
+        sums = _checksums(s.state["params"])
+        steps.append({
+            "ms": 1e3 * dt, "loss": m["loss"], "combine_ms": timer.take_ms(),
+            "data_comm": dc.take_ms(), "model_comm": mc.take_ms(),
+            "tp_bytes": dict(tp.bytes),
+            "staged_bytes": comm.total_staged_bytes() - staged0,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "data_bitwise": _all_equal(sums, group=dc.group),
+            "model_bitwise": _all_equal(
+                [c for c, w in zip(sums, whole) if w], group=mc.group)})
+        print(f"[rank {rank}] step {step} {1e3 * dt:.0f} ms", flush=True)
+        if step == 0:
+            sums1 = sums
+            rec["twin"] = _tp_vs_twin(
+                plan, s.state["params"], twin, "bf16",
+                lambda i: TP_TWIN_FACTOR * twin["diff"][i] + TP_TWIN_FLOOR)
+    comm.timing = False
+    rec["launches"] = dict(build.LAUNCHES)
+    rec["steps"] = steps
+    rec["peak_gib"] = max(x["peak_gib"] for x in steps)
+    kept = timer.kept
+    batch0 = s.batch(0)
+    s.state = None
+    _free()
+
+    def fresh_step(runtime, m):
+        params = m.init(torch.Generator(device="cuda:0").manual_seed(SEED))
+        params = runtime.plan.shard_params(params)
+        state = {"params": params, "opt": runtime.dopt.init(params),
+                 "step": 0}
+        return runtime.train_step(state, batch0)[0]
+
+    rec["steps_s"] = time.perf_counter() - t0 - rec["init_s"]
+    t1 = time.perf_counter()
+    again = fresh_step(rt, model)
+    rec["repeat_bitwise"] = _checksums(again["params"]) == sums1
+    p1 = [x.to("cpu", copy=True) for x in T.leaves(again["params"])]
+    cuda = lambda x: x.to("cuda:0", non_blocking=False)
+    del again
+    _free()
+    rec["repeat_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    ptimer = _CombineTimer(keep=lead)
+    with _timing_combiners(ptimer):
+        prt = build_runtime(model, s.config.run_policy(), lr=s.config.lr,
+                            comm=comm, combine_impl="plain",
+                            model_size=TP_GRID[1])
+    plain = fresh_step(prt, model)
+    # on the card, a leaf at a time (fp32: the difference of two close
+    # fp32 numbers is exact)
+    rel = lambda x, y: ((x - y).abs().max()
+                        / y.abs().max().clamp(min=1e-30)).item()
+    if lead:
+        rec["combined_rel_err"] = max(rel(cuda(x), cuda(y)) for x, y
+                                      in zip(kept[0], ptimer.kept[0]))
+        rec["stats_rel_err"] = _rel_err(kept[1], ptimer.kept[1])
+    err = max((x - cuda(y)).abs().max().item()
+              for x, y in zip(T.leaves(plain["params"]), p1))
+    seen = [None] * dist.get_world_size()
+    dist.all_gather_object(seen, err)
+    rec["params_max_abs_err"] = max(seen)
+    del plain, prt, ptimer, kept, p1
+    _free()
+    rec["plain_s"] = time.perf_counter() - t1
+    if spec.get("witness"):
+        m32 = _tp_model(torch.float32)
+        wrt = build_runtime(m32, s.config.run_policy(), lr=s.config.lr,
+                            comm=comm, model_size=TP_GRID[1])
+        got = fresh_step(wrt, m32)
+        rec["witness"] = _tp_vs_twin(
+            plan, got["params"], twin, "fp32",
+            lambda i: TP_WITNESS_RTOL * max(twin["upd"][i], 1e-30))
+        del got, wrt, m32
+        _free()
+    del twin
+    dist.barrier()
+    rec["staged_bytes_total"] = comm.total_staged_bytes()
+    s.close()
+    comm.close()
+    Path(spec["out"]).write_text(json.dumps(rec, default=str))
+    return 0
+
+
+def _tp_report(card: str, recs: list, twin: dict, wall: float) -> dict:
+    """Phase 13 (a) from its ranks' records: printed and checked."""
+    r0 = recs[0]
+    peaks = [r["peak_gib"] for r in recs]
+    print(f"[smoke] p13 (a) qwen3-32b (hf Qwen/Qwen3-32B) at full width, "
+          f"{TP_LAYERS} of 64 layers, grid (data, model) = "
+          f"{tuple(r0['mesh'])}, {len(recs)} gloo ranks on cuda:0; "
+          f"momentum, path={r0['path']}, bf16 compute, seq {TP_SEQ}, "
+          f"batch {TP_BATCH}: {r0['sharded_leaves']} of {r0['leaves']} "
+          f"leaves model-sharded; a rank holds params "
+          f"{r0['held_gib']['params']:.3f} + state "
+          f"{r0['held_gib']['state']:.3f} GiB; init peak "
+          f"{max(r['init_peak_gib'] for r in recs):.2f}, step peaks "
+          f"{[round(p, 2) for p in peaks]} GiB (sum {sum(peaks):.2f}) "
+          f"| {card}")
+    steps = []
+    for i in range(TP_STEPS):
+        rows = [r["steps"][i] for r in recs]
+        s0 = rows[0]
+        dcm, mcm = s0["data_comm"], s0["model_comm"]
+        tb = s0["tp_bytes"]
+        step = {
+            "ms": max(x["ms"] for x in rows), "loss": s0["loss"],
+            "combine_ms": s0["combine_ms"],
+            "tp_allreduce_ms": mcm.get("allreduce", 0.0),
+            "tp_all_gather_ms": mcm.get("all_gather", 0.0),
+            "tp_allreduce_bytes": tb.get("allreduce", 0),
+            "tp_all_gather_bytes": tb.get("all_gather", 0),
+            "model_dots_sum_ms": mcm.get("dots_sum", 0.0),
+            "rvh_exchange_ms": dcm.get("exchange", 0.0),
+            "data_dots_sum_ms": dcm.get("dots_sum", 0.0),
+            "staging_ms": dcm.get("stage", 0.0) + mcm.get("stage", 0.0),
+            "kernels_ms": dcm.get("kernels", 0.0),
+            "staged_gb": s0["staged_bytes"] / 1e9}
+        steps.append(step)
+        print(f"[smoke] p13 (a) step {i}: {step['ms']:.1f} ms (slowest "
+              f"rank), loss {step['loss']:.4f}; rank 0: TP all-reduce "
+              f"{step['tp_allreduce_ms']:.1f} ms / "
+              f"{step['tp_allreduce_bytes'] / 1e6:.1f} MB, all-gather "
+              f"{step['tp_all_gather_ms']:.1f} ms / "
+              f"{step['tp_all_gather_bytes'] / 1e6:.1f} MB; RVH exchange "
+              f"{step['rvh_exchange_ms']:.1f}, data dot-sum "
+              f"{step['data_dots_sum_ms']:.1f}, model dot-sum "
+              f"{step['model_dots_sum_ms']:.1f}, kernels "
+              f"{step['kernels_ms']:.1f}, staging {step['staging_ms']:.1f} "
+              f"ms; combine {step['combine_ms']:.1f} ms; staged "
+              f"{step['staged_gb']:.2f} GB | {card}")
+    launches = r0["launches"]
+    checks = {
+        "data_bitwise": all(x["data_bitwise"] for r in recs
+                            for x in r["steps"]),
+        "model_bitwise": all(x["model_bitwise"] for r in recs
+                             for x in r["steps"]),
+        "repeat_bitwise": all(r["repeat_bitwise"] for r in recs),
+        "combined_rel_err": r0["combined_rel_err"],
+        "stats_rel_err": r0["stats_rel_err"],
+        "params_max_abs_err": r0["params_max_abs_err"],
+        "twin": r0["twin"], "witness": r0.get("witness")}
+    print(f"[smoke] p13 (a) launches on rank 0: block_dots="
+          f"{launches.get('block_dots', 0)} block_combine="
+          f"{launches.get('block_combine', 0)}; every leaf bitwise across "
+          f"each data group={checks['data_bitwise']}, the unsharded leaves "
+          f"across each model group={checks['model_bitwise']}, on repeat="
+          f"{checks['repeat_bitwise']}; kernel vs plain (rank 0, step 1): "
+          f"combined {checks['combined_rel_err']:.2e}, stats "
+          f"{checks['stats_rel_err']:.2e} (tol {COMBINED_RTOL}), params "
+          f"{checks['params_max_abs_err']:.2e} (tol {TRAIN_PARAM_TOL}); "
+          f"step 1 vs the twin: worst leaf {checks['twin']['leaf']} "
+          f"{checks['twin']['max_abs_err']:.3e} against "
+          f"{checks['twin']['tol']:.3e} ({TP_TWIN_FACTOR} x the twin's "
+          f"bf16-vs-fp32 + {TP_TWIN_FLOOR}), twin loss "
+          f"{twin['bf16_loss']:.4f}; rank 0's seconds: init "
+          f"{r0['init_s']:.1f}, steps {r0['steps_s']:.1f}, repeat "
+          f"{r0['repeat_s']:.1f}, plain arm {r0['plain_s']:.1f}; twin "
+          f"{twin['twin_s']:.1f} (save {twin['save_s']:.1f}) | {card}")
+    if checks["witness"]:
+        w = checks["witness"]
+        print(f"[smoke] p13 (a) witness, fp32 compute: worst leaf "
+              f"{w['leaf']} {w['max_abs_err']:.3e} against {w['tol']:.3e} "
+              f"({TP_WITNESS_RTOL} of its largest update) | {card}")
+        assert w["worst_ratio"] <= 1.0, w
+    assert all(r["mesh"] == list(TP_GRID) for r in recs)
+    assert r0["path"] == "rvh" and r0["sharded_leaves"] > 0
+    assert all(math.isfinite(x["loss"]) for x in steps)
+    for k in ("block_dots", "block_combine"):
+        assert launches.get(k, 0) > 0, f"{k} never launched in phase 13 (a)"
+    assert checks["data_bitwise"] and checks["model_bitwise"]
+    assert checks["repeat_bitwise"]
+    assert checks["combined_rel_err"] <= COMBINED_RTOL
+    assert checks["stats_rel_err"] <= COMBINED_RTOL
+    assert checks["params_max_abs_err"] <= TRAIN_PARAM_TOL
+    assert checks["twin"]["worst_ratio"] <= 1.0, checks["twin"]
+    assert sum(peaks) <= RANK_MEM_GIB, peaks
+    return {"steps": steps, "launches": launches, "checks": checks,
+            "held_gib": r0["held_gib"], "peak_gib": peaks,
+            "init_peak_gib": [r["init_peak_gib"] for r in recs],
+            "twin": {k: v for k, v in twin.items()
+                     if k.endswith(("_ms", "_gib", "_loss", "_s"))},
+            "rank0_s": {k: r0[k] for k in ("init_s", "steps_s", "repeat_s",
+                                           "plain_s")},
+            "wall_s": wall}
+
+
+def _pad_serve(card: str) -> dict:
+    """Phase 13 (b): head padding in serving (see the module docstring)."""
+    import numpy as np
+    import torch
+    from repro_torch.bridge import pad_params
+    from repro_torch.configs import get_config, pad_heads_for_tp
+    from repro_torch.engine import EngineConfig, ServeEngine
+    from repro_torch.engine.serving.engine import resolve_serve_parts
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import build_model
+    mesh = make_production_mesh()
+    full = get_config("minitron-4b")
+    ecfg = EngineConfig(arch="minitron-4b", pad_heads=True, max_slots=4,
+                        max_len=128, page_size=16, param_dtype="bfloat16")
+    # the engine's own path pads for the mesh's model axis
+    got = resolve_serve_parts(ecfg, mesh=mesh, params={}, device="cuda")[0]
+    assert got.cfg == pad_heads_for_tp(full, mesh.axis_size("model"))
+    cfg = dataclasses.replace(full, n_layers=PAD_LAYERS)
+    pcfg = pad_heads_for_tp(cfg, mesh.axis_size("model"))
+    print(f"[smoke] p13 (b) minitron-4b (arXiv:2407.14679) at full width, "
+          f"{PAD_LAYERS} of {full.n_layers} layers: heads {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} (G {cfg.n_heads // cfg.n_kv_heads}) padded for "
+          f"the production mesh's model axis {mesh.axis_size('model')} to "
+          f"{pcfg.n_heads}/{pcfg.n_kv_heads} (G "
+          f"{pcfg.n_heads // pcfg.n_kv_heads}); {cfg.param_count() / 1e9:.2f}"
+          f" -> {pcfg.param_count() / 1e9:.2f} B params in bf16 | {card}")
+    bf = torch.bfloat16
+    model = build_model(cfg, compute_dtype=bf, param_dtype=bf)
+    pmodel = build_model(pcfg, compute_dtype=bf, param_dtype=bf)
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED),
+                        device="cuda")
+    pparams = pad_params(params, cfg, pcfg)
+    rng = np.random.RandomState(SEED)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in PAD_PROMPTS]
+    warm = ServeEngine(ecfg, model, params)
+    _greedy(warm, prompts[:1], [1], 2)
+    del warm
+
+    def engine(padded):
+        if padded:
+            return ServeEngine.from_config(ecfg, model=pmodel,
+                                           params=pparams, device="cuda",
+                                           mesh=mesh)
+        return ServeEngine(ecfg, model, params)
+
+    runs = {}
+    for tag in ("unpadded", "padded"):
+        eng = engine(tag == "padded")
+        torch.cuda.synchronize()
+        build.reset_launches()
+        handles = _greedy(eng, prompts, [len(prompts)], PAD_GEN)
+        torch.cuda.synchronize()
+        tp = eng.throughput()
+        runs[tag] = {"tokens": [h.tokens for h in handles],
+                     "launches": dict(build.LAUNCHES),
+                     "prefill_ms": tp["prefill_ms_mean"],
+                     "tick_ms": tp["decode_tick_ms_mean"],
+                     "completed": tp["completed"]}
+        assert tp["completed"] == len(prompts) and eng.leaked_pages() == 0
+        del eng
+        print(f"[smoke] p13 (b) {tag}: prefill {runs[tag]['prefill_ms']:.2f}"
+              f" ms, tick {runs[tag]['tick_ms']:.2f} ms, launches "
+              f"{runs[tag]['launches']} | {card}")
+    a, b = runs["unpadded"]["tokens"], runs["padded"]["tokens"]
+    agree = _agreement(a, b)
+    margins = _divergence_margins(model, params, prompts, a, b,
+                                  ecfg.serve_max_len())
+    # every attention call of the padded engine against its plain version
+    errs = {"flash_attention": [], "paged_decode_attention": []}
+    fk, dk = FA.flash_attention, FA.paged_decode_attention
+
+    def flash(q, k, v, **kw):
+        out = fk(q, k, v, **kw)
+        ref = FA.flash_attention_ref(q, k, v, **kw)
+        errs["flash_attention"].append(
+            (out.float() - ref.float()).abs().max().item())
+        return out
+
+    def decode(q, kp, vp, table, pos, **kw):
+        out = dk(q, kp, vp, table, pos, **kw)
+        ref = FA.paged_decode_attention_ref(q, kp, vp, table, pos, **kw)
+        errs["paged_decode_attention"].append(
+            (out.float() - ref.float()).abs().max().item())
+        return out
+
+    FA.flash_attention, FA.paged_decode_attention = flash, decode
+    try:
+        eng = engine(True)
+        _greedy(eng, prompts, [len(prompts)], PAD_GEN)
+        del eng
+    finally:
+        FA.flash_attention, FA.paged_decode_attention = fk, dk
+    # the logits in fp32 compute (plain attention), padded vs unpadded
+    toks = torch.tensor(prompts[-1][None], device="cuda")
+    f32 = torch.float32
+    la = build_model(cfg, compute_dtype=f32, param_dtype=bf,
+                     attn_impl="plain").forward(params, toks)
+    lb = build_model(pcfg, compute_dtype=f32, param_dtype=bf,
+                     attn_impl="plain").forward(pparams, toks)
+    fp32_err = (la - lb).abs().max().item()
+    del la, lb
+    print(f"[smoke] p13 (b) tokens padded vs unpadded: equal share "
+          f"{agree['equal_share']:.3f}, first divergences "
+          f"{agree['first_divergence']}, margins "
+          f"{[round(m, 4) for m in margins]} (tol {LOGIT_TOL}); fp32 "
+          f"logits max abs {fp32_err:.2e} (tol {PAD_FP32_TOL}); "
+          f"{len(errs['flash_attention'])} flash and "
+          f"{len(errs['paged_decode_attention'])} paged-decode calls at "
+          f"the padded shapes vs their plain versions: max "
+          f"{max(errs['flash_attention']):.2e} / "
+          f"{max(errs['paged_decode_attention']):.2e} (tol "
+          f"{KERNEL_TOL['bfloat16']}) | {card}")
+    assert all(abs(m) <= LOGIT_TOL for m in margins), margins
+    assert fp32_err <= PAD_FP32_TOL, fp32_err
+    for k, v in errs.items():
+        assert v and max(v) <= KERNEL_TOL["bfloat16"], (k, max(v))
+    del params, pparams, model, pmodel
+    _free()
+    # the kernels at the padded shapes and at RVH's half of the TP shard
+    # of qwen3-32b's embedding (phase 13 (a), data world 2), timed
+    cases = [
+        _flash_case("minitron_pad_prefill", 4, 128, 128, H=pcfg.n_heads,
+                    KV=pcfg.n_kv_heads, Dh=pcfg.resolved_head_dim),
+        _decode_case("minitron_pad_tick", 4, 8, [79, 95, 111, 127],
+                     H=pcfg.n_heads, KV=pcfg.n_kv_heads,
+                     Dh=pcfg.resolved_head_dim)]
+    cases += _adasum_case("tp_embed_half_w2", 151_936 * 5120 // 4, 8192,
+                          flat=True)
+    for c in cases:
+        print(f"[smoke] p13 kernel {c['kernel']:22s} {c['case']:20s} err "
+              f"{c['max_abs_err']:.2e} (tol {c['tol']:.0e}) ms "
+              f"{c['ms']:.4f} plain {c['plain_ms']:.4f} library "
+              f"{c['library_ms']:.4f} bound {c['bound_ms']:.4f} "
+              f"({c['bound_by']})"
+              + (f" device {c['device_ms']:.4f} library_device "
+                 f"{c['library_device_ms']:.4f}" if "device_ms" in c else "")
+              + f" {'ok' if c['ok'] else 'FAIL'} | {card}")
+    bad = [f"{c['kernel']}/{c['case']}" for c in cases if not c["ok"]]
+    assert not bad, f"kernel != plain beyond tolerance: {bad}"
+    return {"runs": runs, "agreement": agree, "margins": margins,
+            "fp32_err": fp32_err, "call_errs": {k: max(v) for k, v in
+                                                errs.items()},
+            "calls": {k: len(v) for k, v in errs.items()},
+            "cases": cases, "launches": runs["padded"]["launches"]}
+
+
+def model_axis_phase(card: str, witness: bool = False) -> dict:
+    """Phase 13: the model axis (see the module docstring)."""
+    import torch
+    t0 = time.perf_counter()
+    _free()
+    print(f"[smoke] p13: before the phase this process holds "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved | {card}")
+    path = ROOT / "build" / "ranks" / "tp_twin.pt"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    try:
+        twin = _tp_twin(card, path, witness)
+        recs = _spawn_ranks(TP_GRID[0] * TP_GRID[1], "tp_w4",
+                            {"twin": str(path), "witness": witness},
+                            flag="--tp-worker")
+    finally:
+        path.unlink(missing_ok=True)
+    train = _tp_report(card, recs, twin, time.perf_counter() - t0)
+    t1 = time.perf_counter()
+    serve = _pad_serve(card)
+    serve["wall_s"] = time.perf_counter() - t1
+    launches = {k: train["launches"].get(k, 0)
+                for k in ("block_dots", "block_combine")}
+    launches.update({k: serve["launches"].get(k, 0)
+                     for k in ("flash_attention", "paged_decode_attention")})
+    print(f"[smoke] model axis launches={launches}; (a) {train['wall_s']:.1f}"
+          f" s, (b) {serve['wall_s']:.1f} s | {card}")
+    return {"train": train, "serve": serve, "launches": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -5183,6 +5777,10 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--elastic-worker", metavar="SPEC",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--tp-worker", metavar="SPEC", help=argparse.SUPPRESS)
+    ap.add_argument("--model-axis-only", action="store_true",
+                    help="build the kernels and run phase 13 alone; prints "
+                    "no result line")
     ap.add_argument("--subsystems-only", action="store_true",
                     help="build the kernels and run phase 10 alone; prints "
                     "no result line")
@@ -5197,7 +5795,8 @@ def main(argv=None) -> int:
                     "no result line")
     ap.add_argument("--witness", action="store_true",
                     help="phase 6 also holds (A)'s step 1 in fp32 compute "
-                    "against one process (~1 min more)")
+                    "against one process (~1 min more), and phase 13 (a)'s "
+                    "step 1 against its twin in fp32 compute")
     ap.add_argument("--combiners-only", action="store_true",
                     help="build the kernels and run phase 9 alone (with "
                     "--profile: and trace one overlapped and one serial "
@@ -5209,6 +5808,8 @@ def main(argv=None) -> int:
         return combiners_worker(json.loads(args.combiners_worker))
     if args.elastic_worker:             # one rank of phase 10 (b)
         return elastic_worker(json.loads(args.elastic_worker))
+    if args.tp_worker:                  # one rank of phase 13 (a)
+        return tp_worker(json.loads(args.tp_worker))
 
     card = _smi()
     print(card)
@@ -5267,6 +5868,12 @@ def main(argv=None) -> int:
         if args.recurrent_only:
             record["recurrent"] = recurrent_phase(card)
             return 0
+        if args.model_axis_only:
+            t0 = time.perf_counter()
+            record["model_axis"] = model_axis_phase(card, args.witness)
+            print(f"[smoke] phase 13 wall {time.perf_counter() - t0:.1f} s "
+                  f"| {card}")
+            return 0
         walls = record["phase_wall_s"] = {"2": secs}
         t_mark = [time.perf_counter()]
 
@@ -5289,6 +5896,14 @@ def main(argv=None) -> int:
         mark("8")
         record["train"] = train_phase(card, args.profile)
         mark("5")
+        # the model axis before phase 7, which leaves a session behind;
+        # after phase 5, whose training has warmed this process up (its
+        # twin's first step would pay the imports autograd's first
+        # checkpointed backward makes)
+        _free()
+        record["model_axis"] = model_axis_phase(card, args.witness)
+        _free()
+        mark("13")
         record["ckpt"] = ckpt_phase(card, record["ranks"])
         # phase 7's last session stays reachable from the SIGTERM handler
         # its checkpoint manager installed (as the reference's does): 12
@@ -5310,7 +5925,7 @@ def main(argv=None) -> int:
         record["recurrent"] = recurrent_phase(card)
         mark("12")
         print(f"[smoke] phase wall s "
-              f"{ {k: round(v, 1) for k, v in walls.items()} }, phases 2-12 "
+              f"{ {k: round(v, 1) for k, v in walls.items()} }, phases 2-13 "
               f"{sum(walls.values()):.1f} s | {card}")
     except Exception:                   # any phase failing fails the run
         traceback.print_exc()
@@ -5347,6 +5962,8 @@ def main(argv=None) -> int:
     p10_launches = record["subsystems"]["launches"]
     p11_launches = record["families"]["launches"]
     p12_launches = record["recurrent"]["launches"]
+    p13 = record["model_axis"]
+    p13_cases = {c["kernel"]: c for c in p13["serve"]["cases"]}
     main_cases = {"serve_extend", "serve_tick", "embed_fp32"}
     sources = {
         "flash_attention": ("csrc/flash_attention.cu",
@@ -5376,7 +5993,11 @@ def main(argv=None) -> int:
             "phase7_launches": ck_launches[c["kernel"]],
             "phase10_launches": p10_launches[c["kernel"]],
             "phase11_launches": p11_launches[c["kernel"]],
-            "phase12_launches": p12_launches[c["kernel"]]})
+            "phase12_launches": p12_launches[c["kernel"]],
+            "phase13_launches": p13["launches"][c["kernel"]],
+            "phase13_case": {k: p13_cases[c["kernel"]][k] for k in (
+                "case", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")}})
         if c["kernel"] in ("flash_attention", "paged_decode_attention"):
             rows[-1]["phase8_launches"] = ext_launches[c["kernel"]]
         if c["kernel"] in rvh_ms:

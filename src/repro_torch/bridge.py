@@ -6,6 +6,11 @@ converts them with `np.asarray` leaf by leaf (e.g.
 arrays to `params_from_numpy`; `params_to_numpy` is the reverse. The
 stacked `[L, ...]` block leaves map one for one — the two packages keep
 the same tree and the same layouts (`x @ W`, `W [in, out]`).
+
+For the model axis: `pad_params` turns unpadded params into the params
+of `pad_heads_for_tp`'s config (`attention.convert_gqa_params` on each
+block stack, exact), and `tp_shard` cuts one rank's model shard of
+every leaf by the specs the port trains with.
 """
 from __future__ import annotations
 
@@ -66,3 +71,32 @@ def _check_tree(tree, spec, path: str) -> None:
             _check_tree(tree[k], spec[k], f"{path}.{k}")
     elif tuple(tree.shape) != tuple(spec[0]):
         raise ValueError(f"{path}: shape {tuple(tree.shape)} != {spec[0]}")
+
+
+def pad_params(tree: PyTree, cfg, cfg_pad) -> PyTree:
+    """Params of `cfg` (tensors, or numpy arrays as the JAX package's
+    come) -> the exact params of its head-padded `cfg_pad`: every block
+    stack's GQA leaves converted, the rest shared."""
+    from repro_torch.models.attention import convert_gqa_params
+    out = dict(tree)
+    for key in ("dense_blocks", "blocks"):
+        if key in out and "attn" in out[key]:
+            attn = {k: torch.as_tensor(np.asarray(v)) if not
+                    isinstance(v, torch.Tensor) else v
+                    for k, v in out[key]["attn"].items()}
+            out[key] = dict(out[key], attn=convert_gqa_params(
+                attn, cfg, cfg_pad, dtype=attn["wq"].dtype))
+    return out
+
+
+def tp_shard(tree: PyTree, cfg, model_size: int, index: int) -> PyTree:
+    """Rank `index`'s model shard of every whole leaf (`parallel.tp`
+    specs over `model_size` ranks; a leaf the axis does not shard is
+    the whole leaf), as views."""
+    from repro_torch import tree as T
+    from repro_torch.parallel.sharding import spec_leaves
+    from repro_torch.parallel.tp import model_shard, model_specs
+    leaves, td = T.flatten(tree)
+    specs = spec_leaves(model_specs(cfg, tree, model_size))
+    return T.unflatten(td, [model_shard(x, s, model_size, index)
+                            for x, s in zip(leaves, specs)])

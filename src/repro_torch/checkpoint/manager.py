@@ -12,7 +12,12 @@ checkpoint written by `repro` restores here and the reverse:
 Each manifest entry holds the leaf's `file`, `path` (`keystr` of its
 tree path, e.g. "['opt']['inner']['m']['embed']['table']"), `shape`,
 `dtype` and the `crc32` of its C-order bytes. Leaves are the FULL logical
-arrays, so a restore may use another lane count (`reshard_lanes`).
+arrays, so a restore may use another lane count (`reshard_lanes`), and
+another (data, model) grid: a run across ranks gathers its data and
+model shards to full leaves on rank 0 and each rank of a restore takes
+its part by the plan's specs (`parallel.zero.RankPlan.gather_tree` /
+`take`). A head-padded config keeps its padded shapes, as in the
+reference.
 
 Leaves, as the reference stores them:
   * Python ints (the port's `step` and `opt.step`) are 0-d int32 arrays

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+import math
 from typing import Tuple
 
 
@@ -96,6 +97,27 @@ class ModelConfig:
         """Analytic parameter count, from the port's own model API."""
         from repro_torch.models import api
         return api.count_params(self)
+
+
+def pad_heads_for_tp(cfg: ModelConfig, tp: int) -> ModelConfig:
+    """TP head alignment, exact math (the port's copy of the reference's,
+    configs/base.py:102-128): kv heads are block-duplicated by the least
+    factor making kv % tp == 0 (duplicated keys and values attend
+    identically, so the GQA q -> kv map is kept); q heads are padded up
+    to the next multiple of tp that the new kv count divides, and a
+    padded head's wo rows are zero, so it adds exactly nothing. MLA and
+    attention-free configs are returned as they are."""
+    if tp <= 1 or cfg.attention_free or cfg.attn_type == "mla":
+        return cfg
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    kv2 = kv * (tp // math.gcd(kv, tp))
+    h2 = h
+    while h2 % tp or h2 % kv2:
+        h2 += 1
+    if (h2, kv2) == (h, kv):
+        return cfg
+    return dataclasses.replace(cfg, n_heads=h2, n_kv_heads=kv2,
+                               orig_heads=cfg.orig_heads or h)
 
 
 ARCH_IDS: Tuple[str, ...] = (

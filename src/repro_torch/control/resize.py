@@ -29,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
+from repro_torch.runtime import ITEM_SHARDING, not_ported
 from repro_torch.runtime.elastic import ResizePlan, ResizeSignal
 
 from .controller import BatchController, ControllerConfig
@@ -112,6 +113,8 @@ def fit_adaptive(config, steps: Optional[int] = None, *,
     from repro_torch.engine.pipeline import _Launch, _drop
     from repro_torch.engine.session import TrainSession, default_callbacks
 
+    if config.model_mesh > 1:
+        raise not_ported("fit_adaptive with a model axis", ITEM_SHARDING)
     if not config.ckpt_dir:
         raise ValueError("fit_adaptive needs EngineConfig.ckpt_dir (the "
                          "resize resumes from the manifest)")

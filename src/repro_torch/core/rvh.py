@@ -47,7 +47,16 @@ not the function. When the shards are 1/g of a leaf (the hierarchical
 regime, g ranks a lane group), each round's per-layer dot triples are
 also summed over the lane group (`shard_comm`), in rank order: without
 that sum the Adasum scalars would be those of a fragment of the layer.
-Tensor-parallel leaf specs are ROADMAP.md queue 1 item 7.
+
+Tensor-parallel shards (rvh.py:120-199, 250-320): with `leaf_specs`
+naming the model axis, each rank's leaves are its model shards and RVH
+runs across its data group. Each round's per-segment dots are scaled by
+`seg_scale` — 1/M for a leaf the model axis does not shard (its M
+replicas would each add the whole layer), 1 for a sharded one — then
+summed over the data group as always and, last, over the model group
+(`model_comm`, in rank order), so every rank of a model group takes the
+whole layer's scalars. Whole-model Adasum (per_layer=False) needs one
+factor for every leaf, as the reference asserts.
 """
 from __future__ import annotations
 
@@ -59,6 +68,7 @@ import torch
 
 from repro_torch import tree as T
 from repro_torch.kernels import adasum as K
+from repro_torch.parallel.sharding import spec_axes, spec_leaves
 from repro_torch.runtime import ITEM_SHARDING, not_ported
 from . import fusion
 from .adasum import adasum_segment_scalars
@@ -187,7 +197,7 @@ def adasum_rvh_local(buf: torch.Tensor, metas: Sequence[RoundMeta], comm, *,
                      probe: Optional[list] = None,
                      shard_comm=None,
                      seg_scale: Optional[torch.Tensor] = None,
-                     model_axes: Sequence[str] = ()) -> torch.Tensor:
+                     model_comm=None) -> torch.Tensor:
     """Algorithm 1 on this rank's fused bucket `buf` [padded_len]
     (padding zeroed, padded_len a multiple of world x block), with
     `metas` from `_round_metas` for this rank. Returns the combined
@@ -195,17 +205,15 @@ def adasum_rvh_local(buf: torch.Tensor, metas: Sequence[RoundMeta], comm, *,
     the chunk this rank owns (`owned_chunk`), bitwise that chunk of the
     full result. `shard_comm`, when given, holds the other shards of the
     bucket's layers: each round's dot triples are summed over it first.
-    `probe`, when given, receives round 0's per-segment triples before
-    the pair sum.
+    `seg_scale` ([num_segments + 1]) scales each segment's triples
+    before any sum, and `model_comm` sums them last, over the model
+    group (tensor-parallel shards). `probe`, when given, receives round
+    0's per-segment triples (scaled) before the pair sum.
 
     Memory: each round's input dies once its output is written, so a
     caller that hands `buf` over without keeping a reference (e.g.
     `adasum_rvh_local(bufs.pop(), ...)`) holds at most the bucket plus
-    one half at a time. The reference's tensor-parallel `seg_scale` /
-    `model_axes` raise, naming ROADMAP.md queue 1 item 7."""
-    if seg_scale is not None or model_axes:
-        raise not_ported("tensor-parallel dots in RVH (seg_scale, "
-                         "model_axes)", ITEM_SHARDING)
+    one half at a time."""
     world, rank = comm.world, comm.rank
     if world == 1:
         return buf
@@ -226,11 +234,15 @@ def adasum_rvh_local(buf: torch.Tensor, metas: Sequence[RoundMeta], comm, *,
         a, b = (keep, recv) if is_left else (recv, keep)
         with comm.timed("kernels"):
             v = segment_dots(a, b, meta, acc_dtype, impl)
+        if seg_scale is not None:
+            v = v * seg_scale[:, None].to(v)
         if shard_comm is not None:
             v = shard_comm.group_sum(v, shard_comm.world)
         if probe is not None and r == 0:
             probe.append(v)
         v = comm.group_sum(v, 2 * d)             # finish the dots (line 17)
+        if model_comm is not None:
+            v = model_comm.group_sum(v, model_comm.world)
         with comm.timed("kernels"):
             new = combine_halves(a, b, v, meta, fp32_math, impl)
         del a, b, keep, send, recv, lo, hi
@@ -371,6 +383,7 @@ class _Bucket:
     idxs: Tuple[int, ...]
     layout: Any
     metas: Tuple[RoundMeta, ...]
+    scale: Optional[torch.Tensor] = None     # seg_scale (TP shards)
 
     @property
     def sharded(self) -> bool:
@@ -380,19 +393,25 @@ class _Bucket:
 def rvh_plan(leaves: Sequence[Any], world: int, rank: int, *,
              per_layer: bool = True, bucket_bytes: Optional[int] = None,
              block: int = K.BLOCK_ELEMS, device=None,
-             shard_dims: Optional[Sequence[Optional[int]]] = None
+             shard_dims: Optional[Sequence[Optional[int]]] = None,
+             factors: Optional[Sequence[float]] = None
              ) -> List[_Bucket]:
     """The buckets of `adasum_rvh_pytree` (rvh.py:276-315): per-bucket
     chains at `bucket_bytes` when per_layer and there is more than one
     leaf, else one bucket; per_layer=False collapses every leaf into one
     segment (the padding tail is segment 1). With `shard_dims`, the
     leaves with a dim (shards) and those without (whole leaves) are
-    bucketed apart, the shards chunk-major (`ShardLayout`)."""
+    bucketed apart, the shards chunk-major (`ShardLayout`). `factors`
+    (one per leaf, tensor-parallel shards): each bucket's seg_scale."""
     dims = list(shard_dims) if shard_dims is not None else \
         [None] * len(leaves)
     if not per_layer and any(d is not None for d in dims):
         raise not_ported("whole-model Adasum (per_layer=False) on shards",
                          ITEM_SHARDING)
+    if not per_layer and factors is not None and len(set(factors)) > 1:
+        raise ValueError("per_layer=False requires uniform TP sharding "
+                         "across leaves (one dot correction for the "
+                         "collapsed segment, rvh.py:296-302)")
     plan = []
     for sharded in (False, True):
         idxs = [i for i, d in enumerate(dims) if (d is not None) == sharded]
@@ -425,9 +444,23 @@ def rvh_plan(leaves: Sequence[Any], world: int, rank: int, *,
                                                     layout.sizes))
                     seg[-(-end // block):] = 1
                     nseg = 1
+            scale = None
+            if factors is not None:
+                f = [factors[i] for i in part] if per_layer \
+                    else [factors[part[0]]]
+                scale = torch.tensor(f + [1.0], dtype=torch.float64,
+                                     device=device)
             plan.append(_Bucket(tuple(part), layout, tuple(_round_metas(
-                seg, nseg + 1, block, rank, world, device))))
+                seg, nseg + 1, block, rank, world, device)), scale))
     return plan
+
+
+def replication_factors(leaf_specs: Sequence[Any], model_size: int
+                        ) -> List[float]:
+    """Per leaf, 1/(the model-axis size it is not sharded over)
+    (`_leaf_replication_factors`, rvh.py:199-216)."""
+    return [1.0 if "model" in spec_axes(s) else 1.0 / model_size
+            for s in leaf_specs]
 
 
 def adasum_rvh_pytree(tree: PyTree, comm, *, per_layer: bool = True,
@@ -440,7 +473,8 @@ def adasum_rvh_pytree(tree: PyTree, comm, *, per_layer: bool = True,
                       leaf_specs: Optional[PyTree] = None,
                       shard_dims: Optional[Sequence[Optional[int]]] = None,
                       shard_comm=None,
-                      allgather_result: bool = True) -> PyTree:
+                      allgather_result: bool = True,
+                      model_comm=None) -> PyTree:
     """ADASUMRVH of this rank's lane `tree` (leaves [*shape], no lane
     axis) with every other rank's: the combined tree, the same bits on
     every rank (rvh.py:219-326).
@@ -459,23 +493,39 @@ def adasum_rvh_pytree(tree: PyTree, comm, *, per_layer: bool = True,
     every leaf — the reference's level-0 `probe_stats`, read from the
     dots the combine computes, plus one [3]-sized reduction. `donate`
     frees each input leaf once it is packed. `cache` keeps the plan by
-    leaf shapes and dtypes."""
+    leaf shapes and dtypes.
+
+    `leaf_specs` (a spec tree like `tree`'s, or a list of specs in
+    flatten order): how the model axis shards each leaf, the leaves
+    being this rank's model shards; `model_comm` is the model group.
+    The dots of each segment are then corrected for replication and
+    summed over it (rvh.py:250-320); specs that name no model axis
+    change nothing."""
     if impl not in COMBINE_IMPLS:
         raise ValueError(f"impl={impl!r}; one of {COMBINE_IMPLS}")
-    if leaf_specs is not None:
-        raise not_ported("tensor-parallel leaf specs in RVH", ITEM_SHARDING)
     if compress not in ("none", "int8"):
         raise ValueError(f"compress={compress!r}; none | int8")
     leaves, treedef = T.flatten(tree)
     if not leaves:
         return tree
+    factors = None
+    if leaf_specs is not None:
+        specs = spec_leaves(leaf_specs)
+        if any("model" in spec_axes(s) for s in specs):
+            if model_comm is None:
+                raise ValueError("leaf specs over the model axis need "
+                                 "model_comm (the model group)")
+            factors = replication_factors(specs, model_comm.world)
+    if factors is None:
+        model_comm = None
     key = (tuple((tuple(x.shape), x.dtype) for x in leaves),
-           None if shard_dims is None else tuple(shard_dims))
+           None if shard_dims is None else tuple(shard_dims),
+           None if factors is None else tuple(factors))
     plan = cache.get(key) if cache is not None else None
     if plan is None:
         plan = rvh_plan(leaves, comm.world, comm.rank, per_layer=per_layer,
                         bucket_bytes=bucket_bytes, device=leaves[0].device,
-                        shard_dims=shard_dims)
+                        shard_dims=shard_dims, factors=factors)
         if cache is not None:
             cache[key] = plan
     out: List[Any] = [None] * len(leaves)
@@ -494,7 +544,8 @@ def adasum_rvh_pytree(tree: PyTree, comm, *, per_layer: bool = True,
             packed.pop(), bucket.metas, comm, acc_dtype=acc_dtype,
             fp32_math=use_pallas, compress=compress, impl=impl,
             allgather_result=gather, probe=probe,
-            shard_comm=shard_comm if bucket.sharded else None)
+            shard_comm=shard_comm if bucket.sharded else None,
+            seg_scale=bucket.scale, model_comm=model_comm)
         if not bucket.sharded:
             got = T.leaves(fusion.unpack(buf, lay))
         elif gather:
@@ -506,18 +557,23 @@ def adasum_rvh_pytree(tree: PyTree, comm, *, per_layer: bool = True,
     del leaves
     if collect is not None and comm.world > 1:
         local = sum(v.sum(dim=0) for v in probe)
-        collect.append(comm.group_sum(local, comm.world))
+        got = comm.group_sum(local, comm.world)
+        if model_comm is not None:
+            got = model_comm.group_sum(got, model_comm.world)
+        collect.append(got)
     return T.unflatten(treedef, out)
 
 
 def build_rvh_combiner(cfg: CombineConfig, comm, *, with_stats: bool = False,
                        impl: str = "kernel", donate: bool = False,
                        shard_dims: Optional[Sequence[Optional[int]]] = None,
-                       shard_comm=None, allgather_result: bool = True):
+                       shard_comm=None, allgather_result: bool = True,
+                       leaf_specs=None, model_comm=None):
     """The `adasum-rvh` combiner over `comm`: this rank's lane tree ->
     the combined tree (and, with_stats, its CombineStats: {'levels':
-    [1, 3]} from round 0, [0, 3] at world 1). `shard_dims`, `shard_comm`
-    and `allgather_result` as in `adasum_rvh_pytree`."""
+    [1, 3]} from round 0, [0, 3] at world 1). `shard_dims`, `shard_comm`,
+    `allgather_result`, `leaf_specs` and `model_comm` as in
+    `adasum_rvh_pytree`."""
     cache: dict = {}
 
     def run(tree: PyTree):
@@ -527,7 +583,8 @@ def build_rvh_combiner(cfg: CombineConfig, comm, *, with_stats: bool = False,
             use_pallas=cfg.use_pallas, compress=cfg.compress,
             bucket_bytes=cfg.fusion_bytes, impl=impl, donate=donate,
             collect=collect, cache=cache, shard_dims=shard_dims,
-            shard_comm=shard_comm, allgather_result=allgather_result)
+            shard_comm=shard_comm, allgather_result=allgather_result,
+            leaf_specs=leaf_specs, model_comm=model_comm)
         return (out, stack_stats(collect)) if with_stats else out
 
     run.combine_path = "rvh"

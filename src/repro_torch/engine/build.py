@@ -56,6 +56,17 @@ the lane means, the same on every rank. With
 combine_delay the pending carry is this rank's lane delta, its lane mean
 the cross-rank mean, and the correction runs on an exchange comm of its
 own (a second process group over the same ranks).
+
+The model axis (`model_size` M > 1, dense GQA decoders): the W ranks
+form a (data, model) grid, rank r = d·M + m (`launch.mesh`). A model
+group (the M ranks of one data index) runs tensor-parallel forward and
+backward passes over its shards (`parallel.tp`, the leaves' specs from
+`sharding.param_specs`); a data group (the ranks of one model index)
+runs the synchronous ranked step above on the rank's shards, one lane a
+data rank: RVH (its dots corrected for replicated leaves and summed
+over the model group), sum or mean; accum_steps too. Every rank of a
+model group sees the same microbatch. The leaves are whole on the data
+axis, so the plan holds each rank's model shards.
 """
 from __future__ import annotations
 
@@ -71,9 +82,11 @@ from repro_torch.core.combine import (COMBINE_IMPLS, CombineConfig,
                                       build_delayed_correction, lane_mean,
                                       rank_mean)
 from repro_torch.core.dist_opt import DistributedOptimizer
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models.api import Model
 from repro_torch.optim.optimizers import Optimizer, get_optimizer
 from repro_torch.parallel.policy import RunPolicy
+from repro_torch.parallel.tp import TensorParallel
 from repro_torch.parallel.zero import RankPlan, TokenGroup
 from repro_torch.runtime import ITEM_SHARDING, not_ported
 from .registry import make_combiner, registry_key
@@ -99,10 +112,14 @@ class Runtime:
     combine_stats: bool = False # per-step CombineStats metrics emitted
     dp_total: int = 1
     comm: Any = None            # the ranks' Comm (None: one device)
-    # across ranks with the data axis sharded: this rank's layouts
-    # (`parallel.zero.RankPlan`; None: every leaf whole on every rank —
-    # the synchronous step then runs on a plan that shards nothing)
+    # across ranks with the data axis sharded or a model axis: this
+    # rank's layouts (`parallel.zero.RankPlan`; None: every leaf whole on
+    # every rank — the synchronous step then runs on a plan that shards
+    # nothing)
     plan: Any = None
+    model_size: int = 1         # ranks of a model group
+    model_comm: Any = None      # this rank's model group (M > 1)
+    tp: Any = None              # its `parallel.tp.TensorParallel`
     # the delayed combine's pieces (combine_delay = 1 only): train_step
     # == fold(local_fn, correction_fn(pending)); DelayedCombineStream
     # runs correction_fn beside local_fn
@@ -207,21 +224,28 @@ def build_runtime(model: Model, rpol: RunPolicy, *, lr=1e-3,
                   combine: Optional[CombineConfig] = None,
                   optimizer: Optional[Optimizer] = None,
                   strict: bool = False,
-                  combine_impl: str = "kernel", comm=None) -> Runtime:
+                  combine_impl: str = "kernel", comm=None,
+                  model_size: int = 1) -> Runtime:
     """The training runtime: lanes stacked on one device, or, with `comm`
     (a `repro_torch.parallel.comm.Comm` of more than one rank), one
     process per rank (see the module docstring). combine_impl='kernel'
     runs the combine's block passes through the kernel wrappers (the
     CUDA kernels on a card, their plain versions on the CPU); 'plain'
     runs the plain versions on any device — the on-card reference for
-    the kernels, as `attn_impl` is for attention."""
+    the kernels, as `attn_impl` is for attention. `model_size` > 1: the
+    comm's ranks are a (data, model) grid with that many ranks a model
+    group (see the module docstring)."""
     if combine_impl not in COMBINE_IMPLS:
         raise ValueError(f"combine_impl={combine_impl!r}; one of "
                          f"{COMBINE_IMPLS}")
+    if model_size > 1 and (comm is None or comm.world % model_size):
+        raise ValueError(f"model_size={model_size} needs a comm of a "
+                         f"multiple of that many ranks")
     if comm is not None and comm.world > 1:
         return _build_ranked(model, rpol, comm, lr=lr, combine=combine,
                              optimizer=optimizer, strict=strict,
-                             combine_impl=combine_impl)
+                             combine_impl=combine_impl,
+                             model_size=model_size)
     span = rpol.span or 1
     if span & (span - 1):
         raise ValueError(f"span={span} must be a power of two")
@@ -506,9 +530,40 @@ def _plan_sharding(model: Model, rpol: RunPolicy, key: str, point: str,
 
 
 
+def _check_model_axis(model: Model, rpol: RunPolicy, key: str, span: int,
+                      dp: int) -> None:
+    """The model axis's refusals (ROADMAP item 7)."""
+    cfg = model.cfg
+    why = None
+    if cfg.family != "dense" or cfg.attn_type != "gqa" or cfg.frontend != \
+            "none" or cfg.is_encoder_decoder:
+        why = f"{cfg.name} ({cfg.family} family, {cfg.attn_type} attention)"
+    elif rpol.fsdp or rpol.scatter_grads:
+        why = "fsdp / scatter_grads"
+    elif span != dp:
+        why = f"span={span} below dp={dp}"
+    elif key not in _RVH_KEYS + ("sum", "mean"):
+        why = f"the {key} combiner"
+    elif rpol.combine_delay:
+        why = "the delayed combine (combine_delay=1)"
+    elif rpol.local_steps > 1:
+        why = "local_steps > 1"
+    if why:
+        raise not_ported(f"a model axis with {why}", ITEM_SHARDING)
+
+
 def _build_ranked(model: Model, rpol: RunPolicy, comm, *, lr, combine,
-                  optimizer, strict, combine_impl) -> Runtime:
+                  optimizer, strict, combine_impl,
+                  model_size: int = 1) -> Runtime:
     """One process per rank; see the module docstring."""
+    M = model_size
+    wcomm, mcomm = comm, None
+    if M > 1:
+        # the grid's model groups, then its data groups (dist.new_group
+        # is collective: every rank makes both splits, in this order)
+        grid = Mesh(("data", "model"), (comm.world // M, M))
+        mcomm = comm.split(grid.groups("model"))
+        comm = comm.split(grid.groups("data"))
     W = comm.world
     span = rpol.span or W
     if span & (span - 1) or W % span:
@@ -517,6 +572,8 @@ def _build_ranked(model: Model, rpol: RunPolicy, comm, *, lr, combine,
     ccfg = _resolve_combine_cfg(rpol, span, combine, strict, dp_total=W)
     delayed = _check_delay(rpol)
     key = registry_key(ccfg.op, ccfg.backend)
+    if M > 1:
+        _check_model_axis(model, rpol, key, span, W)
     g = W // span                      # ranks in a lane group
     rvh = key in _RVH_KEYS
     if rvh:
@@ -533,8 +590,9 @@ def _build_ranked(model: Model, rpol: RunPolicy, comm, *, lr, combine,
     point = DistributedOptimizer(opt, ccfg, None, span).point
     post = point == "post"
     shapes = _param_shapes(model.cfg)
-    sharded = _plan_sharding(model, rpol, key, point, span, W, delayed,
-                             stateful=bool(T.leaves(opt.init(shapes))))
+    sharded = M == 1 and _plan_sharding(
+        model, rpol, key, point, span, W, delayed,
+        stateful=bool(T.leaves(opt.init(shapes))))
     sync = not delayed and rpol.local_steps <= 1
     # the splits on every rank, in this order (dist.new_group is
     # collective over all ranks): the lane groups, the ranks of equal
@@ -552,7 +610,7 @@ def _build_ranked(model: Model, rpol: RunPolicy, comm, *, lr, combine,
         plan = RankPlan(model.cfg, shapes, comm, span,
                         fsdp=rpol.fsdp, scatter_grads=rpol.scatter_grads,
                         post=post, shard_grads=rvh, lane_comm=lane_comm,
-                        rvh_comm=rvh_comm, shard=sharded)
+                        rvh_comm=rvh_comm, shard=sharded, model_comm=mcomm)
     want_stats = rpol.combine_stats and span > 1 and not delayed
     shard, out_layout = None, "whole"
     if sharded and rvh:
@@ -565,6 +623,11 @@ def _build_ranked(model: Model, rpol: RunPolicy, comm, *, lr, combine,
         out_layout = "piece" if keep_piece else "gshard"
         shard = dict(shard_dims=plan.dims, shard_comm=lane_comm,
                      allgather_result=not keep_piece)
+    elif M > 1:
+        # each rank's leaves are its model shards: the dots of a leaf
+        # the model axis does not shard count once over the model group
+        shard = dict(leaf_specs=plan.mspecs, model_comm=mcomm)
+    tp = TensorParallel(mcomm, model.cfg, shapes) if M > 1 else None
     combiner = make_combiner(run_cfg, impl=combine_impl, donate=True,
                              comm=rvh_comm, shard=shard)
     scombiner = None
@@ -585,10 +648,21 @@ def _build_ranked(model: Model, rpol: RunPolicy, comm, *, lr, combine,
     def init_state(generator: torch.Generator) -> Dict[str, Any]:
         """Every rank draws from its generator; rank 0's params are then
         broadcast (Horovod's broadcast_parameters), and under fsdp each
-        rank keeps its piece."""
+        rank keeps its piece. With a model axis each rank cuts its model
+        shards first, and the first rank of its data group broadcasts
+        them (a leaf the axis does not shard goes out from rank 0 of the
+        grid)."""
         params = model.init(generator)
-        for x in T.leaves(params):
-            comm.broadcast(x, 0)
+        if M > 1:
+            params = plan.shard_params(params)
+            for i, x in enumerate(T.leaves(params)):
+                if plan.mdims[i] is None:
+                    wcomm.broadcast(x, 0)
+                else:
+                    comm.broadcast(x, 0)
+        else:
+            for x in T.leaves(params):
+                comm.broadcast(x, 0)
         if sharded:
             params = plan.shard_params(params)
         state = {"params": params, "opt": dopt.init(params), "step": 0}
@@ -652,7 +726,9 @@ def _build_ranked(model: Model, rpol: RunPolicy, comm, *, lr, combine,
         for mb in rank_micro(batch, A):
             fs = plan.fsdp_step(store, acc_dt or leaves[0].dtype) \
                 if fsdp else None
-            (_, m), gl = flat_grad_fn(params, mb, fsdp=fs, token_group=grp)
+            kw = {"tp": tp} if tp is not None else {}
+            (_, m), gl = flat_grad_fn(params, mb, fsdp=fs, token_group=grp,
+                                      **kw)
             mets.append(metric_share(m))
             with torch.no_grad():
                 gl = [plan.lane_reduce(i, x) if x is not None and early[i]
@@ -829,7 +905,9 @@ def _build_ranked(model: Model, rpol: RunPolicy, comm, *, lr, combine,
 
     rt = Runtime(model, rpol, span, dopt, None, init_state,
                  combine_path=path, combine_stats=scombiner is not None,
-                 dp_total=W, comm=comm, plan=plan if sharded else None)
+                 dp_total=W, comm=wcomm,
+                 plan=plan if sharded or M > 1 else None, model_size=M,
+                 model_comm=mcomm, tp=tp)
     if delayed:
         # the exchange leg's own process groups (trap: two threads on one
         # gloo group may issue its collectives in another order on

@@ -18,8 +18,15 @@ dp and dp % span == 0, and global_batch divisible by dp. On one device
 span > dp to 0, so the reference would run no combine there; the
 function its `sync_step` computes does not depend on the mesh, and the
 port computes that function with the lanes stacked. A span must be a
-power of two that divides global_batch. `data_mesh` must be 0 or the
-number of ranks; meshes beyond that are ROADMAP.md queue 1 item 7.
+power of two that divides global_batch.
+
+Meshes. `rank_mesh(world)` lays the ranks out as a (data, model) grid:
+`data_mesh` 0 means every rank the model axis does not use
+(config.py:49-50 of the reference), a grid larger than the ranks falls
+back to (world, 1) as the reference's `make_local_mesh` does, and a grid
+smaller than the ranks (the reference would leave devices idle) is
+refused, naming ROADMAP.md queue 1 item 7. `pad_heads` pads heads for
+the mesh's model size (`model_config(model_size=)`).
 """
 from __future__ import annotations
 
@@ -63,7 +70,7 @@ class EngineConfig:
     # ---- parallelism (fsdp / scatter_grads act across ranks, on the
     # data axis; on one device they change nothing, as in the
     # reference; pad_heads is the model axis's, item 7) ----
-    data_mesh: int = 0          # 0 or the number of ranks
+    data_mesh: int = 0          # 0 => all ranks not used by model_mesh
     model_mesh: int = 1
     fsdp: bool = False          # ZeRO-3: params sharded over the ranks
     scatter_grads: bool = False # ZeRO-2: lane grads reduce-scattered in
@@ -169,7 +176,6 @@ class EngineConfig:
     def validate(self, dp_total: Optional[int] = None) -> "EngineConfig":
         """Cross-field checks; returns self so it chains. Pass `dp_total`
         (1 on one device) for the span and batch checks."""
-        self._refuse_later()
         if self.param_dtype not in PARAM_DTYPES:
             raise ValueError(f"param_dtype={self.param_dtype!r}; expected "
                              f"one of {PARAM_DTYPES}")
@@ -259,11 +265,6 @@ class EngineConfig:
                     f"preset[, 'reduced': bool]}} or ModelConfig field "
                     f"overrides), got {self.draft_config!r}")
         if dp_total is not None:
-            if self.data_mesh not in (0, dp_total):
-                raise not_ported(
-                    f"data_mesh={self.data_mesh} with {dp_total} rank(s)",
-                    ITEM_SHARDING, "the data axis is one rank per lane "
-                    "group member; meshes beyond that are not ported")
             span = self.span or dp_total
             if span & (span - 1):
                 raise ValueError(f"span={span} must be a power of two (the "
@@ -356,18 +357,33 @@ class EngineConfig:
             raise ValueError("elastic=True needs ckpt_dir (restarts "
                              "resume from the checkpoint manifest)")
 
-    def _refuse_later(self) -> None:
-        """Options of later slices, each naming its ROADMAP item."""
-        if self.model_mesh > 1:
-            raise not_ported("tensor-parallel meshes (model_mesh > 1)",
-                             ITEM_SHARDING)
+    def rank_mesh(self, world: int):
+        """The (data, model) grid of `world` ranks or devices
+        (`launch.mesh.Mesh`; session.py:155-160 of the reference)."""
+        from repro_torch.launch.mesh import make_local_mesh
+        if self.model_mesh < 1 or self.data_mesh < 0:
+            raise ValueError(f"data_mesh={self.data_mesh} (0: every rank "
+                             f"left) and model_mesh={self.model_mesh} (>= 1)")
+        data = self.data_mesh or max(1, world // self.model_mesh)
+        mesh = make_local_mesh(data, self.model_mesh, world)
+        if mesh.size != world:
+            raise not_ported(
+                f"a {data} x {self.model_mesh} (data, model) grid on "
+                f"{world} ranks", ITEM_SHARDING, "every rank takes part: "
+                "data_mesh x model_mesh must be the rank count")
+        return mesh
 
-    def model_config(self):
+    def model_config(self, model_size: int = 1):
         """The ModelConfig of `arch` (its reduced preset under
-        `reduced`)."""
-        from repro_torch.configs.base import get_config, get_reduced
-        return (get_reduced(self.arch) if self.reduced
-                else get_config(self.arch))
+        `reduced`), its heads padded for `model_size` under
+        `pad_heads`."""
+        from repro_torch.configs.base import (get_config, get_reduced,
+                                              pad_heads_for_tp)
+        cfg = (get_reduced(self.arch) if self.reduced
+               else get_config(self.arch))
+        if self.pad_heads:
+            cfg = pad_heads_for_tp(cfg, model_size)
+        return cfg
 
     def serve_max_len(self) -> int:
         """The per-slot cache capacity the serve engine builds: `max_len`

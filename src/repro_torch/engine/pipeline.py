@@ -32,8 +32,9 @@ import torch
 
 from repro_torch.control.noise import STAT_KEYS
 from repro_torch.parallel.comm import Comm
-from repro_torch.runtime import (GrowBackSignal, NodeLossError, Prefetcher,
-                                 RestartSignal, plan_grow_back, plan_shrink)
+from repro_torch.runtime import (ITEM_SHARDING, GrowBackSignal,
+                                 NodeLossError, Prefetcher, RestartSignal,
+                                 not_ported, plan_grow_back, plan_shrink)
 from repro_torch.runtime.prefetch import DeviceStage
 
 
@@ -285,6 +286,8 @@ def fit_elastic(config, steps: Optional[int] = None, *,
     from repro_torch.runtime import StepMonitor
     from .session import StragglerCallback, TrainSession, default_callbacks
 
+    if config.model_mesh > 1:
+        raise not_ported("fit_elastic with a model axis", ITEM_SHARDING)
     if not config.ckpt_dir:
         raise ValueError("fit_elastic needs EngineConfig.ckpt_dir (the "
                          "restart resumes from the manifest)")

@@ -48,7 +48,7 @@ from repro_torch.core.combine import (CombineConfig, _level_triple,
                                       build_fused_combiner, rank_sum,
                                       stack_stats, tree_combine_per_layer,
                                       tree_combine_whole)
-from repro_torch.core.rvh import build_rvh_combiner
+from repro_torch.core.rvh import build_rvh_combiner, replication_factors
 
 PyTree = Any
 Combiner = Callable[[PyTree], PyTree]
@@ -103,16 +103,19 @@ def make_combiner(cfg: CombineConfig, *, with_stats: bool = False,
     ('gspmd-fused' vs 'gspmd-reference', 'rvh'). with_stats=True returns
     a combiner yielding (combined, CombineStats) — see `stats_combiner`.
     `comm` is the group of ranks `adasum-rvh` combines across; `shard`
-    (`adasum-rvh` only) its lane-group shards: `shard_dims`,
-    `shard_comm` and `allgather_result` of `core.rvh.adasum_rvh_pytree`."""
-    if shard is not None and registry_key(cfg.op, cfg.backend) != \
-            "adasum-rvh":
-        raise ValueError(f"shard= is RVH's; the combiner is "
-                         f"{registry_key(cfg.op, cfg.backend)!r}")
+    its lane-group shards (`adasum-rvh` only): `shard_dims`,
+    `shard_comm` and `allgather_result` of `core.rvh.adasum_rvh_pytree`,
+    or its model shards: `leaf_specs` and `model_comm`, which the other
+    combiners' stats probe takes too (their combine is element-wise)."""
+    key = registry_key(cfg.op, cfg.backend)
+    if shard is not None and key != "adasum-rvh":
+        if set(shard) - {"leaf_specs", "model_comm"}:
+            raise ValueError(f"shard= is RVH's; the combiner is {key!r}")
+        if not with_stats:
+            shard = None
     if with_stats:
         return stats_combiner(cfg, impl=impl, donate=donate, comm=comm,
                               shard=shard)
-    key = registry_key(cfg.op, cfg.backend)
     factory = get_combiner_factory(key)
     combiner = factory(cfg, impl=impl, donate=donate, comm=comm,
                        **({"shard": shard} if shard else {}))
@@ -135,14 +138,21 @@ def probe_stats(stacked: PyTree, acc_dtype) -> dict:
     return stack_stats([_level_triple(leaves, acc_dtype)])
 
 
-def probe_stats_ranks(tree: PyTree, comm, acc_dtype) -> dict:
+def probe_stats_ranks(tree: PyTree, comm, acc_dtype, leaf_specs=None,
+                      model_comm=None) -> dict:
     """`probe_stats` with one lane per rank: lanes 2i and 2i+1 (ranks 2i
     and 2i+1) swap half of each leaf, as RVH's round 0 does (the even
     rank keeps the first half and receives its partner's, the odd rank
     the second), each takes its half's [a·b, a·a, b·b] over every leaf,
-    and the ranks' triples are summed in rank order."""
+    and the ranks' triples are summed in rank order. With `model_comm`
+    the leaves are model shards (`leaf_specs`): a leaf's triple counts
+    1/M where the model axis does not shard it, and the sum goes on
+    over the model group, as RVH's dots do."""
     if comm.world < 2:
         return stack_stats([])
+    factors = [1.0] * len(T.leaves(tree))
+    if model_comm is not None:
+        factors = replication_factors(leaf_specs, model_comm.world)
     even = comm.rank % 2 == 0
     keep, send, recv = [], [], []
     for x in T.leaves(tree):
@@ -154,12 +164,15 @@ def probe_stats_ranks(tree: PyTree, comm, acc_dtype) -> dict:
         recv.append(torch.empty_like(keep[-1]))
     comm.exchange(send, comm.rank ^ 1, recvs=recv)
     tot = torch.zeros(3, dtype=acc_dtype, device=keep[0].device)
-    for mine, theirs in zip(keep, recv):
+    for mine, theirs, f in zip(keep, recv, factors):
         a, b = (mine, theirs) if even else (theirs, mine)
-        tot += torch.stack([A._flat_dot(a, b, acc_dtype),
-                            A._flat_dot(a, a, acc_dtype),
-                            A._flat_dot(b, b, acc_dtype)])
-    return stack_stats([comm.group_sum(tot, comm.world)])
+        tot += f * torch.stack([A._flat_dot(a, b, acc_dtype),
+                                A._flat_dot(a, a, acc_dtype),
+                                A._flat_dot(b, b, acc_dtype)])
+    tot = comm.group_sum(tot, comm.world)
+    if model_comm is not None:
+        tot = model_comm.group_sum(tot, model_comm.world)
+    return stack_stats([tot])
 
 
 def stats_combiner(cfg: CombineConfig, *, impl: str = "kernel",
@@ -199,8 +212,8 @@ def stats_combiner(cfg: CombineConfig, *, impl: str = "kernel",
     base = make_combiner(cfg, impl=impl, donate=donate, comm=comm)
 
     def probed(stacked):
-        stats = (probe_stats_ranks(stacked, comm, cfg.acc) if _ranked(comm)
-                 else probe_stats(stacked, cfg.acc))
+        stats = (probe_stats_ranks(stacked, comm, cfg.acc, **(shard or {}))
+                 if _ranked(comm) else probe_stats(stacked, cfg.acc))
         return base(stacked), stats
 
     probed.combine_path = getattr(base, "combine_path", key)

@@ -145,23 +145,39 @@ def _params_template(model) -> PyTree:
     return walk(param_spec(model.cfg))
 
 
+def serve_mesh(config, device: DeviceLike = None):
+    """The serving mesh (engine.py:119-122 of the reference): (data_mesh
+    or 1, model_mesh) over the cards a process sees, falling back to
+    (n, 1) when they are fewer; one card on the CPU."""
+    from repro_torch.launch.mesh import make_local_mesh
+    dev = resolve_device(device)
+    n = torch.cuda.device_count() if dev.type == "cuda" else 1
+    return make_local_mesh(config.data_mesh or 1, config.model_mesh, n)
+
+
 def resolve_serve_parts(config, *, model=None, params=None,
                         checkpoint=None, device: DeviceLike = None,
-                        generator: Optional[torch.Generator] = None):
-    """arch -> model; a checkpoint manager from ckpt_dir; and params —
-    the params-only restore of the latest checkpoint when there is one
-    (on `device`), else freshly initialised on `device` from `generator`
-    (default: seed 0 on that device). Returns (model, params, checkpoint,
-    loaded_step)."""
+                        generator: Optional[torch.Generator] = None,
+                        mesh=None):
+    """arch -> model (its heads padded for the mesh's model size under
+    `pad_heads`; `mesh` defaults to `serve_mesh`); a checkpoint manager
+    from ckpt_dir; and params — the params-only restore of the latest
+    checkpoint when there is one (on `device`), else freshly initialised
+    on `device` from `generator` (default: seed 0 on that device).
+    Serving stays one process on one device, as the reference's does:
+    the mesh pads heads and shards nothing. Returns (model, params,
+    checkpoint, loaded_step)."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.models import build_model
 
     config.validate()
+    if mesh is None:
+        mesh = serve_mesh(config, device)
     if model is None:
         if not config.arch:
             raise ValueError("EngineConfig.arch is empty — pass a built "
                              "Model via from_config(model=...)")
-        model = build_model(config.model_config(),
+        model = build_model(config.model_config(mesh.axis_size("model")),
                             param_dtype=getattr(torch, config.param_dtype))
     if checkpoint is None and config.ckpt_dir:
         checkpoint = CheckpointManager(config.ckpt_dir)
@@ -441,7 +457,7 @@ class ServeEngine:
     def from_config(cls, config, *, model=None, params=None,
                     checkpoint=None, device: DeviceLike = None,
                     generator: Optional[torch.Generator] = None,
-                    draft_params: Optional[PyTree] = None
+                    draft_params: Optional[PyTree] = None, mesh=None
                     ) -> "ServeEngine":
         """Build model and params from the config, on `device` (`cuda`
         unless the caller says otherwise): with `ckpt_dir`, the params of
@@ -449,10 +465,11 @@ class ServeEngine:
         e.g. a training run's, which `hot_reload` then polls); else
         random weights from `generator`. `draft_params`: weights of the
         speculation draft (default: random, from a generator seeded 1 —
-        correct tokens, low acceptance)."""
+        correct tokens, low acceptance). `mesh`: as `resolve_serve_parts`
+        takes it."""
         model, params, checkpoint, loaded_step = resolve_serve_parts(
             config, model=model, params=params, checkpoint=checkpoint,
-            device=device, generator=generator)
+            device=device, generator=generator, mesh=mesh)
         if loaded_step is not None:
             print(f"[serve] serving checkpoint step {loaded_step} from "
                   f"{checkpoint.root}")

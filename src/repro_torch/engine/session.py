@@ -162,8 +162,11 @@ class TrainSession:
                  source, generator: torch.Generator,
                  callbacks: Optional[List[Callback]] = None,
                  owns_comm: bool = False,
-                 checkpoint: Optional[CheckpointManager] = None):
+                 checkpoint: Optional[CheckpointManager] = None,
+                 mesh=None):
         self.config = config
+        # the (data, model) grid of the ranks (`launch.mesh.Mesh`)
+        self.mesh = mesh
         self.model = model
         self.runtime = runtime
         self.source = source
@@ -194,10 +197,14 @@ class TrainSession:
         device). With WORLD_SIZE > 1 in the environment and no `comm`,
         starts the process group (`dist_backend`: nccl on cuda, gloo on
         the CPU by default) and the session owns it; a `comm` passed in
-        stays the caller's."""
+        stays the caller's. The ranks form `config.rank_mesh(world)`;
+        with a model axis, `pad_heads` pads for its size and each model
+        group trains tensor-parallel (`engine.build`)."""
         config.validate()
         world = (comm.world if comm is not None
                  else int(os.environ.get("WORLD_SIZE", "1")))
+        mesh = config.rank_mesh(world)
+        dp, tp = mesh.axis_size("data"), mesh.axis_size("model")
         dev = session_device(device, generator, world)
         gen = generator if generator is not None else make_generator(dev)
         if gen.device.type != dev.type:
@@ -207,22 +214,24 @@ class TrainSession:
                 raise ValueError("EngineConfig.arch is empty — pass a "
                                  "built Model via from_config(model=...)")
             model = build_model(
-                config.model_config(), param_dtype=getattr(torch, config.param_dtype),
+                config.model_config(tp),
+                param_dtype=getattr(torch, config.param_dtype),
                 attn_chunk=min(config.attn_chunk, config.seq_len))
         owns = comm is None and world > 1
         if owns:
             comm = Comm.init(dist_backend or ("nccl" if dev.type == "cuda"
                                               else "gloo"), dev)
         try:
-            # span can't exceed the ranks: one lane a rank (the
+            # span can't exceed the data ranks: one lane a rank (the
             # reference's clamp of span > dp, session.py:177-180)
-            if world > 1 and config.span > world:
+            if world > 1 and config.span > dp:
                 config = dataclasses.replace(config, span=0)
             # the span and batch checks come after the model's family check
-            config.validate(dp_total=world)
+            config.validate(dp_total=dp)
             runtime = build_runtime(model, config.run_policy(), lr=config.lr,
                                     strict=config.strict,
-                                    combine_impl=combine_impl, comm=comm)
+                                    combine_impl=combine_impl, comm=comm,
+                                    model_size=tp)
             source = make_source(config.data_config(model.cfg.vocab_size),
                                  model.cfg)
             ckpt = None
@@ -230,7 +239,7 @@ class TrainSession:
                 ckpt = (AsyncCheckpointManager if config.async_checkpoint
                         else CheckpointManager)(config.ckpt_dir)
             return cls(config, model, runtime, source, gen, callbacks,
-                       owns_comm=owns, checkpoint=ckpt)
+                       owns_comm=owns, checkpoint=ckpt, mesh=mesh)
         except BaseException:
             if owns:
                 comm.close()
@@ -252,7 +261,9 @@ class TrainSession:
                 "combine_delay": self.config.combine_delay,
                 "devices": 1,
                 "device": str(self.device),
-                "world": rt.dp_total,
+                "world": self.comm.world if self.comm else 1,
+                "data_mesh": rt.dp_total,
+                "model_mesh": rt.model_size,
                 "dist_backend": self.comm.backend if self.comm else "none",
                 "staged_bytes": (self.comm.total_staged_bytes()
                                  if self.comm else 0),
@@ -464,7 +475,7 @@ class TrainSession:
         this rank takes its part of the stored full leaf under the plan
         (the lane state's row first, resharded to this run's span)."""
         plan, span = self.runtime.plan, self.runtime.span
-        lane = self.rank // plan.g
+        lane = plan.coords["lane"]
         out: Dict[str, Any] = {}
 
         def add(prefix, tree, which):
@@ -546,15 +557,16 @@ class ServeSession:
                     model: Optional[Model] = None,
                     params: Optional[PyTree] = None,
                     device: DeviceLike = None,
-                    generator: Optional[torch.Generator] = None
-                    ) -> "ServeSession":
+                    generator: Optional[torch.Generator] = None,
+                    mesh=None) -> "ServeSession":
         """Model and params as `ServeEngine.from_config` builds them (on
         `device`, `cuda` unless the caller says otherwise; with
-        `ckpt_dir`, the latest checkpoint's params)."""
+        `ckpt_dir`, the latest checkpoint's params; heads padded for the
+        mesh's model size under `pad_heads`)."""
         from .serving.engine import resolve_serve_parts
         model, params, checkpoint, loaded_step = resolve_serve_parts(
             config, model=model, params=params, device=device,
-            generator=generator)
+            generator=generator, mesh=mesh)
         return cls(config, model, params, checkpoint=checkpoint,
                    loaded_step=loaded_step)
 

@@ -27,8 +27,10 @@ retries, drains and the ladder's levels), and `--legacy`, the old
 encoder-decoder presets (llava-next-34b, seamless-m4t-large-v2) always
 take that stepped loop, with zeros as the stub's embeddings, as in the
 reference; rwkv6-7b serves the dense layout and both recurrent presets
-the scan prefill. Meshes above one device raise NotImplementedError
-naming their ROADMAP item.
+the scan prefill. `--data-mesh` / `--model-mesh` make the serving mesh
+over the cards the process sees, falling back to one card as the
+reference's `make_local_mesh` does: serving is one process on one
+device, and the mesh shards nothing.
 """
 from __future__ import annotations
 
@@ -40,8 +42,8 @@ import numpy as np
 
 from repro_torch.engine import (EngineConfig, GenerationRequest, ServeEngine,
                                 ServeSession)
-from repro_torch.runtime import (ITEM_SHARDING, make_generator, not_ported,
-                                 resolve_device)
+from repro_torch.engine.serving.engine import serve_mesh
+from repro_torch.runtime import make_generator, resolve_device
 
 
 def main(argv=None):
@@ -113,9 +115,6 @@ def main(argv=None):
                     help="seed of the generator the random weights come "
                     "from")
     args = ap.parse_args(argv)
-    if args.data_mesh > 1 or args.model_mesh > 1:
-        raise not_ported("meshes above one device (--data-mesh/--model-mesh)",
-                         ITEM_SHARDING)
 
     max_len = args.max_len or (args.system_prompt + args.prompt_len
                                + args.gen + 1)
@@ -136,12 +135,14 @@ def main(argv=None):
                        draft_config=draft_config,
                        pressure_ladder=args.pressure_ladder,
                        ckpt_dir=args.ckpt_dir,
-                       hot_reload=args.hot_reload).validate()
+                       hot_reload=args.hot_reload,
+                       data_mesh=args.data_mesh,
+                       model_mesh=args.model_mesh).validate()
     rng = np.random.RandomState(1)
     device = resolve_device(args.device)
     generator = make_generator(device, args.seed)
 
-    mcfg = cfg.model_config()
+    mcfg = cfg.model_config(serve_mesh(cfg, device).axis_size("model"))
     stepped_only = mcfg.is_encoder_decoder or mcfg.frontend != "none"
     if args.legacy or stepped_only:
         if stepped_only and not args.legacy:

@@ -43,8 +43,18 @@ loss has nothing to shrink and is raised. `--adaptive-batch` (needs
 `--ckpt-dir`) runs `fit_adaptive`: the gradient-noise controller grows
 the batch (and, across ranks, the span) through save -> rebuild ->
 resume ("[control] resize at step N: ..."). Under torch.distributed.run
-every rank exits 0, a parked one too. `--model-mesh` above 1 raises
-NotImplementedError naming its ROADMAP item.
+every rank exits 0, a parked one too.
+
+`--data-mesh D --model-mesh M` lay the WORLD_SIZE ranks out as a (data,
+model) grid (data 0: every rank the model axis does not use): the dense
+GQA decoders train tensor-parallel within each model group, and the
+data groups combine as above. A grid larger than the ranks falls back
+to (WORLD_SIZE, 1), as the reference's mesh does over its devices:
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.train --arch gemma-7b --reduced \
+        --data-mesh 2 --model-mesh 2 --device cpu --steps 2 --seq 32 \
+        --batch 8
 """
 from __future__ import annotations
 
@@ -103,6 +113,7 @@ def main(argv=None):
                   f"optimizer={cfg.optimizer} point={rt.dopt.point} "
                   f"stats={'on' if rt.combine_stats else 'off'} "
                   f"world={meta['world']} dist={meta['dist_backend']} "
+                  f"mesh={meta['data_mesh']}x{meta['model_mesh']} "
                   f"prefetch={prefetch} ckpt={cfg.ckpt_dir or 'off'}")
         try:
             history = session.fit(cfg.steps)

@@ -6,8 +6,9 @@ MoE decoders, the SSM (rwkv), the hybrid (hymba), the vision frontend
     model = build_model(cfg)
     params = model.init(generator)               # on cuda by default
     loss, metrics = model.loss(params, batch)    # training (plain attention)
-    # across ranks the step adds fsdp= (its layer gather) and
-    # token_group= (the ranks splitting the rows), `parallel.zero`
+    # across ranks the step adds fsdp= (its layer gather), token_group=
+    # (the ranks splitting the rows), `parallel.zero`, and tp= (the
+    # model group of a dense GQA decoder, `parallel.tp`)
     logits, cache = model.prefill_cache(params, tokens, lengths, max_len)
     logits, cache = model.decode_step(params, tokens, cache)
     logits, cache = model.verify_step(params, tokens_k1, cache)
@@ -51,11 +52,6 @@ class Model:
     # [B,T,V], cache with K/V rows written and pos unchanged)
     verify_step: Optional[Callable] = None
     attn_impl: str = "kernel"         # what serving attention runs through
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.orig_heads:
-        raise not_ported("TP head padding (orig_heads)", ITEM_SHARDING)
 
 
 def _init_fn(cfg: ModelConfig, param_dtype):
@@ -115,7 +111,6 @@ def build_model(cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
     (training) always takes the plain attention path, `attn_chunk` query
     rows at a time (this bounds its attention memory; the result does not
     depend on it); remat recomputes each block in its backward pass."""
-    _check_ported(cfg)
     if attn_impl not in ATT.ATTN_IMPLS:
         raise ValueError(f"attn_impl={attn_impl!r}; one of {ATT.ATTN_IMPLS}")
     if attn_chunk < 1:
@@ -149,9 +144,10 @@ def build_model(cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
             cache_dtype=compute_dtype, prefix_kv=prefix_kv,
             prefix_len=prefix_len)
 
-    def loss(params, batch, *, fsdp=None, token_group=None):
+    def loss(params, batch, *, fsdp=None, token_group=None, tp=None):
         return TF.lm_loss(params, cfg, batch, compute_dtype, attn_chunk,
-                          remat=remat, fsdp=fsdp, token_group=token_group)
+                          remat=remat, fsdp=fsdp, token_group=token_group,
+                          tp=tp)
 
     def verify_step(params, tokens, cache):
         return TF.verify_step(params, cfg, tokens, cache, compute_dtype)
@@ -165,5 +161,4 @@ def build_model(cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
     """Analytic parameter count from the params spec; active_only counts
     the routed experts a token uses (api.py:160)."""
-    _check_ported(cfg)
     return TF.count_params(cfg, active_only)

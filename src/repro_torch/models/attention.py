@@ -64,6 +64,40 @@ def _paged(attn_impl: str):
         else FA.paged_decode_attention_ref
 
 
+def convert_gqa_params(p: PyTree, cfg: ModelConfig, cfg_pad: ModelConfig,
+                       dtype=torch.float32) -> PyTree:
+    """Exact weight conversion for `pad_heads_for_tp` (attention.py:85-118
+    of the reference) of one layer's GQA params, or of the stacked
+    [L, ...] leaves: kv heads are block-duplicated f = kv2/kv times;
+    the r-th real q head of kv group j goes to slot j·(h2/kv) + r, so
+    the q -> kv map is kept; padded q slots get zero wq columns and zero
+    wo rows (exactly no contribution)."""
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    h2, kv2 = cfg_pad.n_heads, cfg_pad.n_kv_heads
+    f = kv2 // kv
+    G, G2 = h // kv, h2 // kv2
+    if kv2 != kv * f or h2 != kv * f * G2 or G > f * G2:
+        raise ValueError(f"{cfg_pad.name}: {h2}/{kv2} heads are not a "
+                         f"padding of {h}/{kv}")
+    wq, wo = p["wq"], p["wo"]
+    lead = wq.shape[:-2]
+    d = wq.shape[-2]
+    slots = torch.tensor([(i // G) * (f * G2) + i % G for i in range(h)],
+                         device=wq.device)
+    wq2 = torch.zeros(lead + (d, h2, dh), dtype=dtype, device=wq.device)
+    wq2[..., slots, :] = wq.reshape(lead + (d, h, dh)).to(dtype)
+    wo2 = torch.zeros(lead + (h2, dh, wo.shape[-1]), dtype=dtype,
+                      device=wo.device)
+    wo2[..., slots, :, :] = wo.reshape(lead + (h, dh, -1)).to(dtype)
+
+    def dup(w):
+        w = w.reshape(lead + (d, kv, dh)).repeat_interleave(f, dim=-2)
+        return w.reshape(lead + (d, kv2 * dh))
+
+    return dict(p, wq=wq2.reshape(lead + (d, h2 * dh)), wk=dup(p["wk"]),
+                wv=dup(p["wv"]), wo=wo2.reshape(lead + (h2 * dh, -1)))
+
+
 # ------------------------------------------------------- chunked core attn
 # the reference's query-chunked exact attention on explicit positions; one
 # implementation, beside the kernel it is the plain version of
@@ -120,6 +154,75 @@ def gqa_forward(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
     if return_kv:
         return out, (k, v)
     return out
+
+
+def gqa_forward_tp(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
+                   positions: torch.Tensor, compute_dtype, tp,
+                   attn_chunk: int = 512) -> torch.Tensor:
+    """The training forward of `gqa_forward` on this rank's shards
+    (`parallel.tp`), plain attention. Each projection takes the
+    collective its spec gives:
+      * q: h/M local heads (column) where the model axis divides h;
+        else the whole q (contraction, or whole weights), and the
+        attention core then runs whole on every rank, its wo d-split or
+        whole (the reference's sharding.py:6-11);
+      * k, v: kv/M local heads where M divides kv; else the whole k, v,
+        of which a rank with local q heads takes the kv heads they read
+        (repeated per q head where its heads straddle a kv group);
+        whole k, v beside whole q are gathered whole;
+      * wo: row-parallel over local heads.
+    qk-norm's scales on local heads sum their gradients over the group
+    (`tp.copy`)."""
+    B, T, _ = x.shape
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    cd = compute_dtype
+    x = x.to(cd)
+    dq, dk, dv, do = (tp.dim("attn", n) for n in ("wq", "wk", "wv", "wo"))
+    xc = tp.copy(x) if 1 in (dq, dk, dv) else None
+    xs = tp.scatter(x, -1) if 0 in (dq, dk, dv) else None
+
+    def proj(w, d):
+        w = w.to(cd)
+        if d == 1:
+            return xc @ w
+        if d == 0:
+            return tp.reduce(xs @ w)
+        return x @ w
+
+    q_local, kv_local = dq == 1, dk == 1
+    hl = h // tp.size if q_local else h
+    kl = kv // tp.size if kv_local else kv
+    q = proj(params["wq"], dq).reshape(B, T, hl, dh)
+    k = proj(params["wk"], dk).reshape(B, T, kl, dh)
+    v = proj(params["wv"], dv).reshape(B, T, kl, dh)
+    if cfg.qk_norm:
+        qn, kn = params["q_norm"], params["k_norm"]
+        q = L.headwise_rmsnorm(tp.copy(qn) if q_local else qn, q)
+        k = L.headwise_rmsnorm(tp.copy(kn) if kv_local else kn, k)
+    pos = positions[None, :]
+    q = L.apply_rope(q, pos, cfg.rope_theta)
+    k = L.apply_rope(k, pos, cfg.rope_theta)
+    if q_local and not kv_local:
+        # whole k, v: the kv heads this rank's q heads read
+        G = h // kv
+        heads = torch.arange(tp.index * hl, (tp.index + 1) * hl,
+                             device=x.device) // G
+        if hl % G == 0:
+            heads = heads[::G]
+        elif G % hl == 0:
+            heads = heads[:1]
+        k, v = tp.copy(k)[:, :, heads], tp.copy(v)[:, :, heads]
+    elif not q_local and kv_local:
+        k, v = tp.gather(k, 2), tp.gather(v, 2)
+    out = FA.flash_attention_ref(q, k, v, causal=True,
+                                 window=cfg.sliding_window, chunk=attn_chunk)
+    out = out.reshape(B, T, hl * dh)
+    wo = params["wo"].to(cd)
+    if do == 0:
+        return tp.reduce(out @ wo)
+    if do == 1:
+        return tp.gather(tp.copy(out) @ wo, -1)
+    return out @ wo
 
 
 # --------------------------------------------------------------- KV caches

@@ -58,8 +58,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 # ----------------------------------------------------------------------- mlp
 def mlp_apply(params: PyTree, x: torch.Tensor, mlp_type: str = "swiglu",
-              compute_dtype=torch.bfloat16) -> torch.Tensor:
+              compute_dtype=torch.bfloat16, tp=None) -> torch.Tensor:
+    """The gated MLP. tp (`parallel.tp.TensorParallel`): gate and up
+    column-parallel, down row-parallel, where the model axis divides
+    d_ff (else every rank runs it whole, as the reference's `_spec2`
+    drops the axis)."""
     x = x.to(compute_dtype)
+    split = tp is not None and tp.dim("mlp", "w_gate") is not None
+    if split:
+        x = tp.copy(x)
     g = x @ params["w_gate"].to(compute_dtype)
     u = x @ params["w_up"].to(compute_dtype)
     if mlp_type == "swiglu":
@@ -68,13 +75,26 @@ def mlp_apply(params: PyTree, x: torch.Tensor, mlp_type: str = "swiglu",
         a = F.gelu(g, approximate="tanh")
     else:
         raise KeyError(mlp_type)
-    return (a * u) @ params["w_down"].to(compute_dtype)
+    y = (a * u) @ params["w_down"].to(compute_dtype)
+    return tp.reduce(y) if split else y
 
 
 # ----------------------------------------------------------------- embedding
 def embed(params: PyTree, tokens: torch.Tensor,
-          compute_dtype=torch.bfloat16) -> torch.Tensor:
-    return params["table"][tokens.long()].to(compute_dtype)
+          compute_dtype=torch.bfloat16, tp=None) -> torch.Tensor:
+    """The lookup. tp: a vocab-sharded table looks up the rank's rows
+    and all-reduces; a d-split table all-gathers its columns."""
+    dim = tp.dim("embed", "table") if tp is not None else None
+    table = params["table"]
+    if dim is None:
+        return table[tokens.long()].to(compute_dtype)
+    if dim == 1:
+        return tp.gather(table[tokens.long()].to(compute_dtype), -1)
+    n = table.shape[0]
+    local = tokens.long() - tp.index * n
+    mine = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)].to(compute_dtype)
+    return tp.reduce(rows * mine[..., None].to(compute_dtype))
 
 
 def unembed(params: PyTree, x: torch.Tensor,

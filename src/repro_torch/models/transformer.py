@@ -171,7 +171,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         if isinstance(node, dict):
             return {k: build(v) for k, v in node.items()}
         return _init_leaf(*node, param_dtype, generator, device)
-    return build(param_spec(cfg))
+    params = build(param_spec(cfg))
+    if cfg.orig_heads and cfg.orig_heads < cfg.n_heads \
+            and cfg.attn_type == "gqa":
+        # TP head padding (pad_heads_for_tp): a padded q head adds
+        # exactly nothing, its wo rows zero (attention.py:49-67)
+        for key in ("dense_blocks", "blocks"):
+            if key in params and "attn" in params[key]:
+                wo = params[key]["attn"]["wo"]
+                wo[:, cfg.orig_heads * cfg.resolved_head_dim:] = 0
+    return params
 
 
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
@@ -226,7 +235,7 @@ def block_apply(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, moe_block: bool = False,
                 compute_dtype=torch.bfloat16, attn_impl: str = "kernel",
                 return_kv: bool = False, prefix_kv=None,
-                attn_chunk: int = 512, token_group=None):
+                attn_chunk: int = 512, token_group=None, tp=None):
     """One block on [B,T,D] -> ([B,T,D], aux loss[, kv]) (transformer.py
     :56). kv (with return_kv; attention families only) is this block's
     decode-cache contribution: the RoPE'd (k, v) for GQA, the latents
@@ -235,7 +244,9 @@ def block_apply(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
     MLA attention and the SSM mixers are plain torch whatever `attn_impl`
     says (the reference has no kernel for them). token_group: the ranks
     splitting this call's rows (`parallel.zero.TokenGroup`), for the MoE
-    dispatch's whole-microbatch capacity and statistics."""
+    dispatch's whole-microbatch capacity and statistics. tp: this
+    rank's model group (`parallel.tp.TensorParallel`; the dense GQA
+    family, training), the params then its shards."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_kv and cfg.family in ("ssm", "hybrid"):
         raise ValueError("fused kv capture needs an attention family")
@@ -248,6 +259,12 @@ def block_apply(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
         return x + SSM.rwkv_chan_forward(params["chan"], cfg, h, prev,
                                          compute_dtype), zero
     h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
+    if tp is not None:
+        x = x + ATT.gqa_forward_tp(params["attn"], cfg, h, positions,
+                                   compute_dtype, tp, attn_chunk)
+        h = L.rmsnorm(params["norm2"], x, cfg.norm_eps)
+        return x + L.mlp_apply(params["mlp"], h, cfg.mlp_type,
+                               compute_dtype, tp), zero
     if cfg.attn_type == "mla":
         a = ATT.mla_forward(params["attn"], cfg, h, positions, compute_dtype,
                             return_kv=return_kv, prefix_kv=prefix_kv,
@@ -279,6 +296,29 @@ def _logits(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
     return L.lm_head(params["lm_head"], x, compute_dtype)
 
 
+def _logits_tp(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
+               compute_dtype, tp) -> torch.Tensor:
+    """The head on this rank's shard: logits sharded over the vocab
+    (a vocab-sharded lm_head or tied table: column-parallel), or whole
+    after a contraction all-reduce (a d-split table, an lm_head sharded
+    on d_model), or whole from a whole weight."""
+    if cfg.tie_embeddings:
+        w, dim = params["embed"]["table"].T, tp.dim("embed", "table")
+        dim = None if dim is None else 1 - dim
+    else:
+        w, dim = params["lm_head"]["w"], tp.dim("lm_head", "w")
+    return tp.linear(x.to(compute_dtype), w.to(compute_dtype),
+                     dim).float()
+
+
+def vocab_sharded(cfg: ModelConfig, tp) -> bool:
+    """Whether `forward(..., tp=tp)` gives this rank's vocab slice of
+    the logits (else the whole logits)."""
+    if cfg.tie_embeddings:
+        return tp.dim("embed", "table") == 0
+    return tp.dim("lm_head", "w") == 1
+
+
 def project_frontend(params: PyTree, cfg: ModelConfig, embeds: torch.Tensor,
                      compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Modality stub -> model space (transformer.py:152). embeds:
@@ -300,7 +340,7 @@ def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
             compute_dtype=torch.bfloat16, attn_impl: str = "kernel",
             remat: bool = False, attn_chunk: int = 512,
             frontend_embeds: Optional[torch.Tensor] = None, *,
-            fsdp=None, token_group=None
+            fsdp=None, token_group=None, tp=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [B,T] (+ frontend_embeds [B,S,frontend_dim] projected and
     prepended) -> (logits [B,S+T,V] fp32, aux loss summed over the MoE
@@ -314,12 +354,14 @@ def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
     `fsdp.layer(blocks, key, l)` gather them: the embedding, lm_head and
     projector at their use, each block's layer just before it runs,
     inside its checkpoint. token_group: the ranks splitting this call's
-    rows (`block_apply`)."""
+    rows (`block_apply`). tp: a tensor-parallel forward on this rank's
+    shards (`block_apply`); the logits are then this rank's vocab slice
+    where `vocab_sharded` says so."""
     fs, grp = fsdp, token_group
     whole = (lambda name: params[name]) if fs is None else \
         (lambda name: fs.tree(params[name], (name,)))
     emb = whole("embed")       # gathered once for a tied head's two uses
-    x = L.embed(emb, tokens, compute_dtype)
+    x = L.embed(emb, tokens, compute_dtype, tp)
     if frontend_embeds is not None:
         x = torch.cat([project_frontend({"projector": whole("projector")},
                                         cfg, frontend_embeds, compute_dtype),
@@ -336,57 +378,82 @@ def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
                 fn, head = _gathered_block, (fs, blocks, key, l)
             args = head + (cfg, x, positions, moe_block, compute_dtype,
                            attn_impl)
+            kw = dict(attn_chunk=attn_chunk, token_group=grp, tp=tp)
             if remat:
-                x, a = checkpoint(fn, *args, attn_chunk=attn_chunk,
-                                  token_group=grp, use_reentrant=False)
+                x, a = checkpoint(fn, *args, use_reentrant=False, **kw)
             else:
-                x, a = fn(*args, attn_chunk=attn_chunk, token_group=grp)
+                x, a = fn(*args, **kw)
             aux = aux + a
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     head = {"embed": emb} if cfg.tie_embeddings else \
         {"lm_head": whole("lm_head")}
+    if tp is not None:
+        return _logits_tp(head, cfg, x, compute_dtype, tp), aux
     return _logits(head, cfg, x, compute_dtype), aux
 
 
 def masked_nll(logits: torch.Tensor, labels: torch.Tensor,
-               token_group=None) -> torch.Tensor:
+               token_group=None, tp=None) -> torch.Tensor:
     """Mean next-token cross entropy over the labels >= 0 (-100 =
     masked), in fp32. With a `token_group` (`parallel.zero.TokenGroup`)
     the mean is over the labels of the whole microbatch the group's
-    ranks split (this rank's share of it)."""
+    ranks split (this rank's share of it). With `tp`, `logits` are this
+    rank's vocab slice and the cross entropy is vocab-parallel: the row
+    maximum, the sum of exponentials and the target logit are each
+    all-reduced over the model group; no rank holds the whole logits."""
     labels = labels.long()
     mask = (labels >= 0).float()
-    nll = F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
-                          labels.clamp(min=0).reshape(-1), reduction="none")
+    if tp is not None:
+        nll = _vocab_parallel_nll(logits, labels, tp)
+    else:
+        nll = F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
+                              labels.clamp(min=0).reshape(-1),
+                              reduction="none")
     count = mask.sum()
     if token_group is not None:
         count = token_group.sum(count)
     return (nll * mask.reshape(-1)).sum() / count.clamp(min=1.0)
 
 
+def _vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor,
+                        tp) -> torch.Tensor:
+    """-log softmax(logits)[label] per row, the vocab split over the
+    model group (rank m holds columns [m·V/M, (m+1)·V/M))."""
+    n = logits.shape[-1]
+    lf = logits.float().reshape(-1, n)
+    lab = labels.reshape(-1) - tp.index * n
+    mine = (lab >= 0) & (lab < n)
+    mx = tp.max(lf.max(dim=-1).values.detach())
+    total = tp.reduce(torch.exp(lf - mx[:, None]).sum(dim=-1))
+    tgt = lf.gather(1, lab.clamp(0, n - 1)[:, None])[:, 0] * mine.float()
+    return torch.log(total) + mx - tp.reduce(tgt)
+
+
 def lm_loss(params: PyTree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             compute_dtype=torch.bfloat16, attn_chunk: int = 512,
             aux_weight: float = 0.01, remat: bool = True, *,
-            fsdp=None, token_group=None
+            fsdp=None, token_group=None, tp=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross entropy plus `aux_weight` times the MoE aux loss
     (transformer.py:226-255). batch: tokens [B,T], labels [B,T] (-100 =
     masked), optional frontend_embeds (their positions take label -100).
     Attention runs the plain `_chunked_attention` on every device, as
     the reference's training loss does: the flash kernel is
-    forward-only. fsdp, token_group: a step across ranks (`forward`,
+    forward-only. fsdp, token_group, tp: a step across ranks (`forward`,
     `masked_nll`). Returns (total, {'loss', 'aux'})."""
     logits, aux = forward(params, cfg, batch["tokens"], compute_dtype,
                           "plain", remat, attn_chunk,
                           frontend_embeds=batch.get("frontend_embeds"),
-                          fsdp=fsdp, token_group=token_group)
+                          fsdp=fsdp, token_group=token_group, tp=tp)
     labels = batch["labels"]
     pad = logits.shape[1] - labels.shape[1]
     if pad:                               # frontend positions prepended
         labels = torch.cat([torch.full((labels.shape[0], pad), -100,
                                        dtype=labels.dtype,
                                        device=labels.device), labels], 1)
-    loss = masked_nll(logits, labels, token_group)
+    loss = masked_nll(logits, labels, token_group,
+                      tp if tp is not None and vocab_sharded(cfg, tp)
+                      else None)
     return loss + aux_weight * aux, {"loss": loss, "aux": aux}
 
 

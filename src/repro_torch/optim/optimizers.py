@@ -11,11 +11,13 @@ copy of the optimizer state would not fit beside the lane gradients (the
 reference's session donates its state the same way). A caller that
 needs the old state clones it first.
 
-On a shard of each leaf (ZeRO-1 across ranks) the elementwise updates
-need nothing more. LAMB's trust ratio takes the norms of the whole leaf
-(optimizers.py:148-151 of the reference): `update(..., norm_sum=)` gives
-a tree of callables, one a leaf, that sum the shard's squared norms over
-the ranks holding the leaf's other shards.
+On a shard of each leaf (ZeRO-1 across ranks, or a rank's model shard)
+the elementwise updates need nothing more. LAMB's trust ratio takes the
+norms of the whole leaf (optimizers.py:148-151 of the reference):
+`update(..., norm_sum=)` gives a tree of callables, one a leaf, that sum
+the shard's squared norms over the ranks holding the leaf's other shards
+(the lane group, every rank, or the model group where the model axis
+shards the leaf; identity for a whole leaf).
 """
 from __future__ import annotations
 

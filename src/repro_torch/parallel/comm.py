@@ -480,17 +480,19 @@ class Comm:
                 out += p
         return out.to(v.device)
 
-    def allreduce(self, x: torch.Tensor) -> torch.Tensor:
-        """In-place sum of `x` over every rank of the comm."""
+    def allreduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """In-place sum (or, with op="max", maximum) of `x` over every
+        rank of the comm."""
         if self.world == 1:
             return x
+        rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
         with self.timed("allreduce"):
             if self._staged(x):
                 host, _ = self._to_host([x], "send")
-                dist.all_reduce(host.view(x.dtype), group=self.group)
+                dist.all_reduce(host.view(x.dtype), op=rop, group=self.group)
                 self._from_host(host, [x])
             else:
-                dist.all_reduce(x, group=self.group)
+                dist.all_reduce(x, op=rop, group=self.group)
         return x
 
     def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:

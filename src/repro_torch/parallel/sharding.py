@@ -17,7 +17,8 @@ A spec is a tuple with one entry per dim: None (replicated), an axis
 name, or a tuple of axis names (major to minor, as a PartitionSpec
 entry). `shard` takes one device's piece of a full tensor under a spec,
 `unshard` puts the pieces back together; `local_shape` is the piece's
-shape. Across ranks the port names the data axis after the ranks' two
+shape; each takes "data", "model" and the ranks' own axis names alike.
+`cache_specs` is the reference's serving-cache rule. Across ranks the port names the data axis after the ranks' two
 coordinates (see `engine/build.py`): rank r = lane·g + member, and a
 leaf the reference shards over `data` is split ("member", "lane") — its
 1/g lane-group part (member-major) nests the rank's own 1/W piece.
@@ -326,3 +327,28 @@ def _spec_pairs(specs: PyTree, path: tuple = ()) -> list:
 def spec_leaves(specs: PyTree) -> list:
     """The specs of a spec tree in the params' flatten order."""
     return [s for _, s in _spec_pairs(specs)]
+
+
+def cache_specs(cache_shapes: PyTree, cfg, pol: ShardingPolicy,
+                dp_axes: Sequence[str], batch: int, dp_total: int) -> list:
+    """KV-cache / state specs for serving (sharding.py:271-289 of the
+    reference), one per leaf of `cache_shapes` (anything with a
+    `.shape`) in flatten order: the batch dim over DP when it divides;
+    the capacity / sequence dim (dim 2) over TP when it divides, else
+    dim 3; each leaf falls back on its own."""
+    dp = tuple(dp_axes)
+    out = []
+    for leaf in T.leaves(cache_shapes):
+        shape = tuple(leaf.shape)
+        entries: List[Any] = [None] * len(shape)
+        # [L, B, S, ...] for kv caches; [L, B, H, ...] for states
+        if len(shape) >= 2 and _fits(batch, dp_total) and shape[1] == batch:
+            # one axis is the axis itself, as a PartitionSpec writes it
+            entries[1] = dp[0] if len(dp) == 1 else dp
+        if len(shape) >= 3:
+            if _fits(shape[2], pol.tp_size):
+                entries[2] = pol.tp_axis
+            elif len(shape) >= 4 and _fits(shape[3], pol.tp_size):
+                entries[3] = pol.tp_axis
+        out.append(tuple(entries))
+    return out

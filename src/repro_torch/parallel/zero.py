@@ -35,6 +35,14 @@ adds the layer's gradient (of the rank's share of the loss,
 lane gradient store — whole at g == 1 (each rank keeps its own lane's
 gradient), reduce-scattered over the lane group at g > 1 — and hands
 autograd nothing.
+
+The model axis (`model_comm`, the M ranks of one data index; `comm` is
+then this rank's data group): every leaf is this rank's model shard
+under `tp.model_specs` (whole where the spec shards nothing) and whole
+on the data axis. LAMB's norms sum over the model group where the spec
+shards the leaf; a checkpoint gathers the model shards (and the lanes)
+into rank 0's full leaves, and a restore cuts its shard from them. A
+plan without a model axis is the data axis's alone, as above.
 """
 from __future__ import annotations
 
@@ -47,6 +55,7 @@ from repro_torch import tree as T
 from .sharding import (ShardingPolicy, entry_axes, local_shape,
                        param_specs, rename, shard, sharded_dim, spec_leaves,
                        unshard)
+from .tp import model_dim, model_shard, model_specs
 
 PyTree = Any
 
@@ -86,11 +95,13 @@ class RankPlan:
     """This rank's layout of every param leaf (flatten order), and the
     moves between layouts. `comm`: all W ranks; `lane_comm`: this rank's
     lane group (None at g == 1); `rvh_comm`: the span ranks of its
-    member position."""
+    member position; `model_comm`: this rank's model group (None
+    without a model axis)."""
 
     def __init__(self, cfg, shapes: PyTree, comm, span: int, *, fsdp: bool,
                  scatter_grads: bool, post: bool, shard_grads: bool = True,
-                 lane_comm=None, rvh_comm=None, shard: bool):
+                 lane_comm=None, rvh_comm=None, shard: bool,
+                 model_comm=None):
         W = comm.world
         self.comm, self.lane_comm, self.rvh_comm = comm, lane_comm, rvh_comm
         self.span, self.g = span, W // span
@@ -109,6 +120,15 @@ class RankPlan:
             cfg, shapes, ShardingPolicy(fsdp_axis="data",
                                         fsdp_size=W if shard else 1)))
         self.dims = [sharded_dim(s) for s in self.specs]
+        self.model_comm = model_comm
+        self.msize = model_comm.world if model_comm is not None else 1
+        self.mindex = model_comm.rank if model_comm is not None else 0
+        if self.msize > 1 and shard:
+            raise ValueError("a plan shards the data axis or has a model "
+                             "axis, not both")
+        self.mspecs = spec_leaves(model_specs(cfg, shapes, self.msize)) \
+            if self.msize > 1 else [None] * len(self.shapes)
+        self.mdims = [model_dim(s) for s in self.mspecs]
         self.grad_shapes = self.local_shapes("grads")
 
     # ------------------------------------------------------------ specs
@@ -130,7 +150,8 @@ class RankPlan:
         'grads'), by `sharding.local_shape` of its spec."""
         spec = {"params": self.param_spec, "state": self.state_spec,
                 "grads": self.gshard_spec}[which]
-        return [local_shape(s, spec(i), self.sizes)
+        return [local_shape(local_shape(s, spec(i), self.sizes),
+                            self.mspecs[i], {"model": self.msize})
                 for i, s in enumerate(self.shapes)]
 
     def rank_of(self, coords: Dict[str, int]) -> int:
@@ -182,9 +203,20 @@ class RankPlan:
             return x
         return torch.cat(self.lane_comm.all_gather(x), dim=self.dims[i])
 
+    def mshard(self, i: int, x):
+        """A whole leaf (a tensor or a numpy array) -> this rank's model
+        shard of it (a view)."""
+        return model_shard(x, self.mspecs[i], self.msize, self.mindex)
+
     def shard_params(self, params: PyTree) -> PyTree:
         """Whole params -> this rank's (its piece of each sharded leaf,
-        its own memory, under fsdp; the same tree otherwise)."""
+        its own memory, under fsdp; its model shard of each leaf the
+        model axis shards; the same tree otherwise)."""
+        if self.msize > 1:
+            leaves, td = T.flatten(params)
+            return T.unflatten(td, [x if self.mdims[i] is None
+                                    else self.mshard(i, x).clone()
+                                    for i, x in enumerate(leaves)])
         if not self.fsdp:
             return params
         leaves, td = T.flatten(params)
@@ -203,8 +235,14 @@ class RankPlan:
     def norm_sums(self, layout: str) -> PyTree:
         """Per leaf, the sum of a shard's squared norms over the ranks
         holding the leaf's other shards ('piece': all W ranks; 'gshard':
-        the lane group), in rank order; identity for whole leaves."""
+        the lane group; with a model axis, its model group), in rank
+        order; identity for whole leaves."""
         whole = lambda v: v
+        if self.msize > 1:
+            c = self.model_comm
+            return T.unflatten(self.treedef, [
+                whole if d is None else (lambda v: c.group_sum(v, c.world))
+                for d in self.mdims])
         comm = self.comm if layout == "piece" else self.lane_comm
         fns = [whole if d is None or comm is None
                else (lambda v, c=comm: c.group_sum(v, c.world))
@@ -229,6 +267,8 @@ class RankPlan:
         in rank 0's host memory, one leaf at a time (None on the other
         ranks): pieces put together, a lane's gshards put together, the
         lanes stacked [span, ...] where each rank holds one. Collective."""
+        if self.msize > 1:
+            return self._gather_model(tree, which)
         leaves, td = T.flatten(tree)
         W, g = self.comm.world, self.g
         lanes = self.lanes(which)
@@ -255,9 +295,34 @@ class RankPlan:
                 out.append(torch.stack(one) if lanes else one[0])
         return T.unflatten(td, out) if self.comm.rank == 0 else None
 
+    def _gather_model(self, tree: PyTree, which: str) -> Optional[PyTree]:
+        """`gather_tree` with a model axis: each model group puts its
+        shards together on its first rank (host memory), and where each
+        rank holds one lane those ranks send their whole leaf on to
+        rank 0, lane by lane."""
+        leaves, td = T.flatten(tree)
+        mc, dc = self.model_comm, self.comm
+        top = mc.rank == 0 and dc.rank == 0
+        lanes = self.lanes(which)
+        out = []
+        for i, x in enumerate(leaves):
+            d = self.mdims[i]
+            whole = x
+            if d is not None:
+                rows = mc.gather_to_host(x, list(range(mc.world)))
+                whole = None if rows is None else torch.cat(list(rows), d)
+            if lanes and mc.rank == 0:
+                if dc.backend == "nccl":
+                    whole = whole.to(x.device)
+                whole = dc.gather_to_host(
+                    whole, [l * self.g for l in range(self.span)])
+            out.append(whole if top else None)
+        return T.unflatten(td, out) if top else None
+
     def take(self, i: int, full, which: str):
         """A full leaf (a numpy array; one lane's where `lanes`) -> this
         rank's part of it under the plan (a numpy view)."""
+        full = self.mshard(i, full)
         lay = self._layout(i, which)
         if lay == "whole":
             return full

@@ -112,15 +112,35 @@ LATER_FLAGS = {
 
 
 @pytest.mark.parametrize("name", sorted(LATER_FLAGS))
-def test_later_slice_flags_raise(name):
+def test_later_slice_flags_raise(name, tmp_path, capsys):
+    """Refused until the model axis came (the name is from then).
+    `--model-mesh 2` on one device falls back to a (1, 1) mesh, as the
+    reference CLI's does, so it serves the tokens of the run without the
+    flag, bitwise, from the same checkpoint; each request's first token
+    (the prefill's) is the reference CLI's. (Both CLIs compute in bf16,
+    whose CPU rounding differs between the frameworks, so later tokens
+    may part.) A grid the ranks cannot fill still names its item."""
+    pytest.importorskip("jax")
+    from repro.launch import serve as jserve
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.engine import EngineConfig
     from repro_torch.launch import serve
-    argv = ["--arch", "qwen3-32b", "--reduced", "--device", "cpu",
-            "--requests", "1", "--gen", "2", "--prompt-len", "8"]
+    CheckpointManager(tmp_path).save(3, {"params": build_model(
+        TCB.get_reduced("qwen3-32b")).init(torch.Generator().manual_seed(1),
+                                       device="cpu"), "step": 3})
+    argv = ["--arch", "qwen3-32b", "--reduced", "--requests", "3",
+            "--gen", "6", "--prompt-len", "12", "--max-slots", "2",
+            "--ckpt-dir", str(tmp_path)]
     flags, item = LATER_FLAGS[name]
-    argv += flags
+    plain = serve.main(argv + ["--device", "cpu"])
+    got = serve.main(argv + flags + ["--device", "cpu"])
+    want = jserve.main(argv + flags)
+    capsys.readouterr()
+    assert [h.tokens for h in got] == [h.tokens for h in plain]
+    assert [h.tokens[0] for h in got] == [h.tokens[0] for h in want]
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP.md queue 1, item {item}\b"):
-        serve.main(argv)
+        EngineConfig(data_mesh=1, model_mesh=2).rank_mesh(4)
 
 
 def test_recurrent_family_serves_on_cpu(capsys):

@@ -5,8 +5,10 @@ mesh; per-layer and whole-model; several buckets and one; int8 and not;
 `use_pallas` off and on, the Pallas kernels in interpret mode) and
 against the port's single-process `adasum_tree_reduce` on the same lanes;
 plus RVH without its allgather phase (ZeRO-1) against the reference's
-`adasum_rvh_local(..., allgather_result=False)`, the comm's collectives
-and the refusals.
+`adasum_rvh_local(..., allgather_result=False)`, RVH on tensor-parallel
+shards (a (data 2, model 2) grid, `leaf_specs` / `seg_scale` and the
+model group's dot sum) against the reference's `adasum_rvh_pytree` with
+`leaf_specs`, the comm's collectives and the refusals.
 
 The ranks run in one launch per world (`torch_dist_workers.launch`) and
 the reference in one JAX subprocess, started first so the two overlap.
@@ -83,6 +85,10 @@ CASES = {
     "pod2x2": (4, "pod", True, BUCKET, "none", False),
     "pod2x2_int8_pallas": (4, "pod", True, BUCKET, "int8", True),
 }
+# the (2, 2) tensor-parallel case: the model-axis spec of each leaf (lanes
+# 0 and 1 of the world-4 file, one a data index)
+TP_SPECS = {"a": (None, "model"), "b": (None,), "c": ("model", None),
+            "d": (None,), "e": (None, "model")}
 
 
 def _port_cases(world):
@@ -103,7 +109,19 @@ from repro.engine.registry import probe_stats
 from repro.launch.mesh import make_mesh_compat
 lanes_path, out_path, cases = sys.argv[1], sys.argv[2], eval(sys.argv[3])
 keys = sorted(eval(sys.argv[4]))
+tp_specs, tp_bucket = eval(sys.argv[5])
 res = {}
+# tensor-parallel shards: a (data 2, model 2) mesh, the leaves' specs
+data = np.load(lanes_path.format(4))
+mesh = make_mesh_compat((2, 2), ("data", "model"))
+specs = {k: P(*tp_specs[k]) for k in keys}
+tree = {k: jax.device_put(data[k][:2],
+                          NamedSharding(mesh, P("data", *specs[k])))
+        for k in keys}
+out = jax.jit(lambda t: rvh.adasum_rvh_pytree(
+    t, mesh, ("data",), leaf_specs=specs, bucket_bytes=tp_bucket))(tree)
+for k in keys:
+    res[f"tp/{k}"] = np.asarray(out[k])
 for name, (world, mesh_kind, per_layer, bucket, compress, pallas) in cases.items():
     data = np.load(lanes_path.format(world))
     tree = {k: data[k] for k in keys}
@@ -187,7 +205,8 @@ def runs(tmp_path_factory):
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
     ref = subprocess.Popen(
         [sys.executable, "-c", _REF, str(tmp / "lanes{}.npz"),
-         str(tmp / "ref.npz"), repr(CASES), repr(SHAPES)], env=env,
+         str(tmp / "ref.npz"), repr(CASES), repr(SHAPES),
+         repr((TP_SPECS, BUCKET))], env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     try:
         port = {}
@@ -195,13 +214,17 @@ def runs(tmp_path_factory):
             cases = _port_cases(w)
             ranks = launch(w, "rvh", {
                 "lanes": str(tmp / f"lanes{w}.npz"), "keys": KEYS,
-                "local": True,
+                "local": True, "tp": ({"specs": {
+                    k: list(s) for k, s in TP_SPECS.items()},
+                    "bucket": BUCKET} if w == 4 else None),
                 "cases": [dict(per_layer=p, bucket_bytes=b, compress=c,
                                use_pallas=u) for p, b, c, u in cases]},
                 tmp, timeout=300)
             for i, case in enumerate(cases):
                 port[(w,) + case] = [r[i] for r in ranks]
-            port[(w, "local")] = [r[-1] for r in ranks]
+            port[(w, "local")] = [r[-2 if w == 4 else -1] for r in ranks]
+            if w == 4:
+                port["tp"] = [r[-1] for r in ranks]
         log, _ = ref.communicate(timeout=300)
     finally:
         if ref.poll() is None:
@@ -360,17 +383,60 @@ def test_allgather_false_is_zero_1_and_refused(runs, world):
         assert np.array_equal(got["owned"], got["full"][off:off + chunk])
 
 
+def _tp_want(ref, rank, k):
+    """Rank (d, m) = (rank // 2, rank % 2)'s model shard of the
+    reference's combined leaf k."""
+    want = ref[f"tp/{k}"]
+    d = next((j for j, e in enumerate(TP_SPECS[k]) if e == "model"), None)
+    if d is None:
+        return want
+    n = want.shape[d] // 2
+    return np.take(want, range((rank % 2) * n, (rank % 2 + 1) * n), axis=d)
+
+
 @pytest.mark.parametrize("tp", [dict(model_axes=("model",)),
                                 dict(seg_scale=torch.ones(2))])
-def test_tp_dots_refused(tp):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        R.adasum_rvh_local(torch.zeros(16384), [], _fake_comm(2), **tp)
+def test_tp_dots_refused(runs, tp):
+    """Refused until the model axis came (the name is from then). RVH on
+    tensor-parallel shards of a (data 2, model 2) grid: with the model
+    group's dot sum (the reference's `model_axes`), each rank's result is
+    its shard of the reference's `adasum_rvh_pytree(leaf_specs=...)`
+    (TOL); with `seg_scale`, the level-0 CombineStats count a leaf the
+    model axis does not shard once: the whole leaves' triple, the same
+    bits on every rank."""
+    port, ref = runs
+    if "model_axes" in tp:
+        for rank, got in enumerate(port["tp"]):
+            for k in KEYS:
+                want = _tp_want(ref, rank, k)
+                assert got["tree"][k].shape == want.shape, k
+                np.testing.assert_allclose(got["tree"][k], want, **TOL)
+        return
+    lanes = _lanes(4)
+    a = np.concatenate([lanes[k][0].reshape(-1) for k in KEYS])
+    b = np.concatenate([lanes[k][1].reshape(-1) for k in KEYS])
+    want = np.array([a @ b, a @ a, b @ b], np.float64)
+    for got in port["tp"]:
+        np.testing.assert_allclose(got["levels"], want, rtol=2e-5, atol=1e-6)
+        np.testing.assert_array_equal(got["levels"], port["tp"][0]["levels"])
 
 
-def test_tp_leaf_specs_refused():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        R.adasum_rvh_pytree({"w": torch.zeros(4)}, _fake_comm(2),
-                            leaf_specs={"w": ("model",)})
+def test_tp_leaf_specs_refused(runs):
+    """Refused until the model axis came (the name is from then). TP leaf
+    specs: the leaves the model axis does not shard come back bitwise
+    equal across each model group and every leaf across each data
+    group; specs naming no model axis change nothing; whole-model Adasum
+    with mixed replication factors raises, as the reference asserts."""
+    port, _ = runs
+    for got in port["tp"]:
+        assert got["model_bitwise"] and got["data_bitwise"]
+    x = {"w": torch.arange(8.0), "v": torch.ones(3)}
+    same = R.adasum_rvh_pytree(x, _fake_comm(1),
+                               leaf_specs={"w": (None,), "v": (None,)})
+    assert all(torch.equal(same[k], x[k]) for k in x)
+    with pytest.raises(ValueError, match="uniform TP sharding"):
+        R.rvh_plan([torch.zeros(4), torch.zeros(4)], 2, 0, per_layer=False,
+                   factors=[1.0, 0.5])
 
 
 def test_make_combiner_rvh_needs_a_comm():

@@ -508,13 +508,21 @@ def test_train_cli_exits_zero_on_cpu():
 
 @pytest.mark.parametrize("flags,item", [
     (["--data-mesh", "2"], "7"), (["--model-mesh", "2"], "7")])
-def test_later_slice_flags_raise(flags, item):
+def test_later_slice_flags_raise(flags, item, capsys):
+    """Refused until the model axis came (the name is from then). On one
+    rank `--data-mesh 2` or `--model-mesh 2` runs as the reference's
+    fallback mesh (1, 1) does: the run without the flag, bitwise. The
+    same grid short of 4 ranks still names its item."""
+    from repro_torch.engine import EngineConfig
     from repro_torch.launch.train import main
     argv = ["--device", "cpu", "--arch", "gemma-7b", "--reduced",
-            "--steps", "1", "--seq", "16", "--batch", "8"] + flags
+            "--steps", "1", "--seq", "16", "--batch", "8"]
+    got, want = main(argv + flags), main(argv)
+    assert "world=1 dist=none mesh=1x1" in capsys.readouterr().out
+    assert [h["loss"] for h in got] == [h["loss"] for h in want]
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP.md queue 1, item {item}\)"):
-        main(argv)
+        EngineConfig.from_cli(["--arch", "gemma-7b"] + flags).rank_mesh(3)
 
 
 def test_recurrent_family_trains_on_cpu(capsys):

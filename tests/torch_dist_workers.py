@@ -122,6 +122,28 @@ def job_rvh(comm, spec):
             comm, allgather_result=full).numpy()
         out.append({"full": run(True), "owned": run(False),
                     "staged": comm.staged_bytes})
+    if spec.get("tp"):          # a (data 2, model 2) grid, TP leaf specs
+        mcomm = comm.split([[0, 1], [2, 3]])
+        dcomm = comm.split([[0, 2], [1, 3]])
+        specs = {k: tuple(s) for k, s in spec["tp"]["specs"].items()}
+        mine = {}
+        for k in keys:
+            x = torch.from_numpy(lanes[k][dcomm.rank]).clone()
+            d = next((j for j, e in enumerate(specs[k]) if e == "model"),
+                     None)
+            if d is not None:
+                n = x.shape[d] // 2
+                x = x.narrow(d, mcomm.rank * n, n).clone()
+            mine[k] = x
+        collect = []
+        got = rvh.adasum_rvh_pytree(
+            mine, dcomm, bucket_bytes=spec["tp"]["bucket"],
+            leaf_specs=specs, model_comm=mcomm, donate=True,
+            collect=collect)
+        whole = {k: v for k, v in got.items() if "model" not in specs[k]}
+        out.append({"tree": _np_tree(got), "levels": collect[0].numpy(),
+                    "data_bitwise": _same_in(dcomm, got),
+                    "model_bitwise": _same_in(mcomm, whole)})
     return out
 
 
@@ -730,10 +752,167 @@ def _shard_ckpt(comm, spec):
     return out
 
 
+def _same_in(comm, tree) -> bool:
+    """Whether every rank of `comm` holds the same bits of every leaf."""
+    import hashlib
+    import torch.distributed as dist
+    from repro_torch import tree as T
+    h = hashlib.sha256()
+    for x in T.leaves(tree):
+        h.update(x.detach().contiguous().view(-1).numpy().tobytes())
+    seen = [None] * comm.world
+    dist.all_gather_object(seen, h.hexdigest(), group=comm.group)
+    return len(set(seen)) == 1
+
+
+def job_tp(comm, spec):
+    """The model axis on a (data, model) grid of the 4 ranks: every
+    training case of spec from the same params and batches (losses,
+    bitwise checks across each data group and, for the leaves the axis
+    does not shard, each model group; each rank's param shapes; rank 0:
+    params and state gathered to full leaves); RVH of synthetic lanes
+    with TP leaf specs on a (2, 2) grid (each rank's result); and a
+    checkpoint saved at (2, 2) restored at (4, 1) and in one process,
+    and saves of those restored at (2, 2)."""
+    import numpy as np
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.core import rvh
+    from repro_torch.engine import build_runtime
+    from repro_torch.parallel.policy import RunPolicy
+    data = np.load(spec["inputs"])
+    out = {"cases": []}
+    for case in spec["cases"]:
+        model = _case_model(case)
+        init = _init_tree(data, case["name"])
+        D, M = case["mesh"]
+        rt = build_runtime(model, RunPolicy(**case["policy"]),
+                           lr=case["lr"], comm=comm, model_size=M)
+        plan = rt.plan
+        params = plan.shard_params(params_from_numpy(init, device="cpu"))
+        state = {"params": params, "opt": rt.dopt.init(params), "step": 0}
+        batches = [{k: torch.from_numpy(data[f"{case['name']}/batch{s}/{k}"])
+                    for k in ("tokens", "labels")}
+                   for s in range(case["steps"])]
+        res = {"losses": [], "data_bitwise": [], "model_bitwise": [],
+               "path": rt.combine_path, "dp": rt.dp_total,
+               "model": rt.model_size,
+               "shapes": [tuple(x.shape) for x in T.leaves(params)],
+               "plan_shapes": plan.local_shapes("params"),
+               "sharded": sum(d is not None for d in plan.mdims)}
+        for b in batches:
+            state, m = rt.train_step(state, b)
+            res["losses"].append(float(m["loss"]))
+            # the state too at the pre point (at the post point each data
+            # rank holds its own lane's)
+            res["data_bitwise"].append(_same_in(plan.comm, (
+                state["params"], state["opt"]["inner"]
+                if rt.dopt.point == "pre" else ())))
+            whole = [x for i, x in enumerate(T.leaves(state["params"]))
+                     if plan.mdims[i] is None]
+            res["model_bitwise"].append(_same_in(rt.model_comm, whole))
+        inner = state["opt"]["inner"]
+        full_p = plan.gather_tree(state["params"], "params")
+        full_s = {k: plan.gather_tree(t, "state") for k, t in
+                  (inner.items() if isinstance(inner, dict) else ())}
+        if comm.rank == 0:
+            res["params"] = _np_tree(full_p)
+            res["state"] = {k: _np_tree(t) for k, t in full_s.items()}
+        out["cases"].append(res)
+    # RVH on a (2, 2) grid with TP leaf specs
+    lanes = np.load(spec["rvh"]["lanes"])
+    mcomm = comm.split([[0, 1], [2, 3]])
+    dcomm = comm.split([[0, 2], [1, 3]])
+    specs = {k: tuple(v) for k, v in spec["rvh"]["specs"].items()}
+    mine = {}
+    for k, sp in specs.items():
+        x = torch.from_numpy(lanes[k][dcomm.rank]).clone()
+        d = next((i for i, e in enumerate(sp) if e == "model"), None)
+        if d is not None:
+            n = x.shape[d] // 2
+            x = x.narrow(d, mcomm.rank * n, n).clone()
+        mine[k] = x
+    collect = []
+    got = rvh.adasum_rvh_pytree(
+        mine, dcomm, per_layer=True, bucket_bytes=spec["rvh"]["bucket"],
+        leaf_specs=specs, model_comm=mcomm, donate=True, collect=collect)
+    out["rvh"] = {"tree": _np_tree(got), "levels": collect[0].numpy(),
+                  "data_bitwise": _same_in(dcomm, got)}
+    if spec.get("ckpt"):
+        out["ckpt"] = _tp_ckpt(comm, spec["ckpt"])
+    return out
+
+
+def _tp_ckpt(comm, spec):
+    """Checkpoints across grids: a (2, 2) session saves step 1; a (4, 1)
+    session and a one-process session (rank 0) restore it; each then
+    takes a step and saves it, and a (2, 2) session restores each of
+    those. Returns (rank 0) every state, gathered to full leaves."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.engine import EngineConfig, TrainSession
+    model = _case_model(spec)
+    base = EngineConfig(**spec["config"])
+    gen = lambda: torch.Generator().manual_seed(spec["seed"])
+
+    def full(s):
+        plan = s.runtime.plan
+        inner = s.state["opt"]["inner"]
+        if plan is None:
+            return _np_tree((s.state["params"], dict(inner)))
+        return _np_tree((plan.gather_tree(s.state["params"], "params"),
+                         {k: plan.gather_tree(v, "state")
+                          for k, v in inner.items()}))
+
+    def session(c, d, mesh, dirname):
+        cfg = dataclasses.replace(base, data_mesh=mesh[0],
+                                  model_mesh=mesh[1],
+                                  ckpt_dir=spec["dir"] + dirname)
+        return TrainSession.from_config(cfg, model=model, device="cpu",
+                                        comm=c, callbacks=[],
+                                        generator=gen())
+
+    out = {}
+    s = session(comm, None, (2, 2), "/a")
+    out["a_mesh"] = (s.runtime.dp_total, s.runtime.model_size)
+    s.fit(1)
+    s.save_sync(1)
+    out["a_saved"] = full(s)
+    s.close()
+    s4 = session(comm, None, (4, 1), "/a")
+    s4.restore(1)
+    out["b_restored"] = full(s4)
+    s4.config = dataclasses.replace(s4.config, ckpt_dir=spec["dir"] + "/b")
+    s4.checkpoint = type(s4.checkpoint)(spec["dir"] + "/b")
+    s4.step()
+    s4.save_sync(2)
+    out["b_saved"] = full(s4)
+    s4.close()
+    solo = comm.split([[r] for r in range(comm.world)])
+    if comm.rank == 0:
+        s1 = session(solo, None, (1, 1), "/a")
+        s1.restore(1)
+        out["c_restored"] = full(s1)
+        s1.checkpoint = type(s1.checkpoint)(spec["dir"] + "/c")
+        s1.step()
+        s1.save_sync(2)
+        out["c_saved"] = full(s1)
+        s1.close()
+    dist.barrier()
+    for tag in ("b", "c"):
+        s = session(comm, None, (2, 2), "/" + tag)
+        s.restore(2)
+        out[tag + "_back"] = full(s)
+        s.close()
+    return out if comm.rank == 0 else {}
+
+
 JOBS = {"rvh": job_rvh, "train": job_train, "ckpt": job_ckpt,
         "gather": job_gather, "delayed": job_delayed,
         "elastic": job_elastic, "compose": job_compose, "lanes": job_lanes,
-        "adaptive": job_adaptive, "shard": job_shard}
+        "adaptive": job_adaptive, "shard": job_shard, "tp": job_tp}
 
 
 def main():
