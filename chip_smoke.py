@@ -323,8 +323,8 @@ Phases, in the order they run: 1, 2, 6, 3, 4, 8, 5, 13, 7, 9, 10, 11, 12
      24 layers from 64 frames; each one's stepped logits at the prompt's
      last token against the teacher-forced forward within LOGIT_TOL.
      (e)-(h) three `TrainSession` steps (batch 8, span 2) of rwkv6-7b (2
-     layers, adam), hymba (8 layers, momentum), llava (2 layers,
-     momentum; 576 patch positions + 512 tokens) and seamless (12 + 12
+     layers, adam), hymba (4 layers, momentum), llava (2 layers,
+     momentum; 576 patch positions + 512 tokens) and seamless (6 + 6
      layers, momentum; 128 frames + 256 tokens) (`P12_TRAIN`), held as
      phase 11 (d)/(e) holds its runs, with the combined gradient finite.
      `phase12_launches` sums each kernel's counts over the main-path runs:
@@ -371,8 +371,27 @@ Phases, in the order they run: 1, 2, 6, 3, 4, 8, 5, 13, 7, 9, 10, 11, 12
      (prefill B 4 x 128, a tick over 8 pages a slot, H 32, KV 16) and
      RVH's round-0 half of the TP shard of qwen3-32b's embedding, as in
      phase 3. `phase13_launches` counts (a)'s rank 0 and (b)'s padded
-     run. `--model-axis-only` builds the kernels and runs this phase
-     alone.
+     run.
+     (c) both axes at once: (a)'s model in qwen3-32b's own preset regime
+     at the widths one card allows (`TrainSession.from_config` of
+     `EngineConfig.preset("qwen3-32b", ...)`) on a (data 4, model 2)
+     grid of eight gloo ranks sharing the card: span GRID_SPAN
+     (hier-RVH, lane groups of 2), fsdp, scatter_grads and ZeRO-1
+     (momentum, the pre point), bf16 compute, seq TP_SEQ, batch
+     TP_BATCH, TP_STEPS steps, weights from SEED drawn a leaf at a time.
+     It computes the function of (a)'s twin (2 lanes of 4 rows, Adasum,
+     momentum: each lane group's two ranks take their exact token share
+     of the lane), so step 1 is held to the twin (a) saved, by (a)'s
+     rule. Printed: per rank the GiB held of params and state beside the
+     plan's `local_shapes`; init and step peaks a rank and their sum;
+     step ms split into FSDP's all-gathers, the reduce-scatters, RVH's
+     exchange, the model group's all-reduces (ms and MB), the dot sums
+     and staging; rank 0's `block_dots` / `block_combine` launches
+     (`phase13c_launches`); whether the leaves left whole agree
+     bitwise across the ranks holding them. Then both kernels at RVH's
+     round-0 half of the rank's part of the embedding
+     (`phase13c_case`). `--model-axis-only` builds the kernels and runs
+     this phase alone.
 
 The line before the last is the kernels JSON (block_dots and
 block_combine rows also carry their phase-6 launches on rank 0 of each
@@ -2064,8 +2083,9 @@ def _gather_check(comm, world) -> bool:
 def rank_worker(spec: dict) -> int:
     """One rank of phase 6 (run as its own process, all on cuda:0): the
     main path's RANK_STEPS steps, then step 1 twice more from fresh state
-    (kernel, plain arm), then the synthetic RVH check; writes a JSON
-    record."""
+    (kernel, plain arm; the kernel arm's repeat is a one-step
+    checkpointing run's redo), then the synthetic RVH check; writes a
+    JSON record."""
     import math
     import torch
     sys.path.insert(0, str(ROOT / "src"))
@@ -2165,17 +2185,43 @@ def rank_worker(spec: dict) -> int:
     rec["launches"] = dict(build.LAUNCHES)
     comm.timing = False
     rec["steps"] = steps
+
+    def timed_step(fn):
+        """fn() (one step), timed as the repeat is: ms, the combine's ms,
+        the comm's ms by kind and the bytes staged; returns (its result,
+        that record)."""
+        comm.timing = True
+        comm.take_ms()
+        staged0 = comm.total_staged_bytes()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {"ms": 1e3 * (time.perf_counter() - t0),
+               "combine_ms": timer.take_ms(), "comm": comm.take_ms(),
+               "staged_bytes": comm.total_staged_bytes() - staged0}
+        comm.timing = False
+        return out, got
+
+    sharded = zplan is not None and zplan.fsdp
+    # a one-step checkpointing run's redo is step 1 again, with warm
+    # buffers: it is the repeat too (bitwise, and timed as the steady step)
+    redo_repeats = bool(ckpt_dir) and last == 0
     if ckpt_dir:   # restore the last step's input on every rank, redo it
         t0 = time.perf_counter()
         assert s.restore(last) == last
         ck["restore_s"] = time.perf_counter() - t0
         ck.update({k: v for k, v in s.checkpoint.timings.items()
                    if k != "snapshot_s" or lead})
-        s.step(s.batch(last))
-        torch.cuda.synchronize()
+        _, redo = timed_step(lambda: s.step(s.batch(last)))
         ck["redo_bitwise"] = _checksums(s.state["params"]) == sums
         rec["ckpt"] = ck
         print(f"[rank {rank}] checkpoint: {ck}", flush=True)
+        if redo_repeats:
+            rec["repeat_step"] = redo
+            rec["repeat_bitwise"] = ck["redo_bitwise"]
+            if sharded:   # this rank's step-1 params, for the whole run
+                mine1 = [x.to("cpu", copy=True)
+                         for x in T.leaves(s.state["params"])]
     rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     kept = timer.kept
     s.state = None
@@ -2192,24 +2238,17 @@ def rank_worker(spec: dict) -> int:
         return rt.train_step(state, batch0)[0]
 
     batch0 = s.batch(0)
-    comm.timing = True
-    comm.take_ms()
-    staged0 = comm.total_staged_bytes()
-    t0 = time.perf_counter()
-    again = fresh_step(s.runtime)
-    torch.cuda.synchronize()
-    # the repeat is a step with warm buffers: a one-step run's steady one
-    rec["repeat_step"] = {"ms": 1e3 * (time.perf_counter() - t0),
-                          "combine_ms": timer.take_ms(),
-                          "comm": comm.take_ms(),
-                          "staged_bytes": comm.total_staged_bytes() - staged0}
-    comm.timing = False
-    rec["repeat_bitwise"] = _checksums(again["params"]) == sums1
-    sharded = zplan is not None and zplan.fsdp
-    if sharded:    # this rank's step-1 params, for the run with whole ones
-        mine1 = [x.to("cpu", copy=True) for x in T.leaves(again["params"])]
-    del again
-    _free()
+    if not redo_repeats:
+        # the repeat is a step with warm buffers: a one-step run's steady
+        # one
+        again, rec["repeat_step"] = timed_step(
+            lambda: fresh_step(s.runtime))
+        rec["repeat_bitwise"] = _checksums(again["params"]) == sums1
+        if sharded:    # this rank's step-1 params, for the whole run
+            mine1 = [x.to("cpu", copy=True)
+                     for x in T.leaves(again["params"])]
+        del again
+        _free()
     if lead:
         rec["update_max_abs"] = max(x.abs().max().item() for x in kept[0])
     if spec.get("plain"):
@@ -4739,7 +4778,7 @@ def families_phase(card: str) -> dict:
 P12_GEN = 32
 P12_SERVE_LEN = 128          # rwkv's slots (prompts of 24-48, 32 new)
 P12_HYMBA_LEN = 256          # hymba's slots: 16 pages of 16 a slot
-P12_SERVE_LAYERS = 16        # rwkv6-7b's and hymba's served layers, of
+P12_SERVE_LAYERS = 8         # rwkv6-7b's and hymba's served layers, of
                              # 32 each: depth cut for the time limit
 P12_ROLL_LAYERS = 2          # hymba at 2 of 32 layers for the roll past
 P12_ROLL_PROMPT = 1040       # its 1024-token window
@@ -4761,9 +4800,9 @@ P12_BF16_FACTOR = 2.0
 # 32 layers step in ~4.7 s, seamless's 24 + 24 in ~2.3 s (measured on
 # one H100)
 P12_TRAIN = (("e", "rwkv6-7b", 2, "adam", 512),
-             ("f", "hymba-1.5b", 8, "momentum", 512),
+             ("f", "hymba-1.5b", 4, "momentum", 512),
              ("g", "llava-next-34b", 2, "momentum", 512),
-             ("h", "seamless-m4t-large-v2", 12, "momentum", 256))
+             ("h", "seamless-m4t-large-v2", 6, "momentum", 256))
 
 
 def _nodes_leaves(cache) -> list:
@@ -5255,6 +5294,16 @@ PAD_GEN = 32
 PAD_FP32_TOL = 1e-2
 
 
+# (c) both axes at once: (a)'s model on a (data, model) grid of
+# GRID_SHAPE gloo ranks in qwen3-32b's own preset regime (fsdp,
+# scatter_grads, gspmd_tree below span == dp, ZeRO-1) at the widths one
+# card allows: span GRID_SPAN, no accumulation (it sums microbatch
+# gradients, so step 1 would not be the twin's function; held on the
+# CPU), momentum
+GRID_SHAPE = (4, 2)
+GRID_SPAN = 2
+
+
 def _tp_config(**fields):
     """Phase 13 (a)'s EngineConfig; `fields` set the rest."""
     from repro_torch.engine import EngineConfig
@@ -5324,14 +5373,15 @@ def _tp_twin(card: str, path: Path, witness: bool) -> dict:
 
 
 def _tp_vs_twin(plan, params, twin, key: str, tol) -> dict:
-    """This rank's params against the same shard of the twin's step 1
-    (`twin[key]`), leaf by leaf: the worst ratio of |difference| to the
-    leaf's tolerance `tol(i)`, over the ranks."""
+    """This rank's params against the same part of the twin's step 1
+    (`twin[key]`; the plan's cut of each leaf), leaf by leaf: the worst
+    ratio of |difference| to the leaf's tolerance `tol(i)`, over the
+    ranks."""
     import torch.distributed as dist
     from repro_torch import tree as T
     worst = (0.0, None, 0.0, 0.0)
     for i, x in enumerate(T.leaves(params)):     # on the card
-        want = plan.mshard(i, twin[key][i]).to(x.device)
+        want = plan.take(i, twin[key][i], "params").to(x.device)
         err = (x.detach() - want).abs().max().item()
         del want
         ratio = err / tol(i)
@@ -5579,6 +5629,200 @@ def _tp_report(card: str, recs: list, twin: dict, wall: float) -> dict:
             "wall_s": wall}
 
 
+def _grid_config():
+    """Phase 13 (c)'s EngineConfig: the qwen3-32b preset at (c)'s
+    widths."""
+    from repro_torch.engine import EngineConfig
+    return EngineConfig.preset(
+        "qwen3-32b", data_mesh=GRID_SHAPE[0], model_mesh=GRID_SHAPE[1],
+        span=GRID_SPAN, accum_steps=1, optimizer="momentum",
+        seq_len=TP_SEQ, global_batch=TP_BATCH, fusion_threshold_mb=64,
+        steps=TP_STEPS, log_every=1)
+
+
+def grid_worker(spec: dict) -> int:
+    """One rank of phase 13 (c) (its own process, on cuda:0 over gloo):
+    the session built leaf by leaf, TP_STEPS steps timed by call kind,
+    step 1 held against the twin; writes a JSON record."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch import tree as T
+    from repro_torch.engine import TrainSession
+    from repro_torch.kernels import build
+    from repro_torch.parallel.comm import Comm
+    rank = int(os.environ["RANK"])
+    comm = Comm.init("gloo", torch.device("cuda:0"))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    s = TrainSession.from_config(
+        _grid_config(), model=_tp_model(torch.bfloat16), device="cuda:0",
+        generator=torch.Generator(device="cuda:0").manual_seed(SEED),
+        callbacks=[], comm=comm)
+    rt, plan = s.runtime, s.runtime.plan
+    mc, dc, tp = rt.model_comm, plan.comm, rt.tp
+    inner = s.state["opt"]["inner"]
+    plan_gib = lambda which, n=1: n * sum(
+        math.prod(sh) for sh in plan.local_shapes(which)) * 4 / 2 ** 30
+    rec = {"rank": rank, "init_s": time.perf_counter() - t0,
+           "init_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "mesh": [rt.dp_total, rt.model_size], "path": rt.combine_path,
+           "span": rt.span, "point": rt.dopt.point,
+           "regime": {k: getattr(s.config, k) for k in (
+               "fsdp", "scatter_grads", "backend", "pad_heads")},
+           "leaves": len(plan.dims),
+           "data_sharded": sum(d is not None for d in plan.dims),
+           "model_sharded": sum(d is not None for d in plan.mdims),
+           "held_gib": {"params": _gib_of(s.state["params"]),
+                        "state": _gib_of(inner)},
+           "plan_gib": {"params": plan_gib("params"),
+                        "state": plan_gib("state", len(inner)),
+                        "grads": plan_gib("grads")}}
+    print(f"[rank {rank}] session up in {rec['init_s']:.1f}s", flush=True)
+    # the leaves no axis cuts here: whole on the data axis (not an FSDP
+    # piece), and of those, whole on the model axis too
+    data_whole = [d is None for d in plan.dims]
+    both_whole = [d is None and m is None
+                  for d, m in zip(plan.dims, plan.mdims)]
+    twin = torch.load(spec["twin"], mmap=True)
+    torch.cuda.reset_peak_memory_stats()
+    comm.timing = True
+    mc.take_ms()
+    comm.take_ms()
+    build.reset_launches()
+    steps, bitwise = [], []
+    for step in range(TP_STEPS):
+        tp.bytes.clear()
+        staged0 = comm.total_staged_bytes()
+        m, dt = _timed_s(lambda: s.step(s.batch(step)))
+        sums = _checksums(s.state["params"])
+        bitwise.append(
+            _all_equal([c for c, w in zip(sums, data_whole) if w],
+                       group=dc.group)
+            and _all_equal([c for c, w in zip(sums, both_whole) if w],
+                           group=mc.group))
+        steps.append({
+            "ms": 1e3 * dt, "loss": m["loss"], "model_comm": mc.take_ms(),
+            "rest_comm": comm.take_ms(), "tp_bytes": dict(tp.bytes),
+            "staged_bytes": comm.total_staged_bytes() - staged0,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+        print(f"[rank {rank}] step {step} {1e3 * dt:.0f} ms", flush=True)
+        if step == 0:
+            rec["twin"] = _tp_vs_twin(
+                plan, s.state["params"], twin, "bf16",
+                lambda i: TP_TWIN_FACTOR * twin["diff"][i] + TP_TWIN_FLOOR)
+    comm.timing = False
+    rec.update(launches=dict(build.LAUNCHES), steps=steps, bitwise=bitwise,
+               peak_gib=max(x["peak_gib"] for x in steps),
+               steps_s=time.perf_counter() - t0 - rec["init_s"])
+    del twin
+    s.close()
+    comm.close()
+    Path(spec["out"]).write_text(json.dumps(rec, default=str))
+    return 0
+
+
+def _grid_report(card: str, recs: list, wall: float) -> dict:
+    """Phase 13 (c) from its ranks' records: printed and checked."""
+    r0 = recs[0]
+    for r in recs:
+        print(f"[smoke] p13 (c) rank {r['rank']}: holds params "
+              f"{r['held_gib']['params']:.3f} GiB (plan "
+              f"{r['plan_gib']['params']:.3f}), momentum "
+              f"{r['held_gib']['state']:.3f} (plan "
+              f"{r['plan_gib']['state']:.3f}); its lane gradient's plan "
+              f"{r['plan_gib']['grads']:.3f}; init peak "
+              f"{r['init_peak_gib']:.2f}, step peak {r['peak_gib']:.2f} "
+              f"GiB | {card}")
+    peaks = [r["peak_gib"] for r in recs]
+    inits = [r["init_peak_gib"] for r in recs]
+    print(f"[smoke] p13 (c) qwen3-32b preset at full width, {TP_LAYERS} of "
+          f"64 layers, grid (data, model) = {tuple(r0['mesh'])}, "
+          f"{len(recs)} gloo ranks on cuda:0: {r0['regime']}, span "
+          f"{r0['span']}, path={r0['path']}, momentum ({r0['point']} "
+          f"point, ZeRO-1), bf16 compute, seq {TP_SEQ}, batch {TP_BATCH}; "
+          f"of {r0['leaves']} leaves {r0['data_sharded']} cut on the data "
+          f"axis, {r0['model_sharded']} on the model axis; init peaks sum "
+          f"{sum(inits):.2f} GiB (max {max(inits):.2f}), step peaks sum "
+          f"{sum(peaks):.2f} (max {max(peaks):.2f}); rank 0's seconds: "
+          f"init {r0['init_s']:.1f}, steps {r0['steps_s']:.1f} | {card}")
+    steps = []
+    for i in range(TP_STEPS):
+        rows = [r["steps"][i] for r in recs]
+        s0 = rows[0]
+        mcm, rest = s0["model_comm"], s0["rest_comm"]
+        step = {
+            "ms": max(x["ms"] for x in rows), "loss": s0["loss"],
+            "fsdp_all_gather_ms": rest.get("all_gather", 0.0),
+            "reduce_scatter_ms": rest.get("reduce_scatter", 0.0),
+            "rvh_exchange_ms": rest.get("exchange", 0.0),
+            "tp_allreduce_ms": mcm.get("allreduce", 0.0),
+            "tp_allreduce_bytes": s0["tp_bytes"].get("allreduce", 0),
+            "tp_all_gather_ms": mcm.get("all_gather", 0.0),
+            "dots_sum_ms": rest.get("dots_sum", 0.0),
+            "model_dots_sum_ms": mcm.get("dots_sum", 0.0),
+            "lane_allreduce_ms": rest.get("allreduce", 0.0),
+            "kernels_ms": rest.get("kernels", 0.0),
+            "staging_ms": rest.get("stage", 0.0) + mcm.get("stage", 0.0),
+            "staged_gb": s0["staged_bytes"] / 1e9}
+        steps.append(step)
+        print(f"[smoke] p13 (c) step {i}: {step['ms']:.1f} ms (slowest "
+              f"rank), loss {step['loss']:.4f}; rank 0: FSDP all-gather "
+              f"{step['fsdp_all_gather_ms']:.1f} ms, reduce-scatter "
+              f"{step['reduce_scatter_ms']:.1f}, RVH exchange "
+              f"{step['rvh_exchange_ms']:.1f}, model all-reduce "
+              f"{step['tp_allreduce_ms']:.1f} ms / "
+              f"{step['tp_allreduce_bytes'] / 1e6:.1f} MB, model all-gather "
+              f"{step['tp_all_gather_ms']:.1f}, dot sums "
+              f"{step['dots_sum_ms']:.1f} + model "
+              f"{step['model_dots_sum_ms']:.1f}, lane all-reduce "
+              f"{step['lane_allreduce_ms']:.1f}, kernels "
+              f"{step['kernels_ms']:.1f}, staging {step['staging_ms']:.1f} "
+              f"ms; staged {step['staged_gb']:.2f} GB | {card}")
+    launches = r0["launches"]
+    twin = r0["twin"]
+    bitwise = all(all(r["bitwise"]) for r in recs)
+    print(f"[smoke] p13 (c) launches on rank 0: block_dots="
+          f"{launches.get('block_dots', 0)} block_combine="
+          f"{launches.get('block_combine', 0)}; the leaves left whole "
+          f"bitwise across the ranks holding them={bitwise}; step 1 vs "
+          f"(a)'s twin: worst leaf {twin['leaf']} {twin['max_abs_err']:.3e} "
+          f"against {twin['tol']:.3e} (ratio {twin['worst_ratio']:.2f}); "
+          f"wall {wall:.1f} s | {card}")
+    assert all(r["mesh"] == list(GRID_SHAPE) for r in recs)
+    assert r0["path"] == "hier-rvh" and r0["span"] == GRID_SPAN
+    assert r0["regime"]["fsdp"] and r0["regime"]["scatter_grads"]
+    for r in recs:
+        for k in ("params", "state"):
+            assert abs(r["held_gib"][k] - r["plan_gib"][k]) < 1e-9, r
+    assert all(math.isfinite(x["loss"]) for x in steps)
+    for k in ("block_dots", "block_combine"):
+        assert launches.get(k, 0) > 0, f"{k} never launched in phase 13 (c)"
+    assert bitwise
+    assert twin["worst_ratio"] <= 1.0, twin
+    assert sum(peaks) <= RANK_MEM_GIB and sum(inits) <= RANK_MEM_GIB, \
+        (peaks, inits)
+    # the kernels at RVH's round-0 half of a rank's part of the embedding:
+    # its model shard (151,936 / 2 rows) cut to the lane group's half of
+    # d_model, halved across the two RVH ranks
+    cases = _adasum_case("grid_embed_half", 151_936 * 5120 // 8, 8192,
+                         flat=True)
+    for c in cases:
+        print(f"[smoke] p13 (c) kernel {c['kernel']:14s} {c['case']} err "
+              f"{c['max_abs_err']:.2e} (tol {c['tol']:.0e}) ms "
+              f"{c['ms']:.4f} plain {c['plain_ms']:.4f} library "
+              f"{c['library_ms']:.4f} bound {c['bound_ms']:.4f} "
+              f"({c['bound_by']}) {'ok' if c['ok'] else 'FAIL'} | {card}")
+    assert all(c["ok"] for c in cases), cases
+    return {"steps": steps, "launches": launches, "twin": twin,
+            "bitwise": bitwise, "held_gib": [r["held_gib"] for r in recs],
+            "plan_gib": r0["plan_gib"], "peak_gib": peaks,
+            "init_peak_gib": inits, "cases": cases,
+            "rank0_s": {k: r0[k] for k in ("init_s", "steps_s")},
+            "wall_s": wall}
+
+
 def _pad_serve(card: str) -> dict:
     """Phase 13 (b): head padding in serving (see the module docstring)."""
     import numpy as np
@@ -5742,9 +5986,13 @@ def model_axis_phase(card: str, witness: bool = False) -> dict:
         recs = _spawn_ranks(TP_GRID[0] * TP_GRID[1], "tp_w4",
                             {"twin": str(path), "witness": witness},
                             flag="--tp-worker")
+        train = _tp_report(card, recs, twin, time.perf_counter() - t0)
+        t1 = time.perf_counter()
+        recs = _spawn_ranks(GRID_SHAPE[0] * GRID_SHAPE[1], "grid_w8",
+                            {"twin": str(path)}, flag="--grid-worker")
     finally:
         path.unlink(missing_ok=True)
-    train = _tp_report(card, recs, twin, time.perf_counter() - t0)
+    grid = _grid_report(card, recs, time.perf_counter() - t1)
     t1 = time.perf_counter()
     serve = _pad_serve(card)
     serve["wall_s"] = time.perf_counter() - t1
@@ -5752,9 +6000,11 @@ def model_axis_phase(card: str, witness: bool = False) -> dict:
                 for k in ("block_dots", "block_combine")}
     launches.update({k: serve["launches"].get(k, 0)
                      for k in ("flash_attention", "paged_decode_attention")})
-    print(f"[smoke] model axis launches={launches}; (a) {train['wall_s']:.1f}"
-          f" s, (b) {serve['wall_s']:.1f} s | {card}")
-    return {"train": train, "serve": serve, "launches": launches}
+    print(f"[smoke] model axis launches={launches}; (c) launches="
+          f"{grid['launches']}; (a) {train['wall_s']:.1f} s, (c) "
+          f"{grid['wall_s']:.1f} s, (b) {serve['wall_s']:.1f} s | {card}")
+    return {"train": train, "grid": grid, "serve": serve,
+            "launches": launches}
 
 
 def main(argv=None) -> int:
@@ -5778,6 +6028,7 @@ def main(argv=None) -> int:
     ap.add_argument("--elastic-worker", metavar="SPEC",
                     help=argparse.SUPPRESS)
     ap.add_argument("--tp-worker", metavar="SPEC", help=argparse.SUPPRESS)
+    ap.add_argument("--grid-worker", metavar="SPEC", help=argparse.SUPPRESS)
     ap.add_argument("--model-axis-only", action="store_true",
                     help="build the kernels and run phase 13 alone; prints "
                     "no result line")
@@ -5810,6 +6061,8 @@ def main(argv=None) -> int:
         return elastic_worker(json.loads(args.elastic_worker))
     if args.tp_worker:                  # one rank of phase 13 (a)
         return tp_worker(json.loads(args.tp_worker))
+    if args.grid_worker:                # one rank of phase 13 (c)
+        return grid_worker(json.loads(args.grid_worker))
 
     card = _smi()
     print(card)
@@ -5964,6 +6217,7 @@ def main(argv=None) -> int:
     p12_launches = record["recurrent"]["launches"]
     p13 = record["model_axis"]
     p13_cases = {c["kernel"]: c for c in p13["serve"]["cases"]}
+    p13c_cases = {c["kernel"]: c for c in p13["grid"]["cases"]}
     main_cases = {"serve_extend", "serve_tick", "embed_fp32"}
     sources = {
         "flash_attention": ("csrc/flash_attention.cu",
@@ -6004,7 +6258,11 @@ def main(argv=None) -> int:
             rows[-1].update(rvh_launches={
                 t: n[c["kernel"]] for t, n in rvh_launches.items()},
                 rvh_half_ms=rvh_ms[c["kernel"]],
-                phase9_launches=p9_launches[c["kernel"]])
+                phase9_launches=p9_launches[c["kernel"]],
+                phase13c_launches=p13["grid"]["launches"][c["kernel"]],
+                phase13c_case={k: p13c_cases[c["kernel"]][k] for k in (
+                    "case", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms")})
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

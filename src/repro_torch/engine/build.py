@@ -57,16 +57,20 @@ combine_delay the pending carry is this rank's lane delta, its lane mean
 the cross-rank mean, and the correction runs on an exchange comm of its
 own (a second process group over the same ranks).
 
-The model axis (`model_size` M > 1, dense GQA decoders): the W ranks
+The model axis (`model_size` M > 1, dense GQA decoders): the ranks
 form a (data, model) grid, rank r = d·M + m (`launch.mesh`). A model
 group (the M ranks of one data index) runs tensor-parallel forward and
 backward passes over its shards (`parallel.tp`, the leaves' specs from
-`sharding.param_specs`); a data group (the ranks of one model index)
-runs the synchronous ranked step above on the rank's shards, one lane a
-data rank: RVH (its dots corrected for replicated leaves and summed
-over the model group), sum or mean; accum_steps too. Every rank of a
-model group sees the same microbatch. The leaves are whole on the data
-axis, so the plan holds each rank's model shards.
+`sharding.param_specs`); a data group (the W ranks of one model index)
+runs the synchronous ranked step above on the rank's model shards, data
+index d in place of the rank: lanes and lane groups, ZeRO-1, ZeRO-2
+and FSDP as the plan cuts them over both axes (`parallel.zero`), RVH
+(its dots summed over the lane group, corrected for the leaves the
+model axis does not shard and summed over the model group), sum or
+mean; accum_steps too. Every rank of a model group takes the same rows.
+Every sub-communicator is a split of the launch's comm, made on every
+rank in one order: the model groups, the data groups, then each data
+group's lane groups and RVH groups.
 """
 from __future__ import annotations
 
@@ -530,18 +534,14 @@ def _plan_sharding(model: Model, rpol: RunPolicy, key: str, point: str,
 
 
 
-def _check_model_axis(model: Model, rpol: RunPolicy, key: str, span: int,
-                      dp: int) -> None:
-    """The model axis's refusals (ROADMAP item 7)."""
+def _check_model_axis(model: Model, rpol: RunPolicy, key: str) -> None:
+    """The model axis's refusals (ROADMAP item 7); its data-axis regimes
+    are `_plan_sharding`'s."""
     cfg = model.cfg
     why = None
     if cfg.family != "dense" or cfg.attn_type != "gqa" or cfg.frontend != \
             "none" or cfg.is_encoder_decoder:
         why = f"{cfg.name} ({cfg.family} family, {cfg.attn_type} attention)"
-    elif rpol.fsdp or rpol.scatter_grads:
-        why = "fsdp / scatter_grads"
-    elif span != dp:
-        why = f"span={span} below dp={dp}"
     elif key not in _RVH_KEYS + ("sum", "mean"):
         why = f"the {key} combiner"
     elif rpol.combine_delay:
@@ -558,12 +558,13 @@ def _build_ranked(model: Model, rpol: RunPolicy, comm, *, lr, combine,
     """One process per rank; see the module docstring."""
     M = model_size
     wcomm, mcomm = comm, None
+    grid = Mesh(("data", "model"), (comm.world // M, M))
+    data_groups = grid.groups("data")    # global ranks, by data index
     if M > 1:
         # the grid's model groups, then its data groups (dist.new_group
-        # is collective: every rank makes both splits, in this order)
-        grid = Mesh(("data", "model"), (comm.world // M, M))
+        # is collective: every rank makes every split, in one order)
         mcomm = comm.split(grid.groups("model"))
-        comm = comm.split(grid.groups("data"))
+        comm = comm.split(data_groups)
     W = comm.world
     span = rpol.span or W
     if span & (span - 1) or W % span:
@@ -573,7 +574,7 @@ def _build_ranked(model: Model, rpol: RunPolicy, comm, *, lr, combine,
     delayed = _check_delay(rpol)
     key = registry_key(ccfg.op, ccfg.backend)
     if M > 1:
-        _check_model_axis(model, rpol, key, span, W)
+        _check_model_axis(model, rpol, key)
     g = W // span                      # ranks in a lane group
     rvh = key in _RVH_KEYS
     if rvh:
@@ -590,18 +591,23 @@ def _build_ranked(model: Model, rpol: RunPolicy, comm, *, lr, combine,
     point = DistributedOptimizer(opt, ccfg, None, span).point
     post = point == "post"
     shapes = _param_shapes(model.cfg)
-    sharded = M == 1 and _plan_sharding(
-        model, rpol, key, point, span, W, delayed,
-        stateful=bool(T.leaves(opt.init(shapes))))
+    sharded = _plan_sharding(model, rpol, key, point, span, W, delayed,
+                             stateful=bool(T.leaves(opt.init(shapes))))
     sync = not delayed and rpol.local_steps <= 1
     # the splits on every rank, in this order (dist.new_group is
-    # collective over all ranks): the lane groups, the ranks of equal
-    # position that the combiner reduces across, and for the delayed
-    # combine the same again as the exchange leg's own process groups
+    # collective over all ranks), of the launch's comm, each data group's
+    # in turn: the lane groups, the ranks of equal position that the
+    # combiner reduces across, and for the delayed combine the same again
+    # as the exchange leg's own process groups
     position = [list(range(q, W, g)) for q in range(g)]
-    lane_comm = (comm.split([list(range(l * g, (l + 1) * g))
-                             for l in range(span)]) if g > 1 else None)
-    rvh_comm = comm.split(position) if g > 1 else comm
+
+    def split(lists, **kw):
+        """Each data group's sub-communicators of its data indices."""
+        return wcomm.split([[grp[d] for d in lst] for grp in data_groups
+                            for lst in lists], **kw)
+    lane_comm = (split([list(range(l * g, (l + 1) * g))
+                        for l in range(span)]) if g > 1 else None)
+    rvh_comm = split(position) if g > 1 else comm
     # the synchronous step runs on a plan (every leaf whole where the
     # regime shards nothing); local steps and the delayed combine hold
     # every leaf whole and take none
@@ -612,7 +618,7 @@ def _build_ranked(model: Model, rpol: RunPolicy, comm, *, lr, combine,
                         post=post, shard_grads=rvh, lane_comm=lane_comm,
                         rvh_comm=rvh_comm, shard=sharded, model_comm=mcomm)
     want_stats = rpol.combine_stats and span > 1 and not delayed
-    shard, out_layout = None, "whole"
+    shard, out_layout = {}, "whole"
     if sharded and rvh:
         # the sharded leaves come back as this rank's piece where a piece
         # is what comes next (ZeRO-1's optimizer, an FSDP param), else
@@ -621,12 +627,13 @@ def _build_ranked(model: Model, rpol: RunPolicy, comm, *, lr, combine,
         # combine returns the dequantized gather
         keep_piece = (not post or rpol.fsdp) and ccfg.compress != "int8"
         out_layout = "piece" if keep_piece else "gshard"
-        shard = dict(shard_dims=plan.dims, shard_comm=lane_comm,
+        shard.update(shard_dims=plan.dims, shard_comm=lane_comm,
                      allgather_result=not keep_piece)
-    elif M > 1:
+    if M > 1:
         # each rank's leaves are its model shards: the dots of a leaf
         # the model axis does not shard count once over the model group
-        shard = dict(leaf_specs=plan.mspecs, model_comm=mcomm)
+        shard.update(leaf_specs=plan.mspecs, model_comm=mcomm)
+    shard = shard or None
     tp = TensorParallel(mcomm, model.cfg, shapes) if M > 1 else None
     combiner = make_combiner(run_cfg, impl=combine_impl, donate=True,
                              comm=rvh_comm, shard=shard)
@@ -645,26 +652,34 @@ def _build_ranked(model: Model, rpol: RunPolicy, comm, *, lr, combine,
     # the lane group's gradients sum to the microbatch's
     grp = TokenGroup(lane_comm) if lane_comm is not None else None
 
-    def init_state(generator: torch.Generator) -> Dict[str, Any]:
-        """Every rank draws from its generator; rank 0's params are then
-        broadcast (Horovod's broadcast_parameters), and under fsdp each
-        rank keeps its piece. With a model axis each rank cuts its model
-        shards first, and the first rank of its data group broadcasts
-        them (a leaf the axis does not shard goes out from rank 0 of the
-        grid)."""
-        params = model.init(generator)
-        if M > 1:
-            params = plan.shard_params(params)
-            for i, x in enumerate(T.leaves(params)):
-                if plan.mdims[i] is None:
-                    wcomm.broadcast(x, 0)
-                else:
-                    comm.broadcast(x, 0)
-        else:
+    def init_params(generator: torch.Generator) -> PyTree:
+        """Every rank draws from its generator and rank 0's params are
+        broadcast (Horovod's broadcast_parameters). With a plan, a leaf
+        at a time in the draw's order (the values of the whole draw):
+        each rank cuts its model shard, the first rank of its data group
+        broadcasts it (a leaf the model axis does not shard goes out
+        from rank 0 of the grid), and under fsdp each rank keeps its
+        piece of it."""
+        if plan is None:
+            params = model.init(generator)
             for x in T.leaves(params):
                 comm.broadcast(x, 0)
-        if sharded:
-            params = plan.shard_params(params)
+            return params
+        leaves = [None] * len(plan.shapes)
+        for path, x in model.init_leaves(generator):
+            i = plan.index[path]
+            y = plan.mshard(i, x)
+            y = y.clone() if y is not x else y
+            del x
+            (wcomm if plan.mdims[i] is None else comm).broadcast(y, 0)
+            if plan.fsdp and plan.dims[i] is not None:
+                y = plan.piece(i, y).clone()
+            leaves[i] = y
+            del y
+        return T.unflatten(plan.treedef, leaves)
+
+    def init_state(generator: torch.Generator) -> Dict[str, Any]:
+        params = init_params(generator)
         state = {"params": params, "opt": dopt.init(params), "step": 0}
         if delayed:
             state["pending"] = _zero_carry(params)

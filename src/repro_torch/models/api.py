@@ -52,9 +52,13 @@ class Model:
     # [B,T,V], cache with K/V rows written and pos unchanged)
     verify_step: Optional[Callable] = None
     attn_impl: str = "kernel"         # what serving attention runs through
+    # `init`'s leaves one at a time, in the order they are drawn:
+    # (generator=None, device=None) -> iterator of (path, leaf)
+    init_leaves: Optional[Callable] = None
 
 
-def _init_fn(cfg: ModelConfig, param_dtype):
+def _init_fn(cfg: ModelConfig, param_dtype, draw=TF.init_params):
+    """`Model.init` (`draw=TF.init_leaves`: `Model.init_leaves`)."""
     def init(generator: Optional[torch.Generator] = None,
              device: DeviceLike = None):
         dev = resolve_device(device if device is not None or generator is None
@@ -62,7 +66,7 @@ def _init_fn(cfg: ModelConfig, param_dtype):
         gen = generator if generator is not None else make_generator(dev)
         if gen.device.type != dev.type:
             raise ValueError(f"generator on {gen.device}, init on {dev}")
-        return TF.init_params(cfg, gen, param_dtype, dev)
+        return draw(cfg, gen, param_dtype, dev)
     return init
 
 
@@ -97,7 +101,8 @@ def _build_encdec(cfg: ModelConfig, compute_dtype, param_dtype,
                               remat, token_group=token_group)
 
     return Model(cfg, _init_fn(cfg, param_dtype), forward, init_cache,
-                 decode_step, None, loss, None, attn_impl)
+                 decode_step, None, loss, None, attn_impl,
+                 _init_fn(cfg, param_dtype, TF.init_leaves))
 
 
 def build_model(cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
@@ -155,7 +160,8 @@ def build_model(cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
     if cfg.family in ("ssm", "hybrid"):         # api.py:134
         prefill_cache = verify_step = None
     return Model(cfg, _init_fn(cfg, param_dtype), forward, init_cache,
-                 decode_step, prefill_cache, loss, verify_step, attn_impl)
+                 decode_step, prefill_cache, loss, verify_step, attn_impl,
+                 _init_fn(cfg, param_dtype, TF.init_leaves))
 
 
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:

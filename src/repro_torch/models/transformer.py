@@ -149,14 +149,42 @@ def _init_leaf(shape, kind, fan_in, dtype, generator, device):
     std = {"embed": 0.02, "router": 0.02, "lora": 0.01}.get(kind) \
         or 1.0 / math.sqrt(max(fan_in, 1))
     out = torch.empty(shape, dtype=dtype, device=device)
-    # stacked leaves draw one layer at a time: the fp32 draw is one layer
+    # stacked leaves draw one layer at a time: the fp32 draw is one layer,
+    # made in place where the leaf is fp32
     rows = [out] if kind == "embed" or len(shape) == 2 else list(out)
     for r in rows:
-        t = torch.empty(r.shape, dtype=torch.float32, device=device)
+        t = r if dtype == torch.float32 else torch.empty(
+            r.shape, dtype=torch.float32, device=device)
         torch.nn.init.trunc_normal_(t, std=std, a=-2.0 * std, b=2.0 * std,
                                     generator=generator)
-        r.copy_(t)
+        if t is not r:
+            r.copy_(t)
     return out
+
+
+def init_leaves(cfg: ModelConfig, generator: torch.Generator,
+                param_dtype=torch.float32,
+                device: Optional[torch.device] = None):
+    """`init_params`' leaves one at a time, in the order they are drawn:
+    (path, leaf) pairs, each leaf made when it is asked for, so a caller
+    that keeps only a part of each holds one whole leaf at a time."""
+    device = generator.device if device is None else device
+    # TP head padding (pad_heads_for_tp): a padded q head adds exactly
+    # nothing, its wo rows zero (attention.py:49-67)
+    pad = (cfg.orig_heads and cfg.orig_heads < cfg.n_heads
+           and cfg.attn_type == "gqa")
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                yield from walk(v, path + (k,))
+            return
+        x = _init_leaf(*node, param_dtype, generator, device)
+        if pad and path[0] in ("dense_blocks", "blocks") \
+                and path[1:] == ("attn", "wo"):
+            x[:, cfg.orig_heads * cfg.resolved_head_dim:] = 0
+        yield path, x
+    yield from walk(param_spec(cfg), ())
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -165,21 +193,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Random weights from `generator`, drawn on its device (the numbers
     differ from the JAX package's: weights cross frameworks only through
     `repro_torch.bridge`)."""
-    device = generator.device if device is None else device
-
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(v) for k, v in node.items()}
-        return _init_leaf(*node, param_dtype, generator, device)
-    params = build(param_spec(cfg))
-    if cfg.orig_heads and cfg.orig_heads < cfg.n_heads \
-            and cfg.attn_type == "gqa":
-        # TP head padding (pad_heads_for_tp): a padded q head adds
-        # exactly nothing, its wo rows zero (attention.py:49-67)
-        for key in ("dense_blocks", "blocks"):
-            if key in params and "attn" in params[key]:
-                wo = params[key]["attn"]["wo"]
-                wo[:, cfg.orig_heads * cfg.resolved_head_dim:] = 0
+    params: Dict[str, Any] = {}
+    for path, x in init_leaves(cfg, generator, param_dtype, device):
+        node = params
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = x
     return params
 
 

@@ -212,6 +212,12 @@ def rename(spec: Spec, names: Dict[str, Any]) -> Spec:
     return tuple(out)
 
 
+def only(spec: Spec, axis: str) -> Spec:
+    """The part of a spec over one axis: every other axis dropped (a
+    spec over ("data", "model") -> its data part or its model part)."""
+    return tuple(axis if axis in entry_axes(e) else None for e in spec)
+
+
 def _count(entry, sizes: Dict[str, int]) -> int:
     return math.prod(sizes[ax] for ax in entry_axes(entry))
 

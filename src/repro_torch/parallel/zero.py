@@ -37,12 +37,23 @@ gradient), reduce-scattered over the lane group at g > 1 — and hands
 autograd nothing.
 
 The model axis (`model_comm`, the M ranks of one data index; `comm` is
-then this rank's data group): every leaf is this rank's model shard
-under `tp.model_specs` (whole where the spec shards nothing) and whole
-on the data axis. LAMB's norms sum over the model group where the spec
-shards the leaf; a checkpoint gathers the model shards (and the lanes)
-into rank 0's full leaves, and a restore cuts its shard from them. A
-plan without a model axis is the data axis's alone, as above.
+then this rank's data group, of W = world / M ranks): one policy over
+both axes gives each leaf its spec (`param_specs` with TP over M and
+FSDP over W, as the reference's `build_runtime` on a (data, model)
+mesh), and the plan splits it into its model part (`mspecs`) and its
+data part (`specs`). A leaf is cut model first: this rank's model shard
+(whole where the spec shards nothing on the model axis), and every
+layout above is then that shard's, with the data piece cut on the
+spec's data dim. The data dim is chosen on the whole leaf's shape and
+is never the model dim, so the order gives the reference's
+`local_shape` over both axes. FSDP gathers a layer's pieces over the
+data group, which gives the rank's model shard of the layer for
+`parallel.tp`; LAMB's norms sum over the data ranks holding other
+pieces, then over the model group; a checkpoint puts each model
+group's shards together on its first rank, then the data pieces (and
+the lanes) on rank 0, and a restore cuts the model shard, then the
+piece. Without a model axis M = 1 and the plan is the data axis's
+alone, as above.
 """
 from __future__ import annotations
 
@@ -52,10 +63,10 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch import tree as T
-from .sharding import (ShardingPolicy, entry_axes, local_shape,
+from .sharding import (ShardingPolicy, entry_axes, local_shape, only,
                        param_specs, rename, shard, sharded_dim, spec_leaves,
                        unshard)
-from .tp import model_dim, model_shard, model_specs
+from .tp import model_dim, model_shard
 
 PyTree = Any
 
@@ -93,10 +104,10 @@ def _add(out: torch.Tensor, x: torch.Tensor) -> None:
 
 class RankPlan:
     """This rank's layout of every param leaf (flatten order), and the
-    moves between layouts. `comm`: all W ranks; `lane_comm`: this rank's
-    lane group (None at g == 1); `rvh_comm`: the span ranks of its
-    member position; `model_comm`: this rank's model group (None
-    without a model axis)."""
+    moves between layouts. `comm`: the W ranks of this rank's data group
+    (every rank without a model axis); `lane_comm`: its lane group (None
+    at g == 1); `rvh_comm`: the span ranks of its member position;
+    `model_comm`: its model group (None without a model axis)."""
 
     def __init__(self, cfg, shapes: PyTree, comm, span: int, *, fsdp: bool,
                  scatter_grads: bool, post: bool, shard_grads: bool = True,
@@ -114,21 +125,23 @@ class RankPlan:
                        "member": comm.rank % self.g}
         pairs, self.treedef = T.flatten_with_path(shapes)
         self.index = {p: i for i, (p, _) in enumerate(pairs)}
-        self.shapes = [tuple(x.shape) for _, x in pairs]
-        # shard=False: every leaf whole (a regime that shards nothing)
-        self.specs = spec_leaves(param_specs(
-            cfg, shapes, ShardingPolicy(fsdp_axis="data",
-                                        fsdp_size=W if shard else 1)))
-        self.dims = [sharded_dim(s) for s in self.specs]
+        self.shapes = [tuple(x.shape) for _, x in pairs]      # whole leaves
         self.model_comm = model_comm
         self.msize = model_comm.world if model_comm is not None else 1
         self.mindex = model_comm.rank if model_comm is not None else 0
-        if self.msize > 1 and shard:
-            raise ValueError("a plan shards the data axis or has a model "
-                             "axis, not both")
-        self.mspecs = spec_leaves(model_specs(cfg, shapes, self.msize)) \
+        # one policy over both axes; shard=False: nothing on the data axis
+        # (a regime that shards nothing)
+        both = spec_leaves(param_specs(cfg, shapes, ShardingPolicy(
+            tp_size=self.msize, fsdp_axis="data",
+            fsdp_size=W if shard else 1)))
+        self.specs = [only(s, "data") for s in both]
+        self.dims = [sharded_dim(s) for s in self.specs]
+        self.mspecs = [only(s, "model") for s in both] \
             if self.msize > 1 else [None] * len(self.shapes)
         self.mdims = [model_dim(s) for s in self.mspecs]
+        # this rank's model shard of each leaf: what the data layouts cut
+        self.mshapes = [local_shape(s, m, {"model": self.msize})
+                        for s, m in zip(self.shapes, self.mspecs)]
         self.grad_shapes = self.local_shapes("grads")
 
     # ------------------------------------------------------------ specs
@@ -158,6 +171,8 @@ class RankPlan:
         return coords["lane"] * self.g + coords["member"]
 
     # ---------------------------------------------------------- layouts
+    # below, "whole" is the data axis's: with a model axis, a whole leaf
+    # is this rank's model shard of it (`mshard`)
     def piece(self, i: int, x: torch.Tensor) -> torch.Tensor:
         """A whole leaf -> this rank's piece (a view)."""
         return shard(x, self.piece_spec(i), self.coords, self.sizes)
@@ -179,7 +194,7 @@ class RankPlan:
         Where the pieces are contiguous slices of the whole (no dim of
         size > 1 before the sharded one) they are received in place."""
         spec = self.piece_spec(i)[1 if layer else 0:]
-        shape = self.shapes[i][1 if layer else 0:]
+        shape = self.mshapes[i][1 if layer else 0:]
         d = sharded_dim(spec)
         if all(n == 1 for n in shape[:d]):
             out = torch.empty(shape, dtype=x.dtype, device=x.device)
@@ -208,21 +223,19 @@ class RankPlan:
         shard of it (a view)."""
         return model_shard(x, self.mspecs[i], self.msize, self.mindex)
 
+    def cut(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """A whole leaf -> this rank's params of it: its model shard, and
+        under fsdp that shard's piece, in its own memory (`x` itself
+        where the plan cuts nothing)."""
+        y = self.mshard(i, x)
+        if self.fsdp and self.dims[i] is not None:
+            y = self.piece(i, y)
+        return x if y is x else y.clone()
+
     def shard_params(self, params: PyTree) -> PyTree:
-        """Whole params -> this rank's (its piece of each sharded leaf,
-        its own memory, under fsdp; its model shard of each leaf the
-        model axis shards; the same tree otherwise)."""
-        if self.msize > 1:
-            leaves, td = T.flatten(params)
-            return T.unflatten(td, [x if self.mdims[i] is None
-                                    else self.mshard(i, x).clone()
-                                    for i, x in enumerate(leaves)])
-        if not self.fsdp:
-            return params
+        """Whole params -> this rank's (`cut` of every leaf)."""
         leaves, td = T.flatten(params)
-        return T.unflatten(td, [x if self.dims[i] is None
-                                else self.piece(i, x).clone()
-                                for i, x in enumerate(leaves)])
+        return T.unflatten(td, [self.cut(i, x) for i, x in enumerate(leaves)])
 
     def state_like(self, params: PyTree) -> PyTree:
         """Stand-ins with this rank's state shapes, on the params'
@@ -234,20 +247,25 @@ class RankPlan:
 
     def norm_sums(self, layout: str) -> PyTree:
         """Per leaf, the sum of a shard's squared norms over the ranks
-        holding the leaf's other shards ('piece': all W ranks; 'gshard':
-        the lane group; with a model axis, its model group), in rank
-        order; identity for whole leaves."""
-        whole = lambda v: v
-        if self.msize > 1:
-            c = self.model_comm
-            return T.unflatten(self.treedef, [
-                whole if d is None else (lambda v: c.group_sum(v, c.world))
-                for d in self.mdims])
-        comm = self.comm if layout == "piece" else self.lane_comm
-        fns = [whole if d is None or comm is None
-               else (lambda v, c=comm: c.group_sum(v, c.world))
-               for d in self.dims]
-        return T.unflatten(self.treedef, fns)
+        holding the leaf's other shards: first over the data ranks
+        holding its other pieces ('piece': the W ranks of the data group;
+        'gshard': the lane group), then over the model group where the
+        model axis shards it, each in rank order; identity for whole
+        leaves."""
+        data = self.comm if layout == "piece" else self.lane_comm
+
+        def fn(i):
+            comms = [c for c, d in ((data, self.dims[i]),
+                                    (self.model_comm, self.mdims[i]))
+                     if c is not None and d is not None]
+
+            def total(v):
+                for c in comms:
+                    v = c.group_sum(v, c.world)
+                return v
+            return total
+        return T.unflatten(self.treedef, [fn(i)
+                                          for i in range(len(self.shapes))])
 
     # ------------------------------------------------------ checkpoints
     def _layout(self, i: int, which: str) -> str:
@@ -265,63 +283,50 @@ class RankPlan:
     def gather_tree(self, tree: PyTree, which: str) -> Optional[PyTree]:
         """`which` ('params' or 'state') as the reference's full leaves
         in rank 0's host memory, one leaf at a time (None on the other
-        ranks): pieces put together, a lane's gshards put together, the
-        lanes stacked [span, ...] where each rank holds one. Collective."""
-        if self.msize > 1:
-            return self._gather_model(tree, which)
+        ranks): each model group's shards put together on its first
+        rank, then, among those ranks (the data group of model index 0),
+        pieces put together, a lane's gshards put together, the lanes
+        stacked [span, ...] where each rank holds one. Collective."""
         leaves, td = T.flatten(tree)
-        W, g = self.comm.world, self.g
-        lanes = self.lanes(which)
         out = []
         for i, x in enumerate(leaves):
-            lay = self._layout(i, which)
-            if lay == "whole" and not lanes:
-                out.append(x)
-                continue
-            srcs = ([l * g for l in range(self.span)] if lay == "whole"
-                    else list(range(W)))
-            rows = self.comm.gather_to_host(x, srcs)
-            if rows is None:
-                out.append(None)
-            elif lay == "whole":
-                out.append(rows)
-            elif lay == "piece":
-                out.append(unshard(lambda c: rows[self.rank_of(c)],
-                                   self.piece_spec(i), self.sizes))
-            else:
-                one = [torch.cat([rows[l * g + m] for m in range(g)],
-                                 dim=self.dims[i])
-                       for l in range(self.span)]
-                out.append(torch.stack(one) if lanes else one[0])
-        return T.unflatten(td, out) if self.comm.rank == 0 else None
-
-    def _gather_model(self, tree: PyTree, which: str) -> Optional[PyTree]:
-        """`gather_tree` with a model axis: each model group puts its
-        shards together on its first rank (host memory), and where each
-        rank holds one lane those ranks send their whole leaf on to
-        rank 0, lane by lane."""
-        leaves, td = T.flatten(tree)
-        mc, dc = self.model_comm, self.comm
-        top = mc.rank == 0 and dc.rank == 0
-        lanes = self.lanes(which)
-        out = []
-        for i, x in enumerate(leaves):
-            d = self.mdims[i]
-            whole = x
-            if d is not None:
+            if self.mdims[i] is not None:
+                mc = self.model_comm
                 rows = mc.gather_to_host(x, list(range(mc.world)))
-                whole = None if rows is None else torch.cat(list(rows), d)
-            if lanes and mc.rank == 0:
-                if dc.backend == "nccl":
-                    whole = whole.to(x.device)
-                whole = dc.gather_to_host(
-                    whole, [l * self.g for l in range(self.span)])
-            out.append(whole if top else None)
+                x = None if rows is None else \
+                    torch.cat(list(rows), self.mdims[i])
+                if x is not None and self.comm.backend == "nccl":
+                    x = x.to(leaves[i].device)
+            out.append(None if self.mindex else self._gather_data(i, x,
+                                                                  which))
+        top = self.comm.rank == 0 and self.mindex == 0
         return T.unflatten(td, out) if top else None
 
+    def _gather_data(self, i: int, x: torch.Tensor, which: str):
+        """`gather_tree` of one leaf over the data group: `x` holds this
+        rank's data part of the whole leaf (or of its model shard)."""
+        W, g = self.comm.world, self.g
+        lanes = self.lanes(which)
+        lay = self._layout(i, which)
+        if lay == "whole" and not lanes:
+            return x
+        srcs = ([l * g for l in range(self.span)] if lay == "whole"
+                else list(range(W)))
+        rows = self.comm.gather_to_host(x, srcs)
+        if rows is None or lay == "whole":
+            return rows
+        if lay == "piece":
+            return unshard(lambda c: rows[self.rank_of(c)],
+                           self.piece_spec(i), self.sizes)
+        one = [torch.cat([rows[l * g + m] for m in range(g)],
+                         dim=self.dims[i])
+               for l in range(self.span)]
+        return torch.stack(one) if lanes else one[0]
+
     def take(self, i: int, full, which: str):
-        """A full leaf (a numpy array; one lane's where `lanes`) -> this
-        rank's part of it under the plan (a numpy view)."""
+        """A full leaf (a numpy array or a tensor; one lane's where
+        `lanes`) -> this rank's part of it under the plan (a view): its
+        model shard, then its data part."""
         full = self.mshard(i, full)
         lay = self._layout(i, which)
         if lay == "whole":
@@ -423,8 +428,8 @@ class _FSDPStep:
         d = plan.dims[i]
         if l is None or d > 0:
             return plan.whole_from_pieces(i, x, layer=l is not None)
-        shape = plan.shapes[i][1:]
-        owner = self._layer_owner(i, l, plan.shapes[i][0] // plan.comm.world)
+        shape = plan.mshapes[i][1:]
+        owner = self._layer_owner(i, l, plan.mshapes[i][0] // plan.comm.world)
         parts = plan.comm.all_gather(
             x, [shape if r == owner else (0,) + shape[1:]
                 for r in range(plan.comm.world)])
@@ -447,7 +452,7 @@ class _FSDPStep:
             out, _ = self._slot(i, got, False)
             _add(out if l is None else out[l], got)
             return
-        per = plan.shapes[i][0] // g             # layers a gshard holds
+        per = plan.mshapes[i][0] // g            # layers a gshard holds
         owner = l // per
         empty = grad[:0]
         got = plan.lane_comm.reduce_scatter(

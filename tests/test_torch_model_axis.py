@@ -22,7 +22,9 @@ package:
       logits, and the padded serve engines the JAX engines' tokens on a
       (1, 2) mesh (reduced hymba-1.5b, 5/1 -> 6/2 heads) and a (1, 4)
       mesh (reduced minitron-4b);
-  (f) the combinations still refused, each naming ROADMAP item 7.
+  (f) the combinations still refused, each naming ROADMAP item 7, and
+      the data-axis regimes a model axis now takes (fsdp, span below
+      the data ranks), with the shapes the plan gives each rank.
 
 One JAX subprocess and one gloo launch serve (a)-(c); the reference runs
 while the ranks do.
@@ -509,8 +511,8 @@ def test_padded_serve_engine_matches_reference(arch, tp, heads):
 REFUSED = [
     ("mixtral-8x22b", {}), ("minicpm3-4b", {}), ("rwkv6-7b", {}),
     ("hymba-1.5b", {}), ("seamless-m4t-large-v2", {}),
-    ("llava-next-34b", {}), ("qwen3-32b", {"fsdp": True}),
-    ("qwen3-32b", {"span": 1}), ("qwen3-32b", {"combine_delay": 1}),
+    ("llava-next-34b", {}), ("mixtral-8x22b", {"fsdp": True}),
+    ("qwen3-32b", {"combine_delay": 1}),
     ("qwen3-32b", {"local_steps": 2}),
     ("qwen3-32b", {"backend": "linear"}),
 ]
@@ -522,7 +524,7 @@ REFUSED = [
 def test_model_axis_refusals_name_item_7(arch, over):
     """The model axis beyond the dense GQA decoders, or with a regime
     the slice does not reach, raises naming ROADMAP item 7 (checked
-    before any collective, on a stand-in comm of 4 ranks)."""
+    before any collective)."""
     from types import SimpleNamespace
     from repro_torch.engine.build import _check_model_axis
     from repro_torch.engine.registry import registry_key
@@ -530,10 +532,63 @@ def test_model_axis_refusals_name_item_7(arch, over):
     model = SimpleNamespace(cfg=get_reduced(arch))
     pol = RunPolicy(**dict(dict(backend="rvh", optimizer="momentum"),
                            **over))
-    span = pol.span or 2
     with pytest.raises(NotImplementedError, match=r"item 7\b"):
-        _check_model_axis(model, pol, registry_key("adasum", pol.backend),
-                          span, 2)
+        _check_model_axis(model, pol, registry_key("adasum", pol.backend))
+
+
+# name, span, policy fields: data-axis regimes, now under a model axis of
+# 2 (a (4, 2) grid): fsdp at span == dp (pre-point ZeRO-1
+# under FSDP), and span below dp with the preset's fsdp + scatter_grads
+ACCEPTED = [("fsdp", 4, {"fsdp": True}),
+            ("span", 1, {"fsdp": True, "scatter_grads": True})]
+
+
+@pytest.mark.parametrize("name,span,over", ACCEPTED,
+                         ids=[a for a, _, _ in ACCEPTED])
+def test_model_axis_accepts_data_axis_regimes(name, span, over):
+    """fsdp and a span below the data ranks pass the model axis's check
+    and the data axis's (`_plan_sharding`), and on stand-in comms of a
+    (4, 2) grid the plan cuts every leaf over both axes: params, state
+    and gradients are the reference's `local_shape` over {data, model}
+    (params; the pre point's state: 1/4 of each data-sharded dim of the
+    model shard; gradients: the lane group's part)."""
+    from types import SimpleNamespace
+    from repro_torch.engine.build import _check_model_axis, _plan_sharding
+    from repro_torch.engine.registry import registry_key
+    from repro_torch.parallel.policy import RunPolicy
+    from repro_torch.parallel.zero import RankPlan
+    cfg = get_reduced("qwen3-32b")
+    pol = RunPolicy(backend="gspmd_tree", optimizer="momentum", span=span,
+                    **over)
+    key = registry_key("adasum", pol.backend)
+    _check_model_axis(SimpleNamespace(cfg=cfg), pol, key)
+    assert _plan_sharding(SimpleNamespace(cfg=cfg), pol, key, "pre", span,
+                          4, False, True)
+    shapes = _param_shapes(cfg)
+    both = S.spec_leaves(S.param_specs(cfg, shapes, S.ShardingPolicy(
+        fsdp_axis="data", tp_size=2, fsdp_size=4)))
+    full = [tuple(x.shape) for x in T.leaves(shapes)]
+    g = 4 // span
+    stand = lambda n, r: SimpleNamespace(world=n, rank=r)
+    for d in range(4):
+        for m in range(2):
+            plan = RankPlan(cfg, shapes, stand(4, d), span, fsdp=True,
+                            scatter_grads=pol.scatter_grads, post=False,
+                            shard=True, model_comm=stand(2, m))
+            sizes = {"data": 4, "model": 2}
+            want = [S.local_shape(s, sp, sizes) for s, sp in zip(full, both)]
+            assert plan.local_shapes("params") == want
+            assert plan.local_shapes("state") == want
+            grads = [S.local_shape(s, S.rename(sp, {"data": None}),
+                                   {"model": 2}) for s, sp in zip(full, both)]
+            grads = [tuple(n // g if i == plan.dims[j] else n
+                           for i, n in enumerate(sh))
+                     for j, sh in enumerate(grads)]
+            assert plan.local_shapes("grads") == grads
+            assert any(d is not None for d in plan.dims)
+            assert any(d is not None for d in plan.mdims)
+            assert any(a is not None and b is not None
+                       for a, b in zip(plan.dims, plan.mdims))
 
 
 @pytest.mark.parametrize("driver", ["fit_elastic", "fit_adaptive"])

@@ -804,11 +804,16 @@ def job_tp(comm, spec):
         for b in batches:
             state, m = rt.train_step(state, b)
             res["losses"].append(float(m["loss"]))
-            # the state too at the pre point (at the post point each data
-            # rank holds its own lane's)
+            # the state too at the pre point, where ZeRO-1 leaves it
+            # whole (at the post point each data rank holds its own
+            # lane's)
+            inner = state["opt"]["inner"]
+            held = [[x for i, x in enumerate(T.leaves(t))
+                     if plan.dims[i] is None]
+                    for t in (inner.values() if isinstance(inner, dict)
+                              else ())] if rt.dopt.point == "pre" else ()
             res["data_bitwise"].append(_same_in(plan.comm, (
-                state["params"], state["opt"]["inner"]
-                if rt.dopt.point == "pre" else ())))
+                state["params"], held)))
             whole = [x for i, x in enumerate(T.leaves(state["params"]))
                      if plan.mdims[i] is None]
             res["model_bitwise"].append(_same_in(rt.model_comm, whole))
@@ -909,10 +914,145 @@ def _tp_ckpt(comm, spec):
     return out if comm.rank == 0 else {}
 
 
+def job_grid(comm, spec):
+    """Both axes at once on a (data, model) grid of the ranks: every case
+    of spec from the same params and batches, built by `build_runtime` or,
+    where the case names a `session`, by `TrainSession.from_config` of the
+    preset. Per case: the losses; whether the leaves whole on the data
+    axis agree bitwise across each data group, and those whole on both
+    across each model group, after every step; the shapes this rank
+    holds of params, optimizer state and the lane gradient (the tree the
+    combiner gets); rank 0: params and state gathered to full leaves.
+    Then checkpoints between the first case's session and one process
+    (`_grid_ckpt`)."""
+    import numpy as np
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.core import rvh
+    from repro_torch.engine import EngineConfig, TrainSession, build_runtime
+    from repro_torch.parallel.policy import RunPolicy
+    data = np.load(spec["inputs"])
+    seen = []
+    combine = rvh.adasum_rvh_pytree
+
+    def spy(tree, *a, **kw):         # the first lane tree of a case
+        if not seen:
+            seen.append([tuple(x.shape) for x in T.leaves(tree)])
+        return combine(tree, *a, **kw)
+    rvh.adasum_rvh_pytree = spy
+    out = {"cases": []}
+    session = None
+    for case in spec["cases"]:
+        seen.clear()
+        model = _case_model(case)
+        init = _init_tree(data, case["name"])
+        if case.get("session"):
+            session = TrainSession.from_config(
+                EngineConfig.preset(case["arch"], **case["session"],
+                                    ckpt_dir=spec["dir"] + "/grid"),
+                model=model, device="cpu", comm=comm, callbacks=[])
+            rt = session.runtime
+        else:
+            rt = build_runtime(model, RunPolicy(**case["policy"]),
+                               lr=case["lr"], comm=comm,
+                               model_size=case["mesh"][1])
+        plan = rt.plan
+        params = plan.shard_params(params_from_numpy(init, device="cpu"))
+        state = {"params": params, "opt": rt.dopt.init(params), "step": 0}
+        pol = (session.config.run_policy() if case.get("session")
+               else RunPolicy(**case["policy"]))
+        res = {"losses": [], "data_bitwise": [], "model_bitwise": [],
+               "path": rt.combine_path, "mesh": (rt.dp_total, rt.model_size),
+               "point": rt.dopt.point, "dims": plan.dims,
+               "policy": {k: getattr(pol, k) for k in case["policy"]},
+               "both": sum(a is not None and b is not None
+                           for a, b in zip(plan.dims, plan.mdims))}
+        for s in range(case["steps"]):
+            b = {k: torch.from_numpy(data[f"{case['name']}/batch{s}/{k}"])
+                 for k in ("tokens", "labels")}
+            if case.get("session"):
+                session.state = state
+                m = session.step(b)
+                state = session.state
+            else:
+                state, m = rt.train_step(state, b)
+            res["losses"].append(float(m["loss"]))
+            whole = [x for i, x in enumerate(T.leaves(state["params"]))
+                     if plan.dims[i] is None or not plan.fsdp]
+            both = [x for i, x in enumerate(T.leaves(state["params"]))
+                    if plan.mdims[i] is None
+                    and (plan.dims[i] is None or not plan.fsdp)]
+            res["data_bitwise"].append(_same_in(plan.comm, whole))
+            res["model_bitwise"].append(_same_in(rt.model_comm, both))
+        inner = state["opt"]["inner"]
+        res["shapes"] = {
+            "params": [tuple(x.shape) for x in T.leaves(state["params"])],
+            "state": {k: [tuple(x.shape) for x in T.leaves(t)]
+                      for k, t in inner.items()},
+            "grads": seen[0]}
+        full_p = plan.gather_tree(state["params"], "params")
+        full_s = {k: plan.gather_tree(t, "state") for k, t in inner.items()}
+        if comm.rank == 0:
+            res["params"] = _np_tree(full_p)
+            res["state"] = {k: _np_tree(t) for k, t in full_s.items()}
+        out["cases"].append(res)
+    rvh.adasum_rvh_pytree = combine
+    if spec.get("ckpt"):
+        out["ckpt"] = _grid_ckpt(comm, session, spec)
+    session.close()
+    return out
+
+
+def _grid_ckpt(comm, s, spec):
+    """The session of the (data, model) grid saves its state; rank 0
+    restores it into one process (the lanes stacked) and takes a step,
+    saved in a directory of its own, which the grid then restores.
+    Returns (rank 0) the grid's saved state, the one process's restored
+    state, the one process's saved state and the grid's restored state,
+    each as full leaves."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.engine import TrainSession
+
+    def full(sess):
+        plan = sess.runtime.plan
+        inner = sess.state["opt"]["inner"]
+        if plan is None:
+            return _np_tree((sess.state["params"], dict(inner)))
+        return _np_tree((plan.gather_tree(sess.state["params"], "params"),
+                         {k: plan.gather_tree(v, "state")
+                          for k, v in inner.items()}))
+
+    out = {}
+    s.save_sync(2)
+    out["grid_saved"] = full(s)
+    solo = comm.split([[r] for r in range(comm.world)])
+    if comm.rank == 0:
+        one = TrainSession.from_config(
+            dataclasses.replace(s.config, model_mesh=1), model=s.model,
+            device="cpu", comm=solo, callbacks=[])
+        one.restore(2)
+        out["one_restored"] = full(one)
+        one.step()
+        one.checkpoint = CheckpointManager(spec["dir"] + "/one")
+        one.save_sync(3)
+        out["one_saved"] = full(one)
+        out["one_span"] = one.runtime.span
+        one.close()
+    dist.barrier()
+    s.checkpoint = CheckpointManager(spec["dir"] + "/one")
+    s.restore(3)
+    out["grid_restored"] = full(s)
+    return out if comm.rank == 0 else {}
+
+
 JOBS = {"rvh": job_rvh, "train": job_train, "ckpt": job_ckpt,
         "gather": job_gather, "delayed": job_delayed,
         "elastic": job_elastic, "compose": job_compose, "lanes": job_lanes,
-        "adaptive": job_adaptive, "shard": job_shard, "tp": job_tp}
+        "adaptive": job_adaptive, "shard": job_shard, "tp": job_tp,
+        "grid": job_grid}
 
 
 def main():
