@@ -115,7 +115,7 @@ Phases, in the order they run: 1, 2, 6, 3, 4, 8, 5, 13, 7, 9, 10, 11, 12
      attention: the stepped loop vs the engine, compared as (e) on the
      first step, and the share of equal tokens;
   5. train: `TrainSession` on gemma-7b at full width, depth cut to
-     TRAIN_LAYERS (2 of 28), fp32 params, bf16 compute, seq 512, global
+     TRAIN_LAYERS (1 of 28), fp32 params, bf16 compute, seq 512, global
      batch 8, 64 MB fusion buckets, weights from a generator seeded with
      SEED. Two runs of 3 steps from fresh state: momentum at span 4 (the
      `pre` point, two tree levels) and adam at span 2 (the `post` point,
@@ -322,9 +322,9 @@ Phases, in the order they run: 1, 2, 6, 3, 4, 8, 5, 13, 7, 9, 10, 11, 12
      reference drops them) and seamless-m4t-large-v2 at its full 24 +
      24 layers from 64 frames; each one's stepped logits at the prompt's
      last token against the teacher-forced forward within LOGIT_TOL.
-     (e)-(h) three `TrainSession` steps (batch 8, span 2) of rwkv6-7b (2
-     layers, adam), hymba (4 layers, momentum), llava (2 layers,
-     momentum; 576 patch positions + 512 tokens) and seamless (6 + 6
+     (e)-(h) three `TrainSession` steps (batch 8, span 2) of rwkv6-7b (1
+     layer, adam), hymba (4 layers, momentum), llava (1 layer,
+     momentum; 576 patch positions + 512 tokens) and seamless (3 + 3
      layers, momentum; 128 frames + 256 tokens) (`P12_TRAIN`), held as
      phase 11 (d)/(e) holds its runs, with the combined gradient finite.
      `phase12_launches` sums each kernel's counts over the main-path runs:
@@ -342,9 +342,11 @@ Phases, in the order they run: 1, 2, 6, 3, 4, 8, 5, 13, 7, 9, 10, 11, 12
      model group, RVH across each data group on the rank's shards, its
      dots corrected for the unsharded leaves and summed over the model
      group), momentum, bf16 compute, seq TP_SEQ, batch TP_BATCH,
-     TP_STEPS steps. Before the ranks, this process runs the twin: step 1
-     with the two data lanes stacked on the card (span 2, nothing
-     sharded) in bf16 and fp32 compute. Printed: step ms, the model
+     TP_STEPS step, and step 1 again from fresh state (the bitwise
+     repeat, timed as the steady step). Before the ranks, this process
+     runs the twin: step 1 with the two data lanes stacked on the card
+     (span 2, nothing sharded) in bf16 and fp32 compute. Printed: step
+     and repeat ms, the model
      group's all-reduce and all-gather ms and bytes (activations and the
      vocab-parallel cross entropy), RVH's exchange, the data and model
      groups' dot sums, staging and kernel ms, staged GB, held GiB and
@@ -390,8 +392,26 @@ Phases, in the order they run: 1, 2, 6, 3, 4, 8, 5, 13, 7, 9, 10, 11, 12
      (`phase13c_launches`); whether the leaves left whole agree
      bitwise across the ranks holding them. Then both kernels at RVH's
      round-0 half of the rank's part of the embedding
-     (`phase13c_case`). `--model-axis-only` builds the kernels and runs
-     this phase alone.
+     (`phase13c_case`).
+     (d) the model axis on the MoE family, in (c)'s rank processes after
+     (c) frees its memory: mixtral-8x22b's own preset (d1) at full width,
+     MIXTRAL_LAYERS layer, on a (data 2, model 4) grid (its experts cut
+     on d_ff over the model axis, on E over the data axis), and
+     moonshot-v1-16b-a3b's (d2) at MOONSHOT_LAYERS layers (the dense
+     one and one MoE layer) on (c)'s grid, each through
+     `TrainSession.from_config`, momentum, bf16 compute, no
+     accumulation (held on the CPU). (d1)'s step 1 is held to a
+     one-process twin of the same layer (its two lanes stacked, computed
+     and saved before the ranks start) by (a)'s rule. Each run: held GiB
+     = the plan's, init and step peaks a rank and summed under
+     RANK_MEM_GIB, the leaves left whole bitwise across the ranks
+     holding them (the router among them), step 1 again from the
+     session's initial state bitwise; printed: the step split as in (c)
+     with the MoE blocks' all-reduces on their own (ms and MB), rank 0's
+     launches (`phase13d_launches`) and the dropped pairs. Then both
+     kernels at RVH's round-0 half of a rank's part of one of mixtral's
+     expert stacks, in bf16, with device times (`phase13d_case`).
+     `--model-axis-only` builds the kernels and runs this phase alone.
 
 The line before the last is the kernels JSON (block_dots and
 block_combine rows also carry their phase-6 launches on rank 0 of each
@@ -454,7 +474,8 @@ DOTS_RTOL = 1e-5
 # land one bf16 ulp apart
 COMBINE_ULPS = 2
 EPS_OF = {"float32": 2.0 ** -23, "bfloat16": 2.0 ** -7}
-TRAIN_LAYERS = 2   # of gemma-7b's 28: 1.34 B params, 5.4 GB of fp32 weights
+TRAIN_LAYERS = 1   # of gemma-7b's 28: 1.063 B params, 4.25 GB of fp32
+                   # weights (depth cut for the script's time limit)
 TRAIN_RUNS = (("momentum", 4), ("adam", 2))      # (optimizer, span)
 # params after one step, kernel arms vs plain arms on the card: the two
 # differ in the dots' summation order and the combine's rounding (~1e-7
@@ -737,11 +758,12 @@ def _adasum_pair(n, block, dtype, seed, segments=1, pairs=1, flat=False):
 
 
 def _adasum_case(name, n, block, dtype="float32", segments=1, seed=2,
-                 pairs=1, flat=False):
+                 pairs=1, flat=False, device=False):
     """block_dots and block_combine on `pairs` lane pairs of n elements
     each (flat: RVH's two 1-D halves); two result rows. Each pair row is
     held to the plain versions on its own (a[r] is a unit-stride view: no
-    copy)."""
+    copy). `device`: each row also gives the kernel's and the library
+    call's device time alone (`_device_ms`)."""
     import torch
     from repro_torch.kernels import adasum as K
     buf, a, b, s1, s2 = _adasum_pair(n, block, dtype, seed, segments, pairs,
@@ -806,6 +828,16 @@ def _adasum_case(name, n, block, dtype="float32", segments=1, seed=2,
         "bound_ms": 1e3 * max(t_comb, 3 * elems / TFLOPS["float32"]),
         "bound_by": "bytes",
     }]
+    if device:
+        for row, kern, lib in (
+                (rows[0], lambda: K.block_dots(a, b, block_elems=block),
+                 lambda: torch.bmm(X, X.transpose(1, 2))),
+                (rows[1], lambda: K.block_combine(a, b, s1, s2,
+                                                  block_elems=block),
+                 lambda: torch.bmm(S, X))):
+            row["device_ms"] = _device_ms(kern)
+            row["library_device_ms"] = _device_ms(lib)
+            torch.cuda.empty_cache()
     del X, S, buf, a, b, A, B, dots
     torch.cuda.empty_cache()
     return rows
@@ -1955,10 +1987,10 @@ RANK_WITNESS = ("A",)
 # with whole params, whole lane gradients and per-rank whole state
 SHARD_BELOW = {"A": "b"}
 RANK_BATCH = 8     # global batch: 2 rows a rank at world 4, 4 at world 2
-RANK_STEPS = 2     # the main path's steps an unsharded run; a sharded
-                   # one takes one (its repeat, with warm buffers, is timed
-                   # as its steady step). The checkpointing run saves
-                   # before its last and redoes it (phase 7 (d))
+RANK_STEPS = 1     # the main path's steps (one, for the script's time
+                   # limit); each run's repeat, with warm buffers, is
+                   # timed as its steady step. The checkpointing run
+                   # saves before its last and redoes it (phase 7 (d))
 RANK_MEM_GIB = 72  # the ranks' summed peak allocation may not pass this
 RANK_TIMEOUT_S = 420
 # a sharded run's step-1 params against (1) the same step on the same
@@ -2004,7 +2036,8 @@ def _checksums(tree, piece: int = 1 << 26):
         bits, fsum = 0, 0.0
         for s in range(0, flat.numel(), piece):
             part = flat[s:s + piece]
-            bits += int(part.view(torch.int32).long().sum())
+            ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+            bits += int(part.view(ints[part.element_size()]).long().sum())
             fsum += float(part.double().sum())
         out.append((bits, fsum))
     return out
@@ -3070,7 +3103,7 @@ P9_STEPS = 3
 P9_MEM_GIB = 70
 # overlapped and serial rounds, in turns; their medians give the hidden
 # fraction
-P9_OVERLAP_ROUNDS = 5
+P9_OVERLAP_ROUNDS = 3       # of each kind (cut for the time limit)
 # (c) the other combiners, accumulation, local steps and the delayed
 # combine across ranks, and phase 10 (b)'s elastic drill: P9_RANK_ARCH
 # at full width, P9_RANK_LAYERS layer (minicpm3-4b, hf
@@ -4177,8 +4210,9 @@ def subsystems_phase(card: str) -> dict:
 P11_MIXTRAL_LAYERS = 2      # of 56: 5.41 B params, 10.8 GB of bf16 weights
 P11_MOONSHOT_LAYERS = 4     # of 48 (1 dense + 3 MoE): 2.46 B, 4.9 GB bf16
 P11_TRAIN_MOONSHOT = 2      # 1 dense + 1 MoE: 1.28 B params in fp32
-P11_TRAIN_MINICPM = 8       # of 62: 0.69 B params in fp32
-P11_MINICPM_LAYERS = 16     # of 62, served (bf16): depth cut for the
+P11_TRAIN_MINICPM = 4       # of 62: 0.47 B params in fp32 (depth cut
+                            # for the script's time limit)
+P11_MINICPM_LAYERS = 8      # of 62, served (bf16): depth cut for the
                             # script's time limit
 P11_MEM_GIB = 70
 P11_GEN = 32
@@ -4778,7 +4812,7 @@ def families_phase(card: str) -> dict:
 P12_GEN = 32
 P12_SERVE_LEN = 128          # rwkv's slots (prompts of 24-48, 32 new)
 P12_HYMBA_LEN = 256          # hymba's slots: 16 pages of 16 a slot
-P12_SERVE_LAYERS = 8         # rwkv6-7b's and hymba's served layers, of
+P12_SERVE_LAYERS = 4         # rwkv6-7b's and hymba's served layers, of
                              # 32 each: depth cut for the time limit
 P12_ROLL_LAYERS = 2          # hymba at 2 of 32 layers for the roll past
 P12_ROLL_PROMPT = 1040       # its 1024-token window
@@ -4799,10 +4833,10 @@ P12_BF16_FACTOR = 2.0
 # and its layers cut both stacks. Depths cut to the time limit: hymba's
 # 32 layers step in ~4.7 s, seamless's 24 + 24 in ~2.3 s (measured on
 # one H100)
-P12_TRAIN = (("e", "rwkv6-7b", 2, "adam", 512),
+P12_TRAIN = (("e", "rwkv6-7b", 1, "adam", 512),
              ("f", "hymba-1.5b", 4, "momentum", 512),
-             ("g", "llava-next-34b", 2, "momentum", 512),
-             ("h", "seamless-m4t-large-v2", 6, "momentum", 256))
+             ("g", "llava-next-34b", 1, "momentum", 512),
+             ("h", "seamless-m4t-large-v2", 3, "momentum", 256))
 
 
 def _nodes_leaves(cache) -> list:
@@ -5267,7 +5301,10 @@ TP_LAYERS = 1
 TP_GRID = (2, 2)
 TP_SEQ = 256
 TP_BATCH = 8
-TP_STEPS = 2
+# (a) and (c) take one step (for the script's time limit): (a)'s
+# bitwise repeat, step 1 again from fresh state in the warm processes, is
+# timed as its steady step
+TP_STEPS = 1
 # step 1 against the twin (one process, the two lanes stacked on the card,
 # the same init and batch), leaf by leaf, within TP_TWIN_FACTOR times the
 # twin's own bf16-vs-fp32 difference of that leaf, plus TP_TWIN_FLOOR (an
@@ -5324,12 +5361,21 @@ def _tp_model(dtype):
 
 
 def _tp_twin(card: str, path: Path, witness: bool) -> dict:
-    """Phase 13 (a)'s twin, in this process before the ranks start: step
-    1 with the grid's two data lanes stacked on the card (span 2, the
-    fused combine, nothing sharded), in bf16 and in fp32 compute. Saves
-    the bf16 step's params (and with `witness` the fp32 step's), each
-    leaf's |bf16 - fp32| maximum and its fp32 update's largest |p1 - p0|
-    to `path` for the ranks."""
+    """Phase 13 (a)'s twin (`_twin`): the grid's two data lanes stacked
+    (span 2, the fused combine, nothing sharded)."""
+    return _twin(card, path, witness,
+                 _tp_config(span=TP_GRID[0], backend="gspmd_tree"),
+                 _tp_model, "(a)")
+
+
+def _twin(card: str, path: Path, witness: bool, config, model_of,
+          tag: str) -> dict:
+    """A grid run's one-process twin, in this process before the ranks
+    start: step 1 of `config` (the grid's data lanes stacked on the card)
+    on `model_of(compute dtype)`, in bf16 and in fp32 compute. Saves the
+    bf16 step's params (and with `witness` the fp32 step's and each
+    leaf's largest fp32 update |p1 - p0|), and each leaf's |bf16 - fp32|
+    maximum, to `path` for the ranks."""
     import torch
     from repro_torch import tree as T
     from repro_torch.engine import TrainSession
@@ -5338,17 +5384,17 @@ def _tp_twin(card: str, path: Path, witness: bool) -> dict:
     for name, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
         torch.cuda.reset_peak_memory_stats()
         s = TrainSession.from_config(
-            _tp_config(span=TP_GRID[0], backend="gspmd_tree"),
-            model=_tp_model(dt), device="cuda",
+            config, model=model_of(dt), device="cuda",
             generator=torch.Generator(device="cuda").manual_seed(SEED),
             callbacks=[])
         p0 = [x.clone() for x in T.leaves(s.state["params"])] \
-            if name == "fp32" else None
+            if name == "fp32" and witness else None
         m, dt_s = _timed_s(lambda: s.step(s.batch(0)))
         p1 = T.leaves(s.state["params"])
         if p0 is not None:      # on the card, a leaf at a time
             out["upd"] = [(a - b).abs().max().item() for a, b in zip(p1, p0)]
             del p0
+        if name == "fp32":
             out["diff"] = [(a - b.to(a.device)).abs().max().item()
                            for a, b in zip(p1, got["bf16"])]
         if name == "bf16" or witness:
@@ -5363,7 +5409,8 @@ def _tp_twin(card: str, path: Path, witness: bool) -> dict:
     del got
     out["save_s"] = time.perf_counter() - t1
     out["twin_s"] = time.perf_counter() - t0
-    print(f"[smoke] p13 (a) twin: one process, {TP_GRID[0]} lanes stacked: "
+    print(f"[smoke] p13 {tag} twin: one process, {config.span} lanes "
+          f"stacked: "
           f"step 1 bf16 {out['bf16_ms']:.1f} ms (peak "
           f"{out['bf16_peak_gib']:.2f} GiB), fp32 {out['fp32_ms']:.1f} ms "
           f"(peak {out['fp32_peak_gib']:.2f}); bf16 vs fp32 params max "
@@ -5477,7 +5524,18 @@ def tp_worker(spec: dict) -> int:
 
     rec["steps_s"] = time.perf_counter() - t0 - rec["init_s"]
     t1 = time.perf_counter()
-    again = fresh_step(rt, model)
+    comm.timing = True
+    dc.take_ms()
+    mc.take_ms()
+    tp.bytes.clear()
+    staged0 = comm.total_staged_bytes()
+    again, dt = _timed_s(lambda: fresh_step(rt, model))
+    rec["repeat_step"] = {
+        "ms": 1e3 * dt, "data_comm": dc.take_ms(),
+        "model_comm": mc.take_ms(), "tp_bytes": dict(tp.bytes),
+        "staged_bytes": comm.total_staged_bytes() - staged0,
+        "combine_ms": timer.take_ms()}
+    comm.timing = False
     rec["repeat_bitwise"] = _checksums(again["params"]) == sums1
     p1 = [x.to("cpu", copy=True) for x in T.leaves(again["params"])]
     cuda = lambda x: x.to("cuda:0", non_blocking=False)
@@ -5542,14 +5600,16 @@ def _tp_report(card: str, recs: list, twin: dict, wall: float) -> dict:
           f"{[round(p, 2) for p in peaks]} GiB (sum {sum(peaks):.2f}) "
           f"| {card}")
     steps = []
-    for i in range(TP_STEPS):
-        rows = [r["steps"][i] for r in recs]
+    runs = [(f"step {i}", [r["steps"][i] for r in recs])
+            for i in range(TP_STEPS)]
+    runs.append(("repeat (steady)", [r["repeat_step"] for r in recs]))
+    for name, rows in runs:
         s0 = rows[0]
         dcm, mcm = s0["data_comm"], s0["model_comm"]
         tb = s0["tp_bytes"]
         step = {
-            "ms": max(x["ms"] for x in rows), "loss": s0["loss"],
-            "combine_ms": s0["combine_ms"],
+            "name": name, "ms": max(x["ms"] for x in rows),
+            "loss": s0.get("loss"), "combine_ms": s0["combine_ms"],
             "tp_allreduce_ms": mcm.get("allreduce", 0.0),
             "tp_all_gather_ms": mcm.get("all_gather", 0.0),
             "tp_allreduce_bytes": tb.get("allreduce", 0),
@@ -5561,8 +5621,10 @@ def _tp_report(card: str, recs: list, twin: dict, wall: float) -> dict:
             "kernels_ms": dcm.get("kernels", 0.0),
             "staged_gb": s0["staged_bytes"] / 1e9}
         steps.append(step)
-        print(f"[smoke] p13 (a) step {i}: {step['ms']:.1f} ms (slowest "
-              f"rank), loss {step['loss']:.4f}; rank 0: TP all-reduce "
+        loss = "" if step["loss"] is None else \
+            f", loss {step['loss']:.4f}"
+        print(f"[smoke] p13 (a) {name}: {step['ms']:.1f} ms (slowest "
+              f"rank){loss}; rank 0: TP all-reduce "
               f"{step['tp_allreduce_ms']:.1f} ms / "
               f"{step['tp_allreduce_bytes'] / 1e6:.1f} MB, all-gather "
               f"{step['tp_all_gather_ms']:.1f} ms / "
@@ -5609,7 +5671,8 @@ def _tp_report(card: str, recs: list, twin: dict, wall: float) -> dict:
         assert w["worst_ratio"] <= 1.0, w
     assert all(r["mesh"] == list(TP_GRID) for r in recs)
     assert r0["path"] == "rvh" and r0["sharded_leaves"] > 0
-    assert all(math.isfinite(x["loss"]) for x in steps)
+    assert all(math.isfinite(x["loss"]) for x in steps
+               if x["loss"] is not None)
     for k in ("block_dots", "block_combine"):
         assert launches.get(k, 0) > 0, f"{k} never launched in phase 13 (a)"
     assert checks["data_bitwise"] and checks["model_bitwise"]
@@ -5640,84 +5703,261 @@ def _grid_config():
         steps=TP_STEPS, log_every=1)
 
 
-def grid_worker(spec: dict) -> int:
-    """One rank of phase 13 (c) (its own process, on cuda:0 over gloo):
-    the session built leaf by leaf, TP_STEPS steps timed by call kind,
-    step 1 held against the twin; writes a JSON record."""
+# (d) the model axis on the MoE family, in (c)'s rank processes after (c)
+# frees its memory (fresh processes pay 12-20 s on a first step): each
+# preset's own regime (`_PRESETS`) at full width, momentum, bf16 compute,
+# seq TP_SEQ, batch TP_BATCH, TP_STEPS steps, weights from SEED, without
+# accumulation (held on the CPU, as in (c)). (d1) mixtral-8x22b
+# (arXiv:2401.04088) at MIXTRAL_LAYERS of its 56 layers (2.907 B params,
+# 2.416 B of them the expert stacks): span 2, fsdp, scatter_grads,
+# gspmd_tree, bf16 params and state, attn_chunk 256, pad_heads; on a
+# (data, model) grid of MIXTRAL_GRID: FSDP gathers a layer's model shard
+# whole, and at model 2 that is 1.21 B expert elements a rank, which with
+# its gradient beside the held params, state and lane gradient of eight
+# ranks would pass RANK_MEM_GIB; model 4 halves it. Step 1 is held to a
+# one-process twin (the two data lanes stacked) by (a)'s rule. (d2)
+# moonshot-v1-16b-a3b (hf moonshotai/Moonlight-16B-A3B) at MOONSHOT_LAYERS
+# of 48 (the dense first layer and one MoE layer, 1.284 B params, fp32)
+# on (c)'s grid at (c)'s span: the reference's rule puts the model axis
+# of "expert"-partition stacks on the layer axis of `blocks`, which one
+# MoE layer cannot split, so every model rank runs all 64 experts (cut
+# over the data axis) beside its shard of the shared expert
+MIXTRAL_LAYERS = 1
+MIXTRAL_GRID = (2, 4)
+MOONSHOT_LAYERS = 2
+# steps of each run (moonshot's one for the script's time limit); then
+# step 1 again from the session's initial state, bitwise, timed as the
+# steady step
+FAM_STEPS = {"d1": 2, "d2": 1}
+
+
+def _fam_model(arch: str, layers: int, dtype, param_dtype: str):
+    """A preset at full width, `layers` deep (a MoE config's dense
+    prefix kept), `dtype` compute."""
     import torch
-    sys.path.insert(0, str(ROOT / "src"))
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    return build_model(cfg, compute_dtype=dtype,
+                       param_dtype=getattr(torch, param_dtype),
+                       attn_chunk=TP_SEQ)
+
+
+def _fam_config(arch: str, **fields):
+    """Phase 13 (d)'s EngineConfig: the arch's preset at (a)'s widths,
+    momentum, no accumulation; `fields` set the rest."""
+    from repro_torch.engine import EngineConfig
+    return EngineConfig.preset(arch, **{**dict(
+        accum_steps=1, optimizer="momentum", seq_len=TP_SEQ,
+        global_batch=TP_BATCH, fusion_threshold_mb=64, steps=TP_STEPS,
+        log_every=1), **fields})
+
+
+def _fam_runs():
+    """(tag, arch, layers, EngineConfig on the grid) of phase 13 (d)."""
+    return (("d1", "mixtral-8x22b", MIXTRAL_LAYERS,
+             _fam_config("mixtral-8x22b", data_mesh=MIXTRAL_GRID[0],
+                         model_mesh=MIXTRAL_GRID[1])),
+            ("d2", "moonshot-v1-16b-a3b", MOONSHOT_LAYERS,
+             _fam_config("moonshot-v1-16b-a3b", data_mesh=GRID_SHAPE[0],
+                         model_mesh=GRID_SHAPE[1], span=GRID_SPAN)))
+
+
+def _mixtral_twin(card: str, path: Path) -> dict:
+    """Phase 13 (d1)'s twin (`_twin`): the preset's two lanes (span 2)
+    stacked, its bf16 params."""
+    cfg = _fam_config("mixtral-8x22b")
+    return _twin(card, path, False, cfg,
+                 lambda dt: _fam_model("mixtral-8x22b", MIXTRAL_LAYERS, dt,
+                                       cfg.param_dtype), "(d1)")
+
+
+class _DropLog:
+    """The MoE dispatches of this rank's forward passes (not the
+    recomputes inside the backward): wraps `moe.top_k` and keeps, per
+    call, this rank's pairs per expert and its token count. `take(plan)`
+    sums them over the lane group (whose ranks split one microbatch's
+    rows) and counts the pairs past each expert's capacity."""
+
+    def __init__(self, cfg):
+        self.cfg, self.calls = cfg, []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self._orig = moe.top_k
+
+        def top_k(probs, k):
+            vals, idx = self._orig(probs, k)
+            if torch._C._current_graph_task_id() < 0:
+                with torch.no_grad():
+                    n = torch.zeros(probs.shape[-1], dtype=torch.float32,
+                                    device=probs.device)
+                    n.scatter_add_(0, idx.reshape(-1),
+                                   torch.ones(idx.numel(), device=idx.device))
+                self.calls.append((n, idx.shape[0] * idx.shape[1]))
+            return vals, idx
+        moe.top_k = top_k
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.top_k = self._orig
+
+    def take(self, plan) -> dict:
+        """{'calls', 'pairs', 'dropped'} of the calls since the last
+        take, over the whole microbatches (collective on the lane
+        group)."""
+        import torch
+        from repro_torch.models import moe
+        calls, self.calls = self.calls, []
+        if not calls:
+            return {"calls": 0, "pairs": 0, "dropped": 0}
+        counts = torch.stack([n for n, _ in calls])
+        g = 1
+        if plan.lane_comm is not None:
+            g = plan.lane_comm.world
+            counts = plan.lane_comm.group_sum(counts, g)
+        K = self.cfg.n_experts_per_tok
+        cap = torch.tensor([moe.capacity(self.cfg, t * g) for _, t in calls],
+                           device=counts.device, dtype=torch.float32)
+        dropped = (counts - cap[:, None]).clamp(min=0).sum().item()
+        return {"calls": len(calls), "pairs": sum(t * g * K for _, t in calls),
+                "dropped": int(dropped)}
+
+
+def _grid_run(comm, config, model, twin_path, rank: int, tag: str,
+              steps: int = TP_STEPS, repeat: bool = False) -> dict:
+    """One grid run on this rank (its own process, on cuda:0 over gloo):
+    the session built leaf by leaf, `steps` steps timed by call kind,
+    step 1 held against the twin at `twin_path` (if any) and, with
+    `repeat`, taken again from the session's initial state (bitwise,
+    timed as the others); returns the rank's record. Closes the session
+    and frees its memory."""
+    import torch
     from repro_torch import tree as T
     from repro_torch.engine import TrainSession
     from repro_torch.kernels import build
-    from repro_torch.parallel.comm import Comm
-    rank = int(os.environ["RANK"])
-    comm = Comm.init("gloo", torch.device("cuda:0"))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     s = TrainSession.from_config(
-        _grid_config(), model=_tp_model(torch.bfloat16), device="cuda:0",
+        config, model=model, device="cuda:0",
         generator=torch.Generator(device="cuda:0").manual_seed(SEED),
         callbacks=[], comm=comm)
     rt, plan = s.runtime, s.runtime.plan
     mc, dc, tp = rt.model_comm, plan.comm, rt.tp
     inner = s.state["opt"]["inner"]
-    plan_gib = lambda which, n=1: n * sum(
-        math.prod(sh) for sh in plan.local_shapes(which)) * 4 / 2 ** 30
+    params = T.leaves(s.state["params"])
+
+    def plan_gib(which, trees):
+        """GiB of `trees` in the plan's shapes of `which`, each leaf at
+        its own element size."""
+        return sum(math.prod(sh) * x.element_size() for t in trees
+                   for sh, x in zip(plan.local_shapes(which),
+                                    T.leaves(t))) / 2 ** 30
     rec = {"rank": rank, "init_s": time.perf_counter() - t0,
            "init_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "mesh": [rt.dp_total, rt.model_size], "path": rt.combine_path,
            "span": rt.span, "point": rt.dopt.point,
            "regime": {k: getattr(s.config, k) for k in (
-               "fsdp", "scatter_grads", "backend", "pad_heads")},
+               "fsdp", "scatter_grads", "backend", "pad_heads",
+               "param_dtype")},
            "leaves": len(plan.dims),
            "data_sharded": sum(d is not None for d in plan.dims),
            "model_sharded": sum(d is not None for d in plan.mdims),
            "held_gib": {"params": _gib_of(s.state["params"]),
                         "state": _gib_of(inner)},
-           "plan_gib": {"params": plan_gib("params"),
-                        "state": plan_gib("state", len(inner)),
-                        "grads": plan_gib("grads")}}
-    print(f"[rank {rank}] session up in {rec['init_s']:.1f}s", flush=True)
+           "plan_gib": {"params": plan_gib("params", [params]),
+                        "state": plan_gib("state", inner.values()),
+                        "grads": plan_gib("grads", [params])}}
+    del params
+    print(f"[rank {rank}] {tag} session up in {rec['init_s']:.1f}s",
+          flush=True)
     # the leaves no axis cuts here: whole on the data axis (not an FSDP
     # piece), and of those, whole on the model axis too
     data_whole = [d is None for d in plan.dims]
     both_whole = [d is None and m is None
                   for d, m in zip(plan.dims, plan.mdims)]
-    twin = torch.load(spec["twin"], mmap=True)
+    twin = torch.load(twin_path, mmap=True) if twin_path else None
+    start = T.map(lambda x: x.clone() if isinstance(x, torch.Tensor)
+                  else x, s.state) if repeat else None
+    drops = _DropLog(model.cfg) if model.cfg.n_experts else None
     torch.cuda.reset_peak_memory_stats()
-    comm.timing = True
     mc.take_ms()
     comm.take_ms()
     build.reset_launches()
-    steps, bitwise = [], []
-    for step in range(TP_STEPS):
+
+    def timed_step(step):
+        """Step `step` timed by call kind: (its record, the checksums of
+        the params after it)."""
+        comm.timing = True
         tp.bytes.clear()
         staged0 = comm.total_staged_bytes()
         m, dt = _timed_s(lambda: s.step(s.batch(step)))
-        sums = _checksums(s.state["params"])
-        bitwise.append(
-            _all_equal([c for c, w in zip(sums, data_whole) if w],
-                       group=dc.group)
-            and _all_equal([c for c, w in zip(sums, both_whole) if w],
-                           group=mc.group))
-        steps.append({
-            "ms": 1e3 * dt, "loss": m["loss"], "model_comm": mc.take_ms(),
-            "rest_comm": comm.take_ms(), "tp_bytes": dict(tp.bytes),
-            "staged_bytes": comm.total_staged_bytes() - staged0,
-            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
-        print(f"[rank {rank}] step {step} {1e3 * dt:.0f} ms", flush=True)
-        if step == 0:
-            rec["twin"] = _tp_vs_twin(
-                plan, s.state["params"], twin, "bf16",
-                lambda i: TP_TWIN_FACTOR * twin["diff"][i] + TP_TWIN_FLOOR)
-    comm.timing = False
-    rec.update(launches=dict(build.LAUNCHES), steps=steps, bitwise=bitwise,
-               peak_gib=max(x["peak_gib"] for x in steps),
-               steps_s=time.perf_counter() - t0 - rec["init_s"])
-    del twin
+        comm.timing = False
+        got = {"ms": 1e3 * dt, "loss": m["loss"],
+               "model_comm": mc.take_ms(), "rest_comm": comm.take_ms(),
+               "tp_bytes": dict(tp.bytes),
+               "staged_bytes": comm.total_staged_bytes() - staged0,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "drops": drops.take(plan) if drops else None}
+        print(f"[rank {rank}] {tag} step {step} {1e3 * dt:.0f} ms",
+              flush=True)
+        return got, _checksums(s.state["params"])
+
+    runs, bitwise = [], []
+    with drops or contextlib.nullcontext():
+        for step in range(steps):
+            got, sums = timed_step(step)
+            runs.append(got)
+            bitwise.append(
+                _all_equal([c for c, w in zip(sums, data_whole) if w],
+                           group=dc.group)
+                and _all_equal([c for c, w in zip(sums, both_whole) if w],
+                               group=mc.group))
+            if step == 0:
+                sums1 = sums
+                if twin is not None:
+                    rec["twin"] = _tp_vs_twin(
+                        plan, s.state["params"], twin, "bf16",
+                        lambda i: TP_TWIN_FACTOR * twin["diff"][i]
+                        + TP_TWIN_FLOOR)
+        rec.update(launches=dict(build.LAUNCHES), steps=runs,
+                   bitwise=bitwise,
+                   peak_gib=max(x["peak_gib"] for x in runs),
+                   steps_s=time.perf_counter() - t0 - rec["init_s"])
+        del twin
+        if repeat:
+            t1 = time.perf_counter()
+            s.state = start
+            del start
+            rec["repeat_step"], sums = timed_step(0)
+            rec["repeat_bitwise"] = sums == sums1
+            rec["repeat_s"] = time.perf_counter() - t1
     s.close()
+    del s
+    _free()
+    return rec
+
+
+def grid_worker(spec: dict) -> int:
+    """One rank of phase 13 (c) and (d) (its own process, on cuda:0 over
+    gloo): (c), then (d1) and (d2) on the same process group (`_grid_run`
+    each); writes a JSON record."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.parallel.comm import Comm
+    rank = int(os.environ["RANK"])
+    comm = Comm.init("gloo", torch.device("cuda:0"))
+    rec = _grid_run(comm, _grid_config(), _tp_model(torch.bfloat16),
+                    spec["twin"], rank, "(c)")
+    rec["d"] = {}
+    for tag, arch, layers, config in _fam_runs():
+        model = _fam_model(arch, layers, torch.bfloat16, config.param_dtype)
+        rec["d"][tag] = _grid_run(comm, config, model, spec.get(tag), rank,
+                                  f"({tag})", FAM_STEPS[tag], repeat=True)
     comm.close()
     Path(spec["out"]).write_text(json.dumps(rec, default=str))
     return 0
@@ -5821,6 +6061,143 @@ def _grid_report(card: str, recs: list, wall: float) -> dict:
             "init_peak_gib": inits, "cases": cases,
             "rank0_s": {k: r0[k] for k in ("init_s", "steps_s")},
             "wall_s": wall}
+
+
+def _fam_report(card: str, recs: list, twin: dict) -> dict:
+    """Phase 13 (d) from its ranks' records (`rec["d"]`): printed and
+    checked."""
+    out = {}
+    for tag, arch, layers, config in _fam_runs():
+        rows = [r["d"][tag] for r in recs]
+        r0 = rows[0]
+        peaks = [r["peak_gib"] for r in rows]
+        inits = [r["init_peak_gib"] for r in rows]
+        for r in rows:
+            print(f"[smoke] p13 ({tag}) rank {r['rank']}: holds params "
+                  f"{r['held_gib']['params']:.3f} GiB (plan "
+                  f"{r['plan_gib']['params']:.3f}), momentum "
+                  f"{r['held_gib']['state']:.3f} (plan "
+                  f"{r['plan_gib']['state']:.3f}); its lane gradient's "
+                  f"plan {r['plan_gib']['grads']:.3f}; init peak "
+                  f"{r['init_peak_gib']:.2f}, step peak {r['peak_gib']:.2f} "
+                  f"GiB | {card}")
+        print(f"[smoke] p13 ({tag}) {arch} preset at full width, {layers} of "
+              f"{_full_layers(arch)} layers, grid (data, model) = "
+              f"{tuple(r0['mesh'])}, {len(rows)} gloo ranks on cuda:0: "
+              f"{r0['regime']}, span {r0['span']}, path={r0['path']}, "
+              f"momentum ({r0['point']} point), bf16 compute, seq {TP_SEQ}, "
+              f"batch {TP_BATCH}; of {r0['leaves']} leaves "
+              f"{r0['data_sharded']} cut on the data axis, "
+              f"{r0['model_sharded']} on the model axis; init peaks sum "
+              f"{sum(inits):.2f} GiB (max {max(inits):.2f}), step peaks sum "
+              f"{sum(peaks):.2f} (max {max(peaks):.2f}); rank 0's seconds: "
+              f"init {r0['init_s']:.1f}, steps {r0['steps_s']:.1f}, repeat "
+              f"{r0['repeat_s']:.1f} | {card}")
+        steps = []
+        runs = [(f"step {i}", [r["steps"][i] for r in rows])
+                for i in range(FAM_STEPS[tag])]
+        runs.append(("repeat (steady)", [r["repeat_step"] for r in rows]))
+        for name, got in runs:
+            s0 = got[0]
+            mcm, rest, tb = s0["model_comm"], s0["rest_comm"], s0["tp_bytes"]
+            step = {
+                "name": name, "ms": max(x["ms"] for x in got),
+                "loss": s0["loss"],
+                "fsdp_all_gather_ms": rest.get("all_gather", 0.0),
+                "reduce_scatter_ms": rest.get("reduce_scatter", 0.0),
+                "rvh_exchange_ms": rest.get("exchange", 0.0),
+                "tp_allreduce_ms": mcm.get("allreduce", 0.0),
+                "tp_allreduce_bytes": tb.get("allreduce", 0)
+                + tb.get("moe_allreduce", 0),
+                "moe_allreduce_ms": mcm.get("moe_allreduce", 0.0),
+                "moe_allreduce_bytes": tb.get("moe_allreduce", 0),
+                "tp_all_gather_ms": mcm.get("all_gather", 0.0),
+                "dots_sum_ms": rest.get("dots_sum", 0.0),
+                "model_dots_sum_ms": mcm.get("dots_sum", 0.0),
+                "lane_allreduce_ms": rest.get("allreduce", 0.0),
+                "kernels_ms": rest.get("kernels", 0.0),
+                "staging_ms": rest.get("stage", 0.0) + mcm.get("stage", 0.0),
+                "staged_gb": s0["staged_bytes"] / 1e9, "drops": s0["drops"]}
+            steps.append(step)
+            d = step["drops"]
+            print(f"[smoke] p13 ({tag}) {name}: {step['ms']:.1f} ms "
+                  f"(slowest rank), loss {step['loss']:.4f}; rank 0: FSDP "
+                  f"all-gather {step['fsdp_all_gather_ms']:.1f} ms, "
+                  f"reduce-scatter {step['reduce_scatter_ms']:.1f}, RVH "
+                  f"exchange {step['rvh_exchange_ms']:.1f}, model all-reduce "
+                  f"{step['tp_allreduce_ms']:.1f} ms / "
+                  f"{step['tp_allreduce_bytes'] / 1e6:.1f} MB (the MoE's "
+                  f"{step['moe_allreduce_ms']:.1f} ms / "
+                  f"{step['moe_allreduce_bytes'] / 1e6:.1f} MB), model "
+                  f"all-gather {step['tp_all_gather_ms']:.1f}, dot sums "
+                  f"{step['dots_sum_ms']:.1f} + model "
+                  f"{step['model_dots_sum_ms']:.1f}, lane all-reduce "
+                  f"{step['lane_allreduce_ms']:.1f}, kernels "
+                  f"{step['kernels_ms']:.1f}, staging "
+                  f"{step['staging_ms']:.1f} ms; staged "
+                  f"{step['staged_gb']:.2f} GB; dropped pairs "
+                  f"{d['dropped']} of {d['pairs']} ({d['calls']} MoE "
+                  f"dispatches) | {card}")
+        launches = r0["launches"]
+        bitwise = all(all(r["bitwise"]) for r in rows)
+        repeat = all(r["repeat_bitwise"] for r in rows)
+        tw = r0.get("twin")
+        print(f"[smoke] p13 ({tag}) launches on rank 0: block_dots="
+              f"{launches.get('block_dots', 0)} block_combine="
+              f"{launches.get('block_combine', 0)}; the leaves left whole "
+              f"bitwise across the ranks holding them (the router among "
+              f"them)={bitwise}, step 1 again bitwise={repeat}"
+              + (f"; step 1 vs its twin: worst leaf {tw['leaf']} "
+                 f"{tw['max_abs_err']:.3e} against {tw['tol']:.3e} (ratio "
+                 f"{tw['worst_ratio']:.2f}), twin loss {twin['bf16_loss']:.4f}"
+                 if tw else "") + f" | {card}")
+        assert all(r["mesh"] == [config.data_mesh, config.model_mesh]
+                   for r in rows), [r["mesh"] for r in rows]
+        assert r0["regime"]["fsdp"] and r0["regime"]["scatter_grads"]
+        for r in rows:
+            for k in ("params", "state"):
+                assert abs(r["held_gib"][k] - r["plan_gib"][k]) < 1e-9, r
+        assert all(math.isfinite(x["loss"]) for x in steps)
+        for k in ("block_dots", "block_combine"):
+            assert launches.get(k, 0) > 0, \
+                f"{k} never launched in phase 13 ({tag})"
+        assert bitwise and repeat
+        assert all(x["moe_allreduce_bytes"] > 0 for x in steps)
+        if tag == "d1":
+            assert tw["worst_ratio"] <= 1.0, tw
+        assert sum(peaks) <= RANK_MEM_GIB and sum(inits) <= RANK_MEM_GIB, \
+            (peaks, inits)
+        out[tag] = {
+            "arch": arch, "layers": layers, "steps": steps,
+            "launches": launches, "twin": tw, "bitwise": bitwise,
+            "repeat_bitwise": repeat,
+            "held_gib": [r["held_gib"] for r in rows],
+            "plan_gib": r0["plan_gib"], "peak_gib": peaks,
+            "init_peak_gib": inits, "regime": r0["regime"],
+            "mesh": r0["mesh"], "span": r0["span"], "path": r0["path"],
+            "rank0_s": {k: r0[k] for k in ("init_s", "steps_s",
+                                           "repeat_s")}}
+    # the kernels at RVH's round-0 half of a rank's part of one of
+    # mixtral's expert stacks (bf16, as its lane gradient): its model
+    # shard (8 x 6144 x 16384 / 4) halved across the two RVH ranks
+    n = 8 * 6144 * 16384 // MIXTRAL_GRID[1] // 2
+    cases = _adasum_case("mixtral_expert_half", n, 8192, dtype="bfloat16",
+                         flat=True, device=True)
+    for c in cases:
+        print(f"[smoke] p13 (d1) kernel {c['kernel']:14s} {c['case']} err "
+              f"{c['max_abs_err']:.2e} (tol {c['tol']:.0e}) ms "
+              f"{c['ms']:.4f} [device {c['device_ms']:.4f}] plain "
+              f"{c['plain_ms']:.4f} library {c['library_ms']:.4f} [device "
+              f"{c['library_device_ms']:.4f}] bound {c['bound_ms']:.4f} "
+              f"({c['bound_by']}) {'ok' if c['ok'] else 'FAIL'} | {card}")
+    assert all(c["ok"] for c in cases), cases
+    out["cases"] = cases
+    return out
+
+
+def _full_layers(arch: str) -> int:
+    from repro_torch.configs import get_config
+    return get_config(arch).n_layers
 
 
 def _pad_serve(card: str) -> dict:
@@ -5980,6 +6357,7 @@ def model_axis_phase(card: str, witness: bool = False) -> dict:
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
           f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved | {card}")
     path = ROOT / "build" / "ranks" / "tp_twin.pt"
+    dpath = ROOT / "build" / "ranks" / "mixtral_twin.pt"
     path.parent.mkdir(parents=True, exist_ok=True)
     try:
         twin = _tp_twin(card, path, witness)
@@ -5988,11 +6366,19 @@ def model_axis_phase(card: str, witness: bool = False) -> dict:
                             flag="--tp-worker")
         train = _tp_report(card, recs, twin, time.perf_counter() - t0)
         t1 = time.perf_counter()
+        dtwin = _mixtral_twin(card, dpath)
+        _free()
+        t2 = time.perf_counter()
         recs = _spawn_ranks(GRID_SHAPE[0] * GRID_SHAPE[1], "grid_w8",
-                            {"twin": str(path)}, flag="--grid-worker")
+                            {"twin": str(path), "d1": str(dpath)},
+                            flag="--grid-worker")
     finally:
         path.unlink(missing_ok=True)
-    grid = _grid_report(card, recs, time.perf_counter() - t1)
+        dpath.unlink(missing_ok=True)
+    grid = _grid_report(card, recs, time.perf_counter() - t2)
+    fam = _fam_report(card, recs, dtwin)
+    fam["wall_s"] = time.perf_counter() - t1
+    fam["twin_s"] = t2 - t1
     t1 = time.perf_counter()
     serve = _pad_serve(card)
     serve["wall_s"] = time.perf_counter() - t1
@@ -6001,9 +6387,12 @@ def model_axis_phase(card: str, witness: bool = False) -> dict:
     launches.update({k: serve["launches"].get(k, 0)
                      for k in ("flash_attention", "paged_decode_attention")})
     print(f"[smoke] model axis launches={launches}; (c) launches="
-          f"{grid['launches']}; (a) {train['wall_s']:.1f} s, (c) "
-          f"{grid['wall_s']:.1f} s, (b) {serve['wall_s']:.1f} s | {card}")
-    return {"train": train, "grid": grid, "serve": serve,
+          f"{grid['launches']}; (d) launches "
+          f"{ {t: fam[t]['launches'] for t in ('d1', 'd2')} }; (a) "
+          f"{train['wall_s']:.1f} s, (c) and (d) {grid['wall_s']:.1f} s "
+          f"(with (d1)'s twin {fam['wall_s']:.1f}, the twin "
+          f"{fam['twin_s']:.1f}), (b) {serve['wall_s']:.1f} s | {card}")
+    return {"train": train, "grid": grid, "families": fam, "serve": serve,
             "launches": launches}
 
 
@@ -6218,6 +6607,7 @@ def main(argv=None) -> int:
     p13 = record["model_axis"]
     p13_cases = {c["kernel"]: c for c in p13["serve"]["cases"]}
     p13c_cases = {c["kernel"]: c for c in p13["grid"]["cases"]}
+    p13d_cases = {c["kernel"]: c for c in p13["families"]["cases"]}
     main_cases = {"serve_extend", "serve_tick", "embed_fp32"}
     sources = {
         "flash_attention": ("csrc/flash_attention.cu",
@@ -6262,7 +6652,14 @@ def main(argv=None) -> int:
                 phase13c_launches=p13["grid"]["launches"][c["kernel"]],
                 phase13c_case={k: p13c_cases[c["kernel"]][k] for k in (
                     "case", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                    "bound_by", "library_ms")})
+                    "bound_by", "library_ms")},
+                phase13d_launches={
+                    t: p13["families"][t]["launches"][c["kernel"]]
+                    for t in ("d1", "d2")},
+                phase13d_case={k: p13d_cases[c["kernel"]][k] for k in (
+                    "case", "max_abs_err", "ms", "device_ms", "plain_ms",
+                    "bound_ms", "bound_by", "library_ms",
+                    "library_device_ms")})
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

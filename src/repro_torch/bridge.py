@@ -76,9 +76,12 @@ def _check_tree(tree, spec, path: str) -> None:
 def pad_params(tree: PyTree, cfg, cfg_pad) -> PyTree:
     """Params of `cfg` (tensors, or numpy arrays as the JAX package's
     come) -> the exact params of its head-padded `cfg_pad`: every block
-    stack's GQA leaves converted, the rest shared."""
+    stack's GQA leaves converted, the rest shared (MLA pads no heads:
+    `pad_heads_for_tp` returns its config as it is)."""
     from repro_torch.models.attention import convert_gqa_params
     out = dict(tree)
+    if cfg.attn_type != "gqa":
+        return out
     for key in ("dense_blocks", "blocks"):
         if key in out and "attn" in out[key]:
             attn = {k: torch.as_tensor(np.asarray(v)) if not

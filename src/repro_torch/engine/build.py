@@ -57,7 +57,8 @@ combine_delay the pending carry is this rank's lane delta, its lane mean
 the cross-rank mean, and the correction runs on an exchange comm of its
 own (a second process group over the same ranks).
 
-The model axis (`model_size` M > 1, dense GQA decoders): the ranks
+The model axis (`model_size` M > 1; the dense, MoE and vision-frontend
+decoders, GQA or MLA attention): the ranks
 form a (data, model) grid, rank r = d·M + m (`launch.mesh`). A model
 group (the M ranks of one data index) runs tensor-parallel forward and
 backward passes over its shards (`parallel.tp`, the leaves' specs from
@@ -539,8 +540,8 @@ def _check_model_axis(model: Model, rpol: RunPolicy, key: str) -> None:
     are `_plan_sharding`'s."""
     cfg = model.cfg
     why = None
-    if cfg.family != "dense" or cfg.attn_type != "gqa" or cfg.frontend != \
-            "none" or cfg.is_encoder_decoder:
+    if cfg.family not in ("dense", "moe", "vlm") or cfg.frontend not in (
+            "none", "vision") or cfg.is_encoder_decoder:
         why = f"{cfg.name} ({cfg.family} family, {cfg.attn_type} attention)"
     elif key not in _RVH_KEYS + ("sum", "mean"):
         why = f"the {key} combiner"

@@ -8,7 +8,9 @@ MoE decoders, the SSM (rwkv), the hybrid (hymba), the vision frontend
     loss, metrics = model.loss(params, batch)    # training (plain attention)
     # across ranks the step adds fsdp= (its layer gather), token_group=
     # (the ranks splitting the rows), `parallel.zero`, and tp= (the
-    # model group of a dense GQA decoder, `parallel.tp`)
+    # model group of a dense, MoE, MLA or vision-frontend decoder,
+    # `parallel.tp`; a batch's frontend_embeds go through the projector
+    # on the rank's shards)
     logits, cache = model.prefill_cache(params, tokens, lengths, max_len)
     logits, cache = model.decode_step(params, tokens, cache)
     logits, cache = model.verify_step(params, tokens_k1, cache)

@@ -568,6 +568,57 @@ def mla_forward(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
     return out
 
 
+def mla_forward_tp(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
+                   positions: torch.Tensor, compute_dtype, tp,
+                   attn_chunk: int = 512) -> torch.Tensor:
+    """The training forward of `mla_forward` on this rank's shards
+    (`parallel.tp`, the reference's specs, sharding.py:173-178):
+      * q_down column-parallel where the axis divides q_lora_rank, its
+        latent gathered whole (q_norm is an RMSNorm over the whole
+        latent), else a contraction; kv_down a contraction, the whole
+        [kv_lora + rope] latent on every rank, then kv_norm;
+      * q_up and kv_up column-parallel over h/M local heads (each head's
+        columns contiguous) where the axis divides the heads, else
+        contractions and every head on every rank;
+      * wo row-parallel over local heads, else d-split out.
+    The shared rope key is whole on every rank; beside local heads it
+    goes through `tp.copy`, so its gradient is the group's sum."""
+    B, T, _ = x.shape
+    h = cfg.n_heads
+    qk_n, qk_r, vh = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                      cfg.v_head_dim)
+    cd = compute_dtype
+    x = x.to(cd)
+    dim = lambda n: tp.dim("attn", n)
+    w = lambda n: params[n].to(cd)
+    pos = positions[None, :]
+    cq = L.rmsnorm(params["q_norm"],
+                   tp.linear(x, w("q_down"), dim("q_down"), gather_out=True),
+                   cfg.norm_eps)
+    local = dim("q_up") == 1
+    hl = h // tp.size if local else h
+    q = tp.linear(cq, w("q_up"), dim("q_up")).reshape(B, T, hl, qk_n + qk_r)
+    q_nope, q_rope = q[..., :qk_n], q[..., qk_n:]
+    q_rope = L.apply_rope(q_rope, pos, cfg.rope_theta)
+    ckv_full = tp.linear(x, w("kv_down"), dim("kv_down"))
+    c_kv = L.rmsnorm(params["kv_norm"], ckv_full[..., :cfg.kv_lora_rank],
+                     cfg.norm_eps)
+    k_rope = ckv_full[..., cfg.kv_lora_rank:][:, :, None, :]
+    k_rope = L.apply_rope(k_rope, pos, cfg.rope_theta)[:, :, 0]
+    if local:
+        k_rope = tp.copy(k_rope)
+    kv = tp.linear(c_kv, w("kv_up"), dim("kv_up")).reshape(B, T, hl,
+                                                           qk_n + vh)
+    k_nope, v = kv[..., :qk_n], kv[..., qk_n:]
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, T, hl, qk_r)],
+                  dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    out = _chunked_attention(q, k, v, positions, positions, causal=True,
+                             window=0, chunk=attn_chunk)
+    return tp.linear(out.reshape(B, T, hl * vh), w("wo"), dim("wo"),
+                     sharded_in=local, gather_out=True)
+
+
 def _mla_attend(params: PyTree, cfg: ModelConfig, q_nope: torch.Tensor,
                 q_rope: torch.Tensor, cfull: torch.Tensor,
                 rfull: torch.Tensor, valid: torch.Tensor,

@@ -15,17 +15,34 @@ output's dtype. Expert weights are stacked [E, ...].
 Capacity depends on the number of tokens in the call (N = B·T), so a
 full-sequence call and a one-token call can drop different pairs; and
 padding tokens are routed like real ones, taking expert slots.
+
+On a model axis (`tp`, `parallel.tp.TensorParallel`) the router is
+replicated, so every rank of the group computes the same dispatch on
+the same whole activation. The experts split by `expert_partition`, as
+the reference's specs put them (sharding.py:131-137): "expert" gives a
+rank E/M whole experts, which gather only their own slots; "hidden"
+splits every expert's d_ff (gate and up by columns, down by rows). The
+reference's rule for "expert" does not exempt the layer axis of the
+`blocks` stack, so where the axis divides the MoE layers it cuts that
+axis instead of E: the rank holding a layer runs all its experts, the
+others none (`TensorParallel.layer`). The shared experts split their
+d_ff as the dense MLP's. Each rank's expert and
+shared outputs are then parts of the whole, summed by one all-reduce
+of [N, D] a block. The gate weights that scale a rank's part reach the
+router through `tp.copy`, so their gradient is the group's sum; the aux
+loss is whole on every rank and counts once.
 """
 from __future__ import annotations
 
+import functools
 import math
+import operator
 from typing import Any, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from . import layers as L
 
 PyTree = Any
 
@@ -48,7 +65,7 @@ def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def moe_apply(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
               compute_dtype=torch.bfloat16, local_shards: int = 1,
-              token_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+              token_group=None, tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B,T,D] -> (out [B,T,D] in x's dtype, aux load-balance loss, a
     fp32 scalar).
 
@@ -62,7 +79,10 @@ def moe_apply(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
     whole call's tokens, a pair's slot counts the pairs of the members
     before it, and the aux loss is this member's share of the whole
     call's (its router probabilities against the call's fractions): the
-    call the reference makes, in parts."""
+    call the reference makes, in parts.
+
+    tp: this rank's model group, the expert and shared leaves its
+    shards (module docstring)."""
     B, T, D = x.shape
     E, K = cfg.n_experts, cfg.n_experts_per_tok
     N = B * T
@@ -90,41 +110,73 @@ def moe_apply(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
     slot = torch.where(keep, flat_idx * C + pos,
                        torch.full_like(pos, E * C))          # E*C = dropped
 
+    # the model axis: this rank's experts [lo, lo + El) (all of them
+    # unless the experts themselves are split), and whether its expert
+    # and shared outputs are parts of the whole
+    edim = tp.dim("moe", "w_gate") if tp is not None else None
+    El = E // tp.size if edim == 0 else E
+    lo = tp.index * El if edim == 0 else 0
+    if edim == -1:          # the layer's owner holds all E, the rest none
+        El = params["w_gate"].shape[0]
+    split_e = edim is not None
+    split_s = (cfg.n_shared_experts > 0 and tp is not None
+               and tp.dim("moe", "shared", "w_gate") is not None)
+    xs = tp.copy(xf) if split_e or split_s else xf
+
     # dispatch: each kept slot holds its token's id, the rest id NL (a
-    # zero row); then gather the tokens into [S, E, C, D]
+    # zero row); then gather the tokens into [S, El, C, D]
     token_of_pair = torch.arange(NL, device=x.device).repeat_interleave(
         K)[None].expand(S, NL * K)
     buf_tok = torch.full((S, E * C + 1), NL, dtype=torch.long,
                          device=x.device)
     buf_tok.scatter_(1, slot.long(), token_of_pair)
-    buf_tok = buf_tok[:, :E * C]
+    buf_tok = buf_tok[:, lo * C:(lo + El) * C]
     # row gathers by advanced indexing, not torch.gather: on a card the
     # backward of indexing accumulates in a fixed order (gather's
     # scatter_add does not), so a training step repeats bitwise
     rows = torch.arange(S, device=x.device)[:, None]
-    xpad = torch.cat([xf, xf.new_zeros((S, 1, D))], dim=1)
-    de = xpad[rows, buf_tok].reshape(S, E, C, D)
+    xe = xs if split_e else xf
+    xpad = torch.cat([xe, xe.new_zeros((S, 1, D))], dim=1)
+    de = xpad[rows, buf_tok].reshape(S, El, C, D)
 
-    # the expert SwiGLU, batched over (S, E)
+    # the expert SwiGLU, batched over (S, El)
     wg = params["w_gate"].to(compute_dtype)
     wu = params["w_up"].to(compute_dtype)
     wd = params["w_down"].to(compute_dtype)
     h = F.silu(torch.einsum("secd,edf->secf", de, wg)) \
         * torch.einsum("secd,edf->secf", de, wu)
-    ye = torch.einsum("secf,efd->secd", h, wd).reshape(S, E * C, D)
+    ye = torch.einsum("secf,efd->secd", h, wd).reshape(S, El * C, D)
 
     # combine: each pair's slot output, weighted by its gate (cast to the
-    # expert output's dtype first, as the reference does), summed over K
+    # expert output's dtype first, as the reference does), summed over K;
+    # a pair whose slot is another rank's takes the zero row
+    mine = slot.long() - lo * C
+    if El < E:
+        mine = torch.where((mine >= 0) & (mine < El * C), mine,
+                           torch.full_like(mine, El * C))
     ypad = torch.cat([ye, ye.new_zeros((S, 1, D))], dim=1)
-    y_pair = ypad[rows, slot.long()]                         # [S, NLK, D]
+    y_pair = ypad[rows, mine]                                # [S, NLK, D]
     w_pair = torch.where(keep, gate_vals.reshape(S, NL * K),
                          torch.zeros((), device=x.device))
+    if split_e:
+        w_pair = tp.copy(w_pair)
     out = (y_pair * w_pair[..., None].to(ye.dtype)).reshape(
         S, NL, K, D).sum(2)
 
+    # the routed and shared outputs: parts of the whole (summed, then one
+    # all-reduce over the model group) or whole on every rank
+    parts, wholes = ([out], []) if split_e else ([], [out])
     if cfg.n_shared_experts:
-        out = out + L.mlp_apply(params["shared"], xf, "swiglu",
-                                compute_dtype)
+        sh = params["shared"]
+        xh = xs if split_s else xf
+        g = F.silu(xh @ sh["w_gate"].to(compute_dtype)) \
+            * (xh @ sh["w_up"].to(compute_dtype))
+        (parts if split_s else wholes).append(
+            g @ sh["w_down"].to(compute_dtype))
+    if parts:
+        wholes.append(tp.reduce(functools.reduce(operator.add, parts),
+                                "moe_allreduce"))
+    out = functools.reduce(operator.add, wholes)
 
     # Switch-style load-balance aux loss: E · Σ_e f_e · P_e / K
     if grp is None:

@@ -264,8 +264,9 @@ def block_apply(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
     says (the reference has no kernel for them). token_group: the ranks
     splitting this call's rows (`parallel.zero.TokenGroup`), for the MoE
     dispatch's whole-microbatch capacity and statistics. tp: this
-    rank's model group (`parallel.tp.TensorParallel`; the dense GQA
-    family, training), the params then its shards."""
+    rank's model group (`parallel.tp.TensorParallel`, at this block's
+    stack; GQA or MLA attention, the dense MLP or the MoE, training),
+    the params then its shards."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_kv and cfg.family in ("ssm", "hybrid"):
         raise ValueError("fused kv capture needs an attention family")
@@ -279,9 +280,15 @@ def block_apply(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
                                          compute_dtype), zero
     h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
     if tp is not None:
-        x = x + ATT.gqa_forward_tp(params["attn"], cfg, h, positions,
-                                   compute_dtype, tp, attn_chunk)
+        fwd = ATT.mla_forward_tp if cfg.attn_type == "mla" else \
+            ATT.gqa_forward_tp
+        x = x + fwd(params["attn"], cfg, h, positions, compute_dtype, tp,
+                    attn_chunk)
         h = L.rmsnorm(params["norm2"], x, cfg.norm_eps)
+        if moe_block:
+            m, aux = MOE.moe_apply(params["moe"], cfg, h, compute_dtype,
+                                   token_group=token_group, tp=tp)
+            return x + m, aux
         return x + L.mlp_apply(params["mlp"], h, cfg.mlp_type,
                                compute_dtype, tp), zero
     if cfg.attn_type == "mla":
@@ -339,13 +346,25 @@ def vocab_sharded(cfg: ModelConfig, tp) -> bool:
 
 
 def project_frontend(params: PyTree, cfg: ModelConfig, embeds: torch.Tensor,
-                     compute_dtype=torch.bfloat16) -> torch.Tensor:
+                     compute_dtype=torch.bfloat16, tp=None) -> torch.Tensor:
     """Modality stub -> model space (transformer.py:152). embeds:
-    [B, S, frontend_dim]; vision: w2 · gelu(w1 · e), audio: w1 · e."""
+    [B, S, frontend_dim]; vision: w2 · gelu(w1 · e), audio: w1 · e. tp:
+    on this rank's shards (sharding.py:184-189), w1 column-parallel,
+    gelu on the rank's columns, w2 row-parallel (a w1 that the axis
+    does not cut is whole, and w2 then a contraction)."""
     proj = params["projector"]
-    x = embeds.to(compute_dtype) @ proj["w1"].to(compute_dtype)
+    cd = compute_dtype
+    if tp is None:
+        x = embeds.to(cd) @ proj["w1"].to(cd)
+        if "w2" in proj:
+            x = F.gelu(x, approximate="tanh") @ proj["w2"].to(cd)
+        return x
+    d1 = tp.dim("projector", "w1")
+    x = tp.linear(embeds.to(cd), proj["w1"].to(cd), d1,
+                  gather_out="w2" not in proj)
     if "w2" in proj:
-        x = F.gelu(x, approximate="tanh") @ proj["w2"].to(compute_dtype)
+        x = tp.linear(F.gelu(x, approximate="tanh"), proj["w2"].to(cd),
+                      tp.dim("projector", "w2"), sharded_in=d1 == 1)
     return x
 
 
@@ -374,8 +393,9 @@ def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
     projector at their use, each block's layer just before it runs,
     inside its checkpoint. token_group: the ranks splitting this call's
     rows (`block_apply`). tp: a tensor-parallel forward on this rank's
-    shards (`block_apply`); the logits are then this rank's vocab slice
-    where `vocab_sharded` says so."""
+    shards (the projector, and `block_apply` at each block's stack); the
+    logits are then this rank's vocab slice where `vocab_sharded` says
+    so."""
     fs, grp = fsdp, token_group
     whole = (lambda name: params[name]) if fs is None else \
         (lambda name: fs.tree(params[name], (name,)))
@@ -383,8 +403,8 @@ def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
     x = L.embed(emb, tokens, compute_dtype, tp)
     if frontend_embeds is not None:
         x = torch.cat([project_frontend({"projector": whole("projector")},
-                                        cfg, frontend_embeds, compute_dtype),
-                       x], dim=1)
+                                        cfg, frontend_embeds, compute_dtype,
+                                        tp), x], dim=1)
     positions = torch.arange(x.shape[1], dtype=torch.float32,
                              device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -392,12 +412,15 @@ def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
         key = "dense_blocks" if seg == "dense_layers" else "blocks"
         for l in range(_stack_layers(blocks)):
             if fs is None:
-                fn, head = block_apply, (layer_params(blocks, l),)
+                fn, head = block_apply, (
+                    layer_params(blocks, l) if tp is None
+                    else tp.at(key).layer(blocks, l),)
             else:
                 fn, head = _gathered_block, (fs, blocks, key, l)
             args = head + (cfg, x, positions, moe_block, compute_dtype,
                            attn_impl)
-            kw = dict(attn_chunk=attn_chunk, token_group=grp, tp=tp)
+            kw = dict(attn_chunk=attn_chunk, token_group=grp,
+                      tp=None if tp is None else tp.at(key))
             if remat:
                 x, a = checkpoint(fn, *args, use_reentrant=False, **kw)
             else:

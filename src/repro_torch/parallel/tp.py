@@ -24,9 +24,17 @@ then bitwise equal on the ranks of a model group, and so is every
 gradient of a leaf the axis does not shard (a replicated leaf used on a
 sharded activation, qk-norm's scales on local heads, goes through
 `copy` itself). All-reduces run in fp32 and cast back.
+
+A block leaf's spec is looked up under its stack: `blocks`, or a MoE
+config's dense prefix `dense_blocks` (`TensorParallel.at`). The bytes
+of every collective are counted by kind in `TensorParallel.bytes`; a
+MoE block's one all-reduce of its partial output counts under
+`"moe_allreduce"` (and is timed under that name on the comm), the rest
+under `"allreduce"` and `"all_gather"`.
 """
 from __future__ import annotations
 
+import copy as _copy
 from typing import Any, Dict, Optional
 
 import torch
@@ -75,16 +83,46 @@ class TensorParallel:
         specs = spec_leaves(model_specs(cfg, shapes, self.size))
         self.specs: Dict[tuple, Any] = {p: s for (p, _), s in
                                         zip(pairs, specs)}
+        self.layers: Dict[str, int] = {p[0]: x.shape[0] for p, x in pairs
+                                       if p[0] in ("blocks", "dense_blocks")}
         self.bytes: Dict[str, int] = {}
+        self.stack = "blocks"
+
+    def at(self, stack: str) -> "TensorParallel":
+        """This group with block leaves looked up under `stack` (the
+        same comm and byte counters)."""
+        if stack == self.stack:
+            return self
+        out = _copy.copy(self)
+        out.stack = stack
+        return out
 
     # ---------------------------------------------------------- specs
     def dim(self, *path: str) -> Optional[int]:
         """The sharded dim of a leaf; a block leaf (`"attn", "wq"`, no
-        stack key) without its layer axis."""
+        stack key) of this group's stack, without its layer axis: -1
+        where the axis cuts the layer axis itself (`layer`)."""
         if path in self.specs:
             return model_dim(self.specs[path])
-        d = model_dim(self.specs[("blocks",) + path])
+        d = model_dim(self.specs[(self.stack,) + path])
         return None if d is None else d - 1
+
+    def layer(self, blocks: PyTree, l: int) -> PyTree:
+        """Layer l of this rank's shards of a stacked [L, ...] subtree of
+        this group's stack, as views. A leaf whose layer axis the model
+        axis cuts (the reference's rule for expert-partition stacks in
+        `blocks`, whose layer axis it does not exempt) holds L/M layers
+        a rank: layer l there where this rank holds it, else an empty
+        stand-in (its first layer cut to nothing on the next dim)."""
+        def walk(node, path):
+            if isinstance(node, dict):
+                return {k: walk(v, path + (k,)) for k, v in node.items()}
+            if model_dim(self.specs[(self.stack,) + path]) != 0:
+                return node[l]
+            per = self.layers[self.stack] // self.size
+            mine = l // per == self.index
+            return node[l - self.index * per] if mine else node[0][:0]
+        return walk(blocks, ())
 
     # ---------------------------------------------------- collectives
     def _count(self, kind: str, x: torch.Tensor) -> None:
@@ -94,7 +132,10 @@ class TensorParallel:
     def _allreduce(self, x: torch.Tensor, kind: str) -> torch.Tensor:
         y = x.detach().float().contiguous()
         self._count(kind, y)
-        return self.comm.allreduce(y).to(x.dtype)
+        if kind == "allreduce":
+            return self.comm.allreduce(y).to(x.dtype)
+        with self.comm.timed(kind):
+            return self.comm.allreduce(y).to(x.dtype)
 
     def _allgather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         x = x.detach().contiguous()
@@ -109,9 +150,11 @@ class TensorParallel:
         """Identity forward, all-reduce backward."""
         return _Copy.apply(x, self) if self.size > 1 else x
 
-    def reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """All-reduce forward, identity backward."""
-        return _Reduce.apply(x, self) if self.size > 1 else x
+    def reduce(self, x: torch.Tensor, kind: str = "allreduce"
+               ) -> torch.Tensor:
+        """All-reduce forward (counted under `kind`), identity
+        backward."""
+        return _Reduce.apply(x, self, kind) if self.size > 1 else x
 
     def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
         """All-gather along `dim` forward, the rank's slice backward."""
@@ -162,12 +205,12 @@ class _Copy(torch.autograd.Function):
 
 class _Reduce(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, tp):
-        return tp._allreduce(x, "allreduce")
+    def forward(ctx, x, tp, kind):
+        return tp._allreduce(x, kind)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None
 
 
 class _Gather(torch.autograd.Function):

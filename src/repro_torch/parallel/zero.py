@@ -401,16 +401,26 @@ class _FSDPStep:
         return _Gather.apply(node, (self, i, None))
 
     def layer(self, blocks, key: str, l: int):
-        """Layer l of a stacked [L, ...] block subtree, whole."""
+        """Layer l of a stacked [L, ...] block subtree, whole on the data
+        axis. A leaf whose layer axis the model axis cuts holds the
+        model rank's own layers: layer l at its index there where the
+        rank holds it (the whole data group does, or none of it), else
+        an empty stand-in, as `TensorParallel.layer`."""
         def walk(node, path):
             if isinstance(node, dict):
                 return {k: walk(v, path + (k,)) for k, v in node.items()}
             i = self.plan.index[path]
             d = self.plan.dims[i]
+            k = l
+            if self.plan.mdims[i] == 0:
+                per = self.plan.mshapes[i][0]
+                if l // per != self.plan.mindex:
+                    return node[0][:0]
+                k = l - self.plan.mindex * per
             if d is None:
-                return node[l]
+                return node[k]
             if d > 0:
-                return _Gather.apply(node[l], (self, i, l))
+                return _Gather.apply(node[k], (self, i, k))
             per = node.shape[0]            # layers a piece holds
             mine = self._layer_owner(i, l, per) == self.plan.comm.rank
             local = node[l % per] if mine else node[:0]

@@ -256,7 +256,8 @@ def test_fused_plan_equals_reference(arch, reduced, use_pallas, threshold):
 
 
 def test_smoke_plan_gemma_two_layers():
-    """The plan `chip_smoke.py` drives: gemma-7b at full width, 2 layers,
+    """A plan of the kind `chip_smoke.py` drives (its train phase takes
+    gemma-7b at full width, one layer): gemma-7b at full width, 2 layers,
     64 MB buckets — 11 leaves in 10 buckets, blocks {1024, 2048, 8192}."""
     cfg = dataclasses.replace(get_config("gemma-7b"), n_layers=2)
     leaves = T.leaves(_port_specs("gemma-7b", False, lead=(4,), cfg=cfg))

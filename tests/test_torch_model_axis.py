@@ -509,9 +509,7 @@ def test_padded_serve_engine_matches_reference(arch, tp, heads):
 
 # ------------------------------------------------------ (f) still refused
 REFUSED = [
-    ("mixtral-8x22b", {}), ("minicpm3-4b", {}), ("rwkv6-7b", {}),
-    ("hymba-1.5b", {}), ("seamless-m4t-large-v2", {}),
-    ("llava-next-34b", {}), ("mixtral-8x22b", {"fsdp": True}),
+    ("rwkv6-7b", {}), ("hymba-1.5b", {}), ("seamless-m4t-large-v2", {}),
     ("qwen3-32b", {"combine_delay": 1}),
     ("qwen3-32b", {"local_steps": 2}),
     ("qwen3-32b", {"backend": "linear"}),
@@ -522,9 +520,9 @@ REFUSED = [
                          ids=[f"{a}-{'+'.join(o) or 'family'}"
                               for a, o in REFUSED])
 def test_model_axis_refusals_name_item_7(arch, over):
-    """The model axis beyond the dense GQA decoders, or with a regime
-    the slice does not reach, raises naming ROADMAP item 7 (checked
-    before any collective)."""
+    """The model axis on the SSM, the hybrid or the encoder-decoder, or
+    with a regime the port does not reach there, raises naming ROADMAP
+    item 7 (checked before any collective)."""
     from types import SimpleNamespace
     from repro_torch.engine.build import _check_model_axis
     from repro_torch.engine.registry import registry_key
@@ -536,20 +534,26 @@ def test_model_axis_refusals_name_item_7(arch, over):
         _check_model_axis(model, pol, registry_key("adasum", pol.backend))
 
 
-# name, span, policy fields: data-axis regimes, now under a model axis of
-# 2 (a (4, 2) grid): fsdp at span == dp (pre-point ZeRO-1
-# under FSDP), and span below dp with the preset's fsdp + scatter_grads
-ACCEPTED = [("fsdp", 4, {"fsdp": True}),
-            ("span", 1, {"fsdp": True, "scatter_grads": True})]
+# name, arch, span, policy fields: data-axis regimes, now under a model
+# axis of 2 (a (4, 2) grid): fsdp at span == dp (pre-point ZeRO-1
+# under FSDP), and span below dp with the preset's fsdp + scatter_grads;
+# and the families the model axis first refused (the MoE decoders, MLA,
+# the vision frontend), alone on the model axis and with fsdp
+ACCEPTED = [("fsdp", "qwen3-32b", 4, {"fsdp": True}),
+            ("span", "qwen3-32b", 1, {"fsdp": True, "scatter_grads": True}),
+            ("mixtral", "mixtral-8x22b", 4, {}),
+            ("minicpm3", "minicpm3-4b", 4, {}),
+            ("llava", "llava-next-34b", 4, {}),
+            ("mixtral-fsdp", "mixtral-8x22b", 4, {"fsdp": True})]
 
 
-@pytest.mark.parametrize("name,span,over", ACCEPTED,
-                         ids=[a for a, _, _ in ACCEPTED])
-def test_model_axis_accepts_data_axis_regimes(name, span, over):
-    """fsdp and a span below the data ranks pass the model axis's check
-    and the data axis's (`_plan_sharding`), and on stand-in comms of a
-    (4, 2) grid the plan cuts every leaf over both axes: params, state
-    and gradients are the reference's `local_shape` over {data, model}
+@pytest.mark.parametrize("name,arch,span,over", ACCEPTED,
+                         ids=[a for a, _, _, _ in ACCEPTED])
+def test_model_axis_accepts_data_axis_regimes(name, arch, span, over):
+    """The model axis's check passes, and the data axis's
+    (`_plan_sharding`) shards; and on stand-in comms of a (4, 2) grid
+    the plan (fsdp on) cuts every leaf over both axes: params, state and
+    gradients are the reference's `local_shape` over {data, model}
     (params; the pre point's state: 1/4 of each data-sharded dim of the
     model shard; gradients: the lane group's part)."""
     from types import SimpleNamespace
@@ -557,7 +561,10 @@ def test_model_axis_accepts_data_axis_regimes(name, span, over):
     from repro_torch.engine.registry import registry_key
     from repro_torch.parallel.policy import RunPolicy
     from repro_torch.parallel.zero import RankPlan
-    cfg = get_reduced("qwen3-32b")
+    from repro.configs.base import get_reduced as jred
+    from repro.models import build_model as jbuild
+    from repro.parallel import sharding as JS
+    cfg = get_reduced(arch)
     pol = RunPolicy(backend="gspmd_tree", optimizer="momentum", span=span,
                     **over)
     key = registry_key("adasum", pol.backend)
@@ -568,6 +575,14 @@ def test_model_axis_accepts_data_axis_regimes(name, span, over):
     both = S.spec_leaves(S.param_specs(cfg, shapes, S.ShardingPolicy(
         fsdp_axis="data", tp_size=2, fsdp_size=4)))
     full = [tuple(x.shape) for x in T.leaves(shapes)]
+    # the specs over both axes are the reference's
+    jshapes = jax.eval_shape(jbuild(jred(arch)).init, jax.random.key(0))
+    want = _ref_tree_specs(JS.param_specs(jred(arch), jshapes,
+                                          JS.ShardingPolicy(
+                                              fsdp_axis="data", tp_size=2,
+                                              fsdp_size=4)))
+    names = [T.keystr(p) for p, _ in T.flatten_with_path(shapes)[0]]
+    assert [want[n] for n in names] == both
     g = 4 // span
     stand = lambda n, r: SimpleNamespace(world=n, rank=r)
     for d in range(4):

@@ -671,6 +671,15 @@ def _case_model(case):
                        attn_chunk=case["attn_chunk"])
 
 
+def _batch(data, name, step):
+    """Step `step`'s batch of case `name` from the inputs file: tokens,
+    labels and, for a frontend model, frontend_embeds."""
+    import torch
+    keys = ("tokens", "labels", "frontend_embeds")
+    return {k: torch.from_numpy(data[f"{name}/batch{step}/{k}"])
+            for k in keys if f"{name}/batch{step}/{k}" in data.files}
+
+
 def _init_tree(data, prefix):
     init = {}
     for key in data.files:
@@ -792,8 +801,7 @@ def job_tp(comm, spec):
         plan = rt.plan
         params = plan.shard_params(params_from_numpy(init, device="cpu"))
         state = {"params": params, "opt": rt.dopt.init(params), "step": 0}
-        batches = [{k: torch.from_numpy(data[f"{case['name']}/batch{s}/{k}"])
-                    for k in ("tokens", "labels")}
+        batches = [_batch(data, case["name"], s)
                    for s in range(case["steps"])]
         res = {"losses": [], "data_bitwise": [], "model_bitwise": [],
                "path": rt.combine_path, "dp": rt.dp_total,
@@ -948,6 +956,8 @@ def job_grid(comm, spec):
         model = _case_model(case)
         init = _init_tree(data, case["name"])
         if case.get("session"):
+            if session is not None:
+                session.close()
             session = TrainSession.from_config(
                 EngineConfig.preset(case["arch"], **case["session"],
                                     ckpt_dir=spec["dir"] + "/grid"),
@@ -969,8 +979,7 @@ def job_grid(comm, spec):
                "both": sum(a is not None and b is not None
                            for a, b in zip(plan.dims, plan.mdims))}
         for s in range(case["steps"]):
-            b = {k: torch.from_numpy(data[f"{case['name']}/batch{s}/{k}"])
-                 for k in ("tokens", "labels")}
+            b = _batch(data, case["name"], s)
             if case.get("session"):
                 session.state = state
                 m = session.step(b)
@@ -1000,7 +1009,8 @@ def job_grid(comm, spec):
     rvh.adasum_rvh_pytree = combine
     if spec.get("ckpt"):
         out["ckpt"] = _grid_ckpt(comm, session, spec)
-    session.close()
+    if session is not None:
+        session.close()
     return out
 
 
