@@ -13,7 +13,7 @@
     python3 chip_smoke.py --ranks-only --witness  # and (A) against one
                                                   # process in fp32
     python3 chip_smoke.py --model-axis-only  # phase 13 alone, no result
-                                             # line (--witness: + fp32)
+                                             # line
 
 --serve-ab compares two commits on one card within one call: DIR is
 another checkout of the repo (e.g. `git archive <parent> | tar -x -C
@@ -25,8 +25,16 @@ from the tree), and a `SERVE_AB` JSON line gives the four runs' metrics.
 plain attention, no kernel built), ending with a `SCAN_AB` line of
 each run's times in ms.
 
-Phases, in the order they run: 1, 2, 6, 3, 4, 8, 5, 13, 7, 9, 10, 11, 12
-(any error fails the run with a non-zero exit and no result):
+Phases, in the order they run: 1, 2, 6, 3, 4, 8, 5, 13, 9, 10 (any
+error fails the run with a non-zero exit and no result). Single-process
+phases run in this process while rank processes of another phase share
+the card, where the card's memory holds both: beside phase 6's runs
+(a), (b) and (A), phase 13's twins of (c) and (d1) and phase 12 (b)-(c)
+(P12_EARLY), phase 11, and the twins of (e1) and (e2) and phase 12 (g);
+beside phase 9 (c)'s launches, phase 7; beside phase 10 (b)'s, after
+(d), the rest of phase 12. Their times are then taken with the ranks'
+gloo traffic on the host's cores, and each phase's wall holds what ran
+beside it:
   1. card: print `nvidia-smi --query-gpu=name,power.limit` and require
      CUDA;
   2. build: compile every kernel under src/repro_torch/kernels/csrc with
@@ -136,8 +144,9 @@ Phases, in the order they run: 1, 2, 6, 3, 4, 8, 5, 13, 7, 9, 10, 11, 12
      card and NCCL puts no two ranks on one card, so the exchanged halves
      are staged through pinned host memory and exchange times are host
      loopback times (printed so; NCCL is not run). The parent first frees
-     its cached card memory and prints what it still holds. gemma-7b at
-     full width, depth cut to RANK_LAYERS (1 of 28), fp32 params, bf16
+     its cached card memory and prints what it still holds. RANK_ARCH
+     (minicpm3-4b) at full width, depth cut to RANK_LAYERS (1 of 62),
+     fp32 params, bf16
      compute, seq 512, global batch RANK_BATCH, 64 MB buckets, RANK_STEPS
      steps (one in a sharded run, whose repeat of step 1 is then timed
      as its steady step), the runs of RANK_RUNS: (a) world 4, momentum
@@ -223,11 +232,11 @@ Phases, in the order they run: 1, 2, 6, 3, 4, 8, 5, 13, 7, 9, 10, 11, 12
      5's); the combine ms of each. (c) P9_RANK_ARCH (minicpm3-4b) at
      full width, one layer, in rank processes
      on cuda:0 over gloo, one launch a world size, each run's steps as
-     P9_RANK_RUNS gives them: world 4 sum and adascale (sgd),
-     accumulation 2 at span 2 (momentum: its state ZeRO-1, the lane
-     gradient all-reduced in its lane group and cut to the rank's part)
-     and local steps 2 at span 2 (sgd); world 2 mean and adasum-linear
-     (sgd) and momentum with combine_delay=1; params
+     P9_RANK_RUNS gives them: world 4 accumulation 2 at span 2
+     (momentum: its state ZeRO-1, the lane gradient all-reduced in its
+     lane group and cut to the rank's part) and local steps 2 at span 2
+     (sgd); world 2 mean (sgd) and momentum with combine_delay=1 (sum,
+     adascale and adasum-linear run across ranks in phase 13 (e)); params
      bitwise equal across ranks after every step; step, combine,
      exchange, all-reduce and staging ms, staged bytes and each rank's
      peak (their sum at most RANK_MEM_GIB). `block_dots` and
@@ -334,31 +343,17 @@ Phases, in the order they run: 1, 2, 6, 3, 4, 8, 5, 13, 7, 9, 10, 11, 12
      these paths, training takes plain attention), as in the reference.
      `--recurrent-only` builds the kernels and runs this phase alone.
   13. model axis (runs right after phase 5, before phase 7 leaves a
-     session on the card):
-     (a) tensor-parallel training of qwen3-32b (hf Qwen/Qwen3-32B) at
-     full width, TP_LAYERS of its 64 layers, on a (data 2, model 2) grid
-     of four rank processes sharing the card over gloo (`TrainSession`
-     with data_mesh 2, model_mesh 2: Megatron-style collectives in each
-     model group, RVH across each data group on the rank's shards, its
-     dots corrected for the unsharded leaves and summed over the model
-     group), momentum, bf16 compute, seq TP_SEQ, batch TP_BATCH,
-     TP_STEPS step, and step 1 again from fresh state (the bitwise
-     repeat, timed as the steady step). Before the ranks, this process
-     runs the twin: step 1 with the two data lanes stacked on the card
-     (span 2, nothing sharded) in bf16 and fp32 compute. Printed: step
-     and repeat ms, the model
-     group's all-reduce and all-gather ms and bytes (activations and the
-     vocab-parallel cross entropy), RVH's exchange, the data and model
-     groups' dot sums, staging and kernel ms, staged GB, held GiB and
-     peaks a rank, rank 0's `block_dots` / `block_combine` launches.
-     Held: every leaf bitwise across each data group after every step,
-     the unsharded leaves across each model group, step 1 bitwise on
-     repeat; rank 0's combined tree and stats on the kernel arm against
-     the plain arm (COMBINED_RTOL) and every rank's params
-     (TRAIN_PARAM_TOL); step 1 against the twin leaf by leaf within
-     TP_TWIN_FACTOR x the twin's own bf16-vs-fp32 difference (+
-     TP_TWIN_FLOOR); with `--witness`, step 1 in fp32 compute against
-     the fp32 twin within TP_WITNESS_RTOL of each leaf's largest update.
+     session on the card), on qwen3-32b (hf Qwen/Qwen3-32B) at full
+     width, TP_LAYERS of its 64 layers, bf16 compute, seq TP_SEQ, batch
+     TP_BATCH, weights from SEED, and on the MoE presets:
+     (a) the twins: before the ranks start (in the whole run, beside
+     phase 6's ranks), this process runs each grid run's one-process
+     twin: step 1 with the run's data lanes stacked on the card (span 2,
+     nothing sharded) in bf16 and fp32 compute, the bf16 step's params
+     and each leaf's bf16-vs-fp32 difference saved for the ranks. A
+     run's step 1 is held to its twin leaf by leaf within TP_TWIN_FACTOR
+     x the twin's own bf16-vs-fp32 difference (+ TP_TWIN_FLOOR): the
+     twin rule.
      (b) head padding in serving: minitron-4b (arXiv:2407.14679) at full
      width, PAD_LAYERS of 32, padded by `pad_heads_for_tp` for the
      production mesh's model axis (16): 24 / 8 heads -> 32 / 16; the
@@ -372,19 +367,23 @@ Phases, in the order they run: 1, 2, 6, 3, 4, 8, 5, 13, 7, 9, 10, 11, 12
      plain version (bf16 3e-2). Then the kernels at the padded shapes
      (prefill B 4 x 128, a tick over 8 pages a slot, H 32, KV 16) and
      RVH's round-0 half of the TP shard of qwen3-32b's embedding, as in
-     phase 3. `phase13_launches` counts (a)'s rank 0 and (b)'s padded
-     run.
-     (c) both axes at once: (a)'s model in qwen3-32b's own preset regime
+     phase 3. `phase13_launches` counts (c)'s and (e4)'s rank 0 and (b)'s
+     padded run.
+     (c) both axes at once: qwen3-32b in its own preset regime
      at the widths one card allows (`TrainSession.from_config` of
      `EngineConfig.preset("qwen3-32b", ...)`) on a (data 4, model 2)
      grid of eight gloo ranks sharing the card: span GRID_SPAN
      (hier-RVH, lane groups of 2), fsdp, scatter_grads and ZeRO-1
      (momentum, the pre point), bf16 compute, seq TP_SEQ, batch
      TP_BATCH, TP_STEPS steps, weights from SEED drawn a leaf at a time.
-     It computes the function of (a)'s twin (2 lanes of 4 rows, Adasum,
+     It computes the function of its twin (2 lanes of 4 rows, Adasum,
      momentum: each lane group's two ranks take their exact token share
-     of the lane), so step 1 is held to the twin (a) saved, by (a)'s
-     rule. Printed: per rank the GiB held of params and state beside the
+     of the lane), so step 1 is held to the twin by the twin rule; every
+     rank keeps step 1's lane tree, and rank 0's combined tree (and
+     CombineStats, where the run makes them) on the kernel arm is held
+     against the plain arm's combine of the same lane tree
+     (COMBINED_RTOL). Printed: per rank the GiB held of params and state
+     beside the
      plan's `local_shapes`; init and step peaks a rank and their sum;
      step ms split into FSDP's all-gathers, the reduce-scatters, RVH's
      exchange, the model group's all-reduces (ms and MB), the dot sums
@@ -402,7 +401,7 @@ Phases, in the order they run: 1, 2, 6, 3, 4, 8, 5, 13, 7, 9, 10, 11, 12
      `TrainSession.from_config`, momentum, bf16 compute, no
      accumulation (held on the CPU). (d1)'s step 1 is held to a
      one-process twin of the same layer (its two lanes stacked, computed
-     and saved before the ranks start) by (a)'s rule. Each run: held GiB
+     and saved before the ranks start) by the twin rule. Each run: held GiB
      = the plan's, init and step peaks a rank and summed under
      RANK_MEM_GIB, the leaves left whole bitwise across the ranks
      holding them (the router among them), step 1 again from the
@@ -411,6 +410,24 @@ Phases, in the order they run: 1, 2, 6, 3, 4, 8, 5, 13, 7, 9, 10, 11, 12
      launches (`phase13d_launches`) and the dropped pairs. Then both
      kernels at RVH's round-0 half of a rank's part of one of mixtral's
      expert stacks, in bf16, with device times (`phase13d_case`).
+     (e) every combiner on shards, in (c)'s rank processes after (d):
+     (c)'s model through `TrainSession.from_config` of qwen3-32b's
+     preset, one step each, and in COMB_REPEAT's runs step 1 again from
+     the session's initial state. (e1) combine="sum" (the paper's baseline) and (e2)
+     "adascale" in (c)'s regime, each held to a one-process twin with
+     the same combiner (the two lanes stacked, computed before the ranks
+     start) by the twin rule; (e3) adasum-linear with adam at the post
+     point (ZeRO-1 state on the lane groups' parts); (e4) the Adasum
+     tree whole-model (per_layer=False) with fsdp + scatter_grads on a
+     (data 8, model 1) grid at span COMB_TREE_SPAN, the one run here
+     that launches the two Adasum kernels, its combined tree on rank 0
+     held against its plain arm's combine of the same lane tree (bf16
+     buffers: COMBINED_BF16_RTOL). Each: held
+     GiB = the plan's, init and step peaks summed under RANK_MEM_GIB,
+     the leaves left whole bitwise across the ranks holding them, a
+     repeat bitwise; printed: the step split as in (c) (the combiner's
+     exchange and all-reduce, the dot and moment sums), staged GB and
+     rank 0's launches (`phase13e_launches`).
      `--model-axis-only` builds the kernels and runs this phase alone.
 
 The line before the last is the kernels JSON (block_dots and
@@ -420,8 +437,10 @@ row its launches inside phase 7, `phase7_launches`; the attention rows
 their launches inside phase 8, `phase8_launches`; the Adasum rows theirs
 inside phase 9, `phase9_launches`; every row its launches inside phase
 10, `phase10_launches`, phase 11, `phase11_launches`, phase 12,
-`phase12_launches`, and phase 13, `phase13_launches`, with its case at
-phase 13's shapes, `phase13_case`), the
+`phase12_launches`, and phase 13, `phase13_launches` ((c)'s and
+(e4)'s rank 0, (b)'s padded run), with its case at phase 13's shapes,
+`phase13_case`; the Adasum rows also each (e) run's rank-0 launches,
+`phase13e_launches`), the
 last line {"ok": true, "device": {...}}. Longer records go to
 chiprun_out/chip_smoke.json. fp32 matmuls run in full fp32: TF32 is
 switched off for cuBLAS and cuDNN.
@@ -438,6 +457,7 @@ import signal
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import traceback
 from pathlib import Path
@@ -490,6 +510,12 @@ TRAIN_PARAM_TOL = 1e-6
 # level's combine rounds once more (fp32 ulp 6e-8), over at most two
 # levels; a pair or block read from the wrong place moves them by O(1)
 COMBINED_RTOL = 1e-5
+# the same on bf16 buffers (phase 13 (e4)'s lane gradients): each RVH
+# round rounds its output to bf16 in both arms, the plain arm also its
+# scalars (the reference's rule without its kernels); one bf16 ulp of a
+# leaf's largest element is at most 2^-7 of it, a round's a straddled
+# rounding boundary, over (e4)'s two rounds
+COMBINED_BF16_RTOL = 2 * 2.0 ** -7
 
 
 def _smi() -> str:
@@ -1709,13 +1735,17 @@ class _CombineTimer:
     bracketed by CUDA events (the engine's own combiners, timed from
     outside). keep=True also keeps a copy of the first call's combined
     leaves and CombineStats levels in `kept`, on the host or on
-    `keep_on`."""
+    `keep_on`. keep_input=True keeps a host copy of the first call's
+    input tree in `kept_input`."""
 
-    def __init__(self, keep: bool = False, keep_on: str = "cpu"):
+    def __init__(self, keep: bool = False, keep_on: str = "cpu",
+                 keep_input: bool = False):
         self.events = []
         self.keep = keep
         self.keep_on = keep_on
         self.kept = None
+        self.keep_input = keep_input
+        self.kept_input = None
 
     def wrap(self, make):
         def make_timed(*args, **kwargs):
@@ -1723,6 +1753,10 @@ class _CombineTimer:
 
             def timed(stacked):
                 import torch
+                if self.keep_input and self.kept_input is None:
+                    from repro_torch import tree as T
+                    self.kept_input = T.map(
+                        lambda x: x.to("cpu", copy=True), stacked)
                 a = torch.cuda.Event(enable_timing=True)
                 b = torch.cuda.Event(enable_timing=True)
                 a.record()
@@ -1781,6 +1815,35 @@ def _session(model, timer=None, combine_impl="kernel", *, device="cuda",
             generator=torch.Generator(device=device).manual_seed(SEED),
             callbacks=[], combine_impl=combine_impl, comm=comm,
             dist_backend=dist_backend)
+
+
+def _warm_up() -> threading.Thread:
+    """Start, on a thread of its own, what a process's first checkpointed
+    backward on the card pays once (torch's lazy imports, cuBLAS's
+    handles; ~13 s in a fresh process beside busy ranks), so that it
+    overlaps work that leaves this thread waiting; join the thread
+    before the first step. Raises there if it failed."""
+    def run():
+        try:
+            import torch
+            from torch.utils.checkpoint import checkpoint
+            x = torch.randn(256, 256, device="cuda", dtype=torch.bfloat16,
+                            requires_grad=True)
+            checkpoint(lambda a: (a @ a).float().sum(), x,
+                       use_reentrant=False).backward()
+            torch.cuda.synchronize()
+        except BaseException as e:       # re-raised by join()
+            th.error = e
+    th = threading.Thread(target=run, name="warm-up")
+    th.error = None
+    th.start()
+    return th
+
+
+def _join(th: threading.Thread) -> None:
+    th.join()
+    if th.error is not None:
+        raise th.error
 
 
 def _free():
@@ -1959,7 +2022,13 @@ def train_phase(card: str, profile: bool = False):
 
 
 # ------------------------------------------------------------- ranks phase
-RANK_LAYERS = 1    # of gemma-7b's 28: 1.063 B params, 4.25 GB of fp32
+# minicpm3-4b (hf openbmb/MiniCPM3-4B) at full width, RANK_LAYERS of its
+# 62 layers: 250.7 M params, 1.00 GB fp32 (phase 9 (c)'s model). Until
+# phase 13 (e) came this was gemma-7b at 1 of 28 layers (1.063 B, 4.25
+# GB), whose gloo traffic took a quarter of the time limit; the paths the
+# runs drive do not depend on the model
+RANK_ARCH = "minicpm3-4b"
+RANK_LAYERS = 1
 # (tag, optimizer, world, wire compression, EngineConfig fields). (a): RVH
 # at span == dp on four ranks (two rounds), momentum (pre-point ZeRO-1,
 # RVH without its allgather) with fsdp — item 7a's run B; it also saves,
@@ -1995,8 +2064,7 @@ RANK_MEM_GIB = 72  # the ranks' summed peak allocation may not pass this
 RANK_TIMEOUT_S = 420
 # a sharded run's step-1 params against (1) the same step on the same
 # ranks with the params whole (fsdp off; ZeRO-1 stays, and in run A
-# scatter_grads: with whole lane gradients and state too, four of its
-# ranks do not fit on one 80 GB H100), and (2) in RANK_WITNESS's runs,
+# scatter_grads), and (2) in RANK_WITNESS's runs,
 # the step in fp32 compute against one process with the lanes stacked
 # and nothing sharded. (2) is in fp32 because a rank computes its 1/g of
 # a microbatch's rows, and bf16 matmuls round differently over other row
@@ -2136,7 +2204,7 @@ def rank_worker(spec: dict) -> int:
     shard = spec.get("shard") or {}     # runs A and B: fsdp, scatter_grads
     rank = int(os.environ["RANK"])
     lead = rank == 0
-    cfg = dataclasses.replace(get_config("gemma-7b"), n_layers=RANK_LAYERS)
+    cfg = dataclasses.replace(get_config(RANK_ARCH), n_layers=RANK_LAYERS)
     model = build_model(cfg, compute_dtype=torch.bfloat16,
                         param_dtype=torch.float32)
     rec = {"rank": rank, "world": world, "optimizer": optimizer,
@@ -2146,7 +2214,7 @@ def rank_worker(spec: dict) -> int:
     timer = _CombineTimer(keep=lead)
     # under torchrun's environment the session starts the process group
     s = _session(model, timer, device="cuda:0", dist_backend="gloo",
-                 optimizer=optimizer, compress=compress,
+                 optimizer=optimizer, compress=compress, arch=RANK_ARCH,
                  global_batch=RANK_BATCH, ckpt_dir=ckpt_dir or "", **shard)
     comm = s.comm
     rt = s.runtime
@@ -2484,12 +2552,14 @@ def _spawn_ranks(world: int, tag: str, spec: dict,
     return recs if beside is None else (recs, got)
 
 
-def ranks_phase(card: str, witness: bool = False):
+def ranks_phase(card: str, witness: bool = False, beside=None):
     """Phase 6: multi-rank Adasum (RVH across ranks) through
     `TrainSession` in rank processes that share this machine's one
     card over gloo, the data axis sharded in runs (a) and (A); with
     `witness`, RANK_WITNESS's runs also hold their step 1 in fp32 compute
-    against one process."""
+    against one process. `beside` maps a run's tag to work for this
+    process while that run's ranks run (~15 GiB of the card); their
+    results come back under "beside", by tag."""
     import torch
     _free()
     print(f"[smoke] ranks: before launching, this process holds "
@@ -2500,7 +2570,8 @@ def ranks_phase(card: str, witness: bool = False):
           f" are staged through pinned host buffers; NCCL was not run; "
           f"exchange times are host loopback times | {card}")
     import shutil
-    runs = {}
+    beside = beside or {}
+    runs, besides = {}, {}
     for tag, optimizer, world, compress, fields in RANK_RUNS:
         # the checkpointing run's directory and the witness's params go
         # under build/, gitignored
@@ -2518,7 +2589,10 @@ def ranks_phase(card: str, witness: bool = False):
                 "ckpt_dir": str(ckpt) if ckpt else "",
                 "synthetic": tag in RANK_SYNTHETIC,
                 "plain": tag in RANK_PLAIN,
-                "witness": str(wpath) if wpath else ""})
+                "witness": str(wpath) if wpath else ""},
+                beside=beside.get(tag))
+            if tag in beside:
+                recs, besides[tag] = recs
         finally:
             if ckpt:
                 shutil.rmtree(ckpt, ignore_errors=True)
@@ -2539,7 +2613,7 @@ def ranks_phase(card: str, witness: bool = False):
         assert max(got["peak_gib"]) < min(want["peak_gib"]), (
             f"({tag}): a rank's peak {max(got['peak_gib']):.2f} GiB is not "
             f"below ({near})'s {min(want['peak_gib']):.2f}")
-    return {"layers": RANK_LAYERS, "runs": runs}
+    return {"layers": RANK_LAYERS, "runs": runs, "beside": besides}
 
 
 def _witness_step(optimizer: str, world: int, fields: dict, path: Path,
@@ -2554,14 +2628,14 @@ def _witness_step(optimizer: str, world: int, fields: dict, path: Path,
     from repro_torch import tree as T
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
-    cfg = dataclasses.replace(get_config("gemma-7b"), n_layers=RANK_LAYERS)
+    cfg = dataclasses.replace(get_config(RANK_ARCH), n_layers=RANK_LAYERS)
     model = build_model(cfg, compute_dtype=torch.float32,
                         param_dtype=torch.float32)
     rest = {k: v for k, v in fields.items() if k not in ("span", "backend")}
     span = fields.get("span") or world
     t0 = time.perf_counter()
     s = _session(model, optimizer=optimizer, span=span, backend="gspmd_tree",
-                 global_batch=RANK_BATCH, **rest)
+                 global_batch=RANK_BATCH, arch=RANK_ARCH, **rest)
     s.step(s.batch(0))
     m = T.leaves(s.state["opt"]["inner"]["m"])
     torch.save({"params": [x.cpu() for x in T.leaves(s.state["params"])],
@@ -3104,31 +3178,32 @@ P9_MEM_GIB = 70
 # overlapped and serial rounds, in turns; their medians give the hidden
 # fraction
 P9_OVERLAP_ROUNDS = 3       # of each kind (cut for the time limit)
-# (c) the other combiners, accumulation, local steps and the delayed
-# combine across ranks, and phase 10 (b)'s elastic drill: P9_RANK_ARCH
+# (c) mean, accumulation, local steps and the delayed combine across
+# ranks (sum, adascale and adasum-linear run across ranks in phase 13
+# (e), on shards and whole leaves), and phase 10 (b)'s elastic drill:
+# P9_RANK_ARCH
 # at full width, P9_RANK_LAYERS layer (minicpm3-4b, hf
 # openbmb/MiniCPM3-4B: 250.7 M params, 1.00 GB fp32, against gemma-7b's
 # 1.063 B and 4.25 GB at one layer, whose gloo traffic would make these
 # two phases a third of the script; the paths they drive do not depend
 # on the model), all ranks on cuda:0 over gloo,
-# one launch a world size (a world of 2 is its own process group: torch's
-# new_group is collective over every process, so two ranks of a
-# four-rank launch cannot build their runtime's groups alone). Each run:
+# one launch a world size, in turn (a world of 2 is its own process
+# group: torch's new_group is collective over every process, so two ranks
+# of a four-rank launch cannot build their runtime's groups alone; a
+# launch holds ~15 GiB of the card, beside phase 7's ~50 in this
+# process). Each run:
 # (name, EngineConfig fields, steps); one step runs every leg of a
 # synchronous path, the delayed run's second step is its first with a
 # nonzero carry
 P9_RANK_ARCH = "minicpm3-4b"
 P9_RANK_LAYERS = 1
 P9_RANK_RUNS = {
-    4: (("sum_sgd", dict(combine="sum", optimizer="sgd"), 1),
-        ("adascale_sgd", dict(combine="adascale", optimizer="sgd"), 1),
-        ("span2_accum2_momentum", dict(span=2, backend="gspmd_tree",
+    4: (("span2_accum2_momentum", dict(span=2, backend="gspmd_tree",
                                        optimizer="momentum", accum_steps=2),
          1),
         ("span2_local2_sgd", dict(span=2, backend="gspmd_tree",
                                   optimizer="sgd", local_steps=2), 1)),
     2: (("mean_sgd", dict(combine="mean", optimizer="sgd"), 1),
-        ("linear_sgd", dict(backend="linear", optimizer="sgd"), 1),
         ("delay_momentum", dict(optimizer="momentum", combine_delay=1), 2)),
 }
 
@@ -3562,10 +3637,11 @@ def combiners_worker(spec: dict) -> int:
 
 
 def combiners_phase(card: str, profile: bool = False,
-                    sync_sums=None) -> dict:
-    """Phase 9: the delayed combine on stacked lanes, fp64 dots, and the
-    combiners, accumulation, local steps and the delayed combine across
-    ranks."""
+                    sync_sums=None, beside=None) -> dict:
+    """Phase 9: the delayed combine on stacked lanes, fp64 dots, and mean,
+    accumulation, local steps and the delayed combine across ranks (one
+    launch a world, in turn, `beside()` in this process meanwhile; its
+    result under "beside")."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
@@ -3584,17 +3660,46 @@ def combiners_phase(card: str, profile: bool = False,
     rec["acc_dtype"] = fp64_part(card, model, sync_sums)
     part_s["b"] = time.perf_counter() - t_phase - part_s["a"]
     launches = dict(build.LAUNCHES)
+    del model
     _free()
+    worlds = sorted(P9_RANK_RUNS, reverse=True)
     print(f"[smoke] combiners (c) ranks: gloo over host memory, every rank "
-          f"on cuda:0; this process holds "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
-          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved | {card}")
+          f"on cuda:0, one launch a world, in turn"
+          f"{'; phase 7 in this process meanwhile' if beside else ''}; this "
+          f"process holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB "
+          f"reserved | {card}")
+    got = {}
+
+    def launches_in_turn():
+        for w in worlds:
+            t0 = time.perf_counter()
+            got[w] = _spawn_ranks(w, f"combiners_w{w}", {"world": w},
+                                  flag="--combiners-worker")
+            part_s[f"c_world{w}"] = time.perf_counter() - t0
+
+    if beside is None:
+        launches_in_turn()
+    else:
+        # the launches from a thread that only starts and watches the
+        # rank processes; `beside` keeps this thread (phase 7 installs a
+        # signal handler, which only the main thread may)
+        def watch():
+            try:
+                launches_in_turn()
+            except BaseException as e:          # re-raised below
+                got["error"] = e
+        th = threading.Thread(target=watch, name="p9c-ranks")
+        th.start()
+        try:
+            rec["beside"] = beside()
+        finally:
+            th.join()
+        if "error" in got:
+            raise got["error"]
     ranks = {}
-    for world in sorted(P9_RANK_RUNS, reverse=True):
-        t0 = time.perf_counter()
-        recs = _spawn_ranks(world, f"combiners_w{world}", {"world": world},
-                            flag="--combiners-worker")
-        part_s[f"c_world{world}"] = time.perf_counter() - t0
+    for world in worlds:
+        recs = got[world]
         for k in ("block_dots", "block_combine"):   # rank 0's
             launches[k] += recs[0]["launches"][k]
         for i, (name, fields, steps) in enumerate(P9_RANK_RUNS[world]):
@@ -4160,9 +4265,11 @@ def _p10_elastic(card: str, beside) -> tuple:
     return out, got
 
 
-def subsystems_phase(card: str) -> dict:
+def subsystems_phase(card: str, beside=None) -> dict:
     """Phase 10: the adaptive-batch controller, comm_spike, serve chaos and
-    elastic shrink / grow-back across ranks (ROADMAP item 8)."""
+    elastic shrink / grow-back across ranks (ROADMAP item 8); `beside()`
+    runs in this process after serve chaos while the elastic ranks run,
+    its result under "beside"."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
@@ -4181,12 +4288,18 @@ def subsystems_phase(card: str) -> dict:
     _free()
     print(f"[smoke] p10 (b) ranks: gloo over host memory, every rank on "
           f"cuda:0, with (d) in this process meanwhile (its ~15 GiB beside "
-          f"the ranks' ~48); this process holds {_mem()} | {card}")
+          f"the ranks' ~14){', then phase 12' if beside else ''}; this "
+          f"process holds {_mem()} | {card}")
 
     def serve_part():
         t = time.perf_counter()
         got = _p10_serve(card)
         part_s["d"] = time.perf_counter() - t
+        if beside is not None:
+            _free()
+            t = time.perf_counter()
+            rec["beside"] = beside()
+            part_s["beside"] = time.perf_counter() - t
         return got
 
     t0 = time.perf_counter()
@@ -4837,6 +4950,10 @@ P12_TRAIN = (("e", "rwkv6-7b", 1, "adam", 512),
              ("f", "hymba-1.5b", 4, "momentum", 512),
              ("g", "llava-next-34b", 1, "momentum", 512),
              ("h", "seamless-m4t-large-v2", 3, "momentum", 256))
+# the parts the whole run takes beside phase 6's runs (a) and (A), after
+# phase 13's twins there (hymba's ~4 GiB and llava's train step's ~31
+# beside the ranks' ~15); the rest run beside phase 10 (b)'s ranks
+P12_EARLY = {"a": ("bc",), "A": ("g",)}
 
 
 def _nodes_leaves(cache) -> list:
@@ -5262,20 +5379,35 @@ def _p12_stepped(card: str) -> dict:
     return out
 
 
-def recurrent_phase(card: str) -> dict:
-    """Phase 12: the recurrent and frontend families (ROADMAP item 6,
-    second half)."""
-    t_phase = time.perf_counter()
-    part_s, rec = {}, {}
-    parts = [("a", lambda: _p12_rwkv(card)), ("bc", lambda: _p12_hymba(card)),
-             ("d", lambda: _p12_stepped(card))]
-    parts += [(p, (lambda n=n, l=l, o=o, q=q: _p11_train(
-        card, n, l, o, tag="p12", seq=q))) for p, n, l, o, q in P12_TRAIN]
-    for part, fn in parts:
+def recurrent_parts(card: str, names) -> dict:
+    """Phase 12's parts `names` ("a", "bc", "d" and P12_TRAIN's), in
+    order: {part: its record}, with each part's seconds under "part_s"."""
+    fns = {"a": lambda: _p12_rwkv(card), "bc": lambda: _p12_hymba(card),
+           "d": lambda: _p12_stepped(card)}
+    fns.update({p: (lambda n=n, l=l, o=o, q=q: _p11_train(
+        card, n, l, o, tag="p12", seq=q)) for p, n, l, o, q in P12_TRAIN})
+    rec, part_s = {}, {}
+    for part in names:
         t0 = time.perf_counter()
-        rec[part] = fn()
+        rec[part] = fns[part]()
         part_s[part] = time.perf_counter() - t0
         _free()
+    rec["part_s"] = part_s
+    return rec
+
+
+def recurrent_phase(card: str, done=None) -> dict:
+    """Phase 12: the recurrent and frontend families (ROADMAP item 6,
+    second half). `done`: records of parts already run
+    (`recurrent_parts`, e.g. beside phase 6's ranks); the rest run
+    here."""
+    t_phase = time.perf_counter()
+    every = ["a", "bc", "d"] + [p for p, *_ in P12_TRAIN]
+    rec = dict(done or {})
+    part_s = dict(rec.pop("part_s", {}))
+    late = recurrent_parts(card, [p for p in every if p not in rec])
+    part_s.update(late.pop("part_s"))
+    rec.update(late)
     runs = ([rec["a"]["launches"], rec["bc"]["launches"]]
             + [r["launches"] for r in rec["d"].values()]
             + [rec[p]["launches"] for p, *_ in P12_TRAIN])
@@ -5285,24 +5417,26 @@ def recurrent_phase(card: str) -> dict:
     rec["part_s"] = part_s
     rec["phase_s"] = time.perf_counter() - t_phase
     print(f"[smoke] recurrent launches={launches} parts "
-          f"{ {k: round(v, 1) for k, v in part_s.items()} } s, phase "
+          f"{ {k: round(v, 1) for k, v in part_s.items()} } s (parts "
+          f"{sorted(set(every) - set(late))} ran earlier), phase "
           f"{rec['phase_s']:.1f}s | {card}")
     return rec
 
 
 # ------------------------------------------------------ phase 13: model axis
-# (a) tensor-parallel training: qwen3-32b (hf Qwen/Qwen3-32B, the
-# reference's own model-axis example, src/repro/launch/train.py:3-4) at
-# full width, TP_LAYERS of its 64 layers (2.04 B params, 7.61 GiB fp32),
-# on a (data, model) grid of TP_GRID gloo ranks sharing the card:
-# momentum, Adasum RVH, bf16 compute, seq TP_SEQ, global batch TP_BATCH,
-# TP_STEPS steps, random weights from SEED
+# qwen3-32b (hf Qwen/Qwen3-32B, the reference's own model-axis example,
+# src/repro/launch/train.py:3-4) at full width, TP_LAYERS of its 64
+# layers (2.04 B params, 7.61 GiB fp32): (c)'s and (e)'s model, momentum,
+# bf16 compute, seq TP_SEQ, global batch TP_BATCH, TP_STEPS steps, random
+# weights from SEED. (c) drives its tensor-parallel path and RVH's
+# model-axis dots beside FSDP and holds the kernel arm against the plain
+# one there (a launch of four ranks training it alone on a (2, 2) grid
+# drove no path (c) does not, and took ~60 s of the time limit)
 TP_LAYERS = 1
-TP_GRID = (2, 2)
 TP_SEQ = 256
 TP_BATCH = 8
-# (a) and (c) take one step (for the script's time limit): (a)'s
-# bitwise repeat, step 1 again from fresh state in the warm processes, is
+# one step a run (for the script's time limit); a run's bitwise repeat,
+# step 1 again from the session's initial state in the warm processes, is
 # timed as its steady step
 TP_STEPS = 1
 # step 1 against the twin (one process, the two lanes stacked on the card,
@@ -5314,10 +5448,6 @@ TP_STEPS = 1
 # bf16: up to ~3 roundings where the twin has one
 TP_TWIN_FACTOR = 4.0
 TP_TWIN_FLOOR = 1.2e-7
-# --witness: step 1 in fp32 compute against the fp32 twin, within
-# TP_WITNESS_RTOL of each leaf's largest update (the same fp32 sums in
-# another order)
-TP_WITNESS_RTOL = 1e-4
 # (b) head padding in serving: minitron-4b (arXiv:2407.14679; its preset
 # sets pad_heads) at full width, PAD_LAYERS of its 32 layers, padded for
 # the production mesh's model axis (16): 24 q / 8 kv heads -> 32 / 16, G
@@ -5331,7 +5461,7 @@ PAD_GEN = 32
 PAD_FP32_TOL = 1e-2
 
 
-# (c) both axes at once: (a)'s model on a (data, model) grid of
+# (c) both axes at once: the model above on a (data, model) grid of
 # GRID_SHAPE gloo ranks in qwen3-32b's own preset regime (fsdp,
 # scatter_grads, gspmd_tree below span == dp, ZeRO-1) at the widths one
 # card allows: span GRID_SPAN, no accumulation (it sums microbatch
@@ -5342,7 +5472,8 @@ GRID_SPAN = 2
 
 
 def _tp_config(**fields):
-    """Phase 13 (a)'s EngineConfig; `fields` set the rest."""
+    """The twins' EngineConfig (one process, qwen3-32b at TP_LAYERS);
+    `fields` set the rest."""
     from repro_torch.engine import EngineConfig
     return EngineConfig(**{**dict(
         arch="qwen3-32b", seq_len=TP_SEQ, global_batch=TP_BATCH,
@@ -5360,22 +5491,12 @@ def _tp_model(dtype):
                        attn_chunk=TP_SEQ)
 
 
-def _tp_twin(card: str, path: Path, witness: bool) -> dict:
-    """Phase 13 (a)'s twin (`_twin`): the grid's two data lanes stacked
-    (span 2, the fused combine, nothing sharded)."""
-    return _twin(card, path, witness,
-                 _tp_config(span=TP_GRID[0], backend="gspmd_tree"),
-                 _tp_model, "(a)")
-
-
-def _twin(card: str, path: Path, witness: bool, config, model_of,
-          tag: str) -> dict:
+def _twin(card: str, path: Path, config, model_of, tag: str) -> dict:
     """A grid run's one-process twin, in this process before the ranks
     start: step 1 of `config` (the grid's data lanes stacked on the card)
     on `model_of(compute dtype)`, in bf16 and in fp32 compute. Saves the
-    bf16 step's params (and with `witness` the fp32 step's and each
-    leaf's largest fp32 update |p1 - p0|), and each leaf's |bf16 - fp32|
-    maximum, to `path` for the ranks."""
+    bf16 step's params and each leaf's |bf16 - fp32| maximum to `path`
+    for the ranks."""
     import torch
     from repro_torch import tree as T
     from repro_torch.engine import TrainSession
@@ -5387,17 +5508,12 @@ def _twin(card: str, path: Path, witness: bool, config, model_of,
             config, model=model_of(dt), device="cuda",
             generator=torch.Generator(device="cuda").manual_seed(SEED),
             callbacks=[])
-        p0 = [x.clone() for x in T.leaves(s.state["params"])] \
-            if name == "fp32" and witness else None
         m, dt_s = _timed_s(lambda: s.step(s.batch(0)))
         p1 = T.leaves(s.state["params"])
-        if p0 is not None:      # on the card, a leaf at a time
-            out["upd"] = [(a - b).abs().max().item() for a, b in zip(p1, p0)]
-            del p0
         if name == "fp32":
             out["diff"] = [(a - b.to(a.device)).abs().max().item()
                            for a, b in zip(p1, got["bf16"])]
-        if name == "bf16" or witness:
+        else:
             got[name] = [x.to("cpu", copy=True) for x in p1]
         out[f"{name}_ms"] = 1e3 * dt_s
         out[f"{name}_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -5405,7 +5521,7 @@ def _twin(card: str, path: Path, witness: bool, config, model_of,
         del s, p1
         _free()
     t1 = time.perf_counter()
-    torch.save({"bf16": got["bf16"], "fp32": got.get("fp32"), **out}, path)
+    torch.save({"bf16": got["bf16"], **out}, path)
     del got
     out["save_s"] = time.perf_counter() - t1
     out["twin_s"] = time.perf_counter() - t0
@@ -5414,8 +5530,49 @@ def _twin(card: str, path: Path, witness: bool, config, model_of,
           f"step 1 bf16 {out['bf16_ms']:.1f} ms (peak "
           f"{out['bf16_peak_gib']:.2f} GiB), fp32 {out['fp32_ms']:.1f} ms "
           f"(peak {out['fp32_peak_gib']:.2f}); bf16 vs fp32 params max "
-          f"{max(out['diff']):.3e} | {card}")
+          f"{max(out['diff']):.3e}; {out['twin_s']:.1f} s (save "
+          f"{out['save_s']:.1f}) | {card}")
     torch.cuda.reset_peak_memory_stats()
+    return out
+
+
+# the twins of phase 13's runs, by run: (c)'s (the Adasum tree, two lanes
+# stacked at span GRID_SPAN, nothing sharded), (d1)'s and (e1)'s, (e2)'s
+# (their combiners). Each takes ~40-49 GiB of the card for 13-17 s; the
+# whole run computes them beside phase 6's ranks (~15 GiB), and the files
+# wait under build/ranks until phase 13's ranks read them
+P13_TWINS = ("c", "d1", "e1", "e2")
+
+
+def _twin_path(tag: str) -> Path:
+    return ROOT / "build" / "ranks" / f"{tag}_twin.pt"
+
+
+def p13_twins(card: str, tags) -> dict:
+    """The twins of `tags` (P13_TWINS), each saved to `_twin_path(tag)`
+    for the ranks; returns {tag: the twin's record}. On a failure the
+    files are removed."""
+    out = {}
+    _twin_path(tags[0]).parent.mkdir(parents=True, exist_ok=True)
+    try:
+        for tag in tags:
+            if tag == "c":
+                cfg, model_of = _tp_config(span=GRID_SPAN,
+                                           backend="gspmd_tree"), _tp_model
+            elif tag == "d1":
+                cfg = _fam_config("mixtral-8x22b")
+                model_of = lambda dt: _fam_model(
+                    "mixtral-8x22b", MIXTRAL_LAYERS, dt, cfg.param_dtype)
+            else:
+                cfg = {t: c for t, _, _, c, _ in _comb_runs()}[tag]
+                model_of = _tp_model
+            out[tag] = _twin(card, _twin_path(tag), cfg, model_of,
+                             f"({tag})")
+            _free()
+    except BaseException:
+        for tag in tags:
+            _twin_path(tag).unlink(missing_ok=True)
+        raise
     return out
 
 
@@ -5427,8 +5584,24 @@ def _tp_vs_twin(plan, params, twin, key: str, tol) -> dict:
     import torch.distributed as dist
     from repro_torch import tree as T
     worst = (0.0, None, 0.0, 0.0)
-    for i, x in enumerate(T.leaves(params)):     # on the card
-        want = plan.take(i, twin[key][i], "params").to(x.device)
+    for i, x in enumerate(T.leaves(params)):
+        # the cut's span of the (memory-mapped) leaf, from its first
+        # element to its last, goes to the card in one contiguous read and
+        # is cut there (a strided read of the mapped file took 10-20 s a
+        # run on eight ranks; the whole leaf, ~9 s)
+        full = twin[key][i].contiguous()
+        want = plan.take(i, full, "params")
+        if want.is_contiguous():
+            want = want.to(x.device)
+        elif (want.untyped_storage().data_ptr()
+              == full.untyped_storage().data_ptr()):
+            lo = want.storage_offset() - full.storage_offset()
+            hi = lo + 1 + sum((n - 1) * st for n, st in
+                              zip(want.shape, want.stride()))
+            want = full.view(-1)[lo:hi].to(x.device).as_strided(
+                want.shape, want.stride())
+        else:
+            want = plan.take(i, full.to(x.device), "params")
         err = (x.detach() - want).abs().max().item()
         del want
         ratio = err / tol(i)
@@ -5440,267 +5613,15 @@ def _tp_vs_twin(plan, params, twin, key: str, tol) -> dict:
     return {"worst_ratio": ratio, "leaf": i, "max_abs_err": err, "tol": t}
 
 
-def tp_worker(spec: dict) -> int:
-    """One rank of phase 13 (a) (its own process, all on cuda:0 over
-    gloo): TP_STEPS steps of the grid through `TrainSession`, then step
-    1 again from fresh state (the kernel arm, bitwise) and on the plain
-    arm; step 1 held against the twin; writes a JSON record."""
-    import torch
-    import torch.distributed as dist
-    sys.path.insert(0, str(ROOT / "src"))
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    from repro_torch import tree as T
-    from repro_torch.engine import TrainSession, build_runtime
-    from repro_torch.kernels import build
-    from repro_torch.parallel.comm import Comm
-    rank = int(os.environ["RANK"])
-    lead = rank == 0
-    comm = Comm.init("gloo", torch.device("cuda:0"))
-    model = _tp_model(torch.bfloat16)
-    timer = _CombineTimer(keep=lead)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    with _timing_combiners(timer):
-        s = TrainSession.from_config(
-            _tp_config(data_mesh=TP_GRID[0], model_mesh=TP_GRID[1],
-                       backend="rvh"),
-            model=model, device="cuda:0",
-            generator=torch.Generator(device="cuda:0").manual_seed(SEED),
-            callbacks=[], comm=comm)
-    rt, plan = s.runtime, s.runtime.plan
-    mc, dc, tp = rt.model_comm, plan.comm, rt.tp
-    rec = {"rank": rank, "init_s": time.perf_counter() - t0,
-           "init_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-           "mesh": [rt.dp_total, rt.model_size], "path": rt.combine_path,
-           "sharded_leaves": sum(d is not None for d in plan.mdims),
-           "leaves": len(plan.mdims),
-           "held_gib": {"params": _gib_of(s.state["params"]),
-                        "state": _gib_of(s.state["opt"]["inner"])}}
-    print(f"[rank {rank}] session up in {rec['init_s']:.1f}s", flush=True)
-    torch.cuda.reset_peak_memory_stats()
-    whole = [d is None for d in plan.mdims]
-    twin = torch.load(spec["twin"], mmap=True)
-    comm.timing = True
-    dc.take_ms()
-    mc.take_ms()
-    build.reset_launches()
-    steps = []
-    for step in range(TP_STEPS):
-        tp.bytes.clear()
-        staged0 = comm.total_staged_bytes()
-        m, dt = _timed_s(lambda: s.step(s.batch(step)))
-        sums = _checksums(s.state["params"])
-        steps.append({
-            "ms": 1e3 * dt, "loss": m["loss"], "combine_ms": timer.take_ms(),
-            "data_comm": dc.take_ms(), "model_comm": mc.take_ms(),
-            "tp_bytes": dict(tp.bytes),
-            "staged_bytes": comm.total_staged_bytes() - staged0,
-            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-            "data_bitwise": _all_equal(sums, group=dc.group),
-            "model_bitwise": _all_equal(
-                [c for c, w in zip(sums, whole) if w], group=mc.group)})
-        print(f"[rank {rank}] step {step} {1e3 * dt:.0f} ms", flush=True)
-        if step == 0:
-            sums1 = sums
-            rec["twin"] = _tp_vs_twin(
-                plan, s.state["params"], twin, "bf16",
-                lambda i: TP_TWIN_FACTOR * twin["diff"][i] + TP_TWIN_FLOOR)
-    comm.timing = False
-    rec["launches"] = dict(build.LAUNCHES)
-    rec["steps"] = steps
-    rec["peak_gib"] = max(x["peak_gib"] for x in steps)
-    kept = timer.kept
-    batch0 = s.batch(0)
-    s.state = None
-    _free()
-
-    def fresh_step(runtime, m):
-        params = m.init(torch.Generator(device="cuda:0").manual_seed(SEED))
-        params = runtime.plan.shard_params(params)
-        state = {"params": params, "opt": runtime.dopt.init(params),
-                 "step": 0}
-        return runtime.train_step(state, batch0)[0]
-
-    rec["steps_s"] = time.perf_counter() - t0 - rec["init_s"]
-    t1 = time.perf_counter()
-    comm.timing = True
-    dc.take_ms()
-    mc.take_ms()
-    tp.bytes.clear()
-    staged0 = comm.total_staged_bytes()
-    again, dt = _timed_s(lambda: fresh_step(rt, model))
-    rec["repeat_step"] = {
-        "ms": 1e3 * dt, "data_comm": dc.take_ms(),
-        "model_comm": mc.take_ms(), "tp_bytes": dict(tp.bytes),
-        "staged_bytes": comm.total_staged_bytes() - staged0,
-        "combine_ms": timer.take_ms()}
-    comm.timing = False
-    rec["repeat_bitwise"] = _checksums(again["params"]) == sums1
-    p1 = [x.to("cpu", copy=True) for x in T.leaves(again["params"])]
-    cuda = lambda x: x.to("cuda:0", non_blocking=False)
-    del again
-    _free()
-    rec["repeat_s"] = time.perf_counter() - t1
-    t1 = time.perf_counter()
-    ptimer = _CombineTimer(keep=lead)
-    with _timing_combiners(ptimer):
-        prt = build_runtime(model, s.config.run_policy(), lr=s.config.lr,
-                            comm=comm, combine_impl="plain",
-                            model_size=TP_GRID[1])
-    plain = fresh_step(prt, model)
-    # on the card, a leaf at a time (fp32: the difference of two close
-    # fp32 numbers is exact)
-    rel = lambda x, y: ((x - y).abs().max()
-                        / y.abs().max().clamp(min=1e-30)).item()
-    if lead:
-        rec["combined_rel_err"] = max(rel(cuda(x), cuda(y)) for x, y
-                                      in zip(kept[0], ptimer.kept[0]))
-        rec["stats_rel_err"] = _rel_err(kept[1], ptimer.kept[1])
-    err = max((x - cuda(y)).abs().max().item()
-              for x, y in zip(T.leaves(plain["params"]), p1))
-    seen = [None] * dist.get_world_size()
-    dist.all_gather_object(seen, err)
-    rec["params_max_abs_err"] = max(seen)
-    del plain, prt, ptimer, kept, p1
-    _free()
-    rec["plain_s"] = time.perf_counter() - t1
-    if spec.get("witness"):
-        m32 = _tp_model(torch.float32)
-        wrt = build_runtime(m32, s.config.run_policy(), lr=s.config.lr,
-                            comm=comm, model_size=TP_GRID[1])
-        got = fresh_step(wrt, m32)
-        rec["witness"] = _tp_vs_twin(
-            plan, got["params"], twin, "fp32",
-            lambda i: TP_WITNESS_RTOL * max(twin["upd"][i], 1e-30))
-        del got, wrt, m32
-        _free()
-    del twin
-    dist.barrier()
-    rec["staged_bytes_total"] = comm.total_staged_bytes()
-    s.close()
-    comm.close()
-    Path(spec["out"]).write_text(json.dumps(rec, default=str))
-    return 0
-
-
-def _tp_report(card: str, recs: list, twin: dict, wall: float) -> dict:
-    """Phase 13 (a) from its ranks' records: printed and checked."""
-    r0 = recs[0]
-    peaks = [r["peak_gib"] for r in recs]
-    print(f"[smoke] p13 (a) qwen3-32b (hf Qwen/Qwen3-32B) at full width, "
-          f"{TP_LAYERS} of 64 layers, grid (data, model) = "
-          f"{tuple(r0['mesh'])}, {len(recs)} gloo ranks on cuda:0; "
-          f"momentum, path={r0['path']}, bf16 compute, seq {TP_SEQ}, "
-          f"batch {TP_BATCH}: {r0['sharded_leaves']} of {r0['leaves']} "
-          f"leaves model-sharded; a rank holds params "
-          f"{r0['held_gib']['params']:.3f} + state "
-          f"{r0['held_gib']['state']:.3f} GiB; init peak "
-          f"{max(r['init_peak_gib'] for r in recs):.2f}, step peaks "
-          f"{[round(p, 2) for p in peaks]} GiB (sum {sum(peaks):.2f}) "
-          f"| {card}")
-    steps = []
-    runs = [(f"step {i}", [r["steps"][i] for r in recs])
-            for i in range(TP_STEPS)]
-    runs.append(("repeat (steady)", [r["repeat_step"] for r in recs]))
-    for name, rows in runs:
-        s0 = rows[0]
-        dcm, mcm = s0["data_comm"], s0["model_comm"]
-        tb = s0["tp_bytes"]
-        step = {
-            "name": name, "ms": max(x["ms"] for x in rows),
-            "loss": s0.get("loss"), "combine_ms": s0["combine_ms"],
-            "tp_allreduce_ms": mcm.get("allreduce", 0.0),
-            "tp_all_gather_ms": mcm.get("all_gather", 0.0),
-            "tp_allreduce_bytes": tb.get("allreduce", 0),
-            "tp_all_gather_bytes": tb.get("all_gather", 0),
-            "model_dots_sum_ms": mcm.get("dots_sum", 0.0),
-            "rvh_exchange_ms": dcm.get("exchange", 0.0),
-            "data_dots_sum_ms": dcm.get("dots_sum", 0.0),
-            "staging_ms": dcm.get("stage", 0.0) + mcm.get("stage", 0.0),
-            "kernels_ms": dcm.get("kernels", 0.0),
-            "staged_gb": s0["staged_bytes"] / 1e9}
-        steps.append(step)
-        loss = "" if step["loss"] is None else \
-            f", loss {step['loss']:.4f}"
-        print(f"[smoke] p13 (a) {name}: {step['ms']:.1f} ms (slowest "
-              f"rank){loss}; rank 0: TP all-reduce "
-              f"{step['tp_allreduce_ms']:.1f} ms / "
-              f"{step['tp_allreduce_bytes'] / 1e6:.1f} MB, all-gather "
-              f"{step['tp_all_gather_ms']:.1f} ms / "
-              f"{step['tp_all_gather_bytes'] / 1e6:.1f} MB; RVH exchange "
-              f"{step['rvh_exchange_ms']:.1f}, data dot-sum "
-              f"{step['data_dots_sum_ms']:.1f}, model dot-sum "
-              f"{step['model_dots_sum_ms']:.1f}, kernels "
-              f"{step['kernels_ms']:.1f}, staging {step['staging_ms']:.1f} "
-              f"ms; combine {step['combine_ms']:.1f} ms; staged "
-              f"{step['staged_gb']:.2f} GB | {card}")
-    launches = r0["launches"]
-    checks = {
-        "data_bitwise": all(x["data_bitwise"] for r in recs
-                            for x in r["steps"]),
-        "model_bitwise": all(x["model_bitwise"] for r in recs
-                             for x in r["steps"]),
-        "repeat_bitwise": all(r["repeat_bitwise"] for r in recs),
-        "combined_rel_err": r0["combined_rel_err"],
-        "stats_rel_err": r0["stats_rel_err"],
-        "params_max_abs_err": r0["params_max_abs_err"],
-        "twin": r0["twin"], "witness": r0.get("witness")}
-    print(f"[smoke] p13 (a) launches on rank 0: block_dots="
-          f"{launches.get('block_dots', 0)} block_combine="
-          f"{launches.get('block_combine', 0)}; every leaf bitwise across "
-          f"each data group={checks['data_bitwise']}, the unsharded leaves "
-          f"across each model group={checks['model_bitwise']}, on repeat="
-          f"{checks['repeat_bitwise']}; kernel vs plain (rank 0, step 1): "
-          f"combined {checks['combined_rel_err']:.2e}, stats "
-          f"{checks['stats_rel_err']:.2e} (tol {COMBINED_RTOL}), params "
-          f"{checks['params_max_abs_err']:.2e} (tol {TRAIN_PARAM_TOL}); "
-          f"step 1 vs the twin: worst leaf {checks['twin']['leaf']} "
-          f"{checks['twin']['max_abs_err']:.3e} against "
-          f"{checks['twin']['tol']:.3e} ({TP_TWIN_FACTOR} x the twin's "
-          f"bf16-vs-fp32 + {TP_TWIN_FLOOR}), twin loss "
-          f"{twin['bf16_loss']:.4f}; rank 0's seconds: init "
-          f"{r0['init_s']:.1f}, steps {r0['steps_s']:.1f}, repeat "
-          f"{r0['repeat_s']:.1f}, plain arm {r0['plain_s']:.1f}; twin "
-          f"{twin['twin_s']:.1f} (save {twin['save_s']:.1f}) | {card}")
-    if checks["witness"]:
-        w = checks["witness"]
-        print(f"[smoke] p13 (a) witness, fp32 compute: worst leaf "
-              f"{w['leaf']} {w['max_abs_err']:.3e} against {w['tol']:.3e} "
-              f"({TP_WITNESS_RTOL} of its largest update) | {card}")
-        assert w["worst_ratio"] <= 1.0, w
-    assert all(r["mesh"] == list(TP_GRID) for r in recs)
-    assert r0["path"] == "rvh" and r0["sharded_leaves"] > 0
-    assert all(math.isfinite(x["loss"]) for x in steps
-               if x["loss"] is not None)
-    for k in ("block_dots", "block_combine"):
-        assert launches.get(k, 0) > 0, f"{k} never launched in phase 13 (a)"
-    assert checks["data_bitwise"] and checks["model_bitwise"]
-    assert checks["repeat_bitwise"]
-    assert checks["combined_rel_err"] <= COMBINED_RTOL
-    assert checks["stats_rel_err"] <= COMBINED_RTOL
-    assert checks["params_max_abs_err"] <= TRAIN_PARAM_TOL
-    assert checks["twin"]["worst_ratio"] <= 1.0, checks["twin"]
-    assert sum(peaks) <= RANK_MEM_GIB, peaks
-    return {"steps": steps, "launches": launches, "checks": checks,
-            "held_gib": r0["held_gib"], "peak_gib": peaks,
-            "init_peak_gib": [r["init_peak_gib"] for r in recs],
-            "twin": {k: v for k, v in twin.items()
-                     if k.endswith(("_ms", "_gib", "_loss", "_s"))},
-            "rank0_s": {k: r0[k] for k in ("init_s", "steps_s", "repeat_s",
-                                           "plain_s")},
-            "wall_s": wall}
-
-
-def _grid_config():
+def _grid_config(**fields):
     """Phase 13 (c)'s EngineConfig: the qwen3-32b preset at (c)'s
-    widths."""
+    widths; `fields` set the rest."""
     from repro_torch.engine import EngineConfig
-    return EngineConfig.preset(
-        "qwen3-32b", data_mesh=GRID_SHAPE[0], model_mesh=GRID_SHAPE[1],
+    return EngineConfig.preset("qwen3-32b", **{**dict(
+        data_mesh=GRID_SHAPE[0], model_mesh=GRID_SHAPE[1],
         span=GRID_SPAN, accum_steps=1, optimizer="momentum",
         seq_len=TP_SEQ, global_batch=TP_BATCH, fusion_threshold_mb=64,
-        steps=TP_STEPS, log_every=1)
+        steps=TP_STEPS, log_every=1), **fields})
 
 
 # (d) the model axis on the MoE family, in (c)'s rank processes after (c)
@@ -5715,7 +5636,7 @@ def _grid_config():
 # whole, and at model 2 that is 1.21 B expert elements a rank, which with
 # its gradient beside the held params, state and lane gradient of eight
 # ranks would pass RANK_MEM_GIB; model 4 halves it. Step 1 is held to a
-# one-process twin (the two data lanes stacked) by (a)'s rule. (d2)
+# one-process twin (the two data lanes stacked) by the twin rule. (d2)
 # moonshot-v1-16b-a3b (hf moonshotai/Moonlight-16B-A3B) at MOONSHOT_LAYERS
 # of 48 (the dense first layer and one MoE layer, 1.284 B params, fp32)
 # on (c)'s grid at (c)'s span: the reference's rule puts the model axis
@@ -5728,7 +5649,7 @@ MOONSHOT_LAYERS = 2
 # steps of each run (moonshot's one for the script's time limit); then
 # step 1 again from the session's initial state, bitwise, timed as the
 # steady step
-FAM_STEPS = {"d1": 2, "d2": 1}
+FAM_STEPS = {"d1": 1, "d2": 1}
 
 
 def _fam_model(arch: str, layers: int, dtype, param_dtype: str):
@@ -5744,7 +5665,7 @@ def _fam_model(arch: str, layers: int, dtype, param_dtype: str):
 
 
 def _fam_config(arch: str, **fields):
-    """Phase 13 (d)'s EngineConfig: the arch's preset at (a)'s widths,
+    """Phase 13 (d)'s EngineConfig: the arch's preset at (c)'s widths,
     momentum, no accumulation; `fields` set the rest."""
     from repro_torch.engine import EngineConfig
     return EngineConfig.preset(arch, **{**dict(
@@ -5763,13 +5684,61 @@ def _fam_runs():
                          model_mesh=GRID_SHAPE[1], span=GRID_SPAN)))
 
 
-def _mixtral_twin(card: str, path: Path) -> dict:
-    """Phase 13 (d1)'s twin (`_twin`): the preset's two lanes (span 2)
-    stacked, its bf16 params."""
-    cfg = _fam_config("mixtral-8x22b")
-    return _twin(card, path, False, cfg,
-                 lambda dt: _fam_model("mixtral-8x22b", MIXTRAL_LAYERS, dt,
-                                       cfg.param_dtype), "(d1)")
+# (e) every combiner on shards, in (c)'s rank processes after (d) frees
+# its memory: (c)'s model and widths (bf16 compute, seq TP_SEQ, batch
+# TP_BATCH, weights from SEED), one step and its repeat from the
+# session's initial state each, through `TrainSession.from_config` of
+# qwen3-32b's preset. (e1) the paper's sum baseline and (e2) AdaScale in
+# (c)'s regime (momentum, fsdp + scatter_grads, span GRID_SPAN on
+# GRID_SHAPE), step 1 held to a one-process twin with the same combiner
+# (the two lanes stacked) by the twin rule; (e3) adasum-linear with adam at
+# the post point at GRID_SPAN of GRID_SHAPE's four data ranks (its state
+# ZeRO-1 on the lane groups' parts); (e4) the Adasum tree whole-model
+# (per_layer=False) with fsdp + scatter_grads on a data axis of eight at
+# span COMB_TREE_SPAN (the shards' and the whole leaves' buckets in
+# lockstep, both Adasum kernels on them), its combined tree on rank 0
+# held against the plain arm's combine of the same lane tree
+# (COMBINED_BF16_RTOL: the lane gradients are bf16, and the batch of 8
+# rows cannot take an accumulation that would keep them fp32 on eight
+# data ranks). (e3) and (e4) keep bf16
+# params, and (e3) bf16 adam state, as mixtral's preset does: in fp32,
+# (e3)'s two adam moments of a lane group's part and (e4)'s FSDP gathers
+# of whole leaves (no model axis) would take eight ranks past
+# RANK_MEM_GIB
+COMB_TREE_GRID = (8, 1)
+COMB_TREE_SPAN = 4
+# the runs that take step 1 again from the session's initial state
+# (bitwise): (e1) and (e2), held to their twins, skip it for the time
+# limit (~15 s each); the repeat's determinism is held in the same
+# processes by (d1), (d2), (e3) and (e4)
+COMB_REPEAT = ("e3", "e4")
+
+
+def _comb_runs():
+    """(tag, EngineConfig, bf16 params, twin, plain arm) of phase 13 (e);
+    the twin is the one-process config step 1 is held to."""
+    return (
+        ("e1", _grid_config(combine="sum"), False,
+         _tp_config(span=GRID_SPAN, backend="gspmd_tree", combine="sum"),
+         False),
+        ("e2", _grid_config(combine="adascale"), False,
+         _tp_config(span=GRID_SPAN, backend="gspmd_tree",
+                    combine="adascale"), False),
+        ("e3", _grid_config(backend="linear", optimizer="adam",
+                            param_dtype="bfloat16",
+                            opt_state_dtype="bfloat16"),
+         True, None, False),
+        ("e4", _grid_config(data_mesh=COMB_TREE_GRID[0],
+                            model_mesh=COMB_TREE_GRID[1],
+                            span=COMB_TREE_SPAN, per_layer=False,
+                            param_dtype="bfloat16"),
+         True, None, True))
+
+
+def _comb_model(bf16_params: bool):
+    import torch
+    return _fam_model("qwen3-32b", TP_LAYERS, torch.bfloat16,
+                      "bfloat16" if bf16_params else "float32")
 
 
 class _DropLog:
@@ -5827,23 +5796,33 @@ class _DropLog:
 
 
 def _grid_run(comm, config, model, twin_path, rank: int, tag: str,
-              steps: int = TP_STEPS, repeat: bool = False) -> dict:
+              steps: int = TP_STEPS, repeat: bool = False,
+              plain: bool = False, warm=None) -> dict:
     """One grid run on this rank (its own process, on cuda:0 over gloo):
     the session built leaf by leaf, `steps` steps timed by call kind,
     step 1 held against the twin at `twin_path` (if any) and, with
     `repeat`, taken again from the session's initial state (bitwise,
-    timed as the others); returns the rank's record. Closes the session
+    timed as the others); with `plain`, the plain arm's combiner on
+    step 1's lane tree (every rank's, kept in host memory), rank 0's
+    combined tree (and CombineStats, where the combiner makes them) held
+    against the kernel arm's; returns the rank's record. `warm`: a
+    `_warm_up` thread, joined once the session is up. Closes the session
     and frees its memory."""
     import torch
     from repro_torch import tree as T
-    from repro_torch.engine import TrainSession
+    from repro_torch.engine import TrainSession, build_runtime
     from repro_torch.kernels import build
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    s = TrainSession.from_config(
-        config, model=model, device="cuda:0",
-        generator=torch.Generator(device="cuda:0").manual_seed(SEED),
-        callbacks=[], comm=comm)
+    timer = _CombineTimer(keep=rank == 0, keep_input=True) \
+        if plain else None
+    with _timing_combiners(timer):
+        s = TrainSession.from_config(
+            config, model=model, device="cuda:0",
+            generator=torch.Generator(device="cuda:0").manual_seed(SEED),
+            callbacks=[], comm=comm)
+    if warm is not None:
+        _join(warm)
     rt, plan = s.runtime, s.runtime.plan
     mc, dc, tp = rt.model_comm, plan.comm, rt.tp
     inner = s.state["opt"]["inner"]
@@ -5861,7 +5840,8 @@ def _grid_run(comm, config, model, twin_path, rank: int, tag: str,
            "span": rt.span, "point": rt.dopt.point,
            "regime": {k: getattr(s.config, k) for k in (
                "fsdp", "scatter_grads", "backend", "pad_heads",
-               "param_dtype")},
+               "param_dtype", "combine", "per_layer", "optimizer",
+               "opt_state_dtype")},
            "leaves": len(plan.dims),
            "data_sharded": sum(d is not None for d in plan.dims),
            "model_sharded": sum(d is not None for d in plan.mdims),
@@ -5870,20 +5850,29 @@ def _grid_run(comm, config, model, twin_path, rank: int, tag: str,
            "plan_gib": {"params": plan_gib("params", [params]),
                         "state": plan_gib("state", inner.values()),
                         "grads": plan_gib("grads", [params])}}
-    del params
-    print(f"[rank {rank}] {tag} session up in {rec['init_s']:.1f}s",
-          flush=True)
+    del params, inner        # the repeat's state is a copy: free the first
+    free, total = torch.cuda.mem_get_info()
+    print(f"[rank {rank}] {tag} session up in {rec['init_s']:.1f}s: "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated, "
+          f"peak {rec['init_peak_gib']:.2f}; the card "
+          f"{(total - free) / 2 ** 30:.2f} of {total / 2 ** 30:.2f} GiB in "
+          f"use", flush=True)
     # the leaves no axis cuts here: whole on the data axis (not an FSDP
     # piece), and of those, whole on the model axis too
     data_whole = [d is None for d in plan.dims]
     both_whole = [d is None and m is None
                   for d, m in zip(plan.dims, plan.mdims)]
     twin = torch.load(twin_path, mmap=True) if twin_path else None
-    start = T.map(lambda x: x.clone() if isinstance(x, torch.Tensor)
-                  else x, s.state) if repeat else None
+    # the initial state, kept in host memory (on the card it would pass
+    # RANK_MEM_GIB beside (e)'s steps), and a card copy of it
+    move = lambda tree, dev: T.map(lambda x: x.to(dev, copy=True)
+                                   if isinstance(x, torch.Tensor) else x,
+                                   tree)
+    start = move(s.state, "cpu") if repeat else None
     drops = _DropLog(model.cfg) if model.cfg.n_experts else None
     torch.cuda.reset_peak_memory_stats()
-    mc.take_ms()
+    if mc is not None:      # a data axis alone has no model group
+        mc.take_ms()
     comm.take_ms()
     build.reset_launches()
 
@@ -5891,18 +5880,20 @@ def _grid_run(comm, config, model, twin_path, rank: int, tag: str,
         """Step `step` timed by call kind: (its record, the checksums of
         the params after it)."""
         comm.timing = True
-        tp.bytes.clear()
+        if tp is not None:
+            tp.bytes.clear()
         staged0 = comm.total_staged_bytes()
         m, dt = _timed_s(lambda: s.step(s.batch(step)))
         comm.timing = False
         got = {"ms": 1e3 * dt, "loss": m["loss"],
-               "model_comm": mc.take_ms(), "rest_comm": comm.take_ms(),
-               "tp_bytes": dict(tp.bytes),
+               "model_comm": mc.take_ms() if mc is not None else {},
+               "rest_comm": comm.take_ms(),
+               "tp_bytes": dict(tp.bytes) if tp is not None else {},
                "staged_bytes": comm.total_staged_bytes() - staged0,
                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
                "drops": drops.take(plan) if drops else None}
-        print(f"[rank {rank}] {tag} step {step} {1e3 * dt:.0f} ms",
-              flush=True)
+        print(f"[rank {rank}] {tag} step {step} {1e3 * dt:.0f} ms, peak "
+              f"{got['peak_gib']:.2f} GiB", flush=True)
         return got, _checksums(s.state["params"])
 
     runs, bitwise = [], []
@@ -5913,8 +5904,9 @@ def _grid_run(comm, config, model, twin_path, rank: int, tag: str,
             bitwise.append(
                 _all_equal([c for c, w in zip(sums, data_whole) if w],
                            group=dc.group)
-                and _all_equal([c for c, w in zip(sums, both_whole) if w],
-                               group=mc.group))
+                and (mc is None or _all_equal(
+                    [c for c, w in zip(sums, both_whole) if w],
+                    group=mc.group)))
             if step == 0:
                 sums1 = sums
                 if twin is not None:
@@ -5929,11 +5921,35 @@ def _grid_run(comm, config, model, twin_path, rank: int, tag: str,
         del twin
         if repeat:
             t1 = time.perf_counter()
-            s.state = start
-            del start
+            s.state = None         # its memory back before the copy lands
+            _free()
+            rec["left_gib"] = torch.cuda.memory_allocated() / 2 ** 30
+            free, total = torch.cuda.mem_get_info()
+            print(f"[rank {rank}] {tag} before the repeat: "
+                  f"{rec['left_gib']:.2f} GiB allocated; the card "
+                  f"{(total - free) / 2 ** 30:.2f} GiB in use", flush=True)
+            s.state = move(start, "cuda:0")
             rec["repeat_step"], sums = timed_step(0)
             rec["repeat_bitwise"] = sums == sums1
             rec["repeat_s"] = time.perf_counter() - t1
+    if plain:
+        t1 = time.perf_counter()
+        s.state = None
+        _free()
+        prt = build_runtime(model, s.config.run_policy(), lr=s.config.lr,
+                            comm=comm, combine_impl="plain",
+                            model_size=rt.model_size)
+        out = prt.dopt.combiner(move(timer.kept_input, "cuda:0"))
+        out, stats = out if isinstance(out, tuple) else (out, None)
+        if rank == 0:          # on the card, a leaf at a time
+            rec["combined_rel_err"] = max(
+                _rel_err(x.to("cuda:0"), y)
+                for x, y in zip(timer.kept[0], T.leaves(out)))
+            if stats is not None and timer.kept[1] is not None:
+                rec["stats_rel_err"] = _rel_err(
+                    timer.kept[1].to("cuda:0"), stats["levels"])
+        del prt, out, stats, timer
+        rec["plain_s"] = time.perf_counter() - t1
     s.close()
     del s
     _free()
@@ -5941,23 +5957,30 @@ def _grid_run(comm, config, model, twin_path, rank: int, tag: str,
 
 
 def grid_worker(spec: dict) -> int:
-    """One rank of phase 13 (c) and (d) (its own process, on cuda:0 over
-    gloo): (c), then (d1) and (d2) on the same process group (`_grid_run`
-    each); writes a JSON record."""
+    """One rank of phase 13 (c), (d) and (e) (its own process, on cuda:0
+    over gloo): (c) with its plain arm, then (d1), (d2) and (e1)-(e4) on
+    the same process group (`_grid_run` each, the twins' files named in
+    `spec` by run); writes a JSON record."""
     import torch
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.parallel.comm import Comm
     rank = int(os.environ["RANK"])
+    warm = _warm_up()     # while the ranks meet and build (c)'s session
     comm = Comm.init("gloo", torch.device("cuda:0"))
     rec = _grid_run(comm, _grid_config(), _tp_model(torch.bfloat16),
-                    spec["twin"], rank, "(c)")
+                    spec["c"], rank, "(c)", plain=True, warm=warm)
     rec["d"] = {}
     for tag, arch, layers, config in _fam_runs():
         model = _fam_model(arch, layers, torch.bfloat16, config.param_dtype)
         rec["d"][tag] = _grid_run(comm, config, model, spec.get(tag), rank,
                                   f"({tag})", FAM_STEPS[tag], repeat=True)
+    rec["e"] = {}
+    for tag, config, bf16, _, plain in _comb_runs():
+        rec["e"][tag] = _grid_run(comm, config, _comb_model(bf16),
+                                  spec.get(tag), rank, f"({tag})",
+                                  repeat=tag in COMB_REPEAT, plain=plain)
     comm.close()
     Path(spec["out"]).write_text(json.dumps(rec, default=str))
     return 0
@@ -6023,12 +6046,17 @@ def _grid_report(card: str, recs: list, wall: float) -> dict:
     launches = r0["launches"]
     twin = r0["twin"]
     bitwise = all(all(r["bitwise"]) for r in recs)
+    stats = r0.get("stats_rel_err")
     print(f"[smoke] p13 (c) launches on rank 0: block_dots="
           f"{launches.get('block_dots', 0)} block_combine="
           f"{launches.get('block_combine', 0)}; the leaves left whole "
           f"bitwise across the ranks holding them={bitwise}; step 1 vs "
-          f"(a)'s twin: worst leaf {twin['leaf']} {twin['max_abs_err']:.3e} "
+          f"its twin: worst leaf {twin['leaf']} {twin['max_abs_err']:.3e} "
           f"against {twin['tol']:.3e} (ratio {twin['worst_ratio']:.2f}); "
+          f"kernel arm vs plain arm on step 1's lane tree (rank 0): "
+          f"combined rel_err {r0['combined_rel_err']:.3e}"
+          + ("" if stats is None else f", stats {stats:.3e}")
+          + f" (tol {COMBINED_RTOL}); plain arm {r0['plain_s']:.1f} s; "
           f"wall {wall:.1f} s | {card}")
     assert all(r["mesh"] == list(GRID_SHAPE) for r in recs)
     assert r0["path"] == "hier-rvh" and r0["span"] == GRID_SPAN
@@ -6041,6 +6069,8 @@ def _grid_report(card: str, recs: list, wall: float) -> dict:
         assert launches.get(k, 0) > 0, f"{k} never launched in phase 13 (c)"
     assert bitwise
     assert twin["worst_ratio"] <= 1.0, twin
+    assert r0["combined_rel_err"] <= COMBINED_RTOL, r0["combined_rel_err"]
+    assert stats is None or stats <= COMBINED_RTOL, stats
     assert sum(peaks) <= RANK_MEM_GIB and sum(inits) <= RANK_MEM_GIB, \
         (peaks, inits)
     # the kernels at RVH's round-0 half of a rank's part of the embedding:
@@ -6059,7 +6089,9 @@ def _grid_report(card: str, recs: list, wall: float) -> dict:
             "bitwise": bitwise, "held_gib": [r["held_gib"] for r in recs],
             "plan_gib": r0["plan_gib"], "peak_gib": peaks,
             "init_peak_gib": inits, "cases": cases,
-            "rank0_s": {k: r0[k] for k in ("init_s", "steps_s")},
+            "combined_rel_err": r0["combined_rel_err"],
+            "stats_rel_err": stats,
+            "rank0_s": {k: r0[k] for k in ("init_s", "steps_s", "plain_s")},
             "wall_s": wall}
 
 
@@ -6195,6 +6227,127 @@ def _fam_report(card: str, recs: list, twin: dict) -> dict:
     return out
 
 
+def _comb_report(card: str, recs: list, twins: dict) -> dict:
+    """Phase 13 (e) from its ranks' records (`rec["e"]`): printed and
+    checked."""
+    out = {}
+    for tag, config, _, _, plain in _comb_runs():
+        rows = [r["e"][tag] for r in recs]
+        r0 = rows[0]
+        again = tag in COMB_REPEAT
+        peaks = [r["peak_gib"] for r in rows]
+        inits = [r["init_peak_gib"] for r in rows]
+        for r in rows:
+            print(f"[smoke] p13 ({tag}) rank {r['rank']}: holds params "
+                  f"{r['held_gib']['params']:.3f} GiB (plan "
+                  f"{r['plan_gib']['params']:.3f}), state "
+                  f"{r['held_gib']['state']:.3f} (plan "
+                  f"{r['plan_gib']['state']:.3f}); its lane gradient's plan "
+                  f"{r['plan_gib']['grads']:.3f}; init peak "
+                  f"{r['init_peak_gib']:.2f}, step peak {r['peak_gib']:.2f} "
+                  f"GiB | {card}")
+        reg = r0["regime"]
+        print(f"[smoke] p13 ({tag}) qwen3-32b preset at full width, "
+              f"{TP_LAYERS} of 64 layers, grid (data, model) = "
+              f"{tuple(r0['mesh'])}, {len(rows)} gloo ranks on cuda:0: "
+              f"combine={reg['combine']} backend={reg['backend']} "
+              f"per_layer={reg['per_layer']}, {reg['optimizer']} "
+              f"({r0['point']} point), fsdp={reg['fsdp']} scatter_grads="
+              f"{reg['scatter_grads']}, params {reg['param_dtype']}, state "
+              f"{reg['opt_state_dtype']}, span {r0['span']}, path="
+              f"{r0['path']}, bf16 compute, seq {TP_SEQ}, batch "
+              f"{TP_BATCH}; of {r0['leaves']} leaves {r0['data_sharded']} "
+              f"cut on the data axis, {r0['model_sharded']} on the model "
+              f"axis; init peaks sum {sum(inits):.2f} GiB (max "
+              f"{max(inits):.2f}), step peaks sum {sum(peaks):.2f} (max "
+              f"{max(peaks):.2f}); rank 0's seconds: init "
+              f"{r0['init_s']:.1f}, step {r0['steps_s']:.1f}"
+              + (f", repeat {r0['repeat_s']:.1f}" if again else "")
+              + (f", plain arm {r0['plain_s']:.1f}" if plain else "")
+              + f" | {card}")
+        steps = []
+        runs = [("step 0", [r["steps"][0] for r in rows])]
+        if again:
+            runs.append(("repeat (steady)", [r["repeat_step"] for r in rows]))
+        for name, got in runs:
+            s0 = got[0]
+            mcm, rest = s0["model_comm"], s0["rest_comm"]
+            step = {
+                "name": name, "ms": max(x["ms"] for x in got),
+                "loss": s0["loss"],
+                "fsdp_all_gather_ms": rest.get("all_gather", 0.0),
+                "reduce_scatter_ms": rest.get("reduce_scatter", 0.0),
+                "exchange_ms": rest.get("exchange", 0.0),
+                "allreduce_ms": rest.get("allreduce", 0.0),
+                "tp_allreduce_ms": mcm.get("allreduce", 0.0),
+                "tp_allreduce_bytes": s0["tp_bytes"].get("allreduce", 0),
+                "dots_sum_ms": rest.get("dots_sum", 0.0),
+                "model_dots_sum_ms": mcm.get("dots_sum", 0.0),
+                "kernels_ms": rest.get("kernels", 0.0),
+                "staging_ms": rest.get("stage", 0.0) + mcm.get("stage", 0.0),
+                "staged_gb": s0["staged_bytes"] / 1e9}
+            steps.append(step)
+            print(f"[smoke] p13 ({tag}) {name}: {step['ms']:.1f} ms "
+                  f"(slowest rank), loss {step['loss']:.4f}; rank 0: FSDP "
+                  f"all-gather {step['fsdp_all_gather_ms']:.1f} ms, "
+                  f"reduce-scatter {step['reduce_scatter_ms']:.1f}, the "
+                  f"combiner's exchange {step['exchange_ms']:.1f} and "
+                  f"all-reduce (with the lane groups') "
+                  f"{step['allreduce_ms']:.1f}, model all-reduce "
+                  f"{step['tp_allreduce_ms']:.1f} ms / "
+                  f"{step['tp_allreduce_bytes'] / 1e6:.1f} MB, dot and "
+                  f"moment sums {step['dots_sum_ms']:.1f} + model "
+                  f"{step['model_dots_sum_ms']:.1f}, kernels "
+                  f"{step['kernels_ms']:.1f}, staging "
+                  f"{step['staging_ms']:.1f} ms; staged "
+                  f"{step['staged_gb']:.2f} GB | {card}")
+        launches = {k: r0["launches"].get(k, 0)
+                    for k in ("block_dots", "block_combine")}
+        bitwise = all(all(r["bitwise"]) for r in rows)
+        repeat = all(r["repeat_bitwise"] for r in rows) if again else None
+        tw = r0.get("twin")
+        print(f"[smoke] p13 ({tag}) launches on rank 0: {launches}; the "
+              f"leaves left whole bitwise across the ranks holding them="
+              f"{bitwise}, step 1 again bitwise="
+              f"{repeat if again else 'not run (COMB_REPEAT)'}"
+              + (f"; step 1 vs its twin: worst leaf {tw['leaf']} "
+                 f"{tw['max_abs_err']:.3e} against {tw['tol']:.3e} (ratio "
+                 f"{tw['worst_ratio']:.2f}), twin loss "
+                 f"{twins[tag]['bf16_loss']:.4f}" if tw else "")
+              + (f"; kernel arm vs plain arm on step 1's lane tree: "
+                 f"combined rel_err {r0['combined_rel_err']:.3e} (tol "
+                 f"{COMBINED_BF16_RTOL:.3e}, bf16)" if plain else "")
+              + f" | {card}")
+        assert all(r["mesh"] == [config.data_mesh, config.model_mesh]
+                   for r in rows), [r["mesh"] for r in rows]
+        assert reg["fsdp"] and reg["scatter_grads"], reg
+        assert r0["span"] < config.data_mesh, r0["span"]
+        for r in rows:
+            for k in ("params", "state"):
+                assert abs(r["held_gib"][k] - r["plan_gib"][k]) < 1e-9, r
+        assert all(math.isfinite(x["loss"]) for x in steps)
+        assert bitwise and repeat is not False, (tag, bitwise, repeat)
+        if tag in twins:
+            assert tw["worst_ratio"] <= 1.0, (tag, tw)
+        if plain:
+            assert all(n > 0 for n in launches.values()), \
+                f"an Adasum kernel never launched in phase 13 ({tag})"
+            assert r0["combined_rel_err"] <= COMBINED_BF16_RTOL, r0
+        assert sum(peaks) <= RANK_MEM_GIB and sum(inits) <= RANK_MEM_GIB, \
+            (tag, peaks, inits)
+        out[tag] = {
+            "steps": steps, "launches": launches, "twin": tw,
+            "bitwise": bitwise, "repeat_bitwise": repeat,
+            "held_gib": [r["held_gib"] for r in rows],
+            "plan_gib": r0["plan_gib"], "peak_gib": peaks,
+            "init_peak_gib": inits, "regime": reg, "mesh": r0["mesh"],
+            "span": r0["span"], "path": r0["path"], "point": r0["point"],
+            "combined_rel_err": r0.get("combined_rel_err"),
+            "rank0_s": {k: r0[k] for k in ("init_s", "steps_s", "repeat_s",
+                                           "plain_s") if k in r0}}
+    return out
+
+
 def _full_layers(arch: str) -> int:
     from repro_torch.configs import get_config
     return get_config(arch).n_layers
@@ -6321,7 +6474,7 @@ def _pad_serve(card: str) -> dict:
     del params, pparams, model, pmodel
     _free()
     # the kernels at the padded shapes and at RVH's half of the TP shard
-    # of qwen3-32b's embedding (phase 13 (a), data world 2), timed
+    # of qwen3-32b's embedding (tensor-parallel over 2, data world 2), timed
     cases = [
         _flash_case("minitron_pad_prefill", 4, 128, 128, H=pcfg.n_heads,
                     KV=pcfg.n_kv_heads, Dh=pcfg.resolved_head_dim),
@@ -6348,52 +6501,58 @@ def _pad_serve(card: str) -> dict:
             "cases": cases, "launches": runs["padded"]["launches"]}
 
 
-def model_axis_phase(card: str, witness: bool = False) -> dict:
-    """Phase 13: the model axis (see the module docstring)."""
+def model_axis_phase(card: str, twins=None) -> dict:
+    """Phase 13: the model axis (see the module docstring). `twins`: the
+    records of P13_TWINS already computed and saved (`p13_twins`); the
+    rest are computed here first."""
     import torch
     t0 = time.perf_counter()
     _free()
+    free, total = torch.cuda.mem_get_info()
     print(f"[smoke] p13: before the phase this process holds "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
-          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved | {card}")
-    path = ROOT / "build" / "ranks" / "tp_twin.pt"
-    dpath = ROOT / "build" / "ranks" / "mixtral_twin.pt"
-    path.parent.mkdir(parents=True, exist_ok=True)
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved; the "
+          f"card {(total - free) / 2**30:.2f} of {total / 2**30:.2f} GiB in "
+          f"use | {card}")
+    twins = dict(twins or {})
     try:
-        twin = _tp_twin(card, path, witness)
-        recs = _spawn_ranks(TP_GRID[0] * TP_GRID[1], "tp_w4",
-                            {"twin": str(path), "witness": witness},
-                            flag="--tp-worker")
-        train = _tp_report(card, recs, twin, time.perf_counter() - t0)
+        todo = [t for t in P13_TWINS if t not in twins]
+        if todo:
+            twins.update(p13_twins(card, todo))
         t1 = time.perf_counter()
-        dtwin = _mixtral_twin(card, dpath)
-        _free()
-        t2 = time.perf_counter()
         recs = _spawn_ranks(GRID_SHAPE[0] * GRID_SHAPE[1], "grid_w8",
-                            {"twin": str(path), "d1": str(dpath)},
+                            {t: str(_twin_path(t)) for t in P13_TWINS},
                             flag="--grid-worker")
     finally:
-        path.unlink(missing_ok=True)
-        dpath.unlink(missing_ok=True)
-    grid = _grid_report(card, recs, time.perf_counter() - t2)
-    fam = _fam_report(card, recs, dtwin)
-    fam["wall_s"] = time.perf_counter() - t1
-    fam["twin_s"] = t2 - t1
-    t1 = time.perf_counter()
+        for t in P13_TWINS:
+            _twin_path(t).unlink(missing_ok=True)
+    grid = _grid_report(card, recs, time.perf_counter() - t1)
+    fam = _fam_report(card, recs, twins["d1"])
+    comb = _comb_report(card, recs, {t: twins[t] for t in ("e1", "e2")})
+    grid["twin_s"] = {t: twins[t]["twin_s"] for t in P13_TWINS}
+    t2 = time.perf_counter()
     serve = _pad_serve(card)
-    serve["wall_s"] = time.perf_counter() - t1
-    launches = {k: train["launches"].get(k, 0)
+    serve["wall_s"] = time.perf_counter() - t2
+    # the main path's launches of phase 13: (c)'s and (e4)'s rank 0 (the
+    # Adasum kernels) and (b)'s padded run (attention)
+    launches = {k: grid["launches"].get(k, 0) + comb["e4"]["launches"][k]
                 for k in ("block_dots", "block_combine")}
     launches.update({k: serve["launches"].get(k, 0)
                      for k in ("flash_attention", "paged_decode_attention")})
+    walls = {t: round(sum(comb[t]["rank0_s"].values()), 1)
+             for t in ("e1", "e2", "e3", "e4")}
     print(f"[smoke] model axis launches={launches}; (c) launches="
           f"{grid['launches']}; (d) launches "
-          f"{ {t: fam[t]['launches'] for t in ('d1', 'd2')} }; (a) "
-          f"{train['wall_s']:.1f} s, (c) and (d) {grid['wall_s']:.1f} s "
-          f"(with (d1)'s twin {fam['wall_s']:.1f}, the twin "
-          f"{fam['twin_s']:.1f}), (b) {serve['wall_s']:.1f} s | {card}")
-    return {"train": train, "grid": grid, "families": fam, "serve": serve,
-            "launches": launches}
+          f"{ {t: fam[t]['launches'] for t in ('d1', 'd2')} }; "
+          f"phase13e_launches "
+          f"{ {t: comb[t]['launches'] for t in ('e1', 'e2', 'e3', 'e4')} }"
+          f"; twins {len(todo)} here, {len(P13_TWINS) - len(todo)} before "
+          f"(s: { {t: round(x, 1) for t, x in grid['twin_s'].items()} }); "
+          f"(c), (d) and (e) {grid['wall_s']:.1f} s ((e)'s runs on rank 0 "
+          f"{walls}), (b) {serve['wall_s']:.1f} s; phase "
+          f"{time.perf_counter() - t0:.1f} s | {card}")
+    return {"grid": grid, "families": fam, "serve": serve,
+            "combiners": comb, "launches": launches}
 
 
 def main(argv=None) -> int:
@@ -6416,7 +6575,6 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--elastic-worker", metavar="SPEC",
                     help=argparse.SUPPRESS)
-    ap.add_argument("--tp-worker", metavar="SPEC", help=argparse.SUPPRESS)
     ap.add_argument("--grid-worker", metavar="SPEC", help=argparse.SUPPRESS)
     ap.add_argument("--model-axis-only", action="store_true",
                     help="build the kernels and run phase 13 alone; prints "
@@ -6435,8 +6593,7 @@ def main(argv=None) -> int:
                     "no result line")
     ap.add_argument("--witness", action="store_true",
                     help="phase 6 also holds (A)'s step 1 in fp32 compute "
-                    "against one process (~1 min more), and phase 13 (a)'s "
-                    "step 1 against its twin in fp32 compute")
+                    "against one process (~1 min more)")
     ap.add_argument("--combiners-only", action="store_true",
                     help="build the kernels and run phase 9 alone (with "
                     "--profile: and trace one overlapped and one serial "
@@ -6448,9 +6605,7 @@ def main(argv=None) -> int:
         return combiners_worker(json.loads(args.combiners_worker))
     if args.elastic_worker:             # one rank of phase 10 (b)
         return elastic_worker(json.loads(args.elastic_worker))
-    if args.tp_worker:                  # one rank of phase 13 (a)
-        return tp_worker(json.loads(args.tp_worker))
-    if args.grid_worker:                # one rank of phase 13 (c)
+    if args.grid_worker:                # one rank of phase 13 (c)-(e)
         return grid_worker(json.loads(args.grid_worker))
 
     card = _smi()
@@ -6489,7 +6644,9 @@ def main(argv=None) -> int:
         return 0
     record = {"card": card}
     try:
+        warm = _warm_up()         # while nvcc builds
         secs = build.build_all()
+        _join(warm)
         print(f"[smoke] built kernels {build.sources()} in {secs:.1f}s")
         record["build_s"] = secs
         if args.combiners_only:
@@ -6512,7 +6669,7 @@ def main(argv=None) -> int:
             return 0
         if args.model_axis_only:
             t0 = time.perf_counter()
-            record["model_axis"] = model_axis_phase(card, args.witness)
+            record["model_axis"] = model_axis_phase(card)
             print(f"[smoke] phase 13 wall {time.perf_counter() - t0:.1f} s "
                   f"| {card}")
             return 0
@@ -6525,8 +6682,20 @@ def main(argv=None) -> int:
             t_mark[0] = now
 
         # the ranks first: their four processes share the card, and need
-        # the memory the later phases would leave beside them
-        record["ranks"] = ranks_phase(card, args.witness)
+        # the memory the later phases would leave beside them. Beside
+        # their launches (~15 GiB) this process computes phase 13's twins
+        # and runs phase 11 and two parts of phase 12
+        record["ranks"] = ranks_phase(card, args.witness, beside={
+            "a": lambda: (p13_twins(card, ("c", "d1")),
+                          recurrent_parts(card, P12_EARLY["a"])),
+            "b": lambda: families_phase(card),
+            "A": lambda: (p13_twins(card, ("e1", "e2")),
+                          recurrent_parts(card, P12_EARLY["A"]))})
+        got = record["ranks"].pop("beside")
+        record["families"] = got["b"]
+        twins = {**got["a"][0], **got["A"][0]}
+        p12_done = {**got["a"][1], **got["A"][1], "part_s": {
+            **got["a"][1]["part_s"], **got["A"][1]["part_s"]}}
         mark("6")
         cases = record["kernel_cases"] = kernel_phase()
         mark("3")
@@ -6538,42 +6707,47 @@ def main(argv=None) -> int:
         mark("8")
         record["train"] = train_phase(card, args.profile)
         mark("5")
-        # the model axis before phase 7, which leaves a session behind;
-        # after phase 5, whose training has warmed this process up (its
-        # twin's first step would pay the imports autograd's first
-        # checkpointed backward makes)
+        # the model axis before phase 7, which leaves a session behind
         _free()
-        record["model_axis"] = model_axis_phase(card, args.witness)
+        record["model_axis"] = model_axis_phase(card, twins)
         _free()
         mark("13")
-        record["ckpt"] = ckpt_phase(card, record["ranks"])
-        # phase 7's last session stays reachable from the SIGTERM handler
-        # its checkpoint manager installed (as the reference's does): 12
-        # GiB of params and state on the card until the handler goes
-        signal.signal(signal.SIGTERM, signal.SIG_DFL)
-        _free()
-        mark("7")
+
+        def ckpt():
+            out = ckpt_phase(card, record["ranks"])
+            # phase 7's last session stays reachable from the SIGTERM
+            # handler its checkpoint manager installed (as the
+            # reference's does): 12 GiB of params and state on the card
+            # until the handler goes
+            signal.signal(signal.SIGTERM, signal.SIG_DFL)
+            _free()
+            return out
+
+        # phase 7 in this process while phase 9 (c)'s ranks run
         record["combiners"] = combiners_phase(
             card, args.profile, record["train"]["runs"][
-                "{}_span{}".format(*TRAIN_RUNS[0])]["params_sums_step1"])
+                "{}_span{}".format(*TRAIN_RUNS[0])]["params_sums_step1"],
+            beside=ckpt)
+        record["ckpt"] = record["combiners"].pop("beside")
         _free()
         mark("9")
-        record["subsystems"] = subsystems_phase(card)
+        # phase 12 in this process while phase 10 (b)'s ranks run
+        record["subsystems"] = subsystems_phase(
+            card, beside=lambda: recurrent_phase(card, p12_done))
+        record["recurrent"] = record["subsystems"].pop("beside")
         _free()
         mark("10")
-        record["families"] = families_phase(card)
-        _free()
-        mark("11")
-        record["recurrent"] = recurrent_phase(card)
-        mark("12")
         print(f"[smoke] phase wall s "
-              f"{ {k: round(v, 1) for k, v in walls.items()} }, phases 2-13 "
-              f"{sum(walls.values()):.1f} s | {card}")
+              f"{ {k: round(v, 1) for k, v in walls.items()} } (6 with "
+              f"11 and phase 13's twins beside its ranks, 9 with 7, 10 "
+              f"with 12), phases 2-13 {sum(walls.values()):.1f} s | {card}")
     except Exception:                   # any phase failing fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     finally:
+        for t in P13_TWINS:          # left behind only by a failed run
+            _twin_path(t).unlink(missing_ok=True)
         out_dir = ROOT / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
         (out_dir / "chip_smoke.json").write_text(
@@ -6659,7 +6833,10 @@ def main(argv=None) -> int:
                 phase13d_case={k: p13d_cases[c["kernel"]][k] for k in (
                     "case", "max_abs_err", "ms", "device_ms", "plain_ms",
                     "bound_ms", "bound_by", "library_ms",
-                    "library_device_ms")})
+                    "library_device_ms")},
+                phase13e_launches={
+                    t: p13["combiners"][t]["launches"][c["kernel"]]
+                    for t in ("e1", "e2", "e3", "e4")})
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -56,6 +56,7 @@ from repro_torch import tree as T
 
 PyTree = Any
 BF16 = "bfloat16"
+READERS = 4         # leaf files a restore reads and checks at a time
 
 
 class CheckpointIntegrityError(ValueError):
@@ -255,43 +256,55 @@ class CheckpointManager:
         except (json.JSONDecodeError, OSError) as e:
             raise CheckpointIntegrityError(
                 step, [f"unreadable manifest.json: {e}"])
-        problems, arrays = [], {}
         kept = None if keep is None else keep(meta)
-        load_s = crc_s = 0.0
-        for entry in meta.get("leaves", []):
+
+        def read(entry):
+            """One leaf file: (file, its array if kept and sound, the
+            problem found or None, load s, crc s)."""
             fname = entry["file"]
             lpath = entry.get("path", "?")
             f = d / fname
             if not f.exists():
-                problems.append(f"missing leaf {fname} ({lpath})")
-                continue
+                return fname, None, f"missing leaf {fname} ({lpath})", 0, 0
             t0 = time.perf_counter()
             try:
                 arr = np.load(f)
             except Exception as e:  # torn write: bad .npy header/payload
-                problems.append(f"unreadable leaf {fname} ({lpath}): "
-                                f"{type(e).__name__}")
-                continue
-            finally:
-                load_s += time.perf_counter() - t0
+                return (fname, None, f"unreadable leaf {fname} ({lpath}): "
+                        f"{type(e).__name__}", time.perf_counter() - t0, 0)
+            load = time.perf_counter() - t0
             stored = _stored_dtype(arr, entry["dtype"])
             if (list(arr.shape) != list(entry["shape"])
                     or stored != entry["dtype"]):
-                problems.append(
-                    f"leaf {fname} ({lpath}): stored "
-                    f"{stored}{list(arr.shape)} != manifest "
-                    f"{entry['dtype']}{entry['shape']}")
-                continue
+                return (fname, None,
+                        f"leaf {fname} ({lpath}): stored "
+                        f"{stored}{list(arr.shape)} != manifest "
+                        f"{entry['dtype']}{entry['shape']}", load, 0)
             crc = entry.get("crc32")
             t0 = time.perf_counter()
             ok = crc is None or _crc(arr) == crc
-            crc_s += time.perf_counter() - t0
+            crc_s = time.perf_counter() - t0
             if not ok:
-                problems.append(f"checksum mismatch in {fname} ({lpath})")
-                continue
-            if kept is None or fname in kept:
+                return (fname, None,
+                        f"checksum mismatch in {fname} ({lpath})", load,
+                        crc_s)
+            return (fname, arr if kept is None or fname in kept else None,
+                    None, load, crc_s)
+
+        # READERS leaves at a time (np.load's reads and crc32 leave the
+        # GIL); load_s and crc_s sum each leaf's own seconds
+        entries = meta.get("leaves", [])
+        with ThreadPoolExecutor(max_workers=READERS) as pool:
+            got = list(pool.map(read, entries))
+        problems, arrays = [], {}
+        load_s = crc_s = 0.0
+        for fname, arr, problem, load, crc in got:
+            load_s += load
+            crc_s += crc
+            if problem is not None:
+                problems.append(problem)
+            elif arr is not None:
                 arrays[fname] = arr
-            del arr
         self.timings.update(load_s=load_s, crc_s=crc_s)
         if problems:
             raise CheckpointIntegrityError(step, problems)

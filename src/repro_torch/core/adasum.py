@@ -9,7 +9,8 @@ held against, and the ring-order recursion across ranks
 """
 from __future__ import annotations
 
-from typing import Any, Sequence, Union
+import math
+from typing import Any, Optional, Sequence, Union
 
 import torch
 
@@ -128,8 +129,29 @@ def _chunks(n: int, world: int):
     return [(min(q * c, n), min((q + 1) * c, n)) for q in range(world)]
 
 
+def shard_sums(v: torch.Tensor, factors: Optional[Sequence[float]] = None,
+               shard_comm=None, model_comm=None) -> torch.Tensor:
+    """v [n_leaves, ...]: this rank's partial sums of whole-leaf
+    quantities over its shards -> the whole leaves' sums, the same bits
+    on every rank of both groups: each row scaled by its factor
+    (`core.rvh.shard_factors`), then summed over the lane group and over
+    the model group, each in rank order."""
+    if factors is not None:
+        f = torch.tensor(factors, dtype=v.dtype, device=v.device)
+        v = v * f.reshape((-1,) + (1,) * (v.dim() - 1))
+    for c in (shard_comm, model_comm):
+        if c is not None:
+            v = c.group_sum(v, c.world)
+    return v
+
+
 def adasum_linear_ranks(tree: PyTree, comm, *, per_layer: bool = True,
-                        acc_dtype=torch.float32) -> PyTree:
+                        acc_dtype=torch.float32,
+                        factors: Optional[Sequence[float]] = None,
+                        shard_comm=None, model_comm=None,
+                        dims: Optional[Sequence[Optional[int]]] = None,
+                        gather: bool = True,
+                        donate: bool = False) -> PyTree:
     """`adasum_linear_reduce` over the lanes of the ranks of `comm`, one
     lane (this rank's `tree`) per rank: the combined tree, the same bits
     on every rank.
@@ -141,18 +163,39 @@ def adasum_linear_ranks(tree: PyTree, comm, *, per_layer: bool = True,
     partial [acc·x, acc·acc, x·x] (summed over leaves when not
     per_layer) is summed over the ranks in rank order (`group_sum`), so
     every rank forms the same scalars. The combined chunks then go to
-    every rank (a second `all_to_all`)."""
+    every rank (a second `all_to_all`).
+
+    On shards (the leaves a lane group's parts, `shard_comm`, or a model
+    group's shards, `model_comm`) each step's triples are then scaled
+    by `factors` and summed over both groups (`shard_sums`), so the
+    scalars are those of the whole leaves. `dims` (one entry per leaf):
+    a leaf with a dim d is cut along d, chunk q being rank q's piece of
+    it, and with gather=False comes back as this rank's piece (no second
+    `all_to_all` for it); the others are cut into flat chunks. donate=
+    True frees the input leaves once they are sent."""
     leaves, treedef = T.flatten(tree)
     W, me = comm.world, comm.rank
     if W == 1 or not leaves:
         return tree
-    flat = [x.reshape(-1) for x in leaves]
-    cuts = [_chunks(x.numel(), W) for x in flat]
-    own = [c[me] for c in cuts]
-    lanes = [[torch.empty(hi - lo, dtype=x.dtype, device=x.device)
-              for x, (lo, hi) in zip(flat, own)] for _ in range(W)]
-    comm.all_to_all([[x[c[q][0]:c[q][1]] for x, c in zip(flat, cuts)]
-                     for q in range(W)], lanes)
+    dims = list(dims) if dims is not None else [None] * len(leaves)
+
+    def cut(x, d):
+        """The W chunks of leaf x (views)."""
+        if d is None:
+            flat = x.reshape(-1)
+            return [flat[lo:hi] for lo, hi in _chunks(flat.numel(), W)]
+        n = x.shape[d] // W
+        return [x.narrow(d, q * n, n) for q in range(W)]
+    shapes = [tuple(x.shape) for x in leaves]
+    cuts = [cut(x, d) for x, d in zip(leaves, dims)]
+    lanes = [[torch.empty(c[me].shape, dtype=x.dtype, device=x.device)
+              for x, c in zip(leaves, cuts)] for _ in range(W)]
+    comm.all_to_all([[c[q] for c in cuts] for q in range(W)], lanes)
+    del cuts
+    if donate:
+        for x in leaves:
+            if x.untyped_storage().resizable():
+                x.untyped_storage().resize_(0)
     acc = lanes[0]
     for q in range(1, W):
         x = lanes[q]
@@ -160,16 +203,30 @@ def adasum_linear_ranks(tree: PyTree, comm, *, per_layer: bool = True,
                                       _flat_dot(a, a, acc_dtype),
                                       _flat_dot(b, b, acc_dtype)])
                          for a, b in zip(acc, x)])
-        v = comm.group_sum(v, W)
+        v = shard_sums(comm.group_sum(v, W), factors, shard_comm,
+                       model_comm)
         if not per_layer:
             v = v.sum(dim=0, keepdim=True).expand(len(acc), 3)
         s1, s2 = adasum_segment_scalars(v)
-        acc = [s1[i].to(a.dtype) * a + s2[i].to(b.dtype) * b
+        # s1·a + s2·b, rounded as written, in acc's own memory
+        acc = [a.mul_(s1[i].to(a.dtype)).add_(s2[i].to(b.dtype) * b)
                for i, (a, b) in enumerate(zip(acc, x))]
         lanes[q] = None
     del lanes
-    out = [torch.empty_like(x) for x in flat]
-    comm.all_to_all([acc] * W, [[o[c[q][0]:c[q][1]] for o, c in
-                                 zip(out, cuts)] for q in range(W)])
-    return T.unflatten(treedef, [o.reshape(x.shape)
-                                 for o, x in zip(out, leaves)])
+    keep = [d is not None and not gather for d in dims]
+    out = [a if k else None for a, k in zip(acc, keep)]
+    rest = [i for i, k in enumerate(keep) if not k]
+    if rest:
+        # the combined chunks to every rank: flat chunks straight into the
+        # leaf's memory, pieces received apart and put together along d
+        flat = {i: torch.empty(math.prod(shapes[i]), dtype=acc[i].dtype,
+                               device=acc[i].device)
+                for i in rest if dims[i] is None}
+        parts = [[cut(flat[i].view(shapes[i]), None)[q] if i in flat
+                  else torch.empty_like(acc[i]) for i in rest]
+                 for q in range(W)]
+        comm.all_to_all([[acc[i] for i in rest]] * W, parts)
+        for j, i in enumerate(rest):
+            out[i] = flat[i].view(shapes[i]) if i in flat else \
+                torch.cat([parts[q][j] for q in range(W)], dim=dims[i])
+    return T.unflatten(treedef, out)

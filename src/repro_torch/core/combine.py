@@ -454,17 +454,28 @@ def lane_mean(stacked: PyTree, acc_dtype=torch.float32) -> PyTree:
     return T.map(lambda x: _mean_rows(x, acc_dtype), stacked)
 
 
-def rank_sum(tree: PyTree, comm, *, dtype=None,
-             donate: bool = False) -> PyTree:
+def rank_sum(tree: PyTree, comm, *, dtype=None, donate: bool = False,
+             dims: Optional[List[Optional[int]]] = None) -> PyTree:
     """Each leaf of this rank's `tree` summed over the ranks of `comm`
     (`Comm.allreduce`: every rank holds the bits of the one reduction),
     in `dtype` (default: the leaf's). donate=True reduces the leaves in
-    place where no cast is asked for."""
-    def one(x):
+    place where no cast is asked for. `dims` (one entry per leaf in
+    flatten order): a leaf with a dim d comes back as this rank's piece
+    of the sum, its chunk `comm.rank` of `comm.world` along d, by one
+    `Comm.reduce_scatter` (no whole sum is made)."""
+    leaves, td = T.flatten(tree)
+
+    def one(x, d):
         dt = dtype or x.dtype
         t = x if donate and dt == x.dtype else x.to(dt, copy=True)
-        return comm.allreduce(t)
-    return T.map(one, tree)
+        if d is None:
+            return comm.allreduce(t)
+        n = t.shape[d] // comm.world
+        got = comm.reduce_scatter([t.narrow(d, q * n, n)
+                                   for q in range(comm.world)])
+        return got.clone() if got._base is not None else got
+    return T.unflatten(td, [one(x, d) for x, d in zip(
+        leaves, dims or [None] * len(leaves))])
 
 
 def rank_mean(tree: PyTree, comm, acc_dtype=torch.float32) -> PyTree:

@@ -57,6 +57,14 @@ summed over the data group as always and, last, over the model group
 (`model_comm`, in rank order), so every rank of a model group takes the
 whole layer's scalars. Whole-model Adasum (per_layer=False) needs one
 factor for every leaf, as the reference asserts.
+
+Whole-model Adasum on lane-group shards: the shards and the whole leaves
+sit in buckets of their own, so the two run their rounds in lockstep
+(`adasum_rvh_lockstep`): each round's triples are added over both
+before the sums over the lane group, the round's pair group and the
+model group, and both combine with the one pair of scalars. Every rank
+of a lane group holds the whole leaves alike, so their triples count
+1/g before the lane group's sum.
 """
 from __future__ import annotations
 
@@ -69,7 +77,6 @@ import torch
 from repro_torch import tree as T
 from repro_torch.kernels import adasum as K
 from repro_torch.parallel.sharding import spec_axes, spec_leaves
-from repro_torch.runtime import ITEM_SHARDING, not_ported
 from . import fusion
 from .adasum import adasum_segment_scalars
 from .combine import COMBINE_IMPLS, CombineConfig, _block_segments, \
@@ -214,28 +221,65 @@ def adasum_rvh_local(buf: torch.Tensor, metas: Sequence[RoundMeta], comm, *,
     caller that hands `buf` over without keeping a reference (e.g.
     `adasum_rvh_local(bufs.pop(), ...)`) holds at most the bucket plus
     one half at a time."""
+    bufs = [buf]
+    del buf
+    return adasum_rvh_lockstep(
+        bufs, [metas], comm, acc_dtype=acc_dtype, fp32_math=fp32_math,
+        compress=compress, impl=impl, gathers=[allgather_result],
+        probe=probe, shard_comm=shard_comm, seg_scales=[seg_scale],
+        model_comm=model_comm)[0]
+
+
+def adasum_rvh_lockstep(bufs: List[torch.Tensor],
+                        metas: Sequence[Sequence[RoundMeta]], comm, *,
+                        acc_dtype=torch.float32, fp32_math: bool = False,
+                        compress: str = "none", impl: str = "kernel",
+                        gathers: Sequence[bool],
+                        probe: Optional[list] = None, shard_comm=None,
+                        seg_scales: Sequence[Optional[torch.Tensor]],
+                        model_comm=None) -> List[torch.Tensor]:
+    """`adasum_rvh_local` on several buckets whose rounds share one set
+    of dot triples (whole-model Adasum over buckets of shards and of
+    whole leaves): each round's triples, each bucket's scaled by its
+    `seg_scales` entry, are added over the buckets before the sums over
+    `shard_comm`, the round's pair group and `model_comm`, and every
+    bucket combines with the same scalars. With one bucket this is
+    `adasum_rvh_local`. `gathers[i]`: whether bucket i runs the
+    allgather phase. Takes `bufs` over (its entries are replaced round
+    after round)."""
     world, rank = comm.world, comm.rank
     if world == 1:
-        return buf
-    n = buf.shape[0]
-    if n % (world * metas[0].block):
-        raise ValueError(f"bucket of {n} elements is not a multiple of "
-                         f"world x block = {world} x {metas[0].block}")
-    off, length, trace = 0, n, []
+        return bufs
+    for buf, m in zip(bufs, metas):
+        if buf.shape[0] % (world * m[0].block):
+            raise ValueError(f"bucket of {buf.shape[0]} elements is not a "
+                             f"multiple of world x block = {world} x "
+                             f"{m[0].block}")
+    sizes = [buf.shape[0] for buf in bufs]
+    offs, trace = [0] * len(bufs), []
     # ---- reduce-scatter + combine phase (lines 2-21) ----
-    for r, (d, meta) in enumerate(zip(round_distances(world), metas)):
-        mid = buf.shape[0] // 2
+    for r, d in enumerate(round_distances(world)):
         is_left = (rank // d) % 2 == 0
-        lo, hi = buf[:mid], buf[mid:]
-        keep, send = (lo, hi) if is_left else (hi, lo)
-        recv = _exchange(comm, send, rank ^ d,
-                         compress if buf.shape[0] % (2 * QBLOCK) == 0
-                         else "none")
-        a, b = (keep, recv) if is_left else (recv, keep)
-        with comm.timed("kernels"):
-            v = segment_dots(a, b, meta, acc_dtype, impl)
-        if seg_scale is not None:
-            v = v * seg_scale[:, None].to(v)
+        halves, v = [], None
+        for i in range(len(bufs)):
+            buf, bufs[i] = bufs[i], None
+            n = buf.shape[0]
+            mid = n // 2
+            keep, send = (buf[:mid], buf[mid:]) if is_left else \
+                (buf[mid:], buf[:mid])
+            del buf
+            recv = _exchange(comm, send, rank ^ d,
+                             compress if n % (2 * QBLOCK) == 0 else "none")
+            del send
+            halves.append((keep, recv) if is_left else (recv, keep))
+            del keep, recv
+            with comm.timed("kernels"):
+                vi = segment_dots(*halves[i], metas[i][r], acc_dtype, impl)
+            if seg_scales[i] is not None:
+                vi = vi * seg_scales[i][:, None].to(vi)
+            v = vi if v is None else v + vi
+            if not is_left:
+                offs[i] += mid
         if shard_comm is not None:
             v = shard_comm.group_sum(v, shard_comm.world)
         if probe is not None and r == 0:
@@ -243,18 +287,24 @@ def adasum_rvh_local(buf: torch.Tensor, metas: Sequence[RoundMeta], comm, *,
         v = comm.group_sum(v, 2 * d)             # finish the dots (line 17)
         if model_comm is not None:
             v = model_comm.group_sum(v, model_comm.world)
-        with comm.timed("kernels"):
-            new = combine_halves(a, b, v, meta, fp32_math, impl)
-        del a, b, keep, send, recv, lo, hi
-        buf = new
-        off, length = (off, mid) if is_left else (off + mid, mid)
+        for i in range(len(bufs)):
+            with comm.timed("kernels"):
+                bufs[i] = combine_halves(*halves[i], v, metas[i][r],
+                                         fp32_math, impl)
+            halves[i] = None
         trace.append((d, is_left))
-    if not allgather_result:
-        return buf
-    # ---- allgather phase (lines 22-24): every rank's chunk into one [n]
-    # buffer, the rounds in reverse, each exchanging the span it holds for
-    # its partner's, received in place. Compressed, the int8 payloads
-    # travel and each rank dequantizes every chunk once at the end ----
+    return [_allgather(buf, off, size, trace, comm, compress) if gather
+            else buf for buf, off, size, gather in zip(bufs, offs, sizes,
+                                                       gathers)]
+
+
+def _allgather(buf: torch.Tensor, off: int, n: int, trace, comm,
+               compress: str) -> torch.Tensor:
+    """Lines 22-24: every rank's chunk into one [n] buffer, the rounds in
+    reverse, each exchanging the span it holds for its partner's,
+    received in place. Compressed, the int8 payloads travel and each
+    rank dequantizes every chunk once at the end."""
+    length = buf.shape[0]
     if length % QBLOCK:
         compress = "none"
     dtype, dev = buf.dtype, buf.device
@@ -394,24 +444,25 @@ def rvh_plan(leaves: Sequence[Any], world: int, rank: int, *,
              per_layer: bool = True, bucket_bytes: Optional[int] = None,
              block: int = K.BLOCK_ELEMS, device=None,
              shard_dims: Optional[Sequence[Optional[int]]] = None,
-             factors: Optional[Sequence[float]] = None
-             ) -> List[_Bucket]:
+             factors: Optional[Sequence[float]] = None,
+             lane_group: int = 1) -> List[_Bucket]:
     """The buckets of `adasum_rvh_pytree` (rvh.py:276-315): per-bucket
     chains at `bucket_bytes` when per_layer and there is more than one
     leaf, else one bucket; per_layer=False collapses every leaf into one
     segment (the padding tail is segment 1). With `shard_dims`, the
     leaves with a dim (shards) and those without (whole leaves) are
     bucketed apart, the shards chunk-major (`ShardLayout`). `factors`
-    (one per leaf, tensor-parallel shards): each bucket's seg_scale."""
+    (one per leaf, tensor-parallel shards): each bucket's seg_scale.
+    Whole-model Adasum over shards of lane groups of `lane_group` ranks
+    runs its two buckets in lockstep (`adasum_rvh_lockstep`), the
+    triples summed over the lane group: the whole leaves, which every
+    rank of a lane group holds, count 1/lane_group there."""
     dims = list(shard_dims) if shard_dims is not None else \
         [None] * len(leaves)
-    if not per_layer and any(d is not None for d in dims):
-        raise not_ported("whole-model Adasum (per_layer=False) on shards",
-                         ITEM_SHARDING)
-    if not per_layer and factors is not None and len(set(factors)) > 1:
-        raise ValueError("per_layer=False requires uniform TP sharding "
-                         "across leaves (one dot correction for the "
-                         "collapsed segment, rvh.py:296-302)")
+    if not per_layer:
+        check_whole_model(factors)
+    spread = not per_layer and lane_group > 1 and \
+        any(d is not None for d in dims)
     plan = []
     for sharded in (False, True):
         idxs = [i for i, d in enumerate(dims) if (d is not None) == sharded]
@@ -430,6 +481,8 @@ def rvh_plan(leaves: Sequence[Any], world: int, rank: int, *,
                 layout = shard_layout([leaves[i] for i in part],
                                       [dims[i] for i in part], world, block)
                 seg, nseg = layout.block_segments(block), len(part)
+                if not per_layer:          # every leaf one segment
+                    seg, nseg = (seg == nseg).astype(np.int64), 1
             else:
                 specs = tuple(fusion.Spec(tuple(leaves[i].shape),
                                           leaves[i].dtype) for i in part)
@@ -444,15 +497,29 @@ def rvh_plan(leaves: Sequence[Any], world: int, rank: int, *,
                                                     layout.sizes))
                     seg[-(-end // block):] = 1
                     nseg = 1
-            scale = None
+            f = [1.0] * (len(part) if per_layer else 1)
             if factors is not None:
                 f = [factors[i] for i in part] if per_layer \
                     else [factors[part[0]]]
+            if spread and not sharded:
+                f = [x / lane_group for x in f]
+            scale = None
+            if factors is not None or (spread and not sharded):
                 scale = torch.tensor(f + [1.0], dtype=torch.float64,
                                      device=device)
             plan.append(_Bucket(tuple(part), layout, tuple(_round_metas(
                 seg, nseg + 1, block, rank, world, device)), scale))
     return plan
+
+
+def check_whole_model(factors: Optional[Sequence[float]]) -> None:
+    """Whole-model Adasum collapses every leaf into one segment, which
+    takes one replication factor: the reference asserts that
+    (rvh.py:296-299), and so does this."""
+    if factors is not None and len(set(factors)) > 1:
+        raise ValueError("per_layer=False requires uniform TP sharding "
+                         "across leaves (one dot correction for the "
+                         "collapsed segment, rvh.py:296-302)")
 
 
 def replication_factors(leaf_specs: Sequence[Any], model_size: int
@@ -461,6 +528,28 @@ def replication_factors(leaf_specs: Sequence[Any], model_size: int
     (`_leaf_replication_factors`, rvh.py:199-216)."""
     return [1.0 if "model" in spec_axes(s) else 1.0 / model_size
             for s in leaf_specs]
+
+
+def shard_factors(n: int, *, shard_dims=None, shard_comm=None,
+                  leaf_specs=None, model_comm=None
+                  ) -> Optional[List[float]]:
+    """Per leaf of a lane tree of shards, what this rank's partial sum of
+    a whole-leaf quantity (a dot, a squared norm) counts before the sums
+    over the lane group (`shard_comm`) and the model group
+    (`model_comm`): 1/g for a leaf the data axis leaves whole (each of
+    the g ranks of a lane group holds all of it), times
+    `replication_factors` over the model axis. None where neither group
+    is given."""
+    if shard_comm is None and model_comm is None:
+        return None
+    f = [1.0] * n
+    if shard_comm is not None:
+        f = [x if d is not None else x / shard_comm.world
+             for x, d in zip(f, shard_dims)]
+    if model_comm is not None:
+        f = [x * y for x, y in zip(f, replication_factors(
+            spec_leaves(leaf_specs), model_comm.world))]
+    return f
 
 
 def adasum_rvh_pytree(tree: PyTree, comm, *, per_layer: bool = True,
@@ -525,35 +614,43 @@ def adasum_rvh_pytree(tree: PyTree, comm, *, per_layer: bool = True,
     if plan is None:
         plan = rvh_plan(leaves, comm.world, comm.rank, per_layer=per_layer,
                         bucket_bytes=bucket_bytes, device=leaves[0].device,
-                        shard_dims=shard_dims, factors=factors)
+                        shard_dims=shard_dims, factors=factors,
+                        lane_group=shard_comm.world if shard_comm else 1)
         if cache is not None:
             cache[key] = plan
     out: List[Any] = [None] * len(leaves)
     probe: Optional[list] = [] if collect is not None else None
-    for bucket in plan:
-        sub = [leaves[i] for i in bucket.idxs]
-        lay = bucket.layout
-        packed = [pack_shards(sub, lay) if bucket.sharded
-                  else fusion.pack(sub, lay)]
-        if donate:
-            for x in sub:
-                _release(x)
-        del sub
-        gather = allgather_result or not bucket.sharded
-        buf = adasum_rvh_local(      # handed over: each round frees its input
-            packed.pop(), bucket.metas, comm, acc_dtype=acc_dtype,
+    # per layer each bucket is a chain of its own; whole-model Adasum
+    # runs its buckets (shards, whole leaves) in lockstep
+    for group in ([[b] for b in plan] if per_layer else [plan]):
+        packed = []
+        for bucket in group:
+            sub = [leaves[i] for i in bucket.idxs]
+            packed.append(pack_shards(sub, bucket.layout) if bucket.sharded
+                          else fusion.pack(sub, bucket.layout))
+            if donate:
+                for x in sub:
+                    _release(x)
+            del sub
+        gathers = [allgather_result or not b.sharded for b in group]
+        bufs = adasum_rvh_lockstep(   # handed over: each round frees its input
+            packed, [b.metas for b in group], comm, acc_dtype=acc_dtype,
             fp32_math=use_pallas, compress=compress, impl=impl,
-            allgather_result=gather, probe=probe,
-            shard_comm=shard_comm if bucket.sharded else None,
-            seg_scale=bucket.scale, model_comm=model_comm)
-        if not bucket.sharded:
-            got = T.leaves(fusion.unpack(buf, lay))
-        elif gather:
-            got = unpack_shards(buf, lay)
-        else:
-            got = unpack_pieces(buf, lay)
-        for i, x in zip(bucket.idxs, got):
-            out[i] = x
+            gathers=gathers, probe=probe,
+            shard_comm=shard_comm if any(b.sharded for b in group) else None,
+            seg_scales=[b.scale for b in group], model_comm=model_comm)
+        del packed
+        for bucket, gather in zip(group, gathers):
+            buf, lay = bufs.pop(0), bucket.layout
+            if not bucket.sharded:
+                got = T.leaves(fusion.unpack(buf, lay))
+            elif gather:
+                got = unpack_shards(buf, lay)
+            else:
+                got = unpack_pieces(buf, lay)
+            del buf
+            for i, x in zip(bucket.idxs, got):
+                out[i] = x
     del leaves
     if collect is not None and comm.world > 1:
         local = sum(v.sum(dim=0) for v in probe)

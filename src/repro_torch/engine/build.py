@@ -48,10 +48,12 @@ The combiner is RVH for the Adasum tree (op 'adasum' with backend '',
 (sum, mean, adasum-linear, adascale, or one registered). The optimizer
 steps at the pre point, or at the post point on each rank's own lane
 state; every rank ends the step with the same parameters. The data axis
-is sharded as the reference's GSPMD shards it (`parallel.zero`): the
-optimizer state ZeRO-1 (at the pre point, and at the post point below
-span == dp for the Adasum tree), the lane gradients ZeRO-2 under
-`scatter_grads` below span == dp, the params under `fsdp`. Metrics are
+is sharded as the reference's GSPMD shards it (`parallel.zero`),
+whatever the combiner: the optimizer state ZeRO-1 (at the pre point,
+and at the post point below span == dp), the lane gradients ZeRO-2
+under `scatter_grads` below span == dp, the params under `fsdp`. Every
+built-in combiner runs on those shards (`registry.py`); a registered
+one gets its lane tree whole on the data axis. Metrics are
 the lane means, the same on every rank. With
 combine_delay the pending carry is this rank's lane delta, its lane mean
 the cross-rank mean, and the correction runs on an exchange comm of its
@@ -65,10 +67,12 @@ backward passes over its shards (`parallel.tp`, the leaves' specs from
 `sharding.param_specs`); a data group (the W ranks of one model index)
 runs the synchronous ranked step above on the rank's model shards, data
 index d in place of the rank: lanes and lane groups, ZeRO-1, ZeRO-2
-and FSDP as the plan cuts them over both axes (`parallel.zero`), RVH
-(its dots summed over the lane group, corrected for the leaves the
-model axis does not shard and summed over the model group), sum or
-mean; accum_steps too. Every rank of a model group takes the same rows.
+and FSDP as the plan cuts them over both axes (`parallel.zero`), every
+built-in combiner (RVH's, adasum-linear's and the probe's dots and
+adascale's moments summed over the lane group, corrected for the leaves
+the model axis does not shard and summed over the model group; sum and
+mean element by element); accum_steps too. Every rank of a model group
+takes the same rows.
 Every sub-communicator is a split of the launch's comm, made on every
 rank in one order: the model groups, the data groups, then each data
 group's lane groups and RVH groups.
@@ -87,6 +91,7 @@ from repro_torch.core.combine import (COMBINE_IMPLS, CombineConfig,
                                       build_delayed_correction, lane_mean,
                                       rank_mean)
 from repro_torch.core.dist_opt import DistributedOptimizer
+from repro_torch.core.rvh import check_whole_model, replication_factors
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models.api import Model
 from repro_torch.optim.optimizers import Optimizer, get_optimizer
@@ -498,59 +503,53 @@ def _param_shapes(cfg) -> PyTree:
 
 
 _RVH_KEYS = ("adasum-rvh", "adasum-gspmd", "adasum-fused")
+# the combiners that run on shards (every built-in; `registry.py`)
+_SHARD_KEYS = _RVH_KEYS + ("sum", "mean", "adascale", "adasum-linear")
 
 
-def _plan_sharding(model: Model, rpol: RunPolicy, key: str, point: str,
-                   span: int, W: int, delayed: bool,
-                   stateful: bool) -> bool:
+def _plan_sharding(rpol: RunPolicy, point: str, span: int, W: int,
+                   sync: bool, stateful: bool) -> bool:
     """Whether the ranked runtime shards the data axis (else its plan
-    holds every leaf whole), and a refusal of the combinations this
-    slice does not reach (ROADMAP item 7). ZeRO-1 applies by itself on
-    the synchronous step of an optimizer with state (`stateful`; sgd has
-    none, so the reference's state plan shards nothing there) — at the
-    pre point for every combiner, at the post point below span == dp for
-    the Adasum tree (build.py:261-284); `fsdp` and, at span < dp,
-    `scatter_grads` ask for more."""
-    g = W // span
-    rvh = key in _RVH_KEYS
-    sync = not delayed and rpol.local_steps <= 1 and rpol.per_layer
-    asked = rpol.fsdp or (rpol.scatter_grads and g > 1)
-    if asked:
-        why = None
-        if not rvh:
-            why = f"the {key} combiner"
-        elif delayed:
-            why = "the delayed combine (combine_delay=1)"
-        elif rpol.local_steps > 1:
-            why = "local_steps > 1"
-        elif not rpol.per_layer:
-            why = "whole-model Adasum (per_layer=False)"
-        elif rpol.fsdp and model.cfg.is_encoder_decoder:
-            why = "the encoder-decoder's own training loop"
-        if why:
-            raise not_ported(f"fsdp / scatter_grads with {why}",
-                             ITEM_SHARDING)
+    holds every leaf whole), as the reference's GSPMD does
+    (build.py:146-177, 258-285): `fsdp` and, at span < dp,
+    `scatter_grads` ask for it; ZeRO-1 applies by itself on the
+    synchronous step of an optimizer with state (`stateful`; sgd has
+    none, so the reference's state plan shards nothing there) at the
+    pre point, and at the post point below span == dp, whatever the
+    combiner."""
+    if rpol.fsdp or (rpol.scatter_grads and W > span):
         return True
-    return sync and stateful and (point == "pre" or (rvh and g > 1))
+    return sync and stateful and (point == "pre" or W > span)
 
 
-
-def _check_model_axis(model: Model, rpol: RunPolicy, key: str) -> None:
-    """The model axis's refusals (ROADMAP item 7); its data-axis regimes
-    are `_plan_sharding`'s."""
+def _check_regime(model: Model, rpol: RunPolicy, key: str, span: int,
+                  W: int, M: int) -> None:
+    """The combinations this port does not reach yet (ROADMAP item 7),
+    refused before any collective: on a sharded data axis (`fsdp`, or
+    `scatter_grads` below span == dp) or a model axis, the delayed
+    combine and local steps; under fsdp the encoder-decoder's own
+    training loop; on a model axis the SSM, hybrid and encoder-decoder
+    families and a combiner the registry does not run on shards."""
     cfg = model.cfg
+    model_axis = M > 1
+    if not (model_axis or rpol.fsdp or (rpol.scatter_grads and W > span)):
+        return
     why = None
-    if cfg.family not in ("dense", "moe", "vlm") or cfg.frontend not in (
-            "none", "vision") or cfg.is_encoder_decoder:
+    if model_axis and (cfg.family not in ("dense", "moe", "vlm")
+                       or cfg.frontend not in ("none", "vision")
+                       or cfg.is_encoder_decoder):
         why = f"{cfg.name} ({cfg.family} family, {cfg.attn_type} attention)"
-    elif key not in _RVH_KEYS + ("sum", "mean"):
+    elif model_axis and key not in _SHARD_KEYS:
         why = f"the {key} combiner"
     elif rpol.combine_delay:
         why = "the delayed combine (combine_delay=1)"
     elif rpol.local_steps > 1:
         why = "local_steps > 1"
+    elif rpol.fsdp and cfg.is_encoder_decoder:
+        why = "the encoder-decoder's own training loop"
     if why:
-        raise not_ported(f"a model axis with {why}", ITEM_SHARDING)
+        where = "a model axis" if model_axis else "fsdp / scatter_grads"
+        raise not_ported(f"{where} with {why}", ITEM_SHARDING)
 
 
 def _build_ranked(model: Model, rpol: RunPolicy, comm, *, lr, combine,
@@ -574,8 +573,7 @@ def _build_ranked(model: Model, rpol: RunPolicy, comm, *, lr, combine,
     ccfg = _resolve_combine_cfg(rpol, span, combine, strict, dp_total=W)
     delayed = _check_delay(rpol)
     key = registry_key(ccfg.op, ccfg.backend)
-    if M > 1:
-        _check_model_axis(model, rpol, key)
+    _check_regime(model, rpol, key, span, W, M)
     g = W // span                      # ranks in a lane group
     rvh = key in _RVH_KEYS
     if rvh:
@@ -592,9 +590,9 @@ def _build_ranked(model: Model, rpol: RunPolicy, comm, *, lr, combine,
     point = DistributedOptimizer(opt, ccfg, None, span).point
     post = point == "post"
     shapes = _param_shapes(model.cfg)
-    sharded = _plan_sharding(model, rpol, key, point, span, W, delayed,
-                             stateful=bool(T.leaves(opt.init(shapes))))
     sync = not delayed and rpol.local_steps <= 1
+    sharded = _plan_sharding(rpol, point, span, W, sync,
+                             stateful=bool(T.leaves(opt.init(shapes))))
     # the splits on every rank, in this order (dist.new_group is
     # collective over all ranks), of the launch's comm, each data group's
     # in turn: the lane groups, the ranks of equal position that the
@@ -616,17 +614,23 @@ def _build_ranked(model: Model, rpol: RunPolicy, comm, *, lr, combine,
     if sync:
         plan = RankPlan(model.cfg, shapes, comm, span,
                         fsdp=rpol.fsdp, scatter_grads=rpol.scatter_grads,
-                        post=post, shard_grads=rvh, lane_comm=lane_comm,
-                        rvh_comm=rvh_comm, shard=sharded, model_comm=mcomm)
+                        post=post, lane_comm=lane_comm, rvh_comm=rvh_comm,
+                        shard=sharded, model_comm=mcomm)
+        if rvh and not ccfg.per_layer and M > 1:   # before the first step
+            check_whole_model(replication_factors(plan.mspecs, M))
     want_stats = rpol.combine_stats and span > 1 and not delayed
     shard, out_layout = {}, "whole"
-    if sharded and rvh:
+    # a combiner the registry does not run on shards (a registered one)
+    # gets its lane tree whole on the data axis
+    whole_in = sharded and key not in _SHARD_KEYS
+    if sharded and not whole_in:
         # the sharded leaves come back as this rank's piece where a piece
         # is what comes next (ZeRO-1's optimizer, an FSDP param), else
         # as the lane group's part; int8 keeps RVH's own (compressed)
         # allgather and cuts the piece from it, as the reference's
         # combine returns the dequantized gather
-        keep_piece = (not post or rpol.fsdp) and ccfg.compress != "int8"
+        keep_piece = (not post or rpol.fsdp) and not (
+            rvh and ccfg.compress == "int8")
         out_layout = "piece" if keep_piece else "gshard"
         shard.update(shard_dims=plan.dims, shard_comm=lane_comm,
                      allgather_result=not keep_piece)
@@ -735,8 +739,8 @@ def _build_ranked(model: Model, rpol: RunPolicy, comm, *, lr, combine,
         acc_dt = getattr(torch, rpol.accum_dtype) if A > 1 else None
         leaves, td = T.flatten(params)
         fsdp = plan.fsdp
-        early = [plan.scatter and plan.shard_grads and lane_comm is not None
-                 and d is not None for d in plan.dims]
+        early = [plan.scatter and lane_comm is not None and d is not None
+                 for d in plan.dims]
         store = [None] * len(leaves)
         acc, mets = None, []
         for mb in rank_micro(batch, A):
@@ -793,6 +797,8 @@ def _build_ranked(model: Model, rpol: RunPolicy, comm, *, lr, combine,
         G, mets = rank_grads(params, batch)
         step, inner = state["opt"]["step"], state["opt"]["inner"]
         comb = scombiner if scombiner is not None else combiner
+        if whole_in:
+            comb = lambda tree, c=comb: c(_convert(tree, "gshard", "whole"))
         stats = None
         with torch.no_grad():
             if not post:
@@ -826,12 +832,15 @@ def _build_ranked(model: Model, rpol: RunPolicy, comm, *, lr, combine,
 
     def _convert(tree, have: str, want: str):
         """Sharded leaves from layout `have` to `want` ('piece' or
-        'gshard' from 'whole', 'gshard' or 'piece')."""
+        'gshard' from 'whole', 'gshard' or 'piece'; 'whole' from
+        'gshard')."""
         leaves, td = T.flatten(tree)
         out = []
         for i, x in enumerate(leaves):
             if plan.dims[i] is not None and have != want:
-                if want == "piece":
+                if want == "whole":
+                    x = plan.whole_from_gshard(i, x)
+                elif want == "piece":
                     x = plan.sub(i, x) if have == "gshard" else \
                         plan.piece(i, x)
                 else:

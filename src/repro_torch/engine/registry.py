@@ -29,7 +29,18 @@ rank count); adascale takes the lane mean that way and sums each rank's
 ‖x_r − m‖² in rank order; adasum-linear runs the ring order on
 rank-owned chunks (`core.adasum.adasum_linear_ranks`); adasum-gspmd is
 RVH (the same function, warned); adasum-fused refuses, as the
-reference's does when the lane axis is device-sharded. Register a new
+reference's does when the lane axis is device-sharded.
+
+On shards (`make_combiner(shard=...)`: a rank's lane tree holds its lane
+group's part of some leaves, `shard_dims` / `shard_comm`, or its model
+shards, `leaf_specs` / `model_comm`), every built-in combines what it
+is given: sum and mean element by element, adascale's moments and
+adasum-linear's and the probe's dot triples summed over the shards
+(`core.rvh.shard_factors`, `core.adasum.shard_sums`), RVH as
+`core.rvh.adasum_rvh_pytree` says; with allgather_result=False each
+sharded leaf comes back as this rank's piece of it (sum and mean by a
+reduce-scatter). A factory is called with these as keyword arguments;
+one that takes them as `**_` sees whole leaves only. Register a new
 combiner with
 
     @register_combiner("mine")
@@ -48,7 +59,7 @@ from repro_torch.core.combine import (CombineConfig, _level_triple,
                                       build_fused_combiner, rank_sum,
                                       stack_stats, tree_combine_per_layer,
                                       tree_combine_whole)
-from repro_torch.core.rvh import build_rvh_combiner, replication_factors
+from repro_torch.core.rvh import build_rvh_combiner, shard_factors
 
 PyTree = Any
 Combiner = Callable[[PyTree], PyTree]
@@ -102,23 +113,18 @@ def make_combiner(cfg: CombineConfig, *, with_stats: bool = False,
     a `combine_path` naming the implementation that actually runs
     ('gspmd-fused' vs 'gspmd-reference', 'rvh'). with_stats=True returns
     a combiner yielding (combined, CombineStats) — see `stats_combiner`.
-    `comm` is the group of ranks `adasum-rvh` combines across; `shard`
-    its lane-group shards (`adasum-rvh` only): `shard_dims`,
-    `shard_comm` and `allgather_result` of `core.rvh.adasum_rvh_pytree`,
-    or its model shards: `leaf_specs` and `model_comm`, which the other
-    combiners' stats probe takes too (their combine is element-wise)."""
+    `comm` is the group of ranks the combiner reduces across; `shard`
+    how this rank's lane tree is cut (module docstring): its lane-group
+    shards, `shard_dims`, `shard_comm` and `allgather_result` of
+    `core.rvh.adasum_rvh_pytree`, and its model shards, `leaf_specs` and
+    `model_comm`."""
     key = registry_key(cfg.op, cfg.backend)
-    if shard is not None and key != "adasum-rvh":
-        if set(shard) - {"leaf_specs", "model_comm"}:
-            raise ValueError(f"shard= is RVH's; the combiner is {key!r}")
-        if not with_stats:
-            shard = None
     if with_stats:
         return stats_combiner(cfg, impl=impl, donate=donate, comm=comm,
                               shard=shard)
     factory = get_combiner_factory(key)
     combiner = factory(cfg, impl=impl, donate=donate, comm=comm,
-                       **({"shard": shard} if shard else {}))
+                       **(shard or {}))
     if not hasattr(combiner, "combine_path"):
         try:
             combiner.combine_path = key
@@ -138,21 +144,23 @@ def probe_stats(stacked: PyTree, acc_dtype) -> dict:
     return stack_stats([_level_triple(leaves, acc_dtype)])
 
 
-def probe_stats_ranks(tree: PyTree, comm, acc_dtype, leaf_specs=None,
-                      model_comm=None) -> dict:
+def probe_stats_ranks(tree: PyTree, comm, acc_dtype, shard_dims=None,
+                      shard_comm=None, leaf_specs=None, model_comm=None,
+                      **_) -> dict:
     """`probe_stats` with one lane per rank: lanes 2i and 2i+1 (ranks 2i
     and 2i+1) swap half of each leaf, as RVH's round 0 does (the even
     rank keeps the first half and receives its partner's, the odd rank
     the second), each takes its half's [a·b, a·a, b·b] over every leaf,
-    and the ranks' triples are summed in rank order. With `model_comm`
-    the leaves are model shards (`leaf_specs`): a leaf's triple counts
-    1/M where the model axis does not shard it, and the sum goes on
-    over the model group, as RVH's dots do."""
+    and the ranks' triples are summed in rank order. On shards (see
+    `make_combiner`) each leaf's triple counts its `shard_factors`
+    weight, and the sum goes on over the lane group, then the model
+    group, as RVH's dots do: the level-0 triple of the whole leaves."""
     if comm.world < 2:
         return stack_stats([])
-    factors = [1.0] * len(T.leaves(tree))
-    if model_comm is not None:
-        factors = replication_factors(leaf_specs, model_comm.world)
+    n = len(T.leaves(tree))
+    factors = shard_factors(n, shard_dims=shard_dims, shard_comm=shard_comm,
+                            leaf_specs=leaf_specs, model_comm=model_comm) \
+        or [1.0] * n
     even = comm.rank % 2 == 0
     keep, send, recv = [], [], []
     for x in T.leaves(tree):
@@ -169,9 +177,8 @@ def probe_stats_ranks(tree: PyTree, comm, acc_dtype, leaf_specs=None,
         tot += f * torch.stack([A._flat_dot(a, b, acc_dtype),
                                 A._flat_dot(a, a, acc_dtype),
                                 A._flat_dot(b, b, acc_dtype)])
-    tot = comm.group_sum(tot, comm.world)
-    if model_comm is not None:
-        tot = model_comm.group_sum(tot, model_comm.world)
+    tot = A.shard_sums(comm.group_sum(tot, comm.world), None, shard_comm,
+                     model_comm)
     return stack_stats([tot])
 
 
@@ -191,7 +198,7 @@ def stats_combiner(cfg: CombineConfig, *, impl: str = "kernel",
         key = "adasum-rvh"
     if key == "adasum-rvh":
         return _adasum_rvh(cfg, impl=impl, donate=donate, comm=comm,
-                           with_stats=True, shard=shard)
+                           with_stats=True, **(shard or {}))
     if key in ("adasum-gspmd", "adasum-fused"):
         _stacked_only(key, comm)
         if cfg.fused:
@@ -209,7 +216,8 @@ def stats_combiner(cfg: CombineConfig, *, impl: str = "kernel",
         ref.combine_path = "gspmd-reference"
         return ref
 
-    base = make_combiner(cfg, impl=impl, donate=donate, comm=comm)
+    base = make_combiner(cfg, impl=impl, donate=donate, comm=comm,
+                         shard=shard)
 
     def probed(stacked):
         stats = (probe_stats_ranks(stacked, comm, cfg.acc, **(shard or {}))
@@ -238,23 +246,40 @@ def _stacked_only(key: str, comm) -> None:
 
 
 # --------------------------------------------------------------- built-ins
+def _pieces(leaves, dims, comm):
+    """Each leaf with a dim in `dims` -> this rank's piece of it (chunk
+    `comm.rank` of `comm.world` along that dim), in its own memory."""
+    if dims is None:
+        return leaves
+    out = []
+    for x, d in zip(leaves, dims):
+        if d is not None:
+            n = x.shape[d] // comm.world
+            x = x.narrow(d, comm.rank * n, n).clone()
+        out.append(x)
+    return out
+
+
 @register_combiner("sum")
-def _sum(cfg, *, donate=False, comm=None, **_):
+def _sum(cfg, *, donate=False, comm=None, shard_dims=None,
+         allgather_result=True, **_):
     if _ranked(comm):
-        return lambda tree: rank_sum(tree, comm, donate=donate)
+        dims = None if allgather_result else shard_dims
+        return lambda tree: rank_sum(tree, comm, donate=donate, dims=dims)
     return lambda stacked: A.sum_reduce(stacked, mean=False)
 
 
 @register_combiner("mean")
-def _mean(cfg, *, donate=False, comm=None, **_):
+def _mean(cfg, *, donate=False, comm=None, **shard):
     if _ranked(comm):
-        return lambda tree: T.map(lambda x: x.div_(comm.world),
-                                  rank_sum(tree, comm, donate=donate))
+        total = _sum(cfg, donate=donate, comm=comm, **shard)
+        return lambda tree: T.map(lambda x: x.div_(comm.world), total(tree))
     return lambda stacked: A.sum_reduce(stacked, mean=True)
 
 
 @register_combiner("adasum-gspmd")
-def _adasum_gspmd(cfg, *, impl="kernel", donate=False, comm=None, **_):
+def _adasum_gspmd(cfg, *, impl="kernel", donate=False, comm=None,
+                  **shard):
     """Default backend: the fused bucketed combine (cfg.fused, default
     on), or the per-leaf reference tree when opted out. With the lanes
     one per rank, RVH: the reference falls back there, with a warning,
@@ -262,7 +287,8 @@ def _adasum_gspmd(cfg, *, impl="kernel", donate=False, comm=None, **_):
     (registry.py:184-209), the same function."""
     if _ranked(comm):
         _warn_rvh()
-        return _adasum_rvh(cfg, impl=impl, donate=donate, comm=comm)
+        return _adasum_rvh(cfg, impl=impl, donate=donate, comm=comm,
+                           **shard)
     if cfg.fused:
         fused = build_fused_combiner(cfg, impl=impl, donate=donate)
         fused.combine_path = "gspmd-fused"
@@ -285,23 +311,34 @@ def _adasum_fused(cfg, *, impl="kernel", donate=False, comm=None, **_):
 
 @register_combiner("adasum-rvh")
 def _adasum_rvh(cfg, *, impl="kernel", donate=False, comm=None,
-                with_stats=False, shard=None, **_):
+                with_stats=False, **shard):
     """ADASUMRVH across the ranks of `comm`, one lane per rank (`shard`:
-    on lane-group shards, see `make_combiner`)."""
+    on shards, see `make_combiner`)."""
     if comm is None:
         raise ValueError(
             "adasum-rvh combines across ranks: pass comm= (a repro_torch."
             "parallel.comm.Comm, one lane per rank); lanes stacked on one "
             "device take backend='gspmd_tree'")
     return build_rvh_combiner(cfg, comm, with_stats=with_stats, impl=impl,
-                              donate=donate, **(shard or {}))
+                              donate=donate, **shard)
 
 
 @register_combiner("adasum-linear")
-def _adasum_linear(cfg, *, comm=None, **_):
+def _adasum_linear(cfg, *, comm=None, donate=False, shard_dims=None,
+                   shard_comm=None, allgather_result=True, leaf_specs=None,
+                   model_comm=None, **_):
     if _ranked(comm):
-        return lambda tree: A.adasum_linear_ranks(
-            tree, comm, per_layer=cfg.per_layer, acc_dtype=cfg.acc)
+        def lin(tree):
+            factors = shard_factors(
+                len(T.leaves(tree)), shard_dims=shard_dims,
+                shard_comm=shard_comm, leaf_specs=leaf_specs,
+                model_comm=model_comm)
+            return A.adasum_linear_ranks(
+                tree, comm, per_layer=cfg.per_layer, acc_dtype=cfg.acc,
+                factors=factors, shard_comm=shard_comm,
+                model_comm=model_comm, dims=shard_dims,
+                gather=allgather_result, donate=donate)
+        return lin
 
     def lin(stacked):
         n = T.leaves(stacked)[0].shape[0]
@@ -312,7 +349,9 @@ def _adasum_linear(cfg, *, comm=None, **_):
 
 
 @register_combiner("adascale")
-def _adascale(cfg, *, comm=None, **_):
+def _adascale(cfg, *, comm=None, shard_dims=None, shard_comm=None,
+              allgather_result=True, leaf_specs=None, model_comm=None,
+              **_):
     """AdaScale SGD (Johnson et al., 2020) as a combiner (registry.py:
     241-289 of the reference): the lane mean scaled by the gain ratio
 
@@ -325,7 +364,8 @@ def _adascale(cfg, *, comm=None, **_):
     moment-accumulation dtype. Across ranks, two passes: the lane mean m
     (`rank_sum` in acc, over S), then each rank's ‖x_r − m‖² per leaf,
     summed over the ranks in rank order; ‖m‖² is the same on every
-    rank."""
+    rank. On shards both moments of a leaf are sums over its shards
+    (`shard_sums`), so every rank forms the whole leaf's gain."""
     eps = 1e-20
 
     def gain(var, mu2, S):
@@ -357,10 +397,16 @@ def _adascale(cfg, *, comm=None, **_):
             ms = [m.div_(S) for m in T.leaves(
                 rank_sum(leaves, comm, dtype=cfg.acc))]
             dev = torch.stack([sq_dev(x, m) for x, m in zip(leaves, ms)])
-            var_leaf = comm.group_sum(dev, S) / max(S - 1, 1)
-            msq_leaf = torch.stack([torch.square(m).sum() for m in ms])
-            return T.unflatten(treedef, scaled(ms, var_leaf, msq_leaf,
-                                               leaves, S))
+            msq = torch.stack([torch.square(m).sum() for m in ms])
+            factors = shard_factors(
+                len(leaves), shard_dims=shard_dims, shard_comm=shard_comm,
+                leaf_specs=leaf_specs, model_comm=model_comm)
+            tot = A.shard_sums(torch.stack([comm.group_sum(dev, S), msq], 1),
+                               factors, shard_comm, model_comm)
+            if not allgather_result:  # the pieces kept, cut before the gain
+                ms = _pieces(ms, shard_dims, comm)
+            return T.unflatten(treedef, scaled(
+                ms, tot[:, 0] / max(S - 1, 1), tot[:, 1], leaves, S))
         return combine_ranks
 
     def combine(stacked):

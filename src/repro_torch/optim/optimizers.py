@@ -107,6 +107,36 @@ def _adam_core(g, m, v, step: int, b1: float, b2: float, eps: float):
     return (m / c1).div_(denom), m, v
 
 
+ADAM_PIECE = 1 << 24     # elements of a leaf an adam pass takes at a time
+
+
+def _adam_pieces(g, m, v, step: int, b1: float, b2: float, eps: float):
+    """`_adam_core` on a leaf, m and v updated in place in their own
+    dtype; returns u in fp32. A leaf of more than ADAM_PIECE elements
+    goes a slice of its first dim longer than 1 at a time: the same
+    elementwise fp32 operations, with the fp32 copies of a bf16 state and
+    the temporaries of a slice rather than of the leaf."""
+    k = next((i for i, n in enumerate(g.shape) if n > 1), None)
+    if k is None or g.numel() <= ADAM_PIECE:
+        u, m_new, v_new = _adam_core(g, m.float(), v.float(), step, b1, b2,
+                                     eps)
+        m.copy_(m_new)
+        v.copy_(v_new)
+        return u
+    u = torch.empty(g.shape, dtype=torch.float32, device=g.device)
+    n = max(1, ADAM_PIECE * g.shape[k] // g.numel())
+    for i in range(0, g.shape[k], n):
+        w = min(n, g.shape[k] - i)
+        part = lambda x: x.narrow(k, i, w)
+        u_i, m_new, v_new = _adam_core(part(g), part(m).float(),
+                                       part(v).float(), step, b1, b2, eps)
+        part(m).copy_(m_new)
+        part(v).copy_(v_new)
+        part(u).copy_(u_i)
+        del u_i, m_new, v_new
+    return u
+
+
 def _adam_like(lr, b1, b2, eps, weight_decay, state_dtype, trust: bool,
                min_trust: float = 0.0, max_trust: float = 10.0):
     sched = _as_schedule(lr)
@@ -119,11 +149,7 @@ def _adam_like(lr, b1, b2, eps, weight_decay, state_dtype, trust: bool,
         a = sched(step)
 
         def upd(g, m, v, p, total=None):
-            u, m_new, v_new = _adam_core(g, m.float(), v.float(), step, b1,
-                                         b2, eps)
-            m.copy_(m_new)
-            v.copy_(v_new)
-            del m_new, v_new
+            u = _adam_pieces(g, m, v, step, b1, b2, eps)
             if weight_decay:
                 u = u + weight_decay * p.float()
             if not trust:

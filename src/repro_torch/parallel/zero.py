@@ -15,15 +15,16 @@ reference. Each tensor of a step is in one layout a leaf:
   params     the piece under `fsdp`, else whole;
   lane grad  the gshard (whole at g == 1): the lane group's sum,
              reduce-scattered (`scatter_grads`, or `fsdp`'s backward)
-             or all-reduced and cut;
+             or all-reduced and cut, whatever the combiner;
   state      the piece at the pre point (ZeRO-1); the gshard of the
              rank's own lane at the post point (whole at g == 1, the
              reference's per-lane state at span == dp).
 
-RVH combines the gshards across the span ranks of one member position,
-the dots of each layer summed over the lane group (`core/rvh.py`), and
-keeps the piece (allgather_result=False) where the piece is what comes
-next.
+The combiner reduces the gshards across the span ranks of one member
+position (`engine/registry.py` on shards): sum and mean element by
+element, RVH, adasum-linear and adascale with their dots and moments
+summed over the lane group; each keeps the piece (allgather_result=
+False) where the piece is what comes next.
 
 FSDP: `RankPlan.fsdp_step` gives the object the step hands the model's
 loss (`fsdp=`), whose forward gathers each layer's pieces just before
@@ -97,9 +98,23 @@ class TokenGroup:
         return out
 
 
+ADD_PIECE = 1 << 24      # elements `_add` takes at a time
+
+
 def _add(out: torch.Tensor, x: torch.Tensor) -> None:
-    """out += x in fp32, cast to out's dtype (in place for fp32)."""
-    out.copy_(out.float().add_(x.float()))
+    """out += x in fp32, cast to out's dtype (in place for fp32). A bf16
+    `out` of more than ADD_PIECE elements goes a slice at a time: the
+    fp32 copies of a whole leaf's part (1.45 GiB each for qwen3-32b's
+    embedding on a lane group of two) would double the gradient's memory
+    at the step's peak. Each element's sum and rounding are the same."""
+    if (out.dtype == torch.float32 or out.numel() <= ADD_PIECE
+            or out.shape != x.shape or not out.is_contiguous()):
+        out.copy_(out.float().add_(x.float()))
+        return
+    o, v = out.view(-1), x.reshape(-1)
+    for s in range(0, o.numel(), ADD_PIECE):
+        part = o[s:s + ADD_PIECE]
+        part.copy_(part.float().add_(v[s:s + ADD_PIECE].float()))
 
 
 class RankPlan:
@@ -110,16 +125,13 @@ class RankPlan:
     `model_comm`: its model group (None without a model axis)."""
 
     def __init__(self, cfg, shapes: PyTree, comm, span: int, *, fsdp: bool,
-                 scatter_grads: bool, post: bool, shard_grads: bool = True,
+                 scatter_grads: bool, post: bool,
                  lane_comm=None, rvh_comm=None, shard: bool,
                  model_comm=None):
         W = comm.world
         self.comm, self.lane_comm, self.rvh_comm = comm, lane_comm, rvh_comm
         self.span, self.g = span, W // span
         self.fsdp, self.scatter, self.post = fsdp, scatter_grads, post
-        # whether the lane gradients go on as lane-group parts (the Adasum
-        # tree; other combiners take them whole)
-        self.shard_grads = shard_grads
         self.sizes = {"lane": span, "member": self.g}
         self.coords = {"lane": comm.rank // self.g,
                        "member": comm.rank % self.g}
@@ -349,7 +361,7 @@ class RankPlan:
         if self.lane_comm is None:
             return x
         d = self.dims[i]
-        if d is None or not self.shard_grads:
+        if d is None:
             return self.lane_comm.allreduce(x)
         if not self.scatter:
             return self.gshard(i, self.lane_comm.allreduce(x))

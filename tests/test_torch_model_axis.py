@@ -512,7 +512,6 @@ REFUSED = [
     ("rwkv6-7b", {}), ("hymba-1.5b", {}), ("seamless-m4t-large-v2", {}),
     ("qwen3-32b", {"combine_delay": 1}),
     ("qwen3-32b", {"local_steps": 2}),
-    ("qwen3-32b", {"backend": "linear"}),
 ]
 
 
@@ -524,27 +523,33 @@ def test_model_axis_refusals_name_item_7(arch, over):
     with a regime the port does not reach there, raises naming ROADMAP
     item 7 (checked before any collective)."""
     from types import SimpleNamespace
-    from repro_torch.engine.build import _check_model_axis
+    from repro_torch.engine.build import _check_regime
     from repro_torch.engine.registry import registry_key
     from repro_torch.parallel.policy import RunPolicy
     model = SimpleNamespace(cfg=get_reduced(arch))
     pol = RunPolicy(**dict(dict(backend="rvh", optimizer="momentum"),
                            **over))
     with pytest.raises(NotImplementedError, match=r"item 7\b"):
-        _check_model_axis(model, pol, registry_key("adasum", pol.backend))
+        _check_regime(model, pol, registry_key("adasum", pol.backend), 4,
+                      4, 2)
 
 
 # name, arch, span, policy fields: data-axis regimes, now under a model
 # axis of 2 (a (4, 2) grid): fsdp at span == dp (pre-point ZeRO-1
 # under FSDP), and span below dp with the preset's fsdp + scatter_grads;
-# and the families the model axis first refused (the MoE decoders, MLA,
-# the vision frontend), alone on the model axis and with fsdp
+# the families the model axis first refused (the MoE decoders, MLA, the
+# vision frontend), alone on the model axis and with fsdp; and the
+# combiners it first refused, adasum-linear and adascale, under fsdp
 ACCEPTED = [("fsdp", "qwen3-32b", 4, {"fsdp": True}),
             ("span", "qwen3-32b", 1, {"fsdp": True, "scatter_grads": True}),
             ("mixtral", "mixtral-8x22b", 4, {}),
             ("minicpm3", "minicpm3-4b", 4, {}),
             ("llava", "llava-next-34b", 4, {}),
-            ("mixtral-fsdp", "mixtral-8x22b", 4, {"fsdp": True})]
+            ("mixtral-fsdp", "mixtral-8x22b", 4, {"fsdp": True}),
+            ("linear", "qwen3-32b", 2, {"fsdp": True, "scatter_grads": True,
+                                        "backend": "linear"}),
+            ("adascale", "qwen3-32b", 4, {"fsdp": True,
+                                          "combine_op": "adascale"})]
 
 
 @pytest.mark.parametrize("name,arch,span,over", ACCEPTED,
@@ -557,7 +562,7 @@ def test_model_axis_accepts_data_axis_regimes(name, arch, span, over):
     (params; the pre point's state: 1/4 of each data-sharded dim of the
     model shard; gradients: the lane group's part)."""
     from types import SimpleNamespace
-    from repro_torch.engine.build import _check_model_axis, _plan_sharding
+    from repro_torch.engine.build import _check_regime, _plan_sharding
     from repro_torch.engine.registry import registry_key
     from repro_torch.parallel.policy import RunPolicy
     from repro_torch.parallel.zero import RankPlan
@@ -565,12 +570,11 @@ def test_model_axis_accepts_data_axis_regimes(name, arch, span, over):
     from repro.models import build_model as jbuild
     from repro.parallel import sharding as JS
     cfg = get_reduced(arch)
-    pol = RunPolicy(backend="gspmd_tree", optimizer="momentum", span=span,
-                    **over)
-    key = registry_key("adasum", pol.backend)
-    _check_model_axis(SimpleNamespace(cfg=cfg), pol, key)
-    assert _plan_sharding(SimpleNamespace(cfg=cfg), pol, key, "pre", span,
-                          4, False, True)
+    pol = RunPolicy(**dict(dict(backend="gspmd_tree", optimizer="momentum",
+                                span=span), **over))
+    key = registry_key(pol.combine_op, pol.backend)
+    _check_regime(SimpleNamespace(cfg=cfg), pol, key, span, 4, 2)
+    assert _plan_sharding(pol, "pre", span, 4, True, True)
     shapes = _param_shapes(cfg)
     both = S.spec_leaves(S.param_specs(cfg, shapes, S.ShardingPolicy(
         fsdp_axis="data", tp_size=2, fsdp_size=4)))

@@ -2,9 +2,10 @@
 ZeRO-2 lane gradients, FSDP params, span below the data ranks,
 accumulation) on a (data, model) grid of ranks, held to the JAX package:
 
-  (a) three runs on 8 gloo CPU ranks, a (data 4, model 2) grid, against
-      the reference's `build_runtime` on a forced 8-device (4, 2) mesh,
-      two steps in fp32 from the same params and batches:
+  (a) nine runs on 8 gloo CPU ranks, a (data 4, model 2) grid (one on
+      (8, 1)), against the reference's `build_runtime` on a forced
+      8-device mesh of the same shape, two steps in fp32 from the same
+      params and batches:
         1. reduced qwen3-32b in its preset's regime, built by
            `TrainSession.from_config(EngineConfig.preset("qwen3-32b",
            model_mesh=2, ...))`: span 2 (hier-RVH over lane groups of 2),
@@ -18,6 +19,18 @@ accumulation) on a (data, model) grid of ranks, held to the JAX package:
            model group. (At span == dp LAMB's state sits at the post
            point, one whole lane a rank, where the reference shards
            nothing over data either.)
+        4-9. every combiner on shards, through the session of qwen3-32b's
+           preset: sum with momentum in the preset's regime at span 2,
+           its CombineStats metrics held too (1e-5 relative); adascale
+           at span 4 == dp with fsdp, per leaf and whole-model;
+           adasum-linear with adam at the post point, scatter_grads
+           without fsdp (ZeRO-1 state on the lane group's parts); mean
+           with lamb at span 2 with ZeRO-1 alone; and the Adasum tree
+           whole-model (per_layer=False) with fsdp + scatter_grads at
+           span 4 on (8, 1), the shards' and the whole leaves' RVH
+           buckets in lockstep (`use_pallas` off, the reference's
+           default: its whole-model RVH under `use_pallas` marks leaf
+           data as padding).
       Params and optimizer state gathered to full leaves, losses; the
       leaves whole on the data axis bitwise across each data group and
       those whole on both across each model group, after every step;
@@ -42,7 +55,9 @@ accumulation) on a (data, model) grid of ranks, held to the JAX package:
       and (16, 16): `param_specs` over both axes equal to the
       reference's, and the plan's shapes of params, lane gradients and
       ZeRO-1 state (both points) against the reference's specs
-      (`plan_lane_specs` and `build_runtime`'s state plan).
+      (`plan_lane_specs` and `build_runtime`'s state plan); the post
+      point's state plan for every combiner; whole-model RVH on a model
+      axis raising the reference's ValueError.
 
 One JAX subprocess and one 8-rank launch serve (a)-(c); the reference
 runs while the ranks do.
@@ -86,22 +101,82 @@ SEQ, BATCH, LR, CHUNK, STEPS = 16, 8, 1e-3, 16, 2
 STATE_RTOL = 1e-4
 GRID = (4, 2)
 
+_RUN = dict(reduced=True, lr=LR, seq_len=SEQ, global_batch=BATCH,
+            attn_chunk=CHUNK, async_checkpoint=False)
+
+
+def _preset(name, path, policy, mesh=GRID, **session):
+    """A run of qwen3-32b's preset through the session: `session` over
+    the preset's fields, `policy` the reference's RunPolicy it
+    resolves to, `path` the combine path it takes."""
+    return dict(name=name, arch="qwen3-32b", path=path, mesh=mesh,
+                session=dict(_RUN, model_mesh=mesh[1], **session),
+                policy=policy)
+
+
+_FSDP = dict(fsdp=True, scatter_grads=True, backend="gspmd_tree")
 CASES = [
-    dict(name="qwen3_preset", arch="qwen3-32b",
-         session=dict(reduced=True, model_mesh=2, span=2, accum_steps=2,
-                      optimizer="adam", lr=LR, seq_len=SEQ,
-                      global_batch=BATCH, attn_chunk=CHUNK,
-                      async_checkpoint=False),
-         policy=dict(span=2, fsdp=True, scatter_grads=True,
-                     backend="gspmd_tree", accum_steps=2, optimizer="adam")),
+    _preset("qwen3_preset", "hier-rvh",
+            dict(span=2, **_FSDP, accum_steps=2, optimizer="adam"),
+            span=2, accum_steps=2, optimizer="adam"),
     dict(name="gemma_fsdp_v256", arch="gemma-7b", cfg=dict(vocab_size=256),
+         path="rvh", mesh=GRID,
          policy=dict(span=0, fsdp=True, backend="rvh",
                      optimizer="momentum")),
-    dict(name="qwen3_lamb_zero1", arch="qwen3-32b",
+    dict(name="qwen3_lamb_zero1", arch="qwen3-32b", path="hier-rvh",
+         mesh=GRID,
          policy=dict(span=2, backend="gspmd_tree", optimizer="lamb")),
+    # every combiner on shards: the paper's sum baseline in the preset's
+    # regime, its CombineStats held too
+    _preset("sum_stats", "sum",
+            dict(span=2, **_FSDP, accum_steps=1, optimizer="momentum",
+                 combine_op="sum", combine_stats=True),
+            span=2, accum_steps=1, optimizer="momentum", combine="sum",
+            combine_stats=True),
+    # adascale at span == dp on FSDP pieces (scatter_grads changes nothing
+    # there), its gain per leaf and whole-model. With these seeds (init 7,
+    # data 3) 3 and 8 of the 14 leaves clamp mu2 at 0 (gain 4) in steps 1
+    # and 2, none closer to the clamp than 2.2e-3 of its ‖m‖², far past
+    # what the sums' order moves; the whole-model gain is 3.91 and 3.99
+    _preset("adascale_leaf", "adascale",
+            dict(span=4, **_FSDP, accum_steps=1, optimizer="momentum",
+                 combine_op="adascale", per_layer=True),
+            span=4, accum_steps=1, optimizer="momentum",
+            combine="adascale", per_layer=True),
+    _preset("adascale_whole", "adascale",
+            dict(span=4, **_FSDP, accum_steps=1, optimizer="momentum",
+                 combine_op="adascale", per_layer=False),
+            span=4, accum_steps=1, optimizer="momentum",
+            combine="adascale", per_layer=False),
+    # adasum-linear at the post point on ZeRO-2 parts, its adam state
+    # ZeRO-1 on them, the params whole (the deltas gathered over the lane
+    # group)
+    _preset("linear_adam", "adasum-linear",
+            dict(span=2, fsdp=False, scatter_grads=True, backend="linear",
+                 accum_steps=1, optimizer="adam"),
+            span=2, fsdp=False, backend="linear", accum_steps=1,
+            optimizer="adam"),
+    # mean at the pre point with ZeRO-1 alone: LAMB's norms over the
+    # pieces
+    _preset("mean_lamb_zero1", "mean",
+            dict(span=2, fsdp=False, scatter_grads=False,
+                 backend="gspmd_tree", accum_steps=1, optimizer="lamb",
+                 combine_op="mean"),
+            span=2, fsdp=False, scatter_grads=False, accum_steps=1,
+            optimizer="lamb", combine="mean"),
+    # whole-model Adasum on lane-group shards and whole leaves at once, a
+    # data axis of 8 (the reference's fused whole-model tree)
+    _preset("tree_whole_8x1", "hier-rvh",
+            dict(span=4, **_FSDP, accum_steps=1, optimizer="momentum",
+                 per_layer=False),
+            mesh=(8, 1), span=4, accum_steps=1, optimizer="momentum",
+            per_layer=False),
 ]
 for _c in CASES:
-    _c.update(lr=LR, steps=STEPS, attn_chunk=CHUNK, mesh=GRID)
+    _c.update(lr=LR, steps=STEPS, attn_chunk=CHUNK)
+# the CombineStats metrics (summarize_stats) held to the reference's
+STATS = ("grad_dot", "grad_sq", "lane_cos", "grad_var", "grad_mu2",
+         "gain_ratio", "noise_scale")
 
 _REF = r"""
 import dataclasses, json, sys, numpy as np, jax, jax.numpy as jnp
@@ -152,6 +227,8 @@ for c in cases:
     for s in range(c["steps"]):
         state, m = step(state, {k: data[f"{c['name']}/batch{s}/{k}"]
                                 for k in ("tokens", "labels")})
+        for k, v in m.items():
+            res[f"{c['name']}/metric{s}/{k}"] = np.asarray(v)
         res[f"{c['name']}/loss{s}"] = np.asarray(m["loss"])
     for k, v in flat(state["params"]).items():
         res[f"{c['name']}/params/{k}"] = v
@@ -241,14 +318,19 @@ def test_grid_run_matches_reference_build_runtime(runs, i):
     case, got = CASES[i], ranks[0]["cases"][i]
     name = case["name"]
     adaptive = case["policy"]["optimizer"] in ("adam", "lamb")
-    assert tuple(got["mesh"]) == GRID and got["both"] > 0
-    assert got["path"] == ("rvh" if not case["policy"]["span"]
-                           else "hier-rvh")
+    assert tuple(got["mesh"]) == case["mesh"]
+    assert (got["both"] > 0) is (case["mesh"][1] > 1)
+    assert got["path"] == case["path"]
     # the session's preset resolves to the regime the reference runs
     assert got["policy"] == case["policy"]
     for s in range(STEPS):
         np.testing.assert_allclose(got["losses"][s], ref[f"{name}/loss{s}"],
                                    rtol=1e-5)
+        if case["policy"].get("combine_stats"):
+            for k in STATS:
+                np.testing.assert_allclose(
+                    got["metrics"][s][k], ref[f"{name}/metric{s}/{k}"],
+                    rtol=1e-5, err_msg=k)
     params = _flat(got["params"])
     keys = [k[len(name) + 8:] for k in ref.files
             if k.startswith(f"{name}/params/")]
@@ -303,7 +385,8 @@ def test_each_rank_holds_the_reference_local_shape(runs, i):
     case = CASES[i]
     want = shapes[case["name"]]
     n = len(want["params"])
-    span = case["policy"]["span"] or GRID[0]
+    dp = case["mesh"][0]
+    span = case["policy"]["span"] or dp
     for r in ranks:
         got = r["cases"][i]["shapes"]
         assert [list(s) for s in got["params"]] == want["params"]
@@ -315,7 +398,7 @@ def test_each_rank_holds_the_reference_local_shape(runs, i):
                 _same_held(p, w, stacked, span, dims[j], f"state/{sub}/{j}")
         assert len(got["grads"]) == n
         pol = case["policy"]
-        if span == GRID[0] or pol.get("fsdp") or pol.get("scatter_grads"):
+        if span == dp or pol.get("fsdp") or pol.get("scatter_grads"):
             for j, (p, w) in enumerate(zip(got["grads"], want["grads"])):
                 _same_held(p, w, True, span, dims[j], f"grads/{j}")
         # below the whole model a rank
@@ -441,3 +524,71 @@ def test_grid_specs_and_plan_match_reference(arch):
                                            f"grads {j}")
                         checked += 1
     assert checked == len(GRIDS) * 16
+
+
+@pytest.mark.parametrize("key", ["sum", "mean", "adascale", "adasum-linear",
+                                 "adasum-rvh"])
+def test_post_point_state_plan_for_every_combiner(key):
+    """The post point's state plan does not depend on the combiner: below
+    span == dp ZeRO-1 cuts each lane's state over its lane group (the
+    reference scatters it over data, build.py:258-285), at span == dp
+    each rank keeps its lane's whole; for reduced qwen3-32b at (4, 2),
+    adam, every combiner the registry runs on shards, the regime passes
+    the refusals and the plan's state is the reference's `local_shape`
+    by `_same_held`'s rule."""
+    from types import SimpleNamespace
+    from repro.configs.base import get_reduced as jred
+    from repro.models import build_model as jbuild
+    from repro_torch.engine.build import _check_regime, _plan_sharding
+    from repro_torch.parallel.policy import RunPolicy
+    from repro_torch.parallel.zero import RankPlan
+    cfg = get_reduced("qwen3-32b")
+    shapes = _param_shapes(cfg)
+    jshapes = jax.eval_shape(jbuild(jred("qwen3-32b")).init,
+                             jax.random.key(0))
+    dp, tp = GRID
+    stand = lambda n, r: SimpleNamespace(world=n, rank=r)
+    for span in (dp, dp // 2):
+        pol = RunPolicy(span=span, optimizer="adam", backend="gspmd_tree")
+        _check_regime(SimpleNamespace(cfg=cfg), pol, key, span, dp, tp)
+        sharded = _plan_sharding(pol, "post", span, dp, True, True)
+        assert sharded is (span < dp)
+        ref = _ref_plan(jred("qwen3-32b"), jshapes, dp, tp, span, False,
+                        False, True)
+        plan = RankPlan(cfg, shapes, stand(dp, dp - 1), span, fsdp=False,
+                        scatter_grads=False, post=True, shard=sharded,
+                        model_comm=stand(tp, tp - 1))
+        for j, (p, w) in enumerate(zip(plan.local_shapes("state"),
+                                       ref["state"])):
+            _same_held(p, w, True, span, plan.dims[j], f"state {j}")
+        assert any(d is not None for d in plan.dims) is sharded
+
+
+def test_whole_model_rvh_on_a_model_axis_raises():
+    """Whole-model Adasum collapses every leaf into one segment with one
+    replication factor; on a model axis qwen3-32b's leaves have two (the
+    norms are whole on it), and the port raises the reference's
+    ValueError (its assertion, rvh.py:296-299), before the first step."""
+    from types import SimpleNamespace
+    from repro_torch.core.rvh import (check_whole_model, replication_factors,
+                                      rvh_plan)
+    from repro_torch.parallel.zero import RankPlan
+    cfg = get_reduced("qwen3-32b")
+    stand = lambda n, r: SimpleNamespace(world=n, rank=r)
+    plan = RankPlan(cfg, _param_shapes(cfg), stand(4, 0), 2, fsdp=True,
+                    scatter_grads=True, post=False, shard=True,
+                    model_comm=stand(2, 0))
+    factors = replication_factors(plan.mspecs, 2)
+    assert sorted(set(factors)) == [0.5, 1.0]
+    with pytest.raises(ValueError, match="uniform TP sharding"):
+        check_whole_model(factors)
+    leaves = [torch.empty(s, device="meta")
+              for s in plan.local_shapes("grads")]
+    with pytest.raises(ValueError, match="uniform TP sharding"):
+        rvh_plan(leaves, 2, 0, per_layer=False, shard_dims=plan.dims,
+                 factors=factors, lane_group=2)
+    # one factor for every leaf plans, its whole leaves at 1/g
+    got = rvh_plan(leaves, 2, 0, per_layer=False, shard_dims=plan.dims,
+                   factors=[1.0] * len(leaves), lane_group=2)
+    assert [b.sharded for b in got] == [False, True]
+    assert [b.scale.tolist() for b in got] == [[0.5, 1.0], [1.0, 1.0]]

@@ -188,6 +188,28 @@ def test_shard_and_unshard_are_inverse():
     assert S.spec_axes(spec) == ("lane", "member", "model")
 
 
+@pytest.mark.parametrize("dtypes", [(torch.bfloat16, torch.bfloat16),
+                                    (torch.bfloat16, torch.float32),
+                                    (torch.float32, torch.bfloat16)],
+                         ids=["bf16+bf16", "bf16+fp32", "fp32+bf16"])
+def test_fp32_accumulate_in_slices_is_bitwise(monkeypatch, dtypes):
+    """FSDP's and ZeRO-2's `_add` (out += x in fp32, rounded once to
+    out's dtype) gives the same bits a slice of ADD_PIECE elements at a
+    time as on the whole tensor, a ragged last slice included."""
+    from repro_torch.parallel import zero as Z
+    g = torch.Generator().manual_seed(0)
+    out0 = torch.randn(37, 29, generator=g).to(dtypes[0])
+    x = torch.randn(37, 29, generator=g).to(dtypes[1])
+    want = out0.clone().float().add_(x.float()).to(dtypes[0])
+    monkeypatch.setattr(Z, "ADD_PIECE", 100)
+    got = out0.clone()
+    Z._add(got, x)
+    assert torch.equal(got, want)
+    got = out0.clone()
+    Z._add(got, x.t().contiguous().t())      # a strided x
+    assert torch.equal(got, want)
+
+
 # The regimes of the ranked runtime's plan at world 4 (the reference's
 # lane plan and ZeRO-1 state plan, build.py:146-177 and 261-284):
 # (optimizer, span, policy fields, combiner key, whether it shards).
@@ -199,9 +221,9 @@ REGIMES = [
     ("adam", 4, {}, "adasum-rvh", False),          # post, span == dp
     ("adam", 4, {"scatter_grads": True}, "adasum-rvh", False),  # no-op there
     ("adam", 2, {}, "adasum-rvh", True),           # post, span < dp
-    ("adam", 2, {}, "sum", False),                 # post, another combiner
+    ("adam", 2, {}, "sum", True),                  # post, any combiner
     ("adam", 4, {"fsdp": True}, "adasum-rvh", True),
-    ("adam", 2, {"fsdp": True}, "sum", "refused"),
+    ("adam", 2, {"fsdp": True}, "sum", True),      # fsdp, any combiner
 ]
 
 
@@ -209,22 +231,19 @@ REGIMES = [
                          ids=[f"{o}-span{s}-{'+'.join(f) or 'none'}-{k}"
                               for o, s, f, k, _ in REGIMES])
 def test_plan_sharding_regimes(opt, span, fields, key, want):
-    """Which regimes shard the data axis; a plan that shards nothing holds
-    every leaf whole, and the synchronous step runs on it all the same."""
+    """Which regimes shard the data axis, whatever the combiner (each
+    passes the refusals); a plan that shards nothing holds every leaf
+    whole, and the synchronous step runs on it all the same."""
     from types import SimpleNamespace
-    from repro_torch.engine.build import _plan_sharding
+    from repro_torch.engine.build import _check_regime, _plan_sharding
     from repro_torch.parallel.policy import RunPolicy
     from repro_torch.parallel.zero import RankPlan
     cfg = get_reduced("qwen3-32b")
-    model = SimpleNamespace(cfg=cfg)
     rpol = RunPolicy(optimizer=opt, span=span, **fields)
     point = "pre" if opt in ("sgd", "momentum") else "post"
     stateful = opt != "sgd"
-    if want == "refused":
-        with pytest.raises(NotImplementedError, match="item 7"):
-            _plan_sharding(model, rpol, key, point, span, 4, False, stateful)
-        return
-    got = _plan_sharding(model, rpol, key, point, span, 4, False, stateful)
+    _check_regime(SimpleNamespace(cfg=cfg), rpol, key, span, 4, 1)
+    got = _plan_sharding(rpol, point, span, 4, True, stateful)
     assert got is want
     plan = RankPlan(cfg, _param_shapes(cfg), SimpleNamespace(world=4, rank=1),
                     span, fsdp=rpol.fsdp, scatter_grads=rpol.scatter_grads,
@@ -237,6 +256,32 @@ def test_plan_sharding_regimes(opt, span, fields, key, want):
             assert held == whole
         elif which == "state" and point == "pre" and stateful:
             assert held != whole        # ZeRO-1: 1/4 of each sharded leaf
+
+
+# arch, span, policy fields: what a sharded data axis still refuses
+SHARD_REFUSED = [("qwen3-32b", 4, {"fsdp": True, "combine_delay": 1}),
+                 ("qwen3-32b", 2, {"scatter_grads": True, "local_steps": 2}),
+                 ("seamless-m4t-large-v2", 4, {"fsdp": True})]
+
+
+@pytest.mark.parametrize("arch,span,fields", SHARD_REFUSED,
+                         ids=["delay", "local-steps", "encdec"])
+def test_sharded_data_axis_refusals_name_item_7(arch, span, fields):
+    """fsdp (or scatter_grads below span == dp) with the delayed combine,
+    local steps or the encoder-decoder's own loop raises naming ROADMAP
+    item 7, before any collective; without the sharding field it
+    builds."""
+    from types import SimpleNamespace
+    from repro_torch.engine.build import _check_regime
+    from repro_torch.parallel.policy import RunPolicy
+    model = SimpleNamespace(cfg=get_reduced(arch))
+    rpol = RunPolicy(optimizer="momentum", span=span, **fields)
+    with pytest.raises(NotImplementedError, match=r"item 7\b"):
+        _check_regime(model, rpol, "adasum-rvh", span, 4, 1)
+    plain = {k: v for k, v in fields.items()
+             if k not in ("fsdp", "scatter_grads")}
+    _check_regime(model, RunPolicy(optimizer="momentum", span=span, **plain),
+                  "adasum-rvh", span, 4, 1)
 
 
 # ------------------------------------------------- (b)-(d) and checkpoints

@@ -125,13 +125,19 @@ OPTS = {
     "adam": {}, "adam_wd_bf16": dict(weight_decay=0.01,
                                      state_dtype="bfloat16"),
     "lamb": {}, "lamb_bf16": dict(state_dtype="bfloat16"),
+    # adam's passes a slice of a leaf at a time (`ADAM_PIECE` elements,
+    # here 7: one row of w, 7 and 1 of b)
+    "adam_bf16_pieces": dict(state_dtype="bfloat16", piece=7),
+    "lamb_pieces": dict(piece=7),
 }
 
 
 @pytest.mark.parametrize("case", sorted(OPTS))
-def test_optimizer_deltas_match_reference(case):
+def test_optimizer_deltas_match_reference(case, monkeypatch):
     name = {"nesterov": "momentum"}.get(case, case.split("_")[0])
     kw = dict(OPTS[case])
+    if "piece" in kw:
+        monkeypatch.setattr(TO, "ADAM_PIECE", kw.pop("piece"))
     dt = kw.pop("state_dtype", None)
     jkw, tkw = dict(kw), dict(kw)
     if dt:

@@ -926,41 +926,45 @@ def job_grid(comm, spec):
     """Both axes at once on a (data, model) grid of the ranks: every case
     of spec from the same params and batches, built by `build_runtime` or,
     where the case names a `session`, by `TrainSession.from_config` of the
-    preset. Per case: the losses; whether the leaves whole on the data
-    axis agree bitwise across each data group, and those whole on both
-    across each model group, after every step; the shapes this rank
-    holds of params, optimizer state and the lane gradient (the tree the
-    combiner gets); rank 0: params and state gathered to full leaves.
+    preset. Per case: the losses and metrics; whether the leaves whole on
+    the data axis agree bitwise across each data group, and those whole
+    on both across each model group, after every step; the shapes this
+    rank holds of params, optimizer state and the lane gradient (the tree
+    the combiner gets); rank 0: params and state gathered to full leaves.
     Then checkpoints between the first case's session and one process
     (`_grid_ckpt`)."""
     import numpy as np
     import torch
     from repro_torch import tree as T
     from repro_torch.bridge import params_from_numpy
-    from repro_torch.core import rvh
     from repro_torch.engine import EngineConfig, TrainSession, build_runtime
+    from repro_torch.engine import build as B
     from repro_torch.parallel.policy import RunPolicy
     data = np.load(spec["inputs"])
     seen = []
-    combine = rvh.adasum_rvh_pytree
+    make = B.make_combiner
 
-    def spy(tree, *a, **kw):         # the first lane tree of a case
-        if not seen:
-            seen.append([tuple(x.shape) for x in T.leaves(tree)])
-        return combine(tree, *a, **kw)
-    rvh.adasum_rvh_pytree = spy
+    def spy(*a, **kw):               # the first lane tree of a case
+        combine = make(*a, **kw)
+
+        def run(tree):
+            if not seen:
+                seen.append([tuple(x.shape) for x in T.leaves(tree)])
+            return combine(tree)
+        return run
+    B.make_combiner = spy
     out = {"cases": []}
-    session = None
+    first = None                     # the first case's session
     for case in spec["cases"]:
         seen.clear()
         model = _case_model(case)
         init = _init_tree(data, case["name"])
+        session = None
         if case.get("session"):
-            if session is not None:
-                session.close()
             session = TrainSession.from_config(
                 EngineConfig.preset(case["arch"], **case["session"],
-                                    ckpt_dir=spec["dir"] + "/grid"),
+                                    ckpt_dir=spec["dir"] + "/"
+                                    + case["name"]),
                 model=model, device="cpu", comm=comm, callbacks=[])
             rt = session.runtime
         else:
@@ -970,30 +974,33 @@ def job_grid(comm, spec):
         plan = rt.plan
         params = plan.shard_params(params_from_numpy(init, device="cpu"))
         state = {"params": params, "opt": rt.dopt.init(params), "step": 0}
-        pol = (session.config.run_policy() if case.get("session")
+        pol = (session.config.run_policy() if session
                else RunPolicy(**case["policy"]))
-        res = {"losses": [], "data_bitwise": [], "model_bitwise": [],
-               "path": rt.combine_path, "mesh": (rt.dp_total, rt.model_size),
+        res = {"losses": [], "metrics": [], "data_bitwise": [],
+               "model_bitwise": [], "path": rt.combine_path,
+               "mesh": (rt.dp_total, rt.model_size),
                "point": rt.dopt.point, "dims": plan.dims,
                "policy": {k: getattr(pol, k) for k in case["policy"]},
                "both": sum(a is not None and b is not None
                            for a, b in zip(plan.dims, plan.mdims))}
         for s in range(case["steps"]):
             b = _batch(data, case["name"], s)
-            if case.get("session"):
+            if session:
                 session.state = state
                 m = session.step(b)
                 state = session.state
             else:
                 state, m = rt.train_step(state, b)
             res["losses"].append(float(m["loss"]))
+            res["metrics"].append({k: float(v) for k, v in m.items()})
             whole = [x for i, x in enumerate(T.leaves(state["params"]))
                      if plan.dims[i] is None or not plan.fsdp]
             both = [x for i, x in enumerate(T.leaves(state["params"]))
                     if plan.mdims[i] is None
                     and (plan.dims[i] is None or not plan.fsdp)]
             res["data_bitwise"].append(_same_in(plan.comm, whole))
-            res["model_bitwise"].append(_same_in(rt.model_comm, both))
+            res["model_bitwise"].append(rt.model_comm is None
+                                        or _same_in(rt.model_comm, both))
         inner = state["opt"]["inner"]
         res["shapes"] = {
             "params": [tuple(x.shape) for x in T.leaves(state["params"])],
@@ -1006,11 +1013,15 @@ def job_grid(comm, spec):
             res["params"] = _np_tree(full_p)
             res["state"] = {k: _np_tree(t) for k, t in full_s.items()}
         out["cases"].append(res)
-    rvh.adasum_rvh_pytree = combine
+        if session is not None and first is None:
+            first = session
+        elif session is not None:
+            session.close()
+    B.make_combiner = make
     if spec.get("ckpt"):
-        out["ckpt"] = _grid_ckpt(comm, session, spec)
-    if session is not None:
-        session.close()
+        out["ckpt"] = _grid_ckpt(comm, first, spec)
+    if first is not None:
+        first.close()
     return out
 
 
